@@ -1,0 +1,55 @@
+"""The port's import boundary: it never imports JAX or the JAX package.
+
+The machine with the card has no JAX, and the port must run there, so a
+fresh interpreter that imports the whole port must end with neither in
+sys.modules, and no source file of the port may name them.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "triton_dist_tpu_torch"
+
+_PROBE = """
+import sys
+import triton_dist_tpu_torch
+import triton_dist_tpu_torch.models
+import triton_dist_tpu_torch.layers.tp_attn
+import triton_dist_tpu_torch.layers.tp_mlp
+import triton_dist_tpu_torch.kernels.flash_attention
+import triton_dist_tpu_torch.kernels.paged_flash_decode
+import triton_dist_tpu_torch.kernels.flash_decode
+import triton_dist_tpu_torch.quant.codec
+import triton_dist_tpu_torch.quant.policy
+import triton_dist_tpu_torch.runtime.build
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "triton_dist_tpu"
+             or m.startswith("triton_dist_tpu."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD=\n" in res.stdout, res.stdout
+
+
+def test_port_sources_never_name_jax_or_the_jax_package():
+    pat = re.compile(r"\bjax\b|\bjaxlib\b|triton_dist_tpu(?!_torch)")
+    files = sorted(p for p in PORT.rglob("*")
+                   if p.suffix in (".py", ".cu", ".cuh")
+                   and "build" not in p.relative_to(PORT).parts)
+    assert len(files) >= 20
+    hits = [f"{p.relative_to(REPO)}:{i}: {line.strip()}"
+            for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert not hits, "\n".join(hits)

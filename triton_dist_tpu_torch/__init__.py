@@ -1,0 +1,20 @@
+"""PyTorch + CUDA port of the TPU package, for one NVIDIA H100.
+
+The JAX package beside this one is the reference; this package imports
+neither JAX nor it. Its layout mirrors the reference's, so a module's
+counterpart sits at the same path:
+
+  models/   config, paged KV cache, Qwen3, weights, sampling, Engine
+  layers/   RMSNorm/rope, attention core, TP attention and MLP (world 1)
+  kernels/  the hand-written Hopper kernels and their plain versions
+  quant/    the int8 row codec and the TD_QUANT policy parse
+  runtime/  device resolution and the nvcc kernel builder
+  csrc/     CUDA C++ sources of the kernels
+
+Entry points run on the card (``device="cuda"``) and raise when there is
+none, unless the caller asks for ``device="cpu"``. On CPU tensors each
+kernel wrapper runs its plain PyTorch version; on CUDA tensors it
+launches the kernel or raises.
+"""
+
+__version__ = "0.1.0"

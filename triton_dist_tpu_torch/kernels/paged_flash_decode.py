@@ -1,0 +1,187 @@
+"""B2: paged split-KV flash decode (the reference's
+kernels/paged_flash_decode.py over its Pallas _paged_decode_kernel).
+
+``paged_flash_decode_partial`` launches the hand-written CUDA kernel
+``csrc/paged_flash_decode.cu`` for CUDA tensors and runs
+``paged_flash_decode_partial_ref``, its plain PyTorch version, for CPU
+tensors. There is no fallback between the two: a CUDA tensor the kernel
+does not take raises.
+
+Pool layout (head-major): (Hkv, P, page_size, D); int8-resident pools add
+(Hkv, P, page_size) f32 row-scale slabs. The plain version repeats the
+TPU kernel's fold page by page: live pages only, table values clamped to
+[0, P-1], NEG_INF past ``lengths``, the K scale on the scores after QK^T
+and the V scale on the probability row after l is summed, bf16 rounding
+of the probabilities only when V is bf16.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from triton_dist_tpu_torch.kernels.flash_attention import NEG_INF, p_cast
+from triton_dist_tpu_torch.runtime import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_HEAD_DIMS = (64, 128)
+_GROUPS = (1, 2, 4, 8)       # Hq/Hkv values the kernel is built for
+_MAX_SMEM = 232448          # bytes of shared memory a Hopper block may use
+
+
+def paged_flash_decode_partial_ref(q, k_pages, v_pages, block_table,
+                                   lengths, *, k_scales=None,
+                                   v_scales=None):
+    """Plain PyTorch paged decode partial in the TPU kernel's fold order.
+
+    q: (B, Hq, D); k_pages/v_pages: (Hkv, P, ps, D); block_table (B, NP)
+    i32; lengths (B,) i32 keys attended per row, the token being decoded
+    included. Returns (acc (B, Hq, D) f32 unnormalized, m (B, Hq),
+    l (B, Hq))."""
+    b, hq, d = q.shape
+    hkv, num_pages, ps, _ = k_pages.shape
+    g = hq // hkv
+    dev = q.device
+    quant = k_scales is not None
+    qf = q.float().reshape(b, hkv, g, d)
+    lens = lengths.to(torch.int64)
+    tab = block_table.to(torch.int64).clamp(0, num_pages - 1)
+    m = torch.full((b, hkv, g, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, hkv, g, 1), device=dev)
+    acc = torch.zeros((b, hkv, g, d), device=dev)
+    scale = d ** -0.5
+    n_pages = min(block_table.shape[1],
+                  -(-int(lens.max().clamp_min(0)) // ps) if b else 0)
+    for p in range(n_pages):
+        live = (p * ps < lens)[:, None, None, None]          # (B,1,1,1)
+        phys = tab[:, p]
+        kb = k_pages[:, phys].float().permute(1, 0, 2, 3)    # (B,Hkv,ps,D)
+        vb = v_pages[:, phys].float().permute(1, 0, 2, 3)
+        sc = torch.matmul(qf, kb.transpose(-1, -2)) * scale  # (B,Hkv,g,ps)
+        if quant:
+            sc = sc * k_scales[:, phys].permute(1, 0, 2)[:, :, None, :]
+        gk = p * ps + torch.arange(ps, device=dev)
+        valid = (gk[None, :] < lens[:, None])[:, None, None, :]
+        sc = torch.where(valid, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        pr = torch.where(valid, torch.exp(sc - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + pr.sum(dim=-1, keepdim=True)
+        if quant:
+            pr = pr * v_scales[:, phys].permute(1, 0, 2)[:, :, None, :]
+        else:
+            pr = p_cast(pr, v_pages.dtype)
+        # V rows past the horizon are zeroed, as the kernel masks its loads
+        vb = torch.where(valid[:, :, 0, :, None], vb, 0.0)
+        acc_new = acc * alpha + torch.matmul(pr, vb)
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+        acc = torch.where(live, acc_new, acc)
+    return acc.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
+
+
+def paged_flash_decode_partial(q, k_pages, v_pages, block_table, lengths,
+                               *, k_scales=None, v_scales=None):
+    """Split-KV partial attention over paged KV for one decode step.
+
+    Shapes as ``paged_flash_decode_partial_ref``. Merge the partials with
+    ``kernels.flash_decode.lse_merge``. CUDA tensors launch the kernel
+    (counted in ``paged_flash_decode_partial.launches``); CPU tensors run
+    the plain version."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_flash_decode_partial: pass both scale slabs "
+                         "or neither")
+    if q.device.type == "cpu":
+        return paged_flash_decode_partial_ref(
+            q, k_pages, v_pages, block_table, lengths,
+            k_scales=k_scales, v_scales=v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_flash_decode_partial: unsupported device {q.device}")
+    return _launch(q, k_pages, v_pages, block_table, lengths, k_scales,
+                   v_scales)
+
+
+paged_flash_decode_partial.launches = 0
+
+
+def paged_flash_decode(q, k_pages, v_pages, block_table, lengths, *,
+                       k_scales=None, v_scales=None) -> torch.Tensor:
+    """Normalized single-shard paged decode: softmax(qk)v in q.dtype."""
+    acc, _, l = paged_flash_decode_partial(
+        q, k_pages, v_pages, block_table, lengths,
+        k_scales=k_scales, v_scales=v_scales)
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def _smem_bytes(g: int, ps: int, d: int) -> int:
+    return 4 * (g * d + ps * (d + 1) + ps * d + g * ps + 2 * ps + 3 * g)
+
+
+def _launch(q, k_pages, v_pages, block_table, lengths, k_scales, v_scales):
+    b, hq, d = q.shape
+    if k_pages.ndim != 4 or k_pages.shape != v_pages.shape \
+            or k_pages.shape[3] != d:
+        raise ValueError(f"paged_flash_decode_partial: q {tuple(q.shape)} "
+                         f"vs pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)}")
+    hkv, num_pages, ps, _ = k_pages.shape
+    if hq % hkv or hq // hkv not in _GROUPS:
+        raise ValueError(f"paged_flash_decode_partial: Hq={hq}, Hkv={hkv}: "
+                         f"need Hkv | Hq and Hq/Hkv in {_GROUPS}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"paged_flash_decode_partial: head_dim {d} not in "
+                         f"{_HEAD_DIMS}")
+    quant = k_scales is not None
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"paged_flash_decode_partial: q dtype {q.dtype}")
+    want_kv = torch.int8 if quant else q.dtype
+    if k_pages.dtype != want_kv or v_pages.dtype != want_kv:
+        raise ValueError(f"paged_flash_decode_partial: pools {k_pages.dtype}"
+                         f"/{v_pages.dtype}, want {want_kv}")
+    if quant and (k_scales.shape != k_pages.shape[:3]
+                  or v_scales.shape != k_pages.shape[:3]
+                  or k_scales.dtype != torch.float32
+                  or v_scales.dtype != torch.float32):
+        raise ValueError("paged_flash_decode_partial: scale slabs must be "
+                         f"f32 {tuple(k_pages.shape[:3])}")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or block_table.ndim != 2 or block_table.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError("paged_flash_decode_partial: block_table (B, NP) "
+                         "and lengths (B,) must be int32")
+    tensors = [q, k_pages, v_pages, block_table, lengths]
+    if quant:
+        tensors += [k_scales, v_scales]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_flash_decode_partial: inputs must be "
+                         "contiguous")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_flash_decode_partial: inputs on different "
+                         "devices")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_flash_decode_partial: pools must be 16-byte "
+                         "aligned")
+    smem = _smem_bytes(hq // hkv, ps, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"paged_flash_decode_partial: page_size {ps} needs "
+                         f"{smem} B of shared memory (> {_MAX_SMEM})")
+    acc = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    fn = build.function("paged_flash_decode", "td_paged_decode", (
+        *(ctypes.c_void_p,) * 10, *(ctypes.c_int,) * 7, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 k_scales.data_ptr() if quant else None,
+                 v_scales.data_ptr() if quant else None,
+                 block_table.data_ptr(), lengths.data_ptr(),
+                 acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                 b, hq, hkv, num_pages, ps, block_table.shape[1], d,
+                 d ** -0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
+                 build.stream_of(q))
+    build.check(err, "paged_flash_decode_partial")
+    paged_flash_decode_partial.launches += 1
+    return acc, m, l

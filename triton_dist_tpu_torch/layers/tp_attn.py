@@ -1,0 +1,83 @@
+"""Attention block over the paged KV cache (the reference's
+layers/tp_attn.py), mode "xla" at world 1: QKV projection, per-head QK
+norm, rope, page write, then flash prefill (B1, T > 1) or paged flash
+decode (B2, T == 1), then the output projection. The reference's psum over
+the TP axis is the identity at world 1."""
+
+from __future__ import annotations
+
+import torch
+
+from triton_dist_tpu_torch.kernels.flash_decode import lse_merge
+from triton_dist_tpu_torch.kernels.paged_flash_decode import (
+    paged_flash_decode_partial,
+)
+from triton_dist_tpu_torch.layers.attention_core import gqa_attend
+from triton_dist_tpu_torch.layers.common import (
+    TPContext, apply_rope, check_mode, rms_norm,
+)
+
+
+def _qkv_project(mode: str, ctx: TPContext, arch, w: dict, x: torch.Tensor,
+                 positions: torch.Tensor, cos_sin: torch.Tensor):
+    """QKV projection, split, per-head QK norm, rope. Returns
+    (q, k, v, b) with q (B, T, Hq, D) and k/v (B, T, Hkv, D), contiguous."""
+    check_mode(mode)
+    b, t = x.shape[0], x.shape[1]
+    hq, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    qkv = torch.matmul(x, w["wqkv"])
+    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    q = q.reshape(b, t, hq, hd)
+    k = k.reshape(b, t, hkv, hd)
+    v = v.reshape(b, t, hkv, hd).contiguous()
+    q = rms_norm(q, w["q_norm"], arch.rms_eps)
+    k = rms_norm(k, w["k_norm"], arch.rms_eps)
+    q, k = apply_rope(q, k, cos_sin, positions)
+    return q, k, v, b
+
+
+def _o_project(mode: str, ctx: TPContext, w: dict, out: torch.Tensor,
+               dtype: torch.dtype, d_model: int) -> torch.Tensor:
+    """Output projection; the TP psum is the identity at world 1."""
+    check_mode(mode)
+    b, t = out.shape[0], out.shape[1]
+    y2d = torch.matmul(out.reshape(b * t, -1), w["wo"]).to(dtype)
+    return y2d.reshape(b, t, d_model)
+
+
+def paged_attn_fwd(mode: str, ctx: TPContext, arch, w: dict,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   cos_sin: torch.Tensor, lk_pages: torch.Tensor,
+                   lv_pages: torch.Tensor, block_table: torch.Tensor,
+                   lengths: torch.Tensor, page_size: int,
+                   active: torch.Tensor | None = None,
+                   continuation: bool = False,
+                   lk_scales: torch.Tensor | None = None,
+                   lv_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """One attention block over the paged cache; returns y (B, T, hidden).
+
+    lk_pages/lv_pages (and lk_scales/lv_scales when int8-resident) are
+    this layer's pool slabs, written IN PLACE; block_table/lengths are the
+    allocated, pre-advance cache state. T > 1 is prefill into an empty
+    cache (attention within the chunk); T == 1 is paged flash decode over
+    lengths + 1 keys."""
+    # imported here: models/ imports this module (the reference does the same)
+    from triton_dist_tpu_torch.models.kv_cache import paged_write_layer
+
+    if continuation:
+        raise NotImplementedError(
+            "continuation prefill waits for prefill_slot (ROADMAP A7)")
+    t = x.shape[1]
+    q, k, v, _ = _qkv_project(mode, ctx, arch, w, x, positions, cos_sin)
+    paged_write_layer(block_table, lengths, page_size, lk_pages, lv_pages,
+                      k, v, active=active, layer_k_scales=lk_scales,
+                      layer_v_scales=lv_scales)
+    if t == 1:
+        acc, m, l = paged_flash_decode_partial(
+            q[:, 0].contiguous(), lk_pages, lv_pages, block_table,
+            lengths + 1, k_scales=lk_scales, v_scales=lv_scales)
+        out = lse_merge(acc[None], m[None], l[None])[:, None].to(x.dtype)
+    else:
+        # prefill from empty: every key is in the current chunk
+        out = gqa_attend(q, k, v, 0, t, method=ctx.attn_method)
+    return _o_project(mode, ctx, w, out, x.dtype, x.shape[-1])

@@ -1,0 +1,58 @@
+"""Models and the inference engine (the reference's models/).
+
+``AutoLLM`` maps a model name to its architecture and builds the model and
+random parameters on the device."""
+
+import torch
+
+from triton_dist_tpu_torch.models.config import (  # noqa: F401
+    ModelConfig,
+    Qwen3Arch,
+    QWEN3_ARCHS,
+    tiny_qwen3,
+)
+from triton_dist_tpu_torch.models.kv_cache import (  # noqa: F401
+    PagedKVCache,
+    paged_write_layer,
+)
+from triton_dist_tpu_torch.models.qwen import Qwen3  # noqa: F401
+from triton_dist_tpu_torch.models.weights import (  # noqa: F401
+    init_random_params,
+    params_from_numpy,
+)
+from triton_dist_tpu_torch.models.engine import Engine  # noqa: F401
+from triton_dist_tpu_torch.models.utils import logger, sample_token  # noqa: F401
+from triton_dist_tpu_torch.runtime.device import resolve_device
+
+
+class AutoLLM:
+    """Name -> (model, params) factory."""
+
+    @staticmethod
+    def from_pretrained(config: "ModelConfig | str", ctx=None,
+                        checkpoint_dir: str | None = None, *,
+                        device: "torch.device | str" = "cuda",
+                        generator: torch.Generator | None = None):
+        """Build (model, params) from a ModelConfig (or bare model name)
+        with random weights drawn from ``generator`` (default: seed 0 on
+        the device). Raises without a card unless device="cpu".
+        checkpoint_dir raises until HF checkpoints can be read on the card
+        (load_hf_qwen3, ROADMAP A2)."""
+        if isinstance(config, str):
+            config = ModelConfig(model_name=config)
+        if config.model_name not in QWEN3_ARCHS:
+            raise ValueError(
+                f"unknown model {config.model_name}; known: "
+                f"{list(QWEN3_ARCHS)}")
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpoint loading (load_hf_qwen3) waits for ROADMAP A2; "
+                "pass checkpoint_dir=None for random weights")
+        dev = resolve_device(device)
+        arch = QWEN3_ARCHS[config.model_name]
+        model = Qwen3(arch, ctx, max_length=config.max_length,
+                      dtype=config.dtype, device=dev)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        params = init_random_params(generator, arch, dev, config.dtype)
+        return model, params

@@ -1,0 +1,151 @@
+"""Qwen3 dense model on the paged KV cache (the reference's
+models/qwen.py), one device, mode "xla".
+
+Parameters are a plain dict with the reference's layout: layer weights
+stay STACKED along a leading num_layers axis and are indexed per layer;
+the reference's decoder ``lax.scan`` is a Python loop over layers. The
+page pools are updated in place. The dense KVCache path, prefill_slot and
+the other TP modes wait for their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_dist_tpu_torch.layers.common import (
+    MODES, TPContext, check_mode, make_cos_sin_cache, rms_norm,
+)
+from triton_dist_tpu_torch.layers.tp_attn import paged_attn_fwd
+from triton_dist_tpu_torch.layers.tp_mlp import mlp_fwd
+from triton_dist_tpu_torch.models.config import Qwen3Arch
+from triton_dist_tpu_torch.models.kv_cache import PagedKVCache
+from triton_dist_tpu_torch.quant.policy import resolve_kv_resident
+from triton_dist_tpu_torch.runtime.device import resolve_device
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as f32 from a's dtype with f32 accumulation (the reference's
+    preferred_element_type=f32). A bf16 product rounded to bf16 would
+    change greedy tokens; CUDA has an f32-output bf16 mm, the CPU build
+    does not, so there the exact bf16 products are summed in f32."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class Qwen3:
+    """Model: architecture, TP context and device; parameters live in an
+    explicit dict (models/weights.py)."""
+
+    model_type = "dense"
+
+    def __init__(self, arch: Qwen3Arch, ctx: TPContext | None = None,
+                 max_length: int = 4096, dtype: torch.dtype = torch.bfloat16,
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        self.ctx = ctx if ctx is not None else TPContext()
+        if self.ctx.world != 1:
+            raise NotImplementedError("tensor parallelism waits for "
+                                      "ROADMAP A5/A9")
+        self.arch = arch
+        self.max_length = max_length
+        self.dtype = dtype
+        self.cos_sin = make_cos_sin_cache(arch.head_dim, max_length,
+                                          arch.rope_theta, self.device)
+
+    # -- cache ------------------------------------------------------------
+
+    def create_kv_cache(self, batch: int):
+        raise NotImplementedError("the dense KVCache waits for ROADMAP A3; "
+                                  "use create_paged_kv_cache")
+
+    def create_paged_kv_cache(self, batch: int, page_size: int = 128,
+                              num_pages: int | None = None,
+                              kv_resident: str | None = None,
+                              kv_hbm_budget: int | None = None
+                              ) -> PagedKVCache:
+        """Paged cache on the model's device. kv_resident: "auto" (ask the
+        TD_QUANT policy) | "int8" | "off"/None; kv_hbm_budget sizes
+        num_pages from a pool byte budget (PagedKVCache.create)."""
+        arch = self.arch
+        return PagedKVCache.create(
+            arch.num_layers, batch, self.max_length, arch.num_kv_heads,
+            arch.head_dim, page_size=page_size, num_pages=num_pages,
+            dtype=self.dtype, device=self.device,
+            resident=resolve_kv_resident(kv_resident),
+            hbm_budget_bytes=kv_hbm_budget)
+
+    # -- forward ----------------------------------------------------------
+
+    def _decoder_stack(self, mode: str, input_ids: torch.Tensor,
+                       params: dict, attn_call) -> torch.Tensor:
+        """embed -> L x (norm, attn, norm, mlp) -> final norm.
+        attn_call(layer, lw, hn) -> attention output of that layer."""
+        arch = self.arch
+        h = params["embed"][input_ids].to(self.dtype)
+        layers = params["layers"]
+        for i in range(arch.num_layers):
+            lw = {name: w[i] for name, w in layers.items()}
+            hn = rms_norm(h, lw["in_norm"], arch.rms_eps)
+            h = h + attn_call(i, lw, hn)
+            hn = rms_norm(h, lw["post_norm"], arch.rms_eps)
+            h = h + mlp_fwd(mode, self.ctx, lw, hn)
+        return rms_norm(h, params["final_norm"], arch.rms_eps)
+
+    def _logits_tail(self, mode: str, h: torch.Tensor,
+                     params: dict) -> torch.Tensor:
+        """(B, V) f32 logits of the last position."""
+        check_mode(mode)
+        return dot_f32(h[:, -1], params["lm_head"])
+
+    def _inference_paged(self, params: dict, cache: PagedKVCache,
+                         input_ids: torch.Tensor, mode: str,
+                         active: torch.Tensor | None = None):
+        t = input_ids.shape[1]
+        if active is not None and t != 1:
+            raise ValueError("active masking is decode-only (T == 1)")
+        if t > 1 and bool((cache.lengths != 0).any()):
+            # paged prefill attends only within the chunk: a non-empty
+            # cache would be silently ignored, so reject it loudly
+            raise ValueError(
+                "full-batch paged prefill (T>1) requires an empty "
+                "cache; to continue an existing sequence use "
+                "prefill_slot(..., continuation=True) (chunked "
+                "prefill), clear() the cache, or decode "
+                "token-by-token")
+        grow = t if active is None else torch.where(active, t, 0).to(
+            torch.int32)
+        cache.allocate(grow, max_tokens=t)
+        lengths = cache.lengths     # pre-advance: advance() follows every use
+        positions = lengths[:, None] + torch.arange(t, device=self.device)
+        resident = cache.k_scales is not None
+
+        def attn_call(i, lw, hn):
+            return paged_attn_fwd(
+                mode, self.ctx, self.arch, lw, hn, positions, self.cos_sin,
+                cache.k_pages[i], cache.v_pages[i], cache.block_table,
+                lengths, cache.page_size, active=active,
+                lk_scales=cache.k_scales[i] if resident else None,
+                lv_scales=cache.v_scales[i] if resident else None)
+
+        h = self._decoder_stack(mode, input_ids, params, attn_call)
+        logits = self._logits_tail(mode, h, params)
+        return logits, cache.advance(grow)
+
+    def inference(self, params: dict, cache, input_ids: torch.Tensor,
+                  mode: str = "xla", active: torch.Tensor | None = None):
+        """Full forward; returns (logits (B, V) f32 of the LAST position,
+        cache). ``cache`` is a PagedKVCache, updated in place. ``active``
+        ((B,) bool, decode only): False rows neither grow nor write KV."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode} not in {MODES}")
+        if input_ids.shape[1] > self.max_length:
+            raise ValueError(
+                f"sequence {input_ids.shape[1]} exceeds max_length "
+                f"{self.max_length}")
+        if isinstance(cache, PagedKVCache):
+            return self._inference_paged(params, cache, input_ids, mode,
+                                         active=active)
+        raise NotImplementedError("the dense KVCache waits for ROADMAP A3")

@@ -1,0 +1,73 @@
+"""QuantPolicy: the ``TD_QUANT`` parse and the resident-KV decision (the
+reference's quant/policy.py, the parts the paged serving path reads).
+
+``TD_QUANT`` is ``off`` (the default) | ``always`` | ``error_budget[:x]``.
+The pools stay full width unless the caller passes ``kv_resident="int8"``
+or the policy admits the int8 row codec. The wire-tier gates wait for the
+quantized-wire slice (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import os
+
+
+class QuantPolicy(enum.Enum):
+    OFF = "off"                    # lossy tiers are explicit-ask only
+    ERROR_BUDGET = "error_budget"  # AUTO may choose them within budget
+    ALWAYS = "always"              # AUTO prefers them wherever eligible
+
+
+# The kv_resident contract's worst-case error: one quantization event (the
+# slot write) at the int8 row codec's 1/254 of the row amax.
+KV_RESIDENT_REL_BOUND = 1.0 / 254.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyState:
+    policy: QuantPolicy = QuantPolicy.OFF
+    error_budget: float = 0.0
+
+
+def parse_td_quant(raw: str) -> PolicyState:
+    """Parse a ``TD_QUANT`` value."""
+    raw = raw.strip().lower()
+    if not raw or raw == "off" or raw == "0":
+        return PolicyState()
+    if raw == "always" or raw == "1":
+        return PolicyState(QuantPolicy.ALWAYS)
+    if raw.startswith("error_budget"):
+        _, _, budget = raw.partition(":")
+        try:
+            val = float(budget) if budget else 0.02
+        except ValueError:
+            raise ValueError(
+                f"TD_QUANT={raw!r}: error_budget wants a float after "
+                "':' (e.g. error_budget:0.02)") from None
+        return PolicyState(QuantPolicy.ERROR_BUDGET, val)
+    raise ValueError(f"TD_QUANT={raw!r}: want off | always | "
+                     "error_budget[:<float>]")
+
+
+def resolve_kv_resident(requested: str | None = None,
+                        state: PolicyState | None = None) -> str | None:
+    """The resident pool codec: "int8" always wins, "off" always loses,
+    "auto"/None asks the policy (``state``, else ``TD_QUANT``). Returns
+    "kv_int8_row" or None for full-width pools."""
+    if requested == "int8":
+        return "kv_int8_row"
+    if requested == "off":
+        return None
+    if requested not in (None, "auto"):
+        raise ValueError(
+            f"kv_resident={requested!r}: want 'auto' | 'int8' | 'off'")
+    if state is None:
+        state = parse_td_quant(os.environ.get("TD_QUANT", ""))
+    if state.policy == QuantPolicy.OFF:
+        return None
+    if (state.policy == QuantPolicy.ERROR_BUDGET
+            and KV_RESIDENT_REL_BOUND > state.error_budget):
+        return None
+    return "kv_int8_row"
