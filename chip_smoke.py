@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version on the card, serves Qwen3-8B (published widths, all 36
-layers, random bf16 weights from a seed) through ``Engine.serve`` on the
-paged cache, counts the kernel launches of that one serve, checks prefill
-against prefill + one decode step, and checks a small f32 model served on
-the card against the same model on the CPU. One JSON line per phase; the
-line before the last lists every kernel with its times and bound; the
-last line is the device record. Any failed check exits non-zero. Imports
-nothing of JAX. Needs one card; without one it exits non-zero and prints
-no result.
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, all
+started together), holds each against its plain PyTorch version on the
+card, and serves Qwen3-8B (published widths, all 36 layers, random bf16
+weights from a seed) down both main paths: ``Engine.serve`` on the paged
+cache (eager decode, B1 + B2) and ``Engine(model, params)`` at its
+defaults (the dense cache, each decode step one CUDA-graph replay of the
+mega task graph: B1 at T=1, B3, B4). It counts each path's kernel launches
+in one serve, checks prefill against prefill + one decode step and the
+graph-replayed step against the eager xla tier and the paged step, and
+checks small f32 models served on the card against the CPU. One JSON line
+per phase; the line before the last lists every kernel with its times and
+bound; the last line is the device record. Any failed check exits
+non-zero. Imports nothing of JAX. Needs one card; without one it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -25,7 +29,10 @@ import time
 
 MEM_BW = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
+F32_FLOPS = 67e12         # H100 SXM f32 FLOP/s outside the tensor cores
 DEV = "cuda"
+KERNEL_SOURCES = ["flash_prefill", "paged_flash_decode", "fused_add_rms",
+                  "gemm_ar"]
 
 
 def emit(obj) -> None:
@@ -54,10 +61,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / MEM_BW, flops / BF16_FLOPS
+def graph_time_ms(fn, iters: int = 20) -> float:
+    """Device time per call of fn(): `iters` calls captured in one CUDA
+    graph (after a warm-up call), the graph replayed under CUDA events.
+    For kernels shorter than the host's launch cost, which back-to-back
+    eager calls would time instead; it is also how the dense decode step
+    runs them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float,
+             peak: float = BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / MEM_BW, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    import torch
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
 # -- B1: flash prefill -------------------------------------------------------
@@ -196,9 +235,185 @@ def phase_b2(torch, pfd, codec):
             "shape": [b, hq, hkv, d, ps, 528], "int8": timed["int8"]}
 
 
-# -- the main path -----------------------------------------------------------
+# -- B1 in its decode form ---------------------------------------------------
 
-def phase_main(torch, models, fa, pfd):
+def phase_b1_decode(torch, fa):
+    """B1 at T=1 over the dense cache, the dense decode step's attention:
+    B=4, Hq 32, Hkv 8, D 128, S=1024, offset 540 as a 0-d int32 tensor on
+    the card. Checked against the plain version eagerly and inside a
+    captured CUDA graph replayed after the offset moved to 777 (the graph
+    must read the offset on the device). Tolerance 2e-2 absolute (bf16, as
+    B1's prefill form)."""
+    g = torch.Generator(device=DEV).manual_seed(11)
+    b, hq, hkv, d, s, off = 4, 32, 8, 128, 1024, 540
+    q = torch.randn((b, 1, hq, d), generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=g, device=DEV).to(torch.bfloat16)
+    off_t = torch.tensor(off, dtype=torch.int32, device=DEV)
+    rows = []
+    out = fa.flash_prefill(q, k, v, off_t)
+    ref = fa.flash_prefill_ref(q, k, v, off)
+    torch.cuda.synchronize()
+    rows.append({"case": "eager_offset540",
+                 "max_abs_err": (out.float() - ref.float()).abs().max().item()})
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = fa.flash_prefill(q, k, v, off_t)
+    off_t.fill_(777)
+    graph.replay()
+    ref2 = fa.flash_prefill_ref(q, k, v, 777)
+    torch.cuda.synchronize()
+    rows.append({"case": "graph_replay_offset777",
+                 "max_abs_err": (gout.float() - ref2.float()).abs().max().item()})
+    off_t.fill_(off)
+    for r in rows:
+        r["tol"] = 2e-2
+        r["ok"] = r["max_abs_err"] <= 2e-2
+    emit({"phase": "b1_decode_form", "cases": rows})
+    if not all(r["ok"] for r in rows):
+        fail(f"B1's decode form disagrees with its plain version: {rows}")
+
+    ms = graph_time_ms(lambda: fa.flash_prefill(q, k, v, off_t))
+    plain_ms = graph_time_ms(lambda: fa.flash_prefill_ref(q, k, v, off_t),
+                             iters=3)
+    live = off + 1                       # keys the one query attends
+    kh = k[:, :live].transpose(1, 2)
+    vh = v[:, :live].transpose(1, 2)
+    qh = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = graph_time_ms(lambda: sdpa(qh, kh, vh, enable_gqa=True))
+    nbytes = (2 * q.numel() + 2 * b * live * hkv * d) * q.element_size()
+    flops = 4.0 * b * hq * d * live
+    bms, by = bound_ms(nbytes, flops)
+    return {"name": "flash_prefill[decode]", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/flash_prefill.cu",
+            "replaces": "triton_dist_tpu/kernels/flash_attention.py:63",
+            "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "shape": [b, 1, hq, hkv, d, s, off],
+            "bytes": nbytes, "flops": flops}
+
+
+# -- B3: fused add + RMSNorm -------------------------------------------------
+
+def phase_b3(torch, fc):
+    """Kernel vs plain version, bf16 and f32, d 4096 and 128, 4 and 2048
+    rows. s must be bitwise equal (one rounding of h + a in both). The
+    f32 square sums are taken in another order, so the normalized value
+    x * rsqrt(var + eps), rounded to bf16 before the multiply by w, may
+    take the neighbouring bf16 value: bf16 normed must lie within
+    |w| x ulp(normed / w) (that one step carried through w) + ulp(normed)
+    (the product's own rounding) of the plain version, elementwise; f32
+    within 1e-5 relative. Timed at the decode shape (4 x 4096 bf16)."""
+    g = torch.Generator(device=DEV).manual_seed(12)
+    rows, main = [], None
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (4096, 128):
+            for n in (4, 2048):
+                h = torch.randn((n, d), generator=g, device=DEV).to(dt)
+                a = torch.randn((n, d), generator=g, device=DEV).to(dt)
+                w = (torch.rand((d,), generator=g, device=DEV) + 0.5).to(dt)
+                s, o = fc.fused_add_rms(h, a, w, 1e-6)
+                rs, ro = fc.add_rms_norm_xla(h, a, w, 1e-6)
+                torch.cuda.synchronize()
+                diff = (o.float() - ro.float()).abs()
+                if dt == torch.bfloat16:
+                    wf = w.float().abs()
+                    allowed = wf * bf16_ulp(ro.float() / wf) + bf16_ulp(ro)
+                    worst = (diff / allowed).max().item()
+                    ok = worst <= 1.0
+                else:
+                    worst = (diff / ro.float().abs().clamp_min(1e-30)
+                             ).max().item()
+                    ok = worst <= 1e-5
+                rows.append({"dtype": str(dt).split(".")[-1], "d": d,
+                             "rows": n, "s_bitwise": bool(torch.equal(s, rs)),
+                             "normed_max_abs_err": diff.max().item(),
+                             "normed_max_ulps": (diff / bf16_ulp(ro)).max()
+                             .item() if dt == torch.bfloat16 else None,
+                             "normed_err_in_tol_units": worst,
+                             "ok": ok and bool(torch.equal(s, rs))})
+                if dt == torch.bfloat16 and d == 4096 and n == 4:
+                    main = (h, a, w)
+    emit({"phase": "b3_fused_add_rms", "cases": rows})
+    if not all(r["ok"] for r in rows):
+        fail("B3 disagrees with its plain version: "
+             f"{[r for r in rows if not r['ok']]}")
+    h, a, w = main
+    n, d = h.shape
+    rms = torch.nn.functional.rms_norm
+    ms = graph_time_ms(lambda: fc.fused_add_rms(h, a, w, 1e-6))
+    plain_ms = graph_time_ms(lambda: fc.add_rms_norm_xla(h, a, w, 1e-6))
+    library_ms = graph_time_ms(lambda: rms(h + a, (d,), w, 1e-6))
+    nbytes = (4 * n * d + d) * h.element_size()
+    flops = 6.0 * n * d
+    bms, by = bound_ms(nbytes, flops, F32_FLOPS)
+    return {"name": "fused_add_rms", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/fused_add_rms.cu",
+            "replaces": "triton_dist_tpu/kernels/fused_chain.py:51",
+            "max_abs_err": max(r["normed_max_abs_err"] for r in rows
+                               if r["rows"] == 4 and r["d"] == 4096),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "shape": [n, d], "bytes": nbytes,
+            "flops": flops}
+
+
+# -- B4: GEMM + AR at world 1 ------------------------------------------------
+
+def phase_b4(torch, ga):
+    """Kernel vs plain version at the decode path's o (K = N = 4096) and
+    down (K = 12288, N = 4096) shapes at M = 4, and M = 2048, bf16; o at
+    M = 4 in f32. Max abs error <= 1e-2 x max|ref| for bf16 (one bf16
+    rounding of the output, 2^-9, and another f32 summation order), 1e-4
+    relative for f32. Timed at the two decode shapes; the row's times are
+    the mean over the main path's launches (one o and one down per
+    layer)."""
+    g = torch.Generator(device=DEV).manual_seed(13)
+    cases = [("o_m4", torch.bfloat16, 4, 4096, 4096, 1e-2),
+             ("down_m4", torch.bfloat16, 4, 12288, 4096, 1e-2),
+             ("o_m2048", torch.bfloat16, 2048, 4096, 4096, 1e-2),
+             ("o_m4_f32", torch.float32, 4, 4096, 4096, 1e-4)]
+    rows, timed = [], {}
+    for name, dt, m, k, n, tol in cases:
+        a = torch.randn((m, k), generator=g, device=DEV).to(dt)
+        b = (torch.randn((k, n), generator=g, device=DEV) * k ** -0.5).to(dt)
+        out = ga.gemm_ar(a, b)
+        ref = ga.gemm_ar_ref(a, b)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rows.append({"case": name, "max_abs_err": err, "ref_absmax": scale,
+                     "tol": tol * scale, "ok": err <= tol * scale
+                     and bool(torch.isfinite(out).all())})
+        if name in ("o_m4", "down_m4"):
+            ms = graph_time_ms(lambda: ga.gemm_ar(a, b))
+            plain_ms = graph_time_ms(lambda: ga.gemm_ar_ref(a, b))
+            library_ms = graph_time_ms(
+                lambda: torch.mm(a, b, out_dtype=torch.float32))
+            nbytes = (m * k + k * n + m * n) * a.element_size()
+            bms, by = bound_ms(nbytes, 2.0 * m * k * n)
+            timed[name] = {"ms": ms, "plain_ms": plain_ms,
+                           "library_ms": library_ms, "bound_ms": bms,
+                           "bound_by": by, "bytes": nbytes,
+                           "shape": [m, k, n], "max_abs_err": err}
+    emit({"phase": "b4_gemm_ar", "cases": rows})
+    if not all(r["ok"] for r in rows):
+        fail(f"B4 disagrees with its plain version: "
+             f"{[r for r in rows if not r['ok']]}")
+    mean = {key: sum(t[key] for t in timed.values()) / len(timed)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"name": "gemm_ar", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/gemm_ar.cu",
+            "replaces": "triton_dist_tpu/kernels/gemm_allreduce.py:101",
+            "max_abs_err": max(t["max_abs_err"] for t in timed.values()),
+            **mean, "bound_by": "bytes", "library_ms_call":
+                "torch.mm(a, b, out_dtype=torch.float32)",
+            "shapes": timed}
+
+
+# -- the main paths ----------------------------------------------------------
+
+def phase_main(torch, models, kern):
     """Qwen3-8B at its published widths, all 36 layers, random bf16
     weights; Engine(cache_mode="paged", page_size=128) serves B=4 prompts
     of T=512 for gen_len=32 (the decode crosses the page boundary at 512).
@@ -220,12 +435,9 @@ def phase_main(torch, models, fa, pfd):
     engine.serve(ids[:, :t], gen_len=2)                       # warm-up
     torch.cuda.reset_peak_memory_stats()
 
-    fa.flash_prefill.launches = 0
-    pfd.paged_flash_decode_partial.launches = 0
+    kern.reset_launch_counts()
     out = engine.serve(ids[:, :t], gen_len=gen)
-    launches = {"flash_prefill": fa.flash_prefill.launches,
-                "paged_flash_decode_partial":
-                    pfd.paged_flash_decode_partial.launches}
+    launches = kern.launch_counts()
 
     steps = engine.last_decode_steps
     rec = {"phase": "main_path", "model": cfg.model_name,
@@ -240,13 +452,71 @@ def phase_main(torch, models, fa, pfd):
            "tokens_shape": list(out.shape)}
     emit(rec)
     want = {"flash_prefill": arch.num_layers,
-            "paged_flash_decode_partial": arch.num_layers * (gen - 1)}
+            "paged_flash_decode_partial": arch.num_layers * (gen - 1),
+            "fused_add_rms": 0, "gemm_ar": 0}
     if launches != want:
         fail(f"launch counts {launches}, want {want}")
     if tuple(out.shape) != (b, gen) or not bool(
             ((out >= 0) & (out < arch.vocab_size)).all()) or rec["overflow"]:
         fail("served tokens out of range or the page pool overflowed")
     return model, params, ids, launches, engine
+
+
+def phase_main_dense(torch, models, kern, model, params, ids):
+    """The same Qwen3-8B weights and prompts through Engine(model, params)
+    at its defaults: the dense max-length cache (max_length 1024), prefill
+    layer by layer (B1), each decode step the mega task graph on its
+    pallas_chain tier captured once as a CUDA graph and replayed. One
+    warm-up serve first (it captures the graph); the counts are zeroed
+    just before the measured serve and read just after it. A replay runs
+    no Python, so a kernel's launches in the serve are its eager wrapper
+    count (prefill) plus replays x its launches recorded per captured
+    step."""
+    arch = model.arch
+    b, t, gen = ids.shape[0], ids.shape[1] - 1, 32
+    engine = models.Engine(model, params)
+    if engine.cache_mode != "dense" or engine.mega_tier != "pallas_chain":
+        fail(f"Engine defaults: cache {engine.cache_mode}, mega tier "
+             f"{engine.mega_tier}")
+    engine.serve(ids[:, :t], gen_len=2)                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+
+    kern.reset_launch_counts()
+    out = engine.serve(ids[:, :t], gen_len=gen)
+    eager = kern.launch_counts()
+    per_step = dict(engine.graph_launches)
+    replays = engine.graph_replays
+    launches = {k: eager[k] + replays * per_step[k] for k in eager}
+
+    steps = engine.last_decode_steps
+    rec = {"phase": "main_dense", "model": "Qwen/Qwen3-8B",
+           "layers": arch.num_layers, "hidden": arch.hidden_size,
+           "batch": b, "prompt": t, "gen_len": gen,
+           "max_length": model.max_length, "cache_mode": engine.cache_mode,
+           "mega_tier": engine.mega_tier,
+           "graph_tasks": engine._mega_rt.graph_tasks(),
+           "prefill_ms": engine.last_prefill_s * 1e3,
+           "decode_ms_per_step": engine.last_decode_s * 1e3 / steps,
+           "decode_tok_per_s": b * steps / engine.last_decode_s,
+           "graph_replays": replays, "launches_per_replay": per_step,
+           "eager_launches": eager, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tokens_shape": list(out.shape)}
+    emit(rec)
+    L = arch.num_layers
+    want_step = {"flash_prefill": L, "paged_flash_decode_partial": 0,
+                 "fused_add_rms": L, "gemm_ar": 2 * L}
+    want_eager = {"flash_prefill": L, "paged_flash_decode_partial": 0,
+                  "fused_add_rms": 0, "gemm_ar": 0}
+    if per_step != want_step or eager != want_eager or replays != gen - 1:
+        fail(f"dense path: {per_step} per replay x {replays} replays + "
+             f"{eager} eager; want {want_step} x {gen - 1} + {want_eager}")
+    if tuple(out.shape) != (b, gen) or not bool(
+            ((out >= 0) & (out < arch.vocab_size)).all()):
+        fail("dense path: served tokens out of range")
+    return engine, {"prefill": eager["flash_prefill"],
+                    "decode": replays * per_step["flash_prefill"],
+                    **{k: launches[k] for k in ("fused_add_rms", "gemm_ar")}}
 
 
 def _prefill_vs_decode(torch, model, params, ids):
@@ -278,11 +548,14 @@ def phase_consistency(torch, models, model, params, ids):
       decode argmax must be within it of the top logit.
     * f32, the first 4 layers' worth of fresh random weights (TF32 off):
       the same comparison must hold to relative RMS 1e-4 (summation order
-      only), which pins the bf16 gap on rounding."""
+      only), which pins the bf16 gap on rounding.
+
+    Returns the f32 4-layer model and its parameters for the dense
+    consistency phase."""
     rows = []
     full, step = _prefill_vs_decode(torch, model, params, ids)
-    rows.append(_compare_logits(torch, f"bf16_{model.arch.num_layers}_layers", full, step,
-                                rel_tol=0.1, abs_frac=0.1))
+    rows.append(_compare_logits(torch, f"bf16_{model.arch.num_layers}_layers",
+                                full, step, rel_tol=0.1, abs_frac=0.1))
     import dataclasses
     arch4 = dataclasses.replace(model.arch, num_layers=4)
     m32 = models.Qwen3(arch4, max_length=model.max_length,
@@ -293,10 +566,88 @@ def phase_consistency(torch, models, model, params, ids):
     full, step = _prefill_vs_decode(torch, m32, p32, ids)
     rows.append(_compare_logits(torch, "f32_4_layers", full, step,
                                 rel_tol=1e-4, abs_frac=1e-3))
-    del m32, p32
     emit({"phase": "consistency", "cases": rows})
     if not all(r["ok"] for r in rows):
         fail("prefill(T+1) and prefill(T) + decode disagree")
+    return m32, p32
+
+
+def _dense_three_ways(torch, models, model, params, ids, engine, gen):
+    """After prefill(T), the decode logits and greedy tokens of (a) the
+    graph-replayed pallas_chain step of ``engine`` (Engine defaults),
+    (b) the eager xla tier of the mega step on its own dense cache, (c)
+    the paged Engine's eager step (B2). Returns ({way: first-step logits},
+    {way: (B, gen) tokens})."""
+    from triton_dist_tpu_torch.mega.runtime import MegaDecodeRuntime
+    t = ids.shape[1] - 1
+    prompt = ids[:, :t]
+    logits, toks = {}, {}
+
+    toks["graph_pallas_chain"] = engine.serve(prompt, gen_len=gen)
+    engine.serve(prompt, gen_len=1)
+    logits["graph_pallas_chain"] = engine.decode_logits(ids[:, t]).clone()
+
+    rt = MegaDecodeRuntime(model, method="xla")
+    step = rt.dense_step_fn("xla")
+    cache = model.create_kv_cache(ids.shape[0])
+    first, cache = model.inference(params, cache, prompt)
+    saved_k, saved_v = cache.k.clone(), cache.v.clone()
+    tok = first.argmax(-1).to(torch.int32)
+    out = [tok]
+    for _ in range(gen - 1):
+        lg, cache = step(params, cache, tok[:, None])
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append(tok)
+    toks["eager_xla"] = torch.stack(out, dim=1)
+    cache.k.copy_(saved_k)
+    cache.v.copy_(saved_v)
+    cache.offset.fill_(t)
+    logits["eager_xla"], _ = step(params, cache, ids[:, t:])
+    del saved_k, saved_v, cache
+
+    paged = models.Engine(model, params, cache_mode="paged", page_size=128)
+    toks["paged"] = paged.serve(prompt, gen_len=gen)
+    paged.serve(prompt, gen_len=1)
+    logits["paged"] = paged.decode_logits(ids[:, t]).clone()
+    torch.cuda.synchronize()
+    return logits, toks
+
+
+def phase_consistency_dense(torch, models, model, params, ids, engine,
+                            m32, p32):
+    """The graph-replayed pallas_chain decode step (B1 at T=1, B3, B4)
+    against the eager xla tier (plain ops, B1) and the paged Engine (B2),
+    after the same prefill, on the same weights: bf16 Qwen3-8B with all
+    36 layers held to _compare_logits' bf16 bounds (relative RMS 0.1, max
+    abs 10% of the largest logit: the three round at other places), and
+    a 4-layer f32 model at the same widths (TF32 off) held to the f32
+    bounds (relative RMS 1e-4), whose 8 greedy tokens per row must be
+    IDENTICAL across the three."""
+    rows, tokens = [], {}
+    for label, mdl, prm, gen, rel, frac in (
+            (f"bf16_{model.arch.num_layers}_layers", model, params, 2, 0.1,
+             0.1),
+            (f"f32_{m32.arch.num_layers}_layers", m32, p32, 8, 1e-4,
+             1e-3)):
+        eng = engine if mdl is model else models.Engine(mdl, prm)
+        logits, toks = _dense_three_ways(torch, models, mdl, prm, ids, eng,
+                                         gen)
+        ref = logits["graph_pallas_chain"]
+        for other in ("eager_xla", "paged"):
+            rows.append(_compare_logits(
+                torch, f"{label}:graph_pallas_chain_vs_{other}", ref,
+                logits[other], rel_tol=rel, abs_frac=frac))
+        if mdl is m32:
+            tokens = {k: v.tolist() for k, v in toks.items()}
+            same = all(torch.equal(toks["graph_pallas_chain"], v)
+                       for v in toks.values())
+            rows.append({"case": f"{label}:greedy_tokens_identical",
+                         "ok": same})
+    emit({"phase": "consistency_dense", "cases": rows,
+          "f32_tokens": tokens})
+    if not all(r["ok"] for r in rows):
+        fail("the graph-replayed dense step disagrees with the eager xla "
+             "tier or the paged step")
 
 
 def _compare_logits(torch, name, full, step, rel_tol, abs_frac):
@@ -320,12 +671,11 @@ def _compare_logits(torch, name, full, step, rel_tol, abs_frac):
             and argmax_ok}
 
 
-def phase_profile(torch, engine, ids, steps: int = 4):
-    """Where the main path's time goes: torch.profiler over one prefill
-    (serve with gen_len=1) and over `steps` decode steps. Reports wall ms
-    (profiled), the summed device time of all kernels, the device-idle
-    share (one stream, so 1 - device/wall) and the kernels with the most
-    device time."""
+def _profile_engine(torch, engine, ids, steps):
+    """torch.profiler over one prefill (serve with gen_len=1) and over
+    `steps` decode steps of ``engine``: wall ms (profiled), the summed
+    device time of all kernels, the device-idle share (one stream, so
+    1 - device/wall) and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     def self_dev_us(e):
@@ -361,8 +711,40 @@ def phase_profile(torch, engine, ids, steps: int = 4):
             tok = engine.step(tok)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dec = summarize(prof, wall, steps)
-    emit({"phase": "profile", "prefill": pre, "decode_step": dec})
+    return pre, summarize(prof, wall, steps)
+
+
+def phase_profile(torch, engine, dense_engine, ids, steps: int = 4):
+    """Where each main path's time goes (_profile_engine), the paged
+    engine's eager step and the dense engine's graph-replayed step. For
+    the dense step also, without the profiler: the host's wall ms per step
+    over `steps` back-to-back steps and the device ms of one bare replay
+    (CUDA events around graph.replay()), whose ratio is a second reading
+    of the idle share."""
+    pre, dec = _profile_engine(torch, engine, ids, steps)
+    dpre, ddec = _profile_engine(torch, dense_engine, ids, steps)
+    t = ids.shape[1] - 1
+    out = dense_engine.serve(ids[:, :t], gen_len=1)
+    tok = out[:, -1].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok = dense_engine.step(tok)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    graph = dense_engine._graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / steps
+    emit({"phase": "profile", "prefill": pre, "decode_step": dec,
+          "dense_prefill": dpre, "dense_decode_step": ddec,
+          "dense_step_wall_ms": wall_ms, "dense_replay_device_ms": replay_ms,
+          "dense_idle_share_by_events": 1 - replay_ms / wall_ms})
 
 
 def phase_small_reference(torch, models):
@@ -370,7 +752,11 @@ def phase_small_reference(torch, models):
     card against the same weights on the CPU (plain versions): the CPU
     Engine serves 8 greedy tokens, then both sides are teacher-forced on
     them (prefill + 7 decode steps through the cache) and every step's
-    logits are compared. Tolerance 1e-3 for full-width pools (f32 on both
+    logits are compared. The paged cache is forced through
+    Qwen3.inference; the dense cache through the Engine at its defaults
+    (on the card the graph-replayed pallas_chain step with B1, B3 and B4,
+    on the CPU the eager xla tier), after a prefill on a second cache.
+    Tolerance 1e-3 for full-width caches (f32 on both
     sides, TF32 off; only summation orders differ) and 1e-2 for int8
     pools (a K/V element whose x/s sits on a rounding tie may take the
     neighbouring int8 code on one side: one code step, amax/127, moves a
@@ -394,27 +780,41 @@ def phase_small_reference(torch, models):
     raw["layers"] = {k: make(k, s) for k, s in shapes["layers"].items()}
     ids = torch.from_numpy(rng.integers(0, 256, (2, 128)))
     rows = []
-    for resident, tol in ((None, 1e-3), ("int8", 1e-2)):
+    for mode, resident, tol in (("paged", None, 1e-3),
+                                ("paged", "int8", 1e-2),
+                                ("dense", None, 1e-3)):
         toks, logits = {}, {}
         for dev in ("cpu", DEV):
             model = models.Qwen3(arch, max_length=160, dtype=torch.float32,
                                  device=dev)
             params = models.params_from_numpy(raw, arch, dev, torch.float32)
-            eng = models.Engine(model, params, page_size=32,
+            eng = models.Engine(model, params, cache_mode=mode, page_size=32,
                                 kv_resident=resident)
             toks[dev] = eng.serve(ids, gen_len=8).cpu()
             forced = toks["cpu"].to(dev)
-            cache = model.create_paged_kv_cache(2, page_size=32,
-                                                kv_resident=resident)
-            out, cache = model.inference(params, cache, ids.to(dev))
-            steps = [out.cpu()]
-            for j in range(forced.shape[1] - 1):
-                out, cache = model.inference(params, cache,
-                                             forced[:, j:j + 1])
-                steps.append(out.cpu())
+            if mode == "dense":
+                cache = model.create_kv_cache(2)
+                out, _ = model.inference(params, cache, ids.to(dev))
+                eng.serve(ids, gen_len=1)
+                steps = [out.cpu()]
+                for j in range(forced.shape[1] - 1):
+                    steps.append(eng.decode_logits(forced[:, j]).cpu())
+            else:
+                cache = model.create_paged_kv_cache(2, page_size=32,
+                                                    kv_resident=resident)
+                out, cache = model.inference(params, cache, ids.to(dev))
+                steps = [out.cpu()]
+                for j in range(forced.shape[1] - 1):
+                    out, cache = model.inference(params, cache,
+                                                 forced[:, j:j + 1])
+                    steps.append(out.cpu())
             logits[dev] = torch.stack(steps)
+            if dev == DEV and mode == "dense" and (
+                    eng.mega_tier != "pallas_chain" or not eng.graph_replays):
+                fail(f"small dense Engine on the card ran tier "
+                     f"{eng.mega_tier}, {eng.graph_replays} replays")
         err = (logits["cpu"] - logits[DEV]).abs().max().item()
-        rows.append({"kv_resident": resident,
+        rows.append({"cache_mode": mode, "kv_resident": resident,
                      "tokens_identical": bool(torch.equal(toks["cpu"],
                                                           toks[DEV])),
                      "logits_max_abs_err": err, "tol": tol,
@@ -431,8 +831,11 @@ def main() -> None:
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from triton_dist_tpu_torch import kernels as kern
         from triton_dist_tpu_torch import models
         from triton_dist_tpu_torch.kernels import flash_attention as fa
+        from triton_dist_tpu_torch.kernels import fused_chain as fc
+        from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
         from triton_dist_tpu_torch.kernels import paged_flash_decode as pfd
         from triton_dist_tpu_torch.quant import codec
         from triton_dist_tpu_torch.runtime import build
@@ -454,7 +857,7 @@ def main() -> None:
           "device": torch.cuda.get_device_name(0)})
 
     t0 = time.perf_counter()
-    reports = build.build(["flash_prefill", "paged_flash_decode"])
+    reports = build.build(KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in text.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -462,20 +865,33 @@ def main() -> None:
     emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
           "ptxas": ptxas})
 
-    kernels = [phase_b1(torch, fa), phase_b2(torch, pfd, codec)]
-    model, params, ids, launches, engine = phase_main(torch, models, fa,
-                                                      pfd)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    phase_consistency(torch, models, model, params, ids)
-    phase_profile(torch, engine, ids)
-    del model, params, engine
+    b1, b2 = phase_b1(torch, fa), phase_b2(torch, pfd, codec)
+    b1_dec = phase_b1_decode(torch, fa)
+    b3, b4 = phase_b3(torch, fc), phase_b4(torch, ga)
+    model, params, ids, paged, engine = phase_main(torch, models, kern)
+    dense_engine, dense = phase_main_dense(torch, models, kern, model,
+                                           params, ids)
+    b1["launches"] = paged["flash_prefill"] + dense["prefill"]
+    b1["launches_by_path"] = {"paged": paged["flash_prefill"],
+                              "dense": dense["prefill"]}
+    b1_dec["launches"] = dense["decode"]
+    b2["launches"] = paged["paged_flash_decode_partial"]
+    b2["int8"]["launches"] = 0          # not on a default path
+    b2["int8"]["library_ms"] = None
+    b3["launches"] = dense["fused_add_rms"]
+    b4["launches"] = dense["gemm_ar"]
+    m32, p32 = phase_consistency(torch, models, model, params, ids)
+    phase_consistency_dense(torch, models, model, params, ids, dense_engine,
+                            m32, p32)
+    del m32, p32
+    phase_profile(torch, engine, dense_engine, ids)
+    del model, params, engine, dense_engine
     torch.cuda.empty_cache()
     phase_small_reference(torch, models)
 
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi unavailable", flush=True)
-    emit({"kernels": kernels})
+    emit({"kernels": [b1, b1_dec, b2, b3, b4]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

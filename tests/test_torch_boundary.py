@@ -23,6 +23,10 @@ import triton_dist_tpu_torch.layers.tp_mlp
 import triton_dist_tpu_torch.kernels.flash_attention
 import triton_dist_tpu_torch.kernels.paged_flash_decode
 import triton_dist_tpu_torch.kernels.flash_decode
+import triton_dist_tpu_torch.kernels.fused_chain
+import triton_dist_tpu_torch.kernels.gemm_allreduce
+import triton_dist_tpu_torch.mega.runtime
+import triton_dist_tpu_torch.mega.models.qwen3
 import triton_dist_tpu_torch.quant.codec
 import triton_dist_tpu_torch.quant.policy
 import triton_dist_tpu_torch.runtime.build

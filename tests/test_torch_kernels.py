@@ -7,16 +7,34 @@ same fold order, so agreement is to float rounding (atol = rtol = 1e-5);
 integer outputs (int8 codes, table clamps) must be bit-identical.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from jax.sharding import PartitionSpec as P
 
 from conftest import needs_interpreter
 from triton_dist_tpu.kernels.flash_attention import flash_prefill as jax_fp
 from triton_dist_tpu.kernels.flash_decode import lse_merge as jax_lse_merge
 from triton_dist_tpu.kernels.flash_decode import (
     lse_partial_merge as jax_lse_partial_merge,
+)
+from triton_dist_tpu.kernels.fused_chain import (
+    FusedChainMethod as JaxFusedChainMethod,
+)
+from triton_dist_tpu.kernels.fused_chain import (
+    add_rms_norm_xla as jax_add_rms_norm_xla,
+)
+from triton_dist_tpu.kernels.fused_chain import (
+    fused_add_rms_per_device as jax_fused_add_rms,
+)
+from triton_dist_tpu.kernels.gemm_allreduce import (
+    GemmArMethod as JaxGemmArMethod,
+)
+from triton_dist_tpu.kernels.gemm_allreduce import (
+    gemm_ar_per_device as jax_gemm_ar_per_device,
 )
 from triton_dist_tpu.kernels.paged_flash_decode import (
     paged_flash_decode_partial as jax_pfd,
@@ -26,12 +44,21 @@ from triton_dist_tpu.models.kv_cache import (
 )
 from triton_dist_tpu.quant.codec import kv_row_decode as jax_kv_row_decode
 from triton_dist_tpu.quant.codec import kv_row_encode as jax_kv_row_encode
+from triton_dist_tpu.runtime import make_comm_mesh
+from triton_dist_tpu.runtime.compat import td_shard_map
 
 from triton_dist_tpu_torch.kernels.flash_attention import (
     flash_prefill, flash_prefill_ref,
 )
 from triton_dist_tpu_torch.kernels.flash_decode import (
     lse_merge, lse_partial_merge,
+)
+from triton_dist_tpu_torch.kernels.fused_chain import (
+    FusedChainMethod, add_rms_norm_xla, fused_add_rms,
+    fused_add_rms_per_device,
+)
+from triton_dist_tpu_torch.kernels.gemm_allreduce import (
+    GemmArMethod, gemm_ar, gemm_ar_per_device, gemm_ar_ref, split_plan,
 )
 from triton_dist_tpu_torch.kernels.paged_flash_decode import (
     paged_flash_decode, paged_flash_decode_partial,
@@ -67,6 +94,133 @@ def test_flash_prefill_ref_matches_jax(t, offset):
     # the wrapper's CPU path IS the plain version
     np.testing.assert_array_equal(
         got.numpy(), flash_prefill_ref(_t(q), _t(k), _t(v), offset).numpy())
+
+
+def test_flash_prefill_ref_takes_a_device_offset():
+    """B1's plain version with the offset as a 0-d int32 tensor (the dense
+    cache's on-device offset) gives what the int offset gives, which the
+    JAX einsum attention gives too (T = 1, the dense decode form)."""
+    rng = np.random.default_rng(9)
+    b, hq, hkv, d, s, off = 2, 4, 2, 128, 160, 70
+    q = _t(rng.standard_normal((b, 1, hq, d), np.float32))
+    k = _t(rng.standard_normal((b, s, hkv, d), np.float32))
+    v = _t(rng.standard_normal((b, s, hkv, d), np.float32))
+    want = flash_prefill_ref(q, k, v, off)
+    got = flash_prefill(q, k, v, torch.tensor(off, dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    from triton_dist_tpu.layers.attention_core import (
+        gqa_attend_xla as jax_gqa_attend_xla,
+    )
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_gqa_attend_xla(
+            jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+            jnp.asarray(v.numpy()), jnp.asarray(off, jnp.int32), 1)),
+        **TOL)
+
+
+@needs_interpreter()
+def test_fused_add_rms_ref_matches_jax():
+    """B3's plain version against the JAX twin and the JAX kernel in
+    interpret mode, f32: s exact, normed within 1e-6. The wrapper's CPU
+    path and the PALLAS method ARE the plain version."""
+    rng = np.random.default_rng(10)
+    h = rng.standard_normal((4, 1, 256), np.float32)
+    a = rng.standard_normal((4, 1, 256), np.float32)
+    w = rng.uniform(0.5, 1.5, (256,)).astype(np.float32)
+    s, o = add_rms_norm_xla(_t(h), _t(a), _t(w), 1e-6)
+    for js, jo in (
+            jax_add_rms_norm_xla(jnp.asarray(h), jnp.asarray(a),
+                                 jnp.asarray(w), 1e-6),
+            jax_fused_add_rms(JaxFusedChainMethod.PALLAS, True,
+                              jnp.asarray(h), jnp.asarray(a),
+                              jnp.asarray(w), 1e-6, bm=2)):
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=1e-6,
+                                   rtol=0)
+    for got in (fused_add_rms(_t(h), _t(a), _t(w), 1e-6),
+                fused_add_rms_per_device(FusedChainMethod.PALLAS, _t(h),
+                                         _t(a), _t(w), 1e-6)):
+        assert torch.equal(got[0], s) and torch.equal(got[1], o)
+
+
+def test_fused_add_rms_bf16_cast_points():
+    """bf16: s is h + a rounded to bf16; normed is the f32 normalization
+    rounded to bf16, THEN scaled by w (the reference's order)."""
+    rng = np.random.default_rng(11)
+    h = _t(rng.standard_normal((3, 128), np.float32)).to(torch.bfloat16)
+    a = _t(rng.standard_normal((3, 128), np.float32)).to(torch.bfloat16)
+    w = _t(rng.uniform(0.5, 1.5, (128,)).astype(np.float32)).to(
+        torch.bfloat16)
+    s, o = add_rms_norm_xla(h, a, w, 1e-6)
+    assert s.dtype == o.dtype == torch.bfloat16
+    assert torch.equal(s, (h.float() + a.float()).to(torch.bfloat16))
+    sf = s.float()
+    want = (sf * torch.rsqrt(sf.pow(2).mean(-1, True) + 1e-6)).to(
+        torch.bfloat16) * w
+    assert torch.equal(o, want)
+
+
+def _jax_gemm_ar(method, a, b):
+    mesh = make_comm_mesh(axes=[("tp", 1)], devices=jax.devices()[:1])
+    fn = td_shard_map(
+        lambda a_, b_: jax_gemm_ar_per_device("tp", 1, method, 256, 256,
+                                              True, a_, b_),
+        mesh=mesh, in_specs=(P(), P()), out_specs=P(), check_vma=False)
+    return np.asarray(jax.jit(fn)(a, b))
+
+
+@needs_interpreter()
+@pytest.mark.parametrize("m", [4, 3])
+def test_gemm_ar_ref_matches_jax_world1(m):
+    """B4's plain version against the JAX gemm_ar at world 1: its XLA
+    method and its PALLAS kernel in interpret mode, f32 within 1e-5; the
+    wrapper's CPU path and both port methods ARE the plain version."""
+    rng = np.random.default_rng(12 + m)
+    a = rng.standard_normal((m, 384), np.float32)
+    b = rng.standard_normal((384, 256), np.float32) / 16
+    got = gemm_ar_ref(_t(a), _t(b))
+    for method in (JaxGemmArMethod.XLA, JaxGemmArMethod.PALLAS):
+        np.testing.assert_allclose(
+            got.numpy(), _jax_gemm_ar(method, jnp.asarray(a),
+                                      jnp.asarray(b)), **TOL)
+    for out in (gemm_ar(_t(a), _t(b)),
+                gemm_ar_per_device(1, GemmArMethod.PALLAS, _t(a), _t(b)),
+                gemm_ar_per_device(1, GemmArMethod.XLA, _t(a), _t(b))):
+        assert torch.equal(out, got)
+
+
+def test_gemm_ar_ref_bf16_accumulates_in_f32():
+    """bf16 inputs: the exact bf16 products summed in f32, one rounding to
+    bf16 at the end (a bf16 running sum would differ); the JAX XLA method
+    agrees within one bf16 rounding."""
+    rng = np.random.default_rng(14)
+    a = _t(rng.standard_normal((4, 512), np.float32)).to(torch.bfloat16)
+    b = _t(rng.standard_normal((512, 128), np.float32) / 8).to(
+        torch.bfloat16)
+    got = gemm_ar_ref(a, b)
+    assert got.dtype == torch.bfloat16
+    exact = (a.double() @ b.double()).float()
+    torch.testing.assert_close(got.float(), exact, rtol=2 ** -8, atol=0)
+    want = _jax_gemm_ar(JaxGemmArMethod.XLA,
+                        jnp.asarray(a.float().numpy(), jnp.bfloat16),
+                        jnp.asarray(b.float().numpy(), jnp.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,k,n,vec,want", [
+    (4, 4096, 4096, 8, (128, 32)),       # o_proj at decode: 512 blocks
+    (4, 12288, 4096, 8, (384, 32)),      # down_proj at decode
+    (2048, 4096, 4096, 8, (4096, 1)),    # 4096 tiles already: no split
+    (1, 100, 8, 4, (128, 1))])           # K below one 64-row step
+def test_gemm_ar_split_plan_covers_k(m, k, n, vec, want):
+    """B4's K split on a 132-SM H100: slices of a multiple of 64 rows that
+    cover K, about 4 blocks per SM at decode M, no split when the grid is
+    already large."""
+    k_chunk, splits = split_plan(m, k, n, vec, sm_count=132)
+    assert (k_chunk, splits) == want
+    assert k_chunk % 64 == 0 and k_chunk * (splits - 1) < k <= \
+        k_chunk * splits
 
 
 def _paged_inputs(seed, b=4, hq=4, hkv=2, d=128, ps=16, num_pages=12,
@@ -200,3 +354,8 @@ def test_wrappers_reject_unsupported_devices():
     tab = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         paged_flash_decode_partial(q3, pool, pool, tab, tab[:, 0])
+    x = torch.zeros((2, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_add_rms(x, x, x[0], 1e-6)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gemm_ar(x, x.T)

@@ -23,6 +23,7 @@ from triton_dist_tpu.layers.common import (
     make_cos_sin_cache as jax_make_cos_sin_cache,
 )
 from triton_dist_tpu.layers.common import rms_norm as jax_rms_norm
+from triton_dist_tpu.layers.tp_attn import attn_fwd as jax_attn_fwd
 from triton_dist_tpu.layers.tp_attn import paged_attn_fwd as jax_paged_attn
 from triton_dist_tpu.layers.tp_mlp import mlp_fwd as jax_mlp_fwd
 from triton_dist_tpu.models.config import Qwen3Arch as JaxQwen3Arch
@@ -35,7 +36,7 @@ from triton_dist_tpu_torch.layers.attention_core import (
 from triton_dist_tpu_torch.layers.common import (
     TPContext, apply_rope, make_cos_sin_cache, rms_norm,
 )
-from triton_dist_tpu_torch.layers.tp_attn import paged_attn_fwd
+from triton_dist_tpu_torch.layers.tp_attn import attn_fwd, paged_attn_fwd
 from triton_dist_tpu_torch.layers.tp_mlp import mlp_fwd
 from triton_dist_tpu_torch.models.config import Qwen3Arch
 
@@ -167,6 +168,49 @@ def test_paged_attn_fwd_prefill_then_decode_matches_jax(attn_method):
     with pytest.raises(NotImplementedError, match="prefill_slot"):
         paged_attn_fwd("xla", ctx, arch, tw, _t(x), _t(pos), cs, lk, lv,
                        _t(table), _t(lengths), ps, continuation=True)
+
+
+@needs_interpreter()
+@pytest.mark.parametrize("attn_method", ["auto", "xla"])
+def test_attn_fwd_dense_prefill_then_decode_matches_jax(attn_method):
+    """Over the dense cache: prefill (T=128 at offset 0: the flash kernel
+    under "auto", the einsum under "xla") then one decode step at offset
+    128 (T=1 over S=160 keys: flash again under "auto"); outputs and slabs
+    match the JAX layer, the offset being a 0-d tensor on the device."""
+    rng = np.random.default_rng(5)
+    arch, jarch = Qwen3Arch(**ARCH_KW), JaxQwen3Arch(**ARCH_KW)
+    w = _layer_weights(rng)
+    b, t, s_len = 2, 128, 160
+    hkv, d = arch.num_kv_heads, arch.head_dim
+    x = rng.standard_normal((b, t, arch.hidden_size), np.float32)
+    x1 = rng.standard_normal((b, 1, arch.hidden_size), np.float32)
+    cs = make_cos_sin_cache(d, s_len, arch.rope_theta)
+    jcs = jax_make_cos_sin_cache(d, s_len, arch.rope_theta)
+    lk = torch.zeros((b, s_len, hkv, d))
+    lv = torch.zeros((b, s_len, hkv, d))
+    jlk = jnp.zeros((b, s_len, hkv, d))
+    jlv = jnp.zeros((b, s_len, hkv, d))
+    ctx = TPContext(attn_method=attn_method)
+    mesh = _mesh1()
+    jctx = JaxTPContext(mesh, "tp", attn_method=attn_method)
+    tw = {k: _t(v) for k, v in w.items()}
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+
+    def jax_layer(w_, x_, pos_, lk_, lv_, off_):
+        return jax_attn_fwd("xla", jctx, jarch, w_, x_, pos_, jcs, lk_, lv_,
+                            off_)
+
+    jfn = jax.jit(td_shard_map(jax_layer, mesh=mesh, in_specs=(P(),) * 6,
+                               out_specs=(P(), P(), P())))
+    for xin, start in ((x, 0), (x1, t)):
+        off = torch.tensor(start, dtype=torch.int32)
+        pos = off + torch.arange(xin.shape[1])
+        y = attn_fwd("xla", ctx, arch, tw, _t(xin), pos, cs, lk, lv, off)
+        jy, jlk, jlv = jfn(jw, jnp.asarray(xin), jnp.asarray(pos.numpy()),
+                           jlk, jlv, jnp.asarray(start, jnp.int32))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+        np.testing.assert_allclose(lk.numpy(), np.asarray(jlk), **TOL)
+        np.testing.assert_allclose(lv.numpy(), np.asarray(jlv), **TOL)
 
 
 def test_gqa_attend_xla_and_flash_choice_match_jax():

@@ -4,8 +4,11 @@ The JAX package beside this one is the reference; this package imports
 neither JAX nor it. Its layout mirrors the reference's, so a module's
 counterpart sits at the same path:
 
-  models/   config, paged KV cache, Qwen3, weights, sampling, Engine
+  models/   config, dense and paged KV caches, Qwen3, weights, sampling,
+            Engine
   layers/   RMSNorm/rope, attention core, TP attention and MLP (world 1)
+  mega/     the decode step as a task graph: tasks, scheduler, builder,
+            the Qwen3 dense graph, the tiered runtime
   kernels/  the hand-written Hopper kernels and their plain versions
   quant/    the int8 row codec and the TD_QUANT policy parse
   runtime/  device resolution and the nvcc kernel builder

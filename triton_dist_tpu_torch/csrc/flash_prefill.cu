@@ -15,6 +15,10 @@
 // later step.
 //
 // Design:
+//  * the query offset is read from device memory when the caller passes a
+//    pointer (the dense cache's on-device offset), so the launch needs no
+//    host read and a CUDA graph that captures it stays right as the offset
+//    advances between replays; the grid depends only on T;
 //  * one block = (64-query tile, one q head, one batch row). The TPU grid's
 //    sequential key-block axis (a sum carried in VMEM scratch across grid
 //    steps) becomes a loop inside the block, bounded by the causal diagonal
@@ -52,7 +56,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, T* __restrict__ o, int t_len,
-                   int s_len, int hq, int hkv, int offset, float scale) {
+                   int s_len, int hq, int hkv,
+                   const int* __restrict__ offset_ptr, int offset_arg,
+                   float scale) {
   constexpr int LD = D + 1;
   constexpr int LP = BK + 1;
   constexpr int CPT = D / 16;  // output columns per thread
@@ -65,6 +71,7 @@ __global__ void __launch_bounds__(NT)
   float* l_s = m_s + BQ;       // [BQ] running sum
   float* a_s = l_s + BQ;       // [BQ] rescale factor of this key step
 
+  const int offset = offset_ptr != nullptr ? *offset_ptr : offset_arg;
   const int tid = threadIdx.x;
   const int rg = tid >> 4;
   const int cg = tid & 15;
@@ -196,8 +203,9 @@ __global__ void __launch_bounds__(NT)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int t_len, int s_len, int hq, int hkv, int offset,
-                   float scale, cudaStream_t stream) {
+                   int b, int t_len, int s_len, int hq, int hkv,
+                   const int* offset_ptr, int offset, float scale,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -207,7 +215,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   prefill_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), t_len, s_len, hq, hkv,
-      offset, scale);
+      offset_ptr, offset, scale);
   return cudaGetLastError();
 }
 
@@ -215,18 +223,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q, o: (B, T, Hq, D); k, v: (B, S, Hkv, D); all contiguous, one dtype
 // (td::F32 or td::BF16), D in {64, 128}. Query i sits at position
-// offset + i and attends keys [0, offset + i]. Returns a cudaError_t.
+// offset + i and attends keys [0, offset + i], where offset is *offset_ptr
+// (one int32 in device memory) when offset_ptr is not null, else the value
+// passed. Returns a cudaError_t.
 extern "C" int td_flash_prefill(const void* q, const void* k, const void* v,
                                 void* o, int b, int t_len, int s_len, int hq,
-                                int hkv, int d, int offset, float scale,
-                                int dtype, void* stream) {
+                                int hkv, int d, const void* offset_ptr,
+                                int offset, float scale, int dtype,
+                                void* stream) {
   if (b <= 0 || t_len <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define TD_CASE(CODE, TYPE, DIM)                                           \
   if (dtype == CODE && d == DIM)                                           \
-    return static_cast<int>(launch<TYPE, DIM>(q, k, v, o, b, t_len, s_len, \
-                                              hq, hkv, offset, scale, st));
+    return static_cast<int>(launch<TYPE, DIM>(                             \
+        q, k, v, o, b, t_len, s_len, hq, hkv,                              \
+        static_cast<const int*>(offset_ptr), offset, scale, st));
   TD_CASE(td::F32, float, 64)
   TD_CASE(td::F32, float, 128)
   TD_CASE(td::BF16, __nv_bfloat16, 64)

@@ -1,5 +1,31 @@
 """Hand-written Hopper kernels (csrc/) with their plain PyTorch versions.
 
-B1 ``flash_attention.flash_prefill`` and B2
-``paged_flash_decode.paged_flash_decode_partial`` are the kernels of the
-paged serving path; ``flash_decode`` holds the LSE merge they feed."""
+B1 ``flash_attention.flash_prefill`` (prefill, and the dense decode step at
+T = 1), B2 ``paged_flash_decode.paged_flash_decode_partial`` (the paged
+decode step), B3 ``fused_chain.fused_add_rms`` and B4
+``gemm_allreduce.gemm_ar`` (the mega decode step's pallas_chain tier);
+``flash_decode`` holds the LSE merge B2 feeds. Each wrapper counts its
+kernel launches in a ``launches`` attribute."""
+
+
+def launch_wrappers() -> dict:
+    """{kernel name: its wrapper}; each wrapper's ``launches`` counts the
+    kernel launches it made (or recorded into a CUDA graph)."""
+    from triton_dist_tpu_torch.kernels.flash_attention import flash_prefill
+    from triton_dist_tpu_torch.kernels.fused_chain import fused_add_rms
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar
+    from triton_dist_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_partial,
+    )
+    return {"flash_prefill": flash_prefill,
+            "paged_flash_decode_partial": paged_flash_decode_partial,
+            "fused_add_rms": fused_add_rms, "gemm_ar": gemm_ar}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in launch_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in launch_wrappers().values():
+        fn.launches = 0

@@ -6,6 +6,11 @@ flash_prefill over its Pallas _prefill_kernel).
 its plain PyTorch version, for CPU tensors. There is no fallback between
 the two: a CUDA tensor the kernel does not take raises.
 
+``offset`` is an int or a 0-d int32 tensor. A CUDA launch with a tensor
+offset hands the kernel its device address and never reads it on the host,
+so a decode step over the dense cache (whose offset lives on the device)
+can be captured in a CUDA graph and replayed as the offset advances.
+
 The plain version repeats the TPU kernel's fold: key blocks of
 ``min(128, S)`` keys, an online softmax with finite NEG_INF masking,
 probabilities rounded to bf16 before P.V only when V is bf16, and a final
@@ -42,7 +47,7 @@ def flash_prefill_ref(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, T, Hq, D); k_cache/v_cache: (B, S, Hkv, D); query i sits at
     position offset + i and attends keys [0, offset + i]. Returns
-    (B, T, Hq, D) in q.dtype."""
+    (B, T, Hq, D) in q.dtype. ``offset``: an int or a 0-d tensor."""
     b, t, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -78,20 +83,36 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
     """Causal GQA attention over the cache, no score materialization.
 
     q: (B, T, Hq, D); k_cache/v_cache: (B, S, Hkv, D) with valid keys in
-    [0, offset + T); query i attends keys [0, offset + i]. Returns
-    (B, T, Hq, D) in q.dtype. CUDA tensors launch the kernel (counted in
-    ``flash_prefill.launches``); CPU tensors run ``flash_prefill_ref``."""
+    [0, offset + T); query i attends keys [0, offset + i]; ``offset`` is
+    an int or a 0-d int32 tensor on q's device, read by the kernel on the
+    device. Returns (B, T, Hq, D) in q.dtype. CUDA tensors launch the
+    kernel (counted in ``flash_prefill.launches``); CPU tensors run
+    ``flash_prefill_ref``."""
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k_cache, v_cache, offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
-    return _launch(q, k_cache, v_cache, int(offset))
+    return _launch(q, k_cache, v_cache, offset)
 
 
 flash_prefill.launches = 0
 
 
-def _launch(q, k, v, offset: int) -> torch.Tensor:
+def _offset_args(offset, q: torch.Tensor):
+    """(device pointer or None, int) for the C entry point: a tensor offset
+    is passed by address and never read here."""
+    if not isinstance(offset, torch.Tensor):
+        return None, int(offset)
+    if offset.ndim != 0 or offset.dtype != torch.int32 \
+            or offset.device != q.device:
+        raise ValueError("flash_prefill: a tensor offset must be a 0-d "
+                         f"int32 tensor on {q.device}; got "
+                         f"{tuple(offset.shape)} {offset.dtype} on "
+                         f"{offset.device}")
+    return offset.data_ptr(), 0
+
+
+def _launch(q, k, v, offset) -> torch.Tensor:
     b, t, hq, d = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b \
             or k.shape[3] != d:
@@ -114,15 +135,16 @@ def _launch(q, k, v, offset: int) -> torch.Tensor:
         raise ValueError("flash_prefill: q/k/v on different devices")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill: q/k/v must be 16-byte aligned")
+    off_ptr, off_val = _offset_args(offset, q)
     out = torch.empty_like(q)
     fn = build.function("flash_prefill", "td_flash_prefill", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p))
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, s, hq, hkv, d, offset, d ** -0.5,
+                 b, t, s, hq, hkv, d, off_ptr, off_val, d ** -0.5,
                  _DTYPE_CODE[q.dtype], build.stream_of(q))
     build.check(err, "flash_prefill")
     flash_prefill.launches += 1

@@ -41,6 +41,26 @@ def check_mode(mode: str) -> None:
     raise ValueError(f"mode {mode!r} not in {MODES}")
 
 
+def check_world(world: int, what: str) -> None:
+    """This slice runs at world 1; a larger world raises naming A5."""
+    if world != 1:
+        raise NotImplementedError(
+            f"{what} at world {world} (tensor-parallel collectives) waits "
+            "for ROADMAP A5")
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as f32 from a's dtype with f32 accumulation (the reference's
+    preferred_element_type=f32). A bf16 product rounded to bf16 would
+    change greedy tokens; CUDA has an f32-output bf16 mm, the CPU build
+    does not, so there the exact bf16 products are summed in f32."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in the reference's order: normalize in f32, cast to x's
     dtype, THEN multiply by w."""

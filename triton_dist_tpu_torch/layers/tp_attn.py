@@ -1,8 +1,12 @@
-"""Attention block over the paged KV cache (the reference's
-layers/tp_attn.py), mode "xla" at world 1: QKV projection, per-head QK
-norm, rope, page write, then flash prefill (B1, T > 1) or paged flash
-decode (B2, T == 1), then the output projection. The reference's psum over
-the TP axis is the identity at world 1."""
+"""Attention blocks (the reference's layers/tp_attn.py), mode "xla" at
+world 1: QKV projection, per-head QK norm, rope, the cache write, causal
+GQA attention, the output projection. The reference's psum over the TP
+axis is the identity at world 1.
+
+``attn_fwd`` runs over the dense cache: the K/V write at the on-device
+offset and B1 (or the einsum, by the reference's ``_use_flash`` rule) over
+the slabs. ``paged_attn_fwd`` runs over the paged cache: page write, then
+flash prefill (B1, T > 1) or paged flash decode (B2, T == 1)."""
 
 from __future__ import annotations
 
@@ -43,6 +47,32 @@ def _o_project(mode: str, ctx: TPContext, w: dict, out: torch.Tensor,
     b, t = out.shape[0], out.shape[1]
     y2d = torch.matmul(out.reshape(b * t, -1), w["wo"]).to(dtype)
     return y2d.reshape(b, t, d_model)
+
+
+def attn_fwd(mode: str, ctx: TPContext, arch, w: dict, x: torch.Tensor,
+             positions: torch.Tensor, cos_sin: torch.Tensor,
+             layer_k: torch.Tensor, layer_v: torch.Tensor,
+             offset: torch.Tensor) -> torch.Tensor:
+    """One attention block over the dense cache; returns y (B, T, hidden).
+
+    layer_k/layer_v: this layer's (B, S, Hkv, D) slabs, written IN PLACE
+    at [offset, offset + T) (the reference's dynamic_update_slice, with
+    the indices made on the device: no host read of ``offset``)."""
+    t = x.shape[1]
+    q, k, v, _ = _qkv_project(mode, ctx, arch, w, x, positions, cos_sin)
+    write_kv_slabs(layer_k, layer_v, k, v, offset)
+    out = gqa_attend(q, layer_k, layer_v, offset, t, method=ctx.attn_method)
+    return _o_project(mode, ctx, w, out, x.dtype, x.shape[-1])
+
+
+def write_kv_slabs(layer_k: torch.Tensor, layer_v: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor,
+                   offset: torch.Tensor) -> None:
+    """Write (B, T, Hkv, D) k/v into (B, S, Hkv, D) slabs at rows
+    offset + arange(T), in place."""
+    idx = offset + torch.arange(k.shape[1], device=k.device)
+    layer_k.index_copy_(1, idx, k.to(layer_k.dtype))
+    layer_v.index_copy_(1, idx, v.to(layer_v.dtype))
 
 
 def paged_attn_fwd(mode: str, ctx: TPContext, arch, w: dict,

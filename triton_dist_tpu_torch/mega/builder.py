@@ -1,0 +1,223 @@
+"""ModelBuilder: record a decode step as a task graph and compile it into
+one step function (the reference's mega/builder.py).
+
+``make_*`` methods record Tasks whose base function is the plain PyTorch
+op of the layer-by-layer path (the "xla" tier: the same ops in the same
+order, so the tier is bit-identical to ``Qwen3.inference``) and, for the
+fused tasks, a "pallas_chain" function that launches the hand-written
+kernels (B3 fused add+RMSNorm, B4 GEMM+AR). ``compile`` validates a
+schedule and returns a plain Python function that runs the tasks in that
+order; on the card the engine captures one call of it as a CUDA graph.
+
+This slice runs at world 1: the reference's psum is the identity there,
+and a world > 1 raises naming ROADMAP A5. Tasks are per-device ops; the
+dense KV write is in place (the cache slabs are views of the cache).
+The paged task kinds (``make_paged_kv_write``/``make_paged_attend``) wait
+for the paged mega graph, the per-task flight spans for ROADMAP A8.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from triton_dist_tpu_torch.layers.attention_core import gqa_attend
+from triton_dist_tpu_torch.layers.common import (
+    apply_rope, check_world, rms_norm,
+)
+from triton_dist_tpu_torch.layers.tp_attn import write_kv_slabs
+from triton_dist_tpu_torch.layers.tp_mlp import _silu_mul
+from triton_dist_tpu_torch.mega.scheduler import schedule_tasks
+from triton_dist_tpu_torch.mega.task import TaskGraph
+
+
+class ModelBuilder:
+    """Records tasks into a TaskGraph; names are the step's tensor env."""
+
+    def __init__(self):
+        self.graph = TaskGraph()
+        self.inputs: list[str] = []
+        self.outputs: list[str] = []
+        self._uid = 0
+
+    # -- naming -----------------------------------------------------------
+
+    def _name(self, kind: str) -> str:
+        self._uid += 1
+        return f"{kind}_{self._uid}"
+
+    def add_input(self, name: str) -> str:
+        """Declare a step input (activation, weight, cache slab, scalar)."""
+        if name in self.inputs:
+            raise ValueError(f"duplicate input {name}")
+        self.inputs.append(name)
+        return name
+
+    def mark_output(self, *names: str) -> None:
+        """Declare step outputs: each must be produced by a task or be a
+        declared input, and be marked once."""
+        for name in names:
+            if name not in self.graph.producer and name not in self.inputs:
+                raise ValueError(
+                    f"cannot mark unknown tensor {name!r} as output: no "
+                    "task produces it and it is not a declared input")
+            if name in self.outputs:
+                raise ValueError(f"duplicate output {name!r}")
+            self.outputs.append(name)
+
+    def _add(self, kind: str, layer_id: int, ins: Sequence[str],
+             fn: Callable, n_out: int = 1, tier_fns: dict | None = None,
+             is_comm: bool = False):
+        outs = tuple(self._name(kind) for _ in range(n_out))
+        self.graph.add(kind, layer_id, tuple(ins), outs, fn, tier_fns,
+                       is_comm)
+        return outs[0] if n_out == 1 else outs
+
+    # -- task kinds -------------------------------------------------------
+
+    def make_embedding(self, ids: str, table: str, *, layer_id: int = -1,
+                       dtype: torch.dtype = torch.bfloat16) -> str:
+        return self._add("embedding", layer_id, (ids, table),
+                         lambda i, t: t[i].to(dtype))
+
+    def make_rms_norm(self, x: str, w: str, eps: float = 1e-6, *,
+                      layer_id: int) -> str:
+        return self._add("rms_norm", layer_id, (x, w),
+                         lambda x_, w_: rms_norm(x_, w_, eps))
+
+    def make_linear(self, x: str, w: str, *, layer_id: int) -> str:
+        """x @ w in x's dtype (f32 accumulation inside the GEMM)."""
+        return self._add("linear", layer_id, (x, w), torch.matmul)
+
+    def make_qkv_proj(self, x: str, w: str, q_size: int, kv_size: int, *,
+                      layer_id: int):
+        """Fused QKV projection + split."""
+        def fn(x_, w_):
+            qkv = torch.matmul(x_, w_)
+            return tuple(torch.split(qkv, [q_size, kv_size, kv_size],
+                                     dim=-1))
+        return self._add("qkv_proj", layer_id, (x, w), fn, n_out=3)
+
+    def make_qk_norm_rope(self, q: str, k: str, q_norm: str, k_norm: str,
+                          cos_sin: str, positions: str, num_q_heads: int,
+                          num_kv_heads: int, head_dim: int,
+                          eps: float = 1e-6, *, layer_id: int):
+        """Per-head QK RMSNorm + rotary."""
+        def fn(q_, k_, qn, kn, cs, pos):
+            b, t = q_.shape[0], q_.shape[1]
+            qh = q_.reshape(b, t, num_q_heads, head_dim)
+            kh = k_.reshape(b, t, num_kv_heads, head_dim)
+            qh = rms_norm(qh, qn, eps)
+            kh = rms_norm(kh, kn, eps)
+            return apply_rope(qh, kh, cs, pos)
+        return self._add("qk_norm_rope", layer_id,
+                         (q, k, q_norm, k_norm, cos_sin, positions), fn,
+                         n_out=2)
+
+    def make_kv_update(self, k: str, v: str, k_cache: str, v_cache: str,
+                       offset: str, *, layer_id: int):
+        """Write this step's (B, T, Hkv, D) K/V into the layer's slabs at
+        ``offset``, IN PLACE; returns the (updated) slabs."""
+        def fn(k_, v_, kc, vc, off):
+            write_kv_slabs(kc, vc, k_, v_, off)
+            return kc, vc
+        return self._add("kv_update", layer_id,
+                         (k, v, k_cache, v_cache, offset), fn, n_out=2)
+
+    def make_attn(self, q: str, k_cache: str, v_cache: str, offset: str, *,
+                  layer_id: int) -> str:
+        """GQA attention over the padded cache; q is the rope'd
+        (B, T, Hq, D) tensor."""
+        def fn(q_, kc, vc, off):
+            b, t = q_.shape[0], q_.shape[1]
+            out = gqa_attend(q_, kc, vc, off, t)
+            return out.reshape(b, t, -1)
+        return self._add("attn", layer_id, (q, k_cache, v_cache, offset), fn)
+
+    def make_silu_mul(self, gate_up: str, *, layer_id: int) -> str:
+        return self._add("silu_mul", layer_id, (gate_up,), _silu_mul)
+
+    def make_add(self, a: str, b: str, *, layer_id: int) -> str:
+        """Residual add."""
+        return self._add("add", layer_id, (a, b), lambda x, y: x + y)
+
+    def make_linear_allreduce(self, x: str, w: str, *, layer_id: int,
+                              world: int = 1, gemm_ar_method=None) -> str:
+        """Row-parallel projection + TP sum as ONE task. The xla tier is
+        the layer path's GEMM in x's dtype (the sum is the identity at
+        world 1); the pallas_chain tier dispatches gemm_ar_per_device (B4
+        under AUTO on the card: f32 accumulation, then the cast)."""
+        check_world(world, "linear_allreduce")
+
+        def xla_fn(x_, w_):
+            return torch.matmul(x_, w_).to(x_.dtype)
+
+        def fused_fn(x_, w_):
+            from triton_dist_tpu_torch.kernels.gemm_allreduce import (
+                GemmArMethod, gemm_ar_per_device,
+            )
+            method = gemm_ar_method or GemmArMethod.AUTO
+            shape = x_.shape
+            y2d = gemm_ar_per_device(world, method,
+                                     x_.reshape(-1, shape[-1]), w_)
+            return y2d.reshape(shape[:-1] + (w_.shape[-1],)).to(x_.dtype)
+
+        return self._add("linear_allreduce", layer_id, (x, w), xla_fn,
+                         tier_fns={"pallas_chain": fused_fn}, is_comm=True)
+
+    def make_fused_chain(self, h: str, a: str, w: str,
+                         eps: float = 1e-6, *, layer_id: int):
+        """The attention→MLP boundary as one task: residual add + the
+        following RMSNorm. xla tier: the plain fold (add_rms_norm_xla);
+        pallas_chain tier: the fused kernel (B3). Returns (h_new,
+        normed)."""
+        from triton_dist_tpu_torch.kernels.fused_chain import (
+            FusedChainMethod, add_rms_norm_xla, fused_add_rms_per_device,
+        )
+
+        def xla_fn(h_, a_, w_):
+            return add_rms_norm_xla(h_, a_, w_, eps)
+
+        def pallas_fn(h_, a_, w_):
+            return fused_add_rms_per_device(FusedChainMethod.PALLAS, h_, a_,
+                                            w_, eps)
+
+        return self._add("fused_chain", layer_id, (h, a, w), xla_fn,
+                         n_out=2, tier_fns={"pallas_chain": pallas_fn})
+
+    def make_custom(self, kind: str, ins: Sequence[str], fn: Callable,
+                    n_out: int = 1, *, layer_id: int, is_comm: bool = False):
+        """Escape hatch for ops without a dedicated task kind."""
+        return self._add(kind, layer_id, ins, fn, n_out=n_out,
+                         is_comm=is_comm)
+
+    # -- compile ----------------------------------------------------------
+
+    def compile(self, policy: str = "program", tier: str | None = None):
+        """Validate the schedule and return step(env) -> {output: tensor},
+        running every task in schedule order on ``tier`` (None/"xla": the
+        base fns; "pallas_chain": the kernel fns where a task has one)."""
+        order = schedule_tasks(self.graph, policy)
+        tasks = self.graph.tasks
+        inputs, outputs = list(self.inputs), list(self.outputs)
+        if not outputs:
+            raise ValueError("no outputs marked")
+
+        def step(env: dict) -> dict:
+            env = dict(env)
+            missing = [n for n in inputs if n not in env]
+            if missing:
+                raise KeyError(f"missing step inputs: {missing}")
+            for tid in order:
+                t = tasks[tid]
+                vals = t.fn_for(tier)(*(env[n] for n in t.inputs))
+                if len(t.outputs) == 1:
+                    vals = (vals,)
+                env.update(zip(t.outputs, vals))
+            return {n: env[n] for n in outputs}
+
+        return step
+
+    def metrics(self) -> dict:
+        return self.graph.metrics()

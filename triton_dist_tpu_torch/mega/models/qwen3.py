@@ -1,0 +1,113 @@
+"""Qwen3 decode steps as mega task graphs (the reference's
+mega/models/qwen3.py).
+
+``build_qwen3_decode`` records the dense max-length-cache decode step:
+every layer's rms/qkv/rope/kv-write/attention/o-projection, the fused
+add+RMSNorm boundary, the MLP with its down projection, and the logits
+tail, with the reference's task names and order, so a schedule policy gives
+the same order on the same graph. The o/down projections are
+``linear_allreduce`` tasks (B4 in the pallas_chain tier), the boundary a
+``fused_chain`` task (B3). World 1 only (A5); the MoE expert task waits for
+ROADMAP A10 and the paged graph for the ContinuousEngine slice (A7).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_dist_tpu_torch.layers.common import check_world, dot_f32
+from triton_dist_tpu_torch.mega.builder import ModelBuilder
+from triton_dist_tpu_torch.models.config import Qwen3Arch
+
+
+def _layer_tail_tasks(b: ModelBuilder, arch, n_tp: int, h: str, a: str,
+                      i: int, postn: str, mlp_inputs, *,
+                      gemm_ar_method=None) -> str:
+    """Attention→MLP boundary + the MLP half of layer i. Returns the
+    layer's output h name."""
+    h, hn = b.make_fused_chain(h, a, postn, arch.rms_eps, layer_id=i)
+    wgu, wd = mlp_inputs
+    gu = b.make_linear(hn, wgu, layer_id=i)
+    act = b.make_silu_mul(gu, layer_id=i)
+    dn = b.make_linear_allreduce(act, wd, layer_id=i, world=n_tp,
+                                 gemm_ar_method=gemm_ar_method)
+    return b.make_add(h, dn, layer_id=i)
+
+
+def _mlp_layer_inputs(b: ModelBuilder, arch, i: int):
+    return (b.add_input(f"w_gate_up_{i}"), b.add_input(f"w_down_{i}"))
+
+
+def _logits_tail_tasks(b: ModelBuilder, h: str, final_norm: str,
+                       lm_head: str, eps: float) -> str:
+    """Final norm + last-position vocab projection (f32) + the vocab
+    gather (the identity at world 1) — the task mirror of
+    Qwen3._logits_tail."""
+    h = b.make_rms_norm(h, final_norm, eps, layer_id=-2)
+    last = b.make_custom("last_tok", (h,), lambda h_: h_[:, -1],
+                         layer_id=-2)
+    logits_l = b.make_custom("lm_head", (last, lm_head), dot_f32,
+                             layer_id=-2)
+    return b.make_custom("vocab_gather", (logits_l,), lambda x_: x_,
+                         layer_id=-2, is_comm=True)
+
+
+def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
+                       dtype: torch.dtype = torch.bfloat16, *,
+                       gemm_ar_method=None) -> ModelBuilder:
+    """Record the dense-cache decode step of a Qwen3 dense model.
+
+    Step inputs (env keys): input_ids (B, T), positions (T,), offset ()
+    on the device, cos_sin, embed, lm_head (d, V), final_norm, and per
+    layer i: wqkv_i, wo_i, q_norm_i, k_norm_i, in_norm_i, post_norm_i,
+    w_gate_up_i, w_down_i and k_cache_i / v_cache_i (B, S, Hkv, D) — the
+    cache slabs, written in place. Outputs: logits (B, V) f32
+    (``builder.logits_name``) and each layer's slabs
+    (``builder.kv_outputs``)."""
+    check_world(n_tp, "the Qwen3 decode graph")
+    hq, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    q_l, kv_l = hq * hd, hkv * hd
+
+    b = ModelBuilder()
+    ids = b.add_input("input_ids")
+    positions = b.add_input("positions")
+    offset = b.add_input("offset")
+    cos_sin = b.add_input("cos_sin")
+    embed = b.add_input("embed")
+    lm_head = b.add_input("lm_head")
+    final_norm = b.add_input("final_norm")
+
+    h = b.make_embedding(ids, embed, dtype=dtype)
+    b.kv_outputs = []
+    for i in range(arch.num_layers):
+        wqkv = b.add_input(f"wqkv_{i}")
+        wo = b.add_input(f"wo_{i}")
+        qn = b.add_input(f"q_norm_{i}")
+        kn = b.add_input(f"k_norm_{i}")
+        inn = b.add_input(f"in_norm_{i}")
+        postn = b.add_input(f"post_norm_{i}")
+        mlp_inputs = _mlp_layer_inputs(b, arch, i)
+        kc = b.add_input(f"k_cache_{i}")
+        vc = b.add_input(f"v_cache_{i}")
+
+        hn = b.make_rms_norm(h, inn, arch.rms_eps, layer_id=i)
+        q, k, v = b.make_qkv_proj(hn, wqkv, q_l, kv_l, layer_id=i)
+        q, k = b.make_qk_norm_rope(q, k, qn, kn, cos_sin, positions,
+                                   hq, hkv, hd, arch.rms_eps, layer_id=i)
+        v = b.make_custom(
+            "reshape_v", (v,),
+            lambda v_: v_.reshape(v_.shape[0], v_.shape[1], hkv, hd),
+            layer_id=i)
+        nk, nv = b.make_kv_update(k, v, kc, vc, offset, layer_id=i)
+        a = b.make_attn(q, nk, nv, offset, layer_id=i)
+        a = b.make_linear_allreduce(a, wo, layer_id=i, world=n_tp,
+                                    gemm_ar_method=gemm_ar_method)
+        h = _layer_tail_tasks(b, arch, n_tp, h, a, i, postn, mlp_inputs,
+                              gemm_ar_method=gemm_ar_method)
+        b.mark_output(nk, nv)
+        b.kv_outputs.append((nk, nv))
+
+    logits = _logits_tail_tasks(b, h, final_norm, lm_head, arch.rms_eps)
+    b.mark_output(logits)
+    b.logits_name = logits
+    return b

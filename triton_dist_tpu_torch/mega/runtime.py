@@ -1,0 +1,134 @@
+"""Mega decode runtime: one decode step as the compiled task graph, per
+method tier (the reference's mega/runtime.py).
+
+  * ``MegaMethod.XLA`` — every task runs its plain PyTorch function: the
+    ops of the layer-by-layer path, bit-identical to ``Qwen3.inference``.
+  * ``MegaMethod.PALLAS_CHAIN`` — the o/down projections run B4 (the
+    GEMM+AR kernel at world 1) and the attention→MLP boundary runs B3 (the
+    fused add+RMSNorm kernel); attention runs B1 in both tiers.
+
+AUTO resolves to PALLAS_CHAIN on CUDA and to XLA on the CPU, the same
+platform choice the reference makes. ``dense_step_fn(tier)`` returns the
+step ``(params, KVCache, input_ids) -> (logits, KVCache)``; it never reads
+a device value on the host, so the engine captures one call of it as a
+CUDA graph and replays the graph per token (models/engine.py).
+
+``dispatch`` counts a launch and runs it. Unlike the reference it has no
+fallback from the fused tier to the XLA tier: on the card a tier that
+fails raises. The fault guard and observability of the reference's
+dispatch preamble wait for ROADMAP A8; the paged graph and the generic
+one-task graph for the ContinuousEngine slice (A7).
+"""
+
+from __future__ import annotations
+
+import enum
+import functools
+
+import torch
+
+from triton_dist_tpu_torch.mega.builder import ModelBuilder
+
+POLICY = "comm_aware"   # the schedule policy of the compiled step
+
+
+class MegaMethod(enum.Enum):
+    AUTO = "auto"
+    XLA = "xla"                    # the plain-op tier
+    PALLAS_CHAIN = "pallas_chain"  # the fused-kernel tier
+
+
+def resolve_mega_method(method, device: torch.device | str) -> MegaMethod:
+    """AUTO -> PALLAS_CHAIN on a CUDA device, XLA elsewhere."""
+    if isinstance(method, str):
+        method = MegaMethod(method)
+    if method != MegaMethod.AUTO:
+        return method
+    return (MegaMethod.PALLAS_CHAIN if torch.device(device).type == "cuda"
+            else MegaMethod.XLA)
+
+
+class MegaDecodeRuntime:
+    """One model's mega decode step, tiered by MegaMethod."""
+
+    def __init__(self, model, mode: str = "xla",
+                 method: MegaMethod | str = MegaMethod.AUTO,
+                 gemm_ar_method=None):
+        self.model = model
+        self.mode = mode
+        self.method = resolve_mega_method(method, model.device)
+        if gemm_ar_method is None:
+            # the TD_QUANT policy may put the o/down projections on the
+            # int8 wire (which then raises until ROADMAP A13); OFF keeps
+            # AUTO
+            from triton_dist_tpu_torch.quant.policy import (
+                serving_gemm_ar_method,
+            )
+            gemm_ar_method = serving_gemm_ar_method(model.ctx.world)
+        self.gemm_ar_method = gemm_ar_method
+        self.launches = 0
+        self._dense: ModelBuilder | None = None
+        self._compiled: dict[str, object] = {}
+        # Qwen3 dense models in xla mode get the per-layer task graph
+        self.kind = "generic"
+        if (mode == "xla" and getattr(model, "model_type", None) == "dense"
+                and hasattr(model, "ctx")):
+            self.kind = "qwen3"
+
+    def dense_builder(self) -> ModelBuilder:
+        if self._dense is None:
+            from triton_dist_tpu_torch.mega.models.qwen3 import (
+                build_qwen3_decode,
+            )
+            model = self.model
+            self._dense = build_qwen3_decode(
+                model.arch, model.ctx.world, dtype=model.dtype,
+                gemm_ar_method=self.gemm_ar_method)
+        return self._dense
+
+    def graph_tasks(self) -> int:
+        return len(self._dense.graph.tasks) if self._dense is not None else 0
+
+    def dense_step_fn(self, tier: str):
+        """(params, KVCache, input_ids (B, T)) -> (logits (B, V) f32,
+        KVCache): the task graph on ``tier``; the cache slabs are written
+        in place and the offset advanced on the device."""
+        if self.kind != "qwen3":
+            raise ValueError(
+                "dense mega program needs a Qwen3-family model in xla "
+                f"mode (got kind={self.kind!r})")
+        return functools.partial(self._qwen3_dense_step, tier)
+
+    def _step(self, tier: str):
+        step = self._compiled.get(tier)
+        if step is None:
+            step = self.dense_builder().compile(policy=POLICY, tier=tier)
+            self._compiled[tier] = step
+        return step
+
+    def _qwen3_dense_step(self, tier, params, cache, input_ids):
+        model = self.model
+        t = input_ids.shape[1]
+        builder = self.dense_builder()
+        env = {
+            "input_ids": input_ids,
+            "positions": cache.offset + torch.arange(t, device=model.device),
+            "offset": cache.offset,
+            "cos_sin": model.cos_sin, "embed": params["embed"],
+            "lm_head": params["lm_head"],
+            "final_norm": params["final_norm"],
+        }
+        for key, stacked in params["layers"].items():
+            for i in range(model.arch.num_layers):
+                env[f"{key}_{i}"] = stacked[i]          # views, no copies
+        for i in range(model.arch.num_layers):
+            env[f"k_cache_{i}"] = cache.k[i]
+            env[f"v_cache_{i}"] = cache.v[i]
+        out = self._step(tier)(env)
+        return out[builder.logits_name], cache.advance(t)
+
+    def dispatch(self, primary):
+        """Run one launch of the compiled step and count it. No fallback
+        tier: a failure raises."""
+        self.launches += 1
+        return primary()

@@ -12,6 +12,7 @@ from triton_dist_tpu_torch.models.config import (  # noqa: F401
     tiny_qwen3,
 )
 from triton_dist_tpu_torch.models.kv_cache import (  # noqa: F401
+    KVCache,
     PagedKVCache,
     paged_write_layer,
 )

@@ -1,11 +1,19 @@
-"""Inference Engine on the paged KV cache (the reference's models/engine.py).
+"""Inference Engine (the reference's models/engine.py).
 
-``serve`` prefills the prompt (flash prefill, B1, through every layer) and
-then runs gen_len - 1 decode steps (paged flash decode, B2, through every
-layer), one eager PyTorch step per token. The reference's dense cache and
-its mega decode program (``cache_mode="dense"``) wait for ROADMAP A3/A7,
-speculative decode for A12; as in the reference, ``mega`` is ignored on
-the paged cache. The decode step as a CUDA-graph replay waits for ROADMAP A6.
+``serve`` prefills the prompt layer by layer (flash prefill, B1) and then
+runs gen_len - 1 decode steps. On the default dense cache
+(``cache_mode="dense"``) each decode step is the mega task graph
+(mega/runtime.py; ``mega="auto"`` picks the pallas_chain tier on the card:
+B1 at T = 1, B3 and B4) or, with ``mega="off"``, ``Qwen3.inference``. On
+the card that step is warmed up once on a side stream, captured once as a
+CUDA graph over static token and cache buffers, and every step is then one
+``graph.replay()``: the reference's "jit IS the graph capture". Sampling
+stays outside the graph. On the CPU the step runs eagerly.
+
+On the paged cache (``cache_mode="paged"``) the decode step is eager
+(paged flash decode, B2); as in the reference, ``mega`` is ignored there.
+Its graph comes with the paged mega step (ROADMAP A7); speculative decode
+waits for A12.
 """
 
 from __future__ import annotations
@@ -14,25 +22,26 @@ import time
 
 import torch
 
+from triton_dist_tpu_torch.kernels import launch_counts
 from triton_dist_tpu_torch.layers.common import check_mode
-from triton_dist_tpu_torch.models.kv_cache import PagedKVCache
+from triton_dist_tpu_torch.models.kv_cache import KVCache
 from triton_dist_tpu_torch.models.utils import logger, sample_token
+
+MEGA_MODES = ("auto", "xla", "pallas_chain", "off")
 
 
 class Engine:
 
     def __init__(self, model, params: dict, temperature: float = 0.0,
                  top_p: float = 1.0, backend: str = "xla",
-                 cache_mode: str = "paged", page_size: int = 128,
+                 cache_mode: str = "dense", page_size: int = 128,
                  num_pages: int | None = None,
                  kv_resident: str | None = None, mega: str = "auto",
                  spec: str = "off", verbose: bool = False):
-        if cache_mode == "dense":
-            raise NotImplementedError(
-                "cache_mode='dense' (dense KVCache + mega decode program) "
-                "waits for ROADMAP A3/A7; use cache_mode='paged'")
-        if cache_mode != "paged":
+        if cache_mode not in ("dense", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if mega not in MEGA_MODES:
+            raise ValueError(f"mega={mega!r} not in {MEGA_MODES}")
         if spec != "off":
             raise NotImplementedError(
                 "speculative decode waits for ROADMAP A12")
@@ -49,38 +58,128 @@ class Engine:
         self.page_size = page_size
         self.num_pages = num_pages
         self.kv_resident = kv_resident
-        self.mega = mega          # ignored on the paged cache, as upstream
+        self.mega = mega
         self.verbose = verbose
-        self.kv_cache: PagedKVCache | None = None
+        self.kv_cache = None
         self.logger = logger
         self.last_prefill_s = 0.0         # timings of the last serve
         self.last_decode_s = 0.0
         self.last_decode_steps = 0
+        # the dense decode step on the mega task graph, where it applies
+        # (Qwen3 dense, dense cache, xla backend), as in the reference
+        self._mega_rt = None
+        if mega != "off" and cache_mode == "dense" and backend == "xla":
+            from triton_dist_tpu_torch.mega.runtime import MegaDecodeRuntime
+            rt = MegaDecodeRuntime(model, mode=backend, method=mega)
+            self._mega_rt = rt if rt.kind == "qwen3" else None
+        # the captured decode step (CUDA only) and its accounting: kernel
+        # launches recorded per captured step, replays in the last serve
+        self._graph = None
+        self._tok_buf = None
+        self._logits_buf = None
+        self.graph_launches: dict[str, int] = {}
+        self.graph_replays = 0
+
+    @property
+    def mega_tier(self) -> str | None:
+        """The tier the dense decode step runs ("xla" | "pallas_chain"),
+        None off the mega path."""
+        return self._mega_rt.method.value if self._mega_rt else None
 
     def _init_kv_cache(self, bsz: int) -> None:
-        self.kv_cache = self.model.create_paged_kv_cache(
-            bsz, page_size=self.page_size, num_pages=self.num_pages,
-            kv_resident=self.kv_resident)
+        if self.cache_mode == "paged":
+            self.kv_cache = self.model.create_paged_kv_cache(
+                bsz, page_size=self.page_size, num_pages=self.num_pages,
+                kv_resident=self.kv_resident)
+            return
+        # the dense cache is kept across serves of one batch size: the
+        # captured step reads and writes its buffers by address
+        if not (isinstance(self.kv_cache, KVCache)
+                and self.kv_cache.batch == bsz):
+            self.kv_cache = self.model.create_kv_cache(bsz)
+            self._graph = None
 
     def _sync(self) -> None:
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)
 
-    def step(self, token: torch.Tensor,
-             generator: torch.Generator | None = None) -> torch.Tensor:
-        """ONE decode step: ``token`` is the (B,) pending token; returns the
-        (B,) next token and advances self.kv_cache in place."""
+    def _dense_forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """One dense decode forward over self.kv_cache (written and
+        advanced in place); returns the (B, V) f32 logits."""
+        if self._mega_rt is not None:
+            step = self._mega_rt.dense_step_fn(self.mega_tier)
+            logits, _ = step(self.params, self.kv_cache, ids)
+        else:
+            logits, _ = self.model.inference(self.params, self.kv_cache,
+                                             ids, mode=self.backend)
+        return logits
+
+    def _build_decode_step(self) -> None:
+        """Capture the dense decode step as a CUDA graph: static token
+        and cache buffers; one warm-up on a side stream first (it builds
+        and loads every kernel, which must not happen under capture), its
+        offset advance undone afterwards (its K/V write lands where the
+        first replay writes again)."""
+        dev = self.model.device
+        cache = self.kv_cache
+        self._tok_buf = torch.zeros((cache.batch,), dtype=torch.int32,
+                                    device=dev)
+        saved = cache.offset.clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._dense_forward(self._tok_buf[:, None])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        cache.offset.copy_(saved)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            self._logits_buf = self._dense_forward(self._tok_buf[:, None])
+        after = launch_counts()
+        self.graph_launches = {k: after[k] - before[k] for k in after}
+        self._graph = graph
+
+    def decode_logits(self, token: torch.Tensor) -> torch.Tensor:
+        """ONE decode step without sampling: ``token`` is the (B,) pending
+        token; returns the (B, V) f32 logits and advances self.kv_cache in
+        place. On the card's dense path the result is the captured
+        graph's output buffer, overwritten by the next step."""
         if self.kv_cache is None:
             raise RuntimeError("no KV cache: call serve() (or prefill) "
                                "before stepping")
-        logits, self.kv_cache = self.model.inference(
-            self.params, self.kv_cache, token[:, None], mode=self.backend)
+        ids = token[:, None]
+        if self.cache_mode == "paged":
+            logits, self.kv_cache = self.model.inference(
+                self.params, self.kv_cache, ids, mode=self.backend)
+            return logits
+        if self.model.device.type != "cuda":
+            return self._dispatch(lambda: self._dense_forward(ids))
+        if self._graph is None:
+            self._build_decode_step()
+        self._tok_buf.copy_(token)
+        self._dispatch(self._graph.replay)
+        self.graph_replays += 1
+        return self._logits_buf
+
+    def _dispatch(self, launch):
+        if self._mega_rt is not None:
+            return self._mega_rt.dispatch(launch)
+        return launch()
+
+    def step(self, token: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """ONE decode step: ``token`` is the (B,) pending token; returns the
+        (B,) next token and advances self.kv_cache in place. On the card
+        the dense step is one CUDA-graph replay."""
+        logits = self.decode_logits(token)
         return sample_token(logits, generator, self.temperature, self.top_p)
 
     def serve(self, input_ids: torch.Tensor, gen_len: int,
               generator: torch.Generator | None = None) -> torch.Tensor:
         """Prefill + gen_len - 1 decode steps; returns (B, gen_len) int32
-        token ids. ``generator`` drives sampling when temperature > 0."""
+        token ids. ``generator`` drives sampling when temperature > 0.
+        The length check comes first, so no step reads the cache offset
+        back to the host."""
         input_ids = torch.as_tensor(input_ids, device=self.model.device)
         bsz, t = input_ids.shape
         if t + gen_len > self.model.max_length:
@@ -89,9 +188,12 @@ class Engine:
                 f"max_length {self.model.max_length}")
         self._init_kv_cache(bsz)
         self.kv_cache.clear()
+        self.graph_replays = 0
         if self.verbose:
-            self.logger.log(f"serve: prefill {tuple(input_ids.shape)}, "
-                            f"gen_len={gen_len}, backend={self.backend}")
+            self.logger.log(
+                f"serve: prefill {tuple(input_ids.shape)}, gen_len={gen_len}"
+                f", backend={self.backend}, cache={self.cache_mode}"
+                + (f", mega {self.mega_tier}" if self._mega_rt else ""))
 
         t0 = time.perf_counter()
         logits, self.kv_cache = self.model.inference(

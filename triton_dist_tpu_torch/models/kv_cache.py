@@ -1,5 +1,12 @@
-"""Paged KV cache (the reference's models/kv_cache.py PagedKVCache and
-paged_write_layer), on one device.
+"""KV caches (the reference's models/kv_cache.py: the dense KVCache, the
+PagedKVCache and paged_write_layer), on one device.
+
+``KVCache`` is the dense max-length cache: (L, B, S, Hkv, D) slabs and an
+``offset`` that is a 0-d int32 tensor ON THE DEVICE. The slabs are written
+in place at ``offset`` by the dense attention (layers/tp_attn.py attn_fwd)
+and ``advance`` adds to the offset in place, so a decode step reads and
+moves the offset without a host read and can be captured once in a CUDA
+graph and replayed.
 
 Unlike the reference's functional pytree, this cache is MUTABLE: the page
 pools are written in place by ``paged_write_layer`` and the allocator
@@ -9,9 +16,9 @@ reads as it does in the reference. The allocator arithmetic is the
 reference's, step for step, so block tables, lengths, free stacks,
 refcounts and the overflow count stay exactly equal to it.
 
-``release``, ``rewind``, ``adopt_prefix`` and ``pin_pages``/
-``unpin_pages`` wait for the ContinuousEngine slice (ROADMAP A7); the
-dense ``KVCache`` waits for the dense-cache slice (ROADMAP A3).
+The paged cache's ``release``, ``rewind``, ``adopt_prefix`` and
+``pin_pages``/``unpin_pages`` wait for the ContinuousEngine slice (ROADMAP
+A7).
 """
 
 from __future__ import annotations
@@ -23,6 +30,56 @@ import torch
 from triton_dist_tpu_torch.quant.codec import kv_row_encode
 
 _I32 = torch.int32
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Dense KV cache: k/v (L, B, S, Hkv, D) slabs; offset () int32 on the
+    slabs' device, the tokens already cached (one offset for the whole
+    batch, as in the reference). Mutable: ``clear``, ``rewind`` and
+    ``advance`` update the offset in place and return the cache."""
+    k: torch.Tensor
+    v: torch.Tensor
+    offset: torch.Tensor
+
+    @staticmethod
+    def create(num_layers: int, batch: int, max_length: int,
+               local_kv_heads: int, head_dim: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: torch.device | str = "cpu") -> "KVCache":
+        shape = (num_layers, batch, max_length, local_kv_heads, head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            offset=torch.zeros((), dtype=_I32, device=device),
+        )
+
+    @property
+    def max_length(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def batch(self) -> int:
+        return self.k.shape[1]
+
+    def clear(self) -> "KVCache":
+        """Offset back to 0 (slab bytes untouched: attention reads only
+        below the offset, and writes land at it)."""
+        self.offset.zero_()
+        return self
+
+    def rewind(self, extra) -> "KVCache":
+        """Walk the offset back by ``extra`` tokens (speculative decode:
+        positions past the accepted prefix hold rejected-draft KV, dead
+        until the next step overwrites them). Slabs untouched."""
+        self.offset -= torch.as_tensor(extra, dtype=_I32,
+                                       device=self.offset.device)
+        return self
+
+    def advance(self, new_tokens: int) -> "KVCache":
+        """offset += new_tokens, on the device."""
+        self.offset += new_tokens
+        return self
 
 
 @dataclasses.dataclass

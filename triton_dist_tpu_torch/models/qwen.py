@@ -1,11 +1,12 @@
-"""Qwen3 dense model on the paged KV cache (the reference's
-models/qwen.py), one device, mode "xla".
+"""Qwen3 dense model (the reference's models/qwen.py), one device, mode
+"xla", on the dense KVCache or the PagedKVCache.
 
 Parameters are a plain dict with the reference's layout: layer weights
-stay STACKED along a leading num_layers axis and are indexed per layer;
-the reference's decoder ``lax.scan`` is a Python loop over layers. The
-page pools are updated in place. The dense KVCache path, prefill_slot and
-the other TP modes wait for their ROADMAP items.
+stay STACKED along a leading num_layers axis and are indexed per layer (as
+views, never copies); the reference's decoder ``lax.scan`` is a Python
+loop over layers. Both caches are updated in place; the dense cache's
+offset never leaves the device. prefill_slot and the other TP modes wait
+for their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -13,26 +14,14 @@ from __future__ import annotations
 import torch
 
 from triton_dist_tpu_torch.layers.common import (
-    MODES, TPContext, check_mode, make_cos_sin_cache, rms_norm,
+    MODES, TPContext, check_mode, dot_f32, make_cos_sin_cache, rms_norm,
 )
-from triton_dist_tpu_torch.layers.tp_attn import paged_attn_fwd
+from triton_dist_tpu_torch.layers.tp_attn import attn_fwd, paged_attn_fwd
 from triton_dist_tpu_torch.layers.tp_mlp import mlp_fwd
 from triton_dist_tpu_torch.models.config import Qwen3Arch
-from triton_dist_tpu_torch.models.kv_cache import PagedKVCache
+from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedKVCache
 from triton_dist_tpu_torch.quant.policy import resolve_kv_resident
 from triton_dist_tpu_torch.runtime.device import resolve_device
-
-
-def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as f32 from a's dtype with f32 accumulation (the reference's
-    preferred_element_type=f32). A bf16 product rounded to bf16 would
-    change greedy tokens; CUDA has an f32-output bf16 mm, the CPU build
-    does not, so there the exact bf16 products are summed in f32."""
-    if a.dtype == torch.float32:
-        return torch.matmul(a, b)
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
 
 
 class Qwen3:
@@ -57,9 +46,12 @@ class Qwen3:
 
     # -- cache ------------------------------------------------------------
 
-    def create_kv_cache(self, batch: int):
-        raise NotImplementedError("the dense KVCache waits for ROADMAP A3; "
-                                  "use create_paged_kv_cache")
+    def create_kv_cache(self, batch: int) -> KVCache:
+        """Dense max-length cache on the model's device."""
+        arch = self.arch
+        return KVCache.create(arch.num_layers, batch, self.max_length,
+                              arch.num_kv_heads, arch.head_dim,
+                              dtype=self.dtype, device=self.device)
 
     def create_paged_kv_cache(self, batch: int, page_size: int = 128,
                               num_pages: int | None = None,
@@ -134,11 +126,26 @@ class Qwen3:
         logits = self._logits_tail(mode, h, params)
         return logits, cache.advance(grow)
 
+    def _inference_dense(self, params: dict, cache: KVCache,
+                         input_ids: torch.Tensor, mode: str):
+        t = input_ids.shape[1]
+        offset = cache.offset
+        positions = offset + torch.arange(t, device=self.device)
+
+        def attn_call(i, lw, hn):
+            return attn_fwd(mode, self.ctx, self.arch, lw, hn, positions,
+                            self.cos_sin, cache.k[i], cache.v[i], offset)
+
+        h = self._decoder_stack(mode, input_ids, params, attn_call)
+        logits = self._logits_tail(mode, h, params)
+        return logits, cache.advance(t)
+
     def inference(self, params: dict, cache, input_ids: torch.Tensor,
                   mode: str = "xla", active: torch.Tensor | None = None):
         """Full forward; returns (logits (B, V) f32 of the LAST position,
-        cache). ``cache`` is a PagedKVCache, updated in place. ``active``
-        ((B,) bool, decode only): False rows neither grow nor write KV."""
+        cache). ``cache`` is the dense KVCache or a PagedKVCache, updated
+        in place. ``active`` ((B,) bool, paged decode only): False rows
+        neither grow nor write KV."""
         if mode not in MODES:
             raise ValueError(f"mode {mode} not in {MODES}")
         if input_ids.shape[1] > self.max_length:
@@ -148,4 +155,6 @@ class Qwen3:
         if isinstance(cache, PagedKVCache):
             return self._inference_paged(params, cache, input_ids, mode,
                                          active=active)
-        raise NotImplementedError("the dense KVCache waits for ROADMAP A3")
+        if active is not None:
+            raise ValueError("active masking requires the paged cache")
+        return self._inference_dense(params, cache, input_ids, mode)

@@ -1,10 +1,11 @@
-"""QuantPolicy: the ``TD_QUANT`` parse and the resident-KV decision (the
-reference's quant/policy.py, the parts the paged serving path reads).
+"""QuantPolicy: the ``TD_QUANT`` parse, the resident-KV decision and the
+mega graph's GEMM+AR wire choice (the reference's quant/policy.py, the
+parts the serving paths read).
 
 ``TD_QUANT`` is ``off`` (the default) | ``always`` | ``error_budget[:x]``.
 The pools stay full width unless the caller passes ``kv_resident="int8"``
-or the policy admits the int8 row codec. The wire-tier gates wait for the
-quantized-wire slice (ROADMAP A13).
+or the policy admits the int8 row codec. The other wire-tier gates wait
+for the quantized-wire slice (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ class QuantPolicy(enum.Enum):
 # The kv_resident contract's worst-case error: one quantization event (the
 # slot write) at the int8 row codec's 1/254 of the row amax.
 KV_RESIDENT_REL_BOUND = 1.0 / 254.0
+
+# The gemm_ar xla_qint8 contract (the reference's quant/contract.py): 2n
+# quantization events on an n-rank ring, each at the int8 block codec's
+# 1/254 of the block amax.
+INT8_BLOCK_REL_ERR = 1.0 / 254.0
+GEMM_AR_QINT8_EVENTS_PER_RANK = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,3 +78,23 @@ def resolve_kv_resident(requested: str | None = None,
             and KV_RESIDENT_REL_BOUND > state.error_budget):
         return None
     return "kv_int8_row"
+
+
+def serving_gemm_ar_method(world: int = 2,
+                           state: PolicyState | None = None):
+    """The method ``MegaDecodeRuntime`` hands the mega graph's
+    linear_allreduce tasks when the caller left it unset: None (AUTO)
+    under OFF; the int8 wire (GemmArMethod.XLA_QINT8) under ALWAYS, or
+    under ERROR_BUDGET when the contract's bound at ``world`` (never below
+    the 2-rank floor) fits the budget. ``state`` defaults to TD_QUANT."""
+    if state is None:
+        state = parse_td_quant(os.environ.get("TD_QUANT", ""))
+    if state.policy == QuantPolicy.OFF:
+        return None
+    if state.policy == QuantPolicy.ERROR_BUDGET:
+        bound = (GEMM_AR_QINT8_EVENTS_PER_RANK * max(int(world), 2)
+                 * INT8_BLOCK_REL_ERR)
+        if bound > state.error_budget:
+            return None
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmArMethod
+    return GemmArMethod.XLA_QINT8
