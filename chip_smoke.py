@@ -4,19 +4,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all
-started together), holds each against its plain PyTorch version on the
-card, and serves Qwen3-8B (published widths, all 36 layers, random bf16
-weights from a seed) down both main paths: ``Engine.serve`` on the paged
-cache (eager decode, B1 + B2) and ``Engine(model, params)`` at its
-defaults (the dense cache, each decode step one CUDA-graph replay of the
-mega task graph: B1 at T=1, B3, B4). It counts each path's kernel launches
-in one serve, checks prefill against prefill + one decode step and the
-graph-replayed step against the eager xla tier and the paged step, and
-checks small f32 models served on the card against the CPU. One JSON line
-per phase; the line before the last lists every kernel with its times and
-bound; the last line is the device record. Any failed check exits
-non-zero. Imports nothing of JAX. Needs one card; without one it exits
-non-zero and prints no result.
+started together) and holds each against its plain PyTorch version on the
+card. Serves Qwen3-8B (published widths, all 36 layers, random bf16
+weights from a seed) down its paths: ``Engine.serve`` on the paged cache
+(eager decode, B1 + B2), ``Engine(model, params)`` at its defaults (the
+dense cache, each decode step one CUDA-graph replay of the mega task
+graph: B1 at T=1, B3, B4) and ``Engine(backend="triton_dist")`` (B12).
+Then, with the 8B model freed, serves Qwen3-30B-A3B (published widths,
+all 48 layers, 61.1 GB of random bf16 weights) in the triton_dist mode
+(B1, B12, B14, B15, graph-replayed) and on the default mega step. It
+counts each path's kernel launches in one serve, checks prefill against
+prefill + one decode step, the graph-replayed steps against the eager xla
+steps, and small f32 models (dense and MoE) served on the card against
+the CPU. One JSON line per phase; the line before the last lists every
+kernel with its times and bound; the last line is the device record. Any
+failed check exits non-zero. Imports nothing of JAX. Needs one card;
+without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
 F32_FLOPS = 67e12         # H100 SXM f32 FLOP/s outside the tensor cores
 DEV = "cuda"
 KERNEL_SOURCES = ["flash_prefill", "paged_flash_decode", "fused_add_rms",
-                  "gemm_ar"]
+                  "gemm_ar", "matmul", "moe_group_gemm"]
+MOE_MODEL = "Qwen/Qwen3-30B-A3B"
 
 
 def emit(obj) -> None:
@@ -112,6 +116,7 @@ def phase_b1(torch, fa):
         ("main", torch.bfloat16, 4, 512, 512, 32, 8, 128, 0, 2e-2),
         ("ragged_t200", torch.bfloat16, 4, 200, 200, 32, 8, 128, 0, 2e-2),
         ("offset384", torch.bfloat16, 2, 128, 512, 32, 8, 128, 384, 2e-2),
+        ("moe_hkv4_g8", torch.bfloat16, 4, 512, 512, 32, 4, 128, 0, 2e-2),
         ("f32_offset70", torch.float32, 2, 130, 200, 4, 2, 128, 70, 1e-4),
         ("f32_d64", torch.float32, 1, 100, 100, 8, 8, 64, 0, 1e-4),
     ]
@@ -266,6 +271,14 @@ def phase_b1_decode(torch, fa):
     rows.append({"case": "graph_replay_offset777",
                  "max_abs_err": (gout.float() - ref2.float()).abs().max().item()})
     off_t.fill_(off)
+    # Hkv 4 (g = 8), the attention of Qwen3-30B-A3B's decode step
+    k4, v4 = k[:, :, :4].contiguous(), v[:, :, :4].contiguous()
+    out4 = fa.flash_prefill(q, k4, v4, off_t)
+    ref4 = fa.flash_prefill_ref(q, k4, v4, off)
+    torch.cuda.synchronize()
+    rows.append({"case": "eager_hkv4_g8_offset540",
+                 "max_abs_err": (out4.float() - ref4.float()).abs().max()
+                 .item()})
     for r in rows:
         r["tol"] = 2e-2
         r["ok"] = r["max_abs_err"] <= 2e-2
@@ -358,6 +371,15 @@ def phase_b3(torch, fc):
             "flops": flops}
 
 
+def _held(torch, name, out, ref, tol):
+    """One kernel-vs-plain case: max abs error against tol x max|ref|."""
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    return {"case": name, "max_abs_err": err, "ref_absmax": scale,
+            "tol": tol * scale,
+            "ok": err <= tol * scale and bool(torch.isfinite(out).all())}
+
+
 # -- B4: GEMM + AR at world 1 ------------------------------------------------
 
 def phase_b4(torch, ga):
@@ -380,11 +402,8 @@ def phase_b4(torch, ga):
         out = ga.gemm_ar(a, b)
         ref = ga.gemm_ar_ref(a, b)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        rows.append({"case": name, "max_abs_err": err, "ref_absmax": scale,
-                     "tol": tol * scale, "ok": err <= tol * scale
-                     and bool(torch.isfinite(out).all())})
+        rows.append(_held(torch, name, out, ref, tol))
+        err = rows[-1]["max_abs_err"]
         if name in ("o_m4", "down_m4"):
             ms = graph_time_ms(lambda: ga.gemm_ar(a, b))
             plain_ms = graph_time_ms(lambda: ga.gemm_ar_ref(a, b))
@@ -409,6 +428,207 @@ def phase_b4(torch, ga):
             **mean, "bound_by": "bytes", "library_ms_call":
                 "torch.mm(a, b, out_dtype=torch.float32)",
             "shapes": timed}
+
+
+# -- B12: the tiled local GEMM of the triton_dist projections ----------------
+
+def phase_b12(torch, agm):
+    """Kernel vs plain version at the triton_dist decode step's shapes of
+    both models at M = 4 (Qwen3-30B-A3B: QKV K 2048 / N 5120, o K 4096 /
+    N 2048; Qwen3-8B: QKV K 4096 / N 6144, down K 12288 / N 4096) and at
+    M = 2048, in bf16 and f32. Tolerance as B4's (the same function): max
+    abs error <= 1e-2 x max|ref| in bf16 (one bf16 rounding of the output
+    and another f32 summation order), 1e-4 x max|ref| in f32. Timed at
+    Qwen3-30B-A3B's two decode shapes; the row's times are the mean over
+    the main path's launches (one QKV and one o per layer). Library call:
+    torch.mm in the inputs' dtype (f32 accumulation, one rounding)."""
+    g = torch.Generator(device=DEV).manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("moe_qkv_m4", bf, 4, 2048, 5120),
+             ("moe_o_m4", bf, 4, 4096, 2048),
+             ("dense_qkv_m4", bf, 4, 4096, 6144),
+             ("dense_down_m4", bf, 4, 12288, 4096),
+             ("moe_qkv_m2048", bf, 2048, 2048, 5120),
+             ("dense_o_m2048", bf, 2048, 4096, 4096),
+             ("moe_o_m4_f32", f32, 4, 4096, 2048),
+             ("moe_qkv_m2048_f32", f32, 2048, 2048, 5120)]
+    rows, timed = [], {}
+    for name, dt, m, k, n in cases:
+        a = torch.randn((m, k), generator=g, device=DEV).to(dt)
+        b = (torch.randn((k, n), generator=g, device=DEV) * k ** -0.5).to(dt)
+        out = agm.pallas_matmul(a, b)
+        ref = agm.matmul_ref(a, b)
+        torch.cuda.synchronize()
+        rows.append(_held(torch, name, out, ref,
+                          1e-2 if dt == bf else 1e-4))
+        if name in ("moe_qkv_m4", "moe_o_m4"):
+            nbytes = (m * k + k * n + m * n) * a.element_size()
+            bms, by = bound_ms(nbytes, 2.0 * m * k * n)
+            timed[name] = {
+                "ms": graph_time_ms(lambda: agm.pallas_matmul(a, b)),
+                "plain_ms": graph_time_ms(lambda: agm.matmul_ref(a, b)),
+                "library_ms": graph_time_ms(lambda: torch.mm(a, b)),
+                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                "shape": [m, k, n], "max_abs_err": rows[-1]["max_abs_err"]}
+    emit({"phase": "b12_matmul", "cases": rows})
+    if not all(r["ok"] for r in rows):
+        fail(f"B12 disagrees with its plain version: "
+             f"{[r for r in rows if not r['ok']]}")
+    mean = {key: sum(t[key] for t in timed.values()) / len(timed)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"name": "pallas_matmul", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/matmul.cu",
+            "replaces": "triton_dist_tpu/kernels/allgather_gemm.py:452",
+            "max_abs_err": max(t["max_abs_err"] for t in timed.values()),
+            **mean, "bound_by": "bytes", "library_ms_call": "torch.mm(a, b)",
+            "shapes": timed}
+
+
+# -- B14 / B15: the MoE expert grouped GEMMs ---------------------------------
+
+def _moe_routing(torch, mu, plain, g, m, d, e, topk):
+    """Random bf16 tokens through a random router of Qwen3-30B-A3B's
+    widths: (tokens, topk_ids, topk_weights)."""
+    x = torch.randn((m, d), generator=g, device=DEV).to(torch.bfloat16)
+    wr = (torch.randn((d, e), generator=g, device=DEV)
+          * d ** -0.5).to(torch.bfloat16)
+    w, ids = mu.route_topk(plain.dot_f32(x, wr), topk)
+    return x, ids, w
+
+
+def _randn_bf16(torch, g, shape, scale):
+    """A large bf16 tensor drawn in chunks (no f32 copy of all of it)."""
+    out = torch.empty(shape, dtype=torch.bfloat16, device=DEV)
+    flat = out.view(-1)
+    step = 1 << 26
+    for s in range(0, flat.numel(), step):
+        n = min(step, flat.numel() - s)
+        flat[s:s + n] = (torch.randn(n, generator=g, device=DEV)
+                         * scale).to(torch.bfloat16)
+    return out
+
+
+def _grouped_mm_ms(torch, mu, lhs_flat, ids, w, num_experts):
+    """library_ms of one torch._grouped_mm over the expert-sorted rows, or
+    (None, why) where this torch has none that takes these inputs."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm missing"
+    st = mu.sort_by_expert(ids, num_experts)
+    lhs = lhs_flat[st.sort_idx.long()].contiguous()
+    offs = torch.cumsum(st.group_sizes, 0).to(torch.int32)
+    why = []
+    for label, wb in (("row-major", w),
+                      ("column-major", w.transpose(-2, -1).contiguous()
+                       .transpose(-2, -1))):
+        try:
+            fn(lhs, wb, offs=offs)
+            torch.cuda.synchronize()
+            return graph_time_ms(lambda: fn(lhs, wb, offs=offs)), label
+        except Exception as exc:  # noqa: BLE001 - recorded, not hidden
+            why.append(f"{label}: {str(exc).splitlines()[0][:160]}")
+    return None, "; ".join(why)
+
+
+def phase_b14_b15(torch, agg, mrs, mu, plain):
+    """B14 (gate/up) and B15 (down + top-k combine) against their plain
+    versions on Qwen3-30B-A3B's widths (d 2048, 128 experts, expert width
+    768, top-8) with one layer's random expert weights: the decode routing
+    (B = 4 tokens through a random router: bm 32, 125 tiles, R 4000) and
+    a prefill-sized chunk of 1024 tokens (bm 128), in bf16 and f32.
+    Tolerance as B4's: max abs error <= 1e-2 x max|ref| in bf16 (one bf16
+    rounding, another f32 summation order), 1e-4 x max|ref| in f32. Timed
+    at the decode routing in bf16 (inside a captured graph of 20 calls);
+    the bound counts the live experts' weights only (each read once) and
+    the real rows' FLOPs. Library call: torch._grouped_mm over the
+    expert-sorted rows where this torch has it for these inputs (B15's
+    combine excluded), else null. Also times the xla tier's MoE block
+    (dense_grouped_moe) at both sizes."""
+    d, e, im, topk = 2048, 128, 768, 8
+    g = torch.Generator(device=DEV).manual_seed(15)
+    w_gu = _randn_bf16(torch, g, (e, d, 2 * im), d ** -0.5)
+    w_dn = _randn_bf16(torch, g, (e, im, d), im ** -0.5)
+    rows14, rows15, rec = [], [], {}
+    for m in (4, 1024):
+        x, ids, w = _moe_routing(torch, mu, plain, g, m, d, e, topk)
+        bm = min(128, max(8, m * topk))
+        sched = mu.aligned_chunk_schedule(ids, 1, e, bm)
+        inter = (torch.randn((m * topk, im), generator=g, device=DEV)
+                 ).to(torch.bfloat16)
+        for dt in (torch.bfloat16, torch.float32):
+            tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+            tag = f"m{m}_{str(dt).split('.')[-1]}"
+            wgu, wdn = w_gu.to(dt), w_dn.to(dt)
+            xd, interd = x.to(dt), inter.to(dt)
+            out = agg.group_gemm(xd, wgu, sched, topk)
+            ref = agg.group_gemm_ref(xd, wgu, sched, topk)
+            torch.cuda.synchronize()
+            rows14.append(_held(torch, tag, out, ref, tol))
+            out = mrs.moe_rs(interd, wdn, ids, w, sched)
+            ref = mrs.moe_rs_ref(interd, wdn, ids, w, sched)
+            torch.cuda.synchronize()
+            rows15.append(_held(torch, tag, out, ref, tol))
+            del wgu, wdn
+        if m != 4:
+            continue
+        live = int(torch.unique(ids).numel())
+        common = {"tokens": m, "topk": topk, "experts": e, "bm": bm,
+                  "tiles": int(sched.tile_expert.shape[1]),
+                  "live_tiles": int(sched.used_tiles[0]),
+                  "live_experts": live}
+        nb14 = (live * d * 2 * im + m * d + m * topk * 2 * im) * 2
+        fl14 = 2.0 * m * topk * d * 2 * im
+        nb15 = ((live * im * d + m * topk * im + m * d) * 2
+                + m * topk * 8)
+        fl15 = 2.0 * m * topk * im * d + 2.0 * m * topk * d
+        lib14, how14 = _grouped_mm_ms(torch, mu, x[(torch.arange(
+            m * topk, device=DEV) // topk)], ids, w_gu, e)
+        lib15, how15 = _grouped_mm_ms(torch, mu, inter, ids, w_dn, e)
+        for key, nb, fl, fn, plain_fn, lib, how in (
+                ("b14", nb14, fl14,
+                 lambda: agg.group_gemm(x, w_gu, sched, topk),
+                 lambda: agg.group_gemm_ref(x, w_gu, sched, topk),
+                 lib14, how14),
+                ("b15", nb15, fl15,
+                 lambda: mrs.moe_rs(inter, w_dn, ids, w, sched),
+                 lambda: mrs.moe_rs_ref(inter, w_dn, ids, w, sched),
+                 lib15, how15)):
+            bms, by = bound_ms(nb, fl)
+            # the plain versions read used_tiles on the host: timed eagerly
+            rec[key] = {"ms": graph_time_ms(fn),
+                        "plain_ms": time_ms(plain_fn, iters=5),
+                        "bound_ms": bms, "bound_by": by, "bytes": nb,
+                        "flops": fl, "library_ms": lib,
+                        "library_ms_call": f"torch._grouped_mm ({how})",
+                        **common}
+    # the xla tier's MoE block (dense_grouped_moe: gate/up, silu * up,
+    # down, top-k reduce), which the mega step and the eager xla step run:
+    # per-row gathered weights at decode (inside a graph), one product per
+    # expert with a host read at the prefill-sized chunk
+    from triton_dist_tpu_torch.layers.tp_moe import dense_grouped_moe
+    x, ids, w = _moe_routing(torch, mu, plain, g, 4, d, e, topk)
+    xb, idsb, wb = _moe_routing(torch, mu, plain, g, 1024, d, e, topk)
+    emit({"phase": "xla_moe_block", "decode_4_tokens_graph_ms": graph_time_ms(
+        lambda: dense_grouped_moe(x, ids, w, w_gu, w_dn, e), iters=5),
+        "chunk_1024_tokens_eager_ms": time_ms(
+        lambda: dense_grouped_moe(xb, idsb, wb, w_gu, w_dn, e), iters=3,
+        warmup=1)})
+    emit({"phase": "b14_group_gemm", "cases": rows14,
+          "decode": rec["b14"]})
+    emit({"phase": "b15_moe_rs", "cases": rows15, "decode": rec["b15"]})
+    bad = [r for r in rows14 + rows15 if not r["ok"]]
+    if bad:
+        fail(f"B14/B15 disagree with their plain versions: {bad}")
+    err14 = [r["max_abs_err"] for r in rows14 if r["case"] == "m4_bfloat16"]
+    err15 = [r["max_abs_err"] for r in rows15 if r["case"] == "m4_bfloat16"]
+    return ({"name": "group_gemm", "route": "cuda",
+             "source": "triton_dist_tpu_torch/csrc/moe_group_gemm.cu",
+             "replaces": "triton_dist_tpu/kernels/allgather_group_gemm.py:146",
+             "max_abs_err": err14[0], **rec["b14"]},
+            {"name": "moe_rs", "route": "cuda",
+             "source": "triton_dist_tpu_torch/csrc/moe_group_gemm.cu",
+             "replaces": "triton_dist_tpu/kernels/moe_reduce_rs.py:130",
+             "max_abs_err": err15[0], **rec["b15"]})
 
 
 # -- the main paths ----------------------------------------------------------
@@ -451,9 +671,8 @@ def phase_main(torch, models, kern):
            "overflow": int(engine.kv_cache.overflow),
            "tokens_shape": list(out.shape)}
     emit(rec)
-    want = {"flash_prefill": arch.num_layers,
-            "paged_flash_decode_partial": arch.num_layers * (gen - 1),
-            "fused_add_rms": 0, "gemm_ar": 0}
+    want = _only(launches, flash_prefill=arch.num_layers,
+                 paged_flash_decode_partial=arch.num_layers * (gen - 1))
     if launches != want:
         fail(f"launch counts {launches}, want {want}")
     if tuple(out.shape) != (b, gen) or not bool(
@@ -504,10 +723,9 @@ def phase_main_dense(torch, models, kern, model, params, ids):
            "tokens_shape": list(out.shape)}
     emit(rec)
     L = arch.num_layers
-    want_step = {"flash_prefill": L, "paged_flash_decode_partial": 0,
-                 "fused_add_rms": L, "gemm_ar": 2 * L}
-    want_eager = {"flash_prefill": L, "paged_flash_decode_partial": 0,
-                  "fused_add_rms": 0, "gemm_ar": 0}
+    want_step = _only(per_step, flash_prefill=L, fused_add_rms=L,
+                      gemm_ar=2 * L)
+    want_eager = _only(eager, flash_prefill=L)
     if per_step != want_step or eager != want_eager or replays != gen - 1:
         fail(f"dense path: {per_step} per replay x {replays} replays + "
              f"{eager} eager; want {want_step} x {gen - 1} + {want_eager}")
@@ -714,25 +932,21 @@ def _profile_engine(torch, engine, ids, steps):
     return pre, summarize(prof, wall, steps)
 
 
-def phase_profile(torch, engine, dense_engine, ids, steps: int = 4):
-    """Where each main path's time goes (_profile_engine), the paged
-    engine's eager step and the dense engine's graph-replayed step. For
-    the dense step also, without the profiler: the host's wall ms per step
-    over `steps` back-to-back steps and the device ms of one bare replay
-    (CUDA events around graph.replay()), whose ratio is a second reading
-    of the idle share."""
-    pre, dec = _profile_engine(torch, engine, ids, steps)
-    dpre, ddec = _profile_engine(torch, dense_engine, ids, steps)
+def _replay_idle(torch, engine, ids, steps):
+    """Without the profiler: the host's wall ms per decode step of a
+    graph-replaying ``engine`` over `steps` back-to-back steps, and the
+    device ms of one bare replay (CUDA events around graph.replay());
+    1 - replay / wall is a reading of the device-idle share."""
     t = ids.shape[1] - 1
-    out = dense_engine.serve(ids[:, :t], gen_len=1)
+    out = engine.serve(ids[:, :t], gen_len=1)
     tok = out[:, -1].contiguous()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        tok = dense_engine.step(tok)
+        tok = engine.step(tok)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    graph = dense_engine._graph
+    graph = engine._graph
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -740,11 +954,241 @@ def phase_profile(torch, engine, dense_engine, ids, steps: int = 4):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    replay_ms = start.elapsed_time(end) / steps
+    return wall_ms, start.elapsed_time(end) / steps
+
+
+def phase_profile(torch, engine, dense_engine, ids, steps: int = 4):
+    """Where each main path's time goes (_profile_engine), the paged
+    engine's eager step and the dense engine's graph-replayed step; for
+    the dense step also the idle share by CUDA events (_replay_idle)."""
+    pre, dec = _profile_engine(torch, engine, ids, steps)
+    dpre, ddec = _profile_engine(torch, dense_engine, ids, steps)
+    wall_ms, replay_ms = _replay_idle(torch, dense_engine, ids, steps)
     emit({"phase": "profile", "prefill": pre, "decode_step": dec,
           "dense_prefill": dpre, "dense_decode_step": ddec,
           "dense_step_wall_ms": wall_ms, "dense_replay_device_ms": replay_ms,
           "dense_idle_share_by_events": 1 - replay_ms / wall_ms})
+
+
+def _pallas_ctx():
+    """TPContext with B12 on the triton_dist projections (the MoE methods
+    stay AUTO: B14 / B15 on the card)."""
+    from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+        GemmRsMethod,
+    )
+    from triton_dist_tpu_torch.layers.common import TPContext
+    return TPContext(ag_method=AgGemmMethod.PALLAS,
+                     rs_method=GemmRsMethod.PALLAS)
+
+
+def _serve_counted(torch, kern, engine, prompt, gen):
+    """Warm-up serve (it captures the graph), then the counts zeroed, one
+    measured serve, the counts read: (tokens, launches in the serve,
+    launches per replay, eager launches, replays). A replay runs no
+    Python, so a serve's count is eager + replays x per replay."""
+    engine.serve(prompt, gen_len=2)
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    out = engine.serve(prompt, gen_len=gen)
+    eager = kern.launch_counts()
+    per_step = dict(engine.graph_launches)
+    replays = engine.graph_replays
+    launches = {k: eager[k] + replays * per_step[k] for k in eager}
+    return out, launches, per_step, eager, replays
+
+
+def _only(counts, **nonzero):
+    """Every kernel 0 but the named ones."""
+    return {k: nonzero.get(k, 0) for k in counts}
+
+
+def phase_dense_triton_dist(torch, models, kern, model, params, ids,
+                            gen: int = 8):
+    """The loaded Qwen3-8B (same weights and prompts) in mode triton_dist:
+    Engine(backend="triton_dist") over Qwen3 with TPContext(ag_method=
+    PALLAS, rs_method=PALLAS); prefill in mode xla (B1), each decode step
+    the captured triton_dist forward replayed: B12 for the QKV, o, gate/up
+    and down projections (4 per layer) and B1 at T=1."""
+    td = models.Qwen3(model.arch, _pallas_ctx(), max_length=model.max_length,
+                      dtype=model.dtype, device=DEV)
+    engine = models.Engine(td, params, backend="triton_dist")
+    t = ids.shape[1] - 1
+    out, launches, per_step, eager, replays = _serve_counted(
+        torch, kern, engine, ids[:, :t], gen)
+    L = model.arch.num_layers
+    rec = {"phase": "dense_triton_dist", "model": "Qwen/Qwen3-8B",
+           "layers": L, "batch": ids.shape[0], "prompt": t, "gen_len": gen,
+           "decode_ms_per_step": engine.last_decode_s * 1e3
+           / engine.last_decode_steps,
+           "graph_replays": replays, "launches_per_replay": per_step,
+           "launches": launches}
+    emit(rec)
+    want = _only(per_step, flash_prefill=L, pallas_matmul=4 * L)
+    if per_step != want or replays != gen - 1 or eager != _only(
+            eager, flash_prefill=L):
+        fail(f"dense triton_dist path: {per_step} per replay x {replays} "
+             f"+ {eager} eager; want {want}")
+    if tuple(out.shape) != (ids.shape[0], gen):
+        fail("dense triton_dist path: wrong token shape")
+    return launches, eager
+
+
+def phase_main_moe(torch, models, kern, gen: int = 32):
+    """Qwen3-30B-A3B at its published widths (hidden 2048, 32 q / 4 kv
+    heads, 128 experts, top-8, expert width 768, vocab 151936), all 48
+    layers, random bf16 weights from a seed, max_length 1024; B=4 prompts
+    of 512 tokens, 32 generated. Two engines on the same model:
+
+    * Engine(model, params, backend="triton_dist") with TPContext(
+      ag_method=PALLAS, rs_method=PALLAS) and the MoE AUTO rule: prefill
+      in mode xla (B1; the experts per expert), each decode step one
+      replay of the captured triton_dist forward (B1 at T=1, B12 x 2,
+      B14, B15 per layer);
+    * Engine(model, params) at its defaults: the mega step on its
+      pallas_chain tier (B1, B3 and B4 on the o projection; the MoE task
+      runs its xla tier).
+
+    For each: the launches in one serve (counts zeroed just before it),
+    prefill ms, decode ms/step, tok/s, peak memory, and the device-idle
+    share by CUDA events (_replay_idle) and by torch.profiler."""
+    cfg = models.ModelConfig(model_name=MOE_MODEL, max_length=1024,
+                             dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model, params = models.AutoLLM.from_pretrained(
+        cfg, _pallas_ctx(), device=DEV,
+        generator=torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    arch = model.arch
+    if model.model_type != "moe":
+        fail(f"{MOE_MODEL} built {type(model).__name__}")
+    L, b, t = arch.num_layers, 4, 512
+    ids = torch.randint(0, arch.vocab_size, (b, t + 1), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(3))
+    engines, counts = {}, {}
+    for label, kw, want_step in (
+            ("triton_dist", {"backend": "triton_dist"},
+             dict(flash_prefill=L, pallas_matmul=2 * L, group_gemm=L,
+                  moe_rs=L)),
+            ("mega_default", {},
+             dict(flash_prefill=L, fused_add_rms=L, gemm_ar=L))):
+        engine = models.Engine(model, params, **kw)
+        out, launches, per_step, eager, replays = _serve_counted(
+            torch, kern, engine, ids[:, :t], gen)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = engine.last_decode_steps
+        prefill_s, decode_s = engine.last_prefill_s, engine.last_decode_s
+        wall_ms, replay_ms = _replay_idle(torch, engine, ids, 4)
+        pre, dec = _profile_engine(torch, engine, ids, 4)
+        emit({"phase": f"main_moe_{label}", "model": MOE_MODEL,
+              "layers": L, "hidden": arch.hidden_size,
+              "experts": arch.num_experts, "topk": arch.num_experts_per_tok,
+              "batch": b, "prompt": t, "gen_len": gen,
+              "max_length": model.max_length, "init_s": init_s,
+              "mega_tier": engine.mega_tier,
+              "prefill_ms": prefill_s * 1e3,
+              "decode_ms_per_step": decode_s * 1e3 / steps,
+              "decode_tok_per_s": b * steps / decode_s,
+              "graph_replays": replays, "launches_per_replay": per_step,
+              "eager_launches": eager, "launches": launches,
+              "peak_mem_gb": peak, "step_wall_ms": wall_ms,
+              "replay_device_ms": replay_ms,
+              "idle_share_by_events": 1 - replay_ms / wall_ms,
+              "profile_prefill": pre, "profile_decode_step": dec,
+              "tokens_shape": list(out.shape)})
+        want = _only(per_step, **want_step)
+        if per_step != want or replays != gen - 1 or eager != _only(
+                eager, flash_prefill=L):
+            fail(f"{label} MoE path: {per_step} per replay x {replays} + "
+                 f"{eager} eager; want {want}")
+        if tuple(out.shape) != (b, gen) or not bool(
+                ((out >= 0) & (out < arch.vocab_size)).all()):
+            fail(f"{label} MoE path: served tokens out of range")
+        engines[label], counts[label] = engine, (launches, eager)
+    return model, params, ids, engines, counts
+
+
+def _moe_three_ways(torch, model, params, ids, engines, gen):
+    """After prefill(T), the decode logits and greedy tokens of the
+    graph-replayed triton_dist step, the graph-replayed mega step and the
+    eager xla-mode step (Qwen3MoE.inference on its own dense cache)."""
+    t = ids.shape[1] - 1
+    prompt = ids[:, :t]
+    logits, toks = {}, {}
+    for label, engine in (("graph_triton_dist", engines["triton_dist"]),
+                          ("graph_mega", engines["mega_default"])):
+        toks[label] = engine.serve(prompt, gen_len=gen)
+        engine.serve(prompt, gen_len=1)
+        logits[label] = engine.decode_logits(ids[:, t]).clone()
+    cache = model.create_kv_cache(ids.shape[0])
+    first, cache = model.inference(params, cache, prompt)
+    saved_k, saved_v = cache.k.clone(), cache.v.clone()
+    tok = first.argmax(-1).to(torch.int32)
+    out = [tok]
+    for _ in range(gen - 1):
+        lg, cache = model.inference(params, cache, tok[:, None])
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append(tok)
+    toks["eager_xla"] = torch.stack(out, dim=1)
+    cache.k.copy_(saved_k)
+    cache.v.copy_(saved_v)
+    cache.offset.fill_(t)
+    logits["eager_xla"], _ = model.inference(params, cache, ids[:, t:])
+    del saved_k, saved_v, cache
+    torch.cuda.synchronize()
+    return logits, toks
+
+
+def _moe_consistency_rows(torch, label, logits, rel, frac):
+    ref = logits["graph_triton_dist"]
+    return [_compare_logits(torch, f"{label}:graph_triton_dist_vs_{other}",
+                            ref, logits[other], rel_tol=rel, abs_frac=frac)
+            for other in ("graph_mega", "eager_xla")]
+
+
+def phase_consistency_moe(torch, models, model, params, ids, engines):
+    """The graph-replayed triton_dist step (B1, B12, B14, B15) against the
+    graph-replayed mega step (B1, B3, B4, the MoE task's xla tier) and the
+    eager xla-mode step, after the same prefill: bf16 Qwen3-30B-A3B with
+    all 48 layers held to _compare_logits' bf16 bounds (relative RMS 0.1,
+    max abs 10% of the largest logit: the three round at other places).
+    Returns the rows; the f32 gate follows once the bf16 model is freed
+    (phase_consistency_moe_f32)."""
+    logits, _ = _moe_three_ways(torch, model, params, ids, engines, 2)
+    return _moe_consistency_rows(torch, f"bf16_{model.arch.num_layers}_"
+                                 "layers", logits, 0.1, 0.1)
+
+
+def phase_consistency_moe_f32(torch, models, ids, rows):
+    """The gate of consistency_moe: Qwen3-30B-A3B's widths with 4 layers
+    of fresh random f32 weights (about 12.5 GB; TF32 off), the three
+    decode steps held to the f32 bounds (relative RMS 1e-4: summation
+    order only), and their 8 greedy tokens per row IDENTICAL."""
+    import dataclasses
+    arch4 = dataclasses.replace(models.QWEN3_ARCHS[MOE_MODEL], num_layers=4)
+    m32 = models.Qwen3MoE(arch4, _pallas_ctx(), max_length=1024,
+                          dtype=torch.float32, device=DEV)
+    p32 = models.init_random_params(
+        torch.Generator(device=DEV).manual_seed(5), arch4, DEV,
+        torch.float32)
+    engines = {"triton_dist": models.Engine(m32, p32, backend="triton_dist"),
+               "mega_default": models.Engine(m32, p32)}
+    logits, toks = _moe_three_ways(torch, m32, p32, ids, engines, 8)
+    ran = {k: engines["triton_dist"].graph_launches[k]
+           for k in ("group_gemm", "moe_rs", "pallas_matmul")}
+    rows = rows + _moe_consistency_rows(torch, "f32_4_layers", logits, 1e-4,
+                                        1e-3)
+    same = all(torch.equal(toks["graph_triton_dist"], v)
+               for v in toks.values())
+    rows.append({"case": "f32_4_layers:greedy_tokens_identical",
+                 "ok": same and all(ran.values())})
+    emit({"phase": "consistency_moe", "cases": rows,
+          "f32_launches_per_replay": ran,
+          "f32_tokens": {k: v.tolist() for k, v in toks.items()}})
+    if not all(r["ok"] for r in rows):
+        fail("the MoE triton_dist step disagrees with the mega step or the "
+             "eager xla step")
 
 
 def phase_small_reference(torch, models):
@@ -819,9 +1263,52 @@ def phase_small_reference(torch, models):
                                                           toks[DEV])),
                      "logits_max_abs_err": err, "tol": tol,
                      "ok": err <= tol})
+    rows.append(_small_moe_reference(torch, models, rng, make))
     emit({"phase": "small_reference", "cases": rows})
     if not all(r["ok"] for r in rows):
         fail("the small model on the card disagrees with the CPU")
+
+
+def _small_moe_reference(torch, models, rng, make):
+    """A small f32 Qwen3MoE (head_dim 128, 2 layers, 16 experts, top-4,
+    expert width 128) served by Engine(backend="triton_dist") on the card
+    (B1, B12, B14, B15, the step graph-replayed) and on the CPU (plain
+    versions): 8 greedy tokens each, which must be IDENTICAL, and the
+    teacher-forced logits of prefill + 7 decode steps within 1e-3 (f32,
+    TF32 off: summation orders only)."""
+    from triton_dist_tpu_torch.models.weights import param_shapes
+    arch = models.Qwen3MoEArch(
+        vocab_size=256, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+        num_experts=16, num_experts_per_tok=4, moe_intermediate_size=128)
+    shapes = param_shapes(arch)
+    raw = {k: make(k, s) for k, s in shapes.items() if k != "layers"}
+    raw["layers"] = {k: make(k, s) for k, s in shapes["layers"].items()}
+    ids = torch.from_numpy(rng.integers(0, 256, (2, 128)))
+    toks, logits = {}, {}
+    for dev in ("cpu", DEV):
+        model = models.Qwen3MoE(arch, _pallas_ctx(), max_length=160,
+                                dtype=torch.float32, device=dev)
+        params = models.params_from_numpy(raw, arch, dev, torch.float32)
+        eng = models.Engine(model, params, backend="triton_dist")
+        toks[dev] = eng.serve(ids, gen_len=8).cpu()
+        forced = toks["cpu"].to(dev)
+        out, _ = model.inference(params, model.create_kv_cache(2),
+                                 ids.to(dev))
+        eng.serve(ids, gen_len=1)
+        steps = [out.cpu()] + [eng.decode_logits(forced[:, j]).cpu()
+                               for j in range(forced.shape[1] - 1)]
+        logits[dev] = torch.stack(steps)
+        if dev == DEV and not (eng.graph_replays and all(
+                eng.graph_launches[k]
+                for k in ("pallas_matmul", "group_gemm", "moe_rs"))):
+            fail(f"small MoE Engine on the card: {eng.graph_replays} "
+                 f"replays of {eng.graph_launches}")
+    err = (logits["cpu"] - logits[DEV]).abs().max().item()
+    same = bool(torch.equal(toks["cpu"], toks[DEV]))
+    return {"cache_mode": "dense", "model": "Qwen3MoE, triton_dist",
+            "tokens_identical": same, "logits_max_abs_err": err,
+            "tol": 1e-3, "ok": err <= 1e-3 and same}
 
 
 def main() -> None:
@@ -833,10 +1320,15 @@ def main() -> None:
     try:
         from triton_dist_tpu_torch import kernels as kern
         from triton_dist_tpu_torch import models
+        from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+        from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
         from triton_dist_tpu_torch.kernels import flash_attention as fa
         from triton_dist_tpu_torch.kernels import fused_chain as fc
         from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
+        from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+        from triton_dist_tpu_torch.kernels import moe_utils as mu
         from triton_dist_tpu_torch.kernels import paged_flash_decode as pfd
+        from triton_dist_tpu_torch.kernels import plain
         from triton_dist_tpu_torch.quant import codec
         from triton_dist_tpu_torch.runtime import build
     except ImportError as exc:
@@ -868,30 +1360,64 @@ def main() -> None:
     b1, b2 = phase_b1(torch, fa), phase_b2(torch, pfd, codec)
     b1_dec = phase_b1_decode(torch, fa)
     b3, b4 = phase_b3(torch, fc), phase_b4(torch, ga)
+    b12 = phase_b12(torch, agm)
+    b14, b15 = phase_b14_b15(torch, agg, mrs, mu, plain)
+    torch.cuda.empty_cache()
     model, params, ids, paged, engine = phase_main(torch, models, kern)
     dense_engine, dense = phase_main_dense(torch, models, kern, model,
                                            params, ids)
-    b1["launches"] = paged["flash_prefill"] + dense["prefill"]
-    b1["launches_by_path"] = {"paged": paged["flash_prefill"],
-                              "dense": dense["prefill"]}
-    b1_dec["launches"] = dense["decode"]
-    b2["launches"] = paged["paged_flash_decode_partial"]
-    b2["int8"]["launches"] = 0          # not on a default path
-    b2["int8"]["library_ms"] = None
-    b3["launches"] = dense["fused_add_rms"]
-    b4["launches"] = dense["gemm_ar"]
     m32, p32 = phase_consistency(torch, models, model, params, ids)
     phase_consistency_dense(torch, models, model, params, ids, dense_engine,
                             m32, p32)
     del m32, p32
     phase_profile(torch, engine, dense_engine, ids)
+    dense_td, dense_td_eager = phase_dense_triton_dist(
+        torch, models, kern, model, params, ids)
     del model, params, engine, dense_engine
+    torch.cuda.empty_cache()
+    # the 61.1 GB MoE model fits only once the 8B model is freed
+    moe_model, moe_params, moe_ids, moe_engines, moe = phase_main_moe(
+        torch, models, kern)
+    rows = phase_consistency_moe(torch, models, moe_model, moe_params,
+                                 moe_ids, moe_engines)
+    del moe_model, moe_params, moe_engines
+    torch.cuda.empty_cache()
+    phase_consistency_moe_f32(torch, models, moe_ids, rows)
     torch.cuda.empty_cache()
     phase_small_reference(torch, models)
 
+    # launches per serve, by path (each path's counts zeroed just before
+    # its measured serve and read just after)
+    (td, td_eager), (mg, mg_eager) = moe["triton_dist"], moe["mega_default"]
+    prefill = {"paged": paged["flash_prefill"], "dense": dense["prefill"],
+               "moe_triton_dist": td_eager["flash_prefill"],
+               "moe_mega": mg_eager["flash_prefill"]}
+    decode = {"dense": dense["decode"],
+              "dense_triton_dist": dense_td["flash_prefill"]
+              - dense_td_eager["flash_prefill"],
+              "moe_triton_dist": td["flash_prefill"]
+              - td_eager["flash_prefill"],
+              "moe_mega": mg["flash_prefill"] - mg_eager["flash_prefill"]}
+    b1["launches"], b1["launches_by_path"] = sum(prefill.values()), prefill
+    b1_dec["launches"] = sum(decode.values())
+    b1_dec["launches_by_path"] = decode
+    b2["launches"] = paged["paged_flash_decode_partial"]
+    b2["int8"]["launches"] = 0          # not on a default path
+    b2["int8"]["library_ms"] = None
+    for rec, key, dense_key in ((b3, "fused_add_rms", "fused_add_rms"),
+                                (b4, "gemm_ar", "gemm_ar")):
+        rec["launches_by_path"] = {"dense": dense[dense_key],
+                                   "moe_mega": mg[key]}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    b12["launches_by_path"] = {"moe_triton_dist": td["pallas_matmul"],
+                               "dense_triton_dist": dense_td["pallas_matmul"]}
+    b12["launches"] = sum(b12["launches_by_path"].values())
+    b14["launches"] = td["group_gemm"]
+    b15["launches"] = td["moe_rs"]
+
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi unavailable", flush=True)
-    emit({"kernels": [b1, b1_dec, b2, b3, b4]})
+    emit({"kernels": [b1, b1_dec, b2, b3, b4, b12, b14, b15]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

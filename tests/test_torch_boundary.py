@@ -20,6 +20,13 @@ import triton_dist_tpu_torch
 import triton_dist_tpu_torch.models
 import triton_dist_tpu_torch.layers.tp_attn
 import triton_dist_tpu_torch.layers.tp_mlp
+import triton_dist_tpu_torch.layers.tp_moe
+import triton_dist_tpu_torch.models.qwen_moe
+import triton_dist_tpu_torch.kernels.allgather_gemm
+import triton_dist_tpu_torch.kernels.allgather_group_gemm
+import triton_dist_tpu_torch.kernels.gemm_reduce_scatter
+import triton_dist_tpu_torch.kernels.moe_reduce_rs
+import triton_dist_tpu_torch.kernels.moe_utils
 import triton_dist_tpu_torch.kernels.flash_attention
 import triton_dist_tpu_torch.kernels.paged_flash_decode
 import triton_dist_tpu_torch.kernels.flash_decode

@@ -236,8 +236,8 @@ def test_cpu_gate_and_unported_options_raise():
         Engine(model, params, mega="fused")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         Engine(model, params, spec="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Engine(model, params, backend="triton_dist")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        Engine(model, params, backend="triton_dist_AR")
     with pytest.raises(RuntimeError, match="no KV cache"):
         Engine(model, params).step(torch.zeros(2, dtype=torch.int32))
 

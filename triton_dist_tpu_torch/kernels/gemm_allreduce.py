@@ -21,7 +21,7 @@ import enum
 
 import torch
 
-from triton_dist_tpu_torch.layers.common import check_world, dot_f32
+from triton_dist_tpu_torch.kernels.plain import check_world, dot_f32
 from triton_dist_tpu_torch.runtime import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,7 +62,9 @@ def gemm_ar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return gemm_ar_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"gemm_ar: unsupported device {a.device}")
-    return _launch(a, b)
+    out = splitk_launch(a, b, "gemm_ar", "td_gemm_ar", "gemm_ar")
+    gemm_ar.launches += 1
+    return out
 
 
 gemm_ar.launches = 0
@@ -101,37 +103,39 @@ def split_plan(m: int, k: int, n: int, vec: int,
     return k_chunk, -(-k // k_chunk)
 
 
-def _launch(a, b):
+def splitk_launch(a, b, source: str, symbol: str, what: str):
+    """Launch the split-K GEMM of ``csrc/gemm_splitk.cuh`` through the C
+    entry point ``symbol`` of ``csrc/<source>.cu`` (B4's td_gemm_ar, B12's
+    td_matmul): checks, the K split, the output and f32 workspace."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"gemm_ar: a {tuple(a.shape)} @ b {tuple(b.shape)}")
+        raise ValueError(f"{what}: a {tuple(a.shape)} @ b {tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
-        raise ValueError("gemm_ar: a/b must share one dtype of "
+        raise ValueError(f"{what}: a/b must share one dtype of "
                          f"{list(_DTYPE_CODE)}; got {a.dtype}/{b.dtype}")
     vec = 16 // a.element_size()
     if n % vec or m == 0 or k == 0 or -(-m // _M_TILE_MAX) > 65535:
-        raise ValueError(f"gemm_ar: N={n} must be a multiple of {vec}; "
+        raise ValueError(f"{what}: N={n} must be a multiple of {vec}; "
                          f"M={m}, K={k} must be positive (M tiles <= 65535)")
     if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("gemm_ar: a/b must be contiguous")
+        raise ValueError(f"{what}: a/b must be contiguous")
     if a.device != b.device:
-        raise ValueError("gemm_ar: a/b on different devices")
+        raise ValueError(f"{what}: a/b on different devices")
     if b.data_ptr() % 16:
-        raise ValueError("gemm_ar: b must be 16-byte aligned")
+        raise ValueError(f"{what}: b must be 16-byte aligned")
     k_chunk, splits = split_plan(
         m, k, n, vec,
         torch.cuda.get_device_properties(a.device).multi_processor_count)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
             if splits > 1 else None)
-    fn = build.function("gemm_ar", "td_gemm_ar", (
+    fn = build.function(source, symbol, (
         *(ctypes.c_void_p,) * 4, *(ctypes.c_int,) * 6, ctypes.c_void_p))
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(),
                  part.data_ptr() if part is not None else None,
                  out.data_ptr(), m, k, n, k_chunk, splits,
                  _DTYPE_CODE[a.dtype], build.stream_of(a))
-    build.check(err, "gemm_ar")
-    gemm_ar.launches += 1
+    build.check(err, what)
     return out

@@ -7,17 +7,52 @@ import dataclasses
 
 import torch
 
+from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
+from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
+    AgGroupGemmMethod,
+)
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import GemmRsMethod
+from triton_dist_tpu_torch.kernels.moe_reduce_rs import MoeReduceRsMethod
+from triton_dist_tpu_torch.kernels.plain import (  # noqa: F401
+    check_world, dot_f32,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class TPContext:
-    """Parallelism context of a model. This slice runs at world 1, where
-    the reference's psum is the identity; the tensor-parallel collectives
-    wait for ROADMAP A5/A9.
+    """Parallelism context of a model, with the reference's fields and
+    defaults. The port runs at world 1, where the reference's collectives
+    are the identity; tensor parallelism waits for ROADMAP A5/A9.
+
+    ag_method / rs_method: the triton_dist mode's QKV and o (and dense
+    MLP) projections (PALLAS = B12); moe_ag_method / moe_rs_method: its
+    MoE gate/up (PALLAS = B14) and down + top-k combine (PALLAS = B15);
+    AUTO picks the kernels on CUDA and the plain products on the CPU.
+    tile_bm / tile_bn / tile_bk are the TPU kernels' tiles and
+    comm_blocks their ring blocks: carried for the reference's
+    signatures, nothing at world 1 reads them. ep_a2a_method and
+    ep_max_m (expert parallelism) raise when set: ROADMAP A10.
 
     attn_method: "auto" (flash kernel when head_dim % 128 == 0 and the
     chunk has at least 128 keys), "pallas" (always the flash kernel —
     the reference's name for it) or "xla" (masked-einsum baseline)."""
+    ag_method: AgGemmMethod = AgGemmMethod.XLA_RING
+    rs_method: GemmRsMethod = GemmRsMethod.XLA_RING
+    moe_ag_method: AgGroupGemmMethod = AgGroupGemmMethod.AUTO
+    moe_rs_method: MoeReduceRsMethod = MoeReduceRsMethod.AUTO
+    ep_a2a_method: object = None
     attn_method: str = "auto"
+    ep_max_m: int | None = None
+    tile_bm: int = 256
+    tile_bn: int = 256
+    tile_bk: int = 512
+    comm_blocks: int = 4
+
+    def __post_init__(self):
+        if self.ep_a2a_method is not None or self.ep_max_m is not None:
+            raise NotImplementedError(
+                "expert parallelism (ep_a2a_method, ep_max_m) waits for "
+                "ROADMAP A10")
 
     @property
     def world(self) -> int:
@@ -28,37 +63,15 @@ MODES = ("xla", "triton_dist", "triton_dist_AR")
 
 
 def check_mode(mode: str) -> None:
-    """Only the "xla" forward (plain matmuls, psum = identity at world 1)
-    is ported; the other reference modes raise naming their ROADMAP item."""
-    if mode == "xla":
+    """The "xla" forward (plain matmuls) and the "triton_dist" forward (its
+    AG + GEMM / GEMM + RS ops at world 1) are ported; "triton_dist_AR"
+    raises naming its ROADMAP item."""
+    if mode in ("xla", "triton_dist"):
         return
-    if mode == "triton_dist":
-        raise NotImplementedError(
-            "mode 'triton_dist' (AG+GEMM / GEMM+RS) waits for ROADMAP A9")
     if mode == "triton_dist_AR":
         raise NotImplementedError(
             "mode 'triton_dist_AR' (fused all-reduce) waits for ROADMAP A5")
     raise ValueError(f"mode {mode!r} not in {MODES}")
-
-
-def check_world(world: int, what: str) -> None:
-    """This slice runs at world 1; a larger world raises naming A5."""
-    if world != 1:
-        raise NotImplementedError(
-            f"{what} at world {world} (tensor-parallel collectives) waits "
-            "for ROADMAP A5")
-
-
-def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as f32 from a's dtype with f32 accumulation (the reference's
-    preferred_element_type=f32). A bf16 product rounded to bf16 would
-    change greedy tokens; CUDA has an f32-output bf16 mm, the CPU build
-    does not, so there the exact bf16 products are summed in f32."""
-    if a.dtype == torch.float32:
-        return torch.matmul(a, b)
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Attention blocks (the reference's layers/tp_attn.py), mode "xla" at
-world 1: QKV projection, per-head QK norm, rope, the cache write, causal
-GQA attention, the output projection. The reference's psum over the TP
-axis is the identity at world 1.
+"""Attention blocks (the reference's layers/tp_attn.py) at world 1: QKV
+projection, per-head QK norm, rope, the cache write, causal GQA attention,
+the output projection. Mode "xla" projects with plain matmuls (the psum is
+the identity at world 1); mode "triton_dist" through AG + GEMM and GEMM +
+RS (``ctx.ag_method`` / ``ctx.rs_method``; PALLAS runs B12), whose
+collectives are the identity at world 1.
 
 ``attn_fwd`` runs over the dense cache: the K/V write at the on-device
 offset and B1 (or the einsum, by the reference's ``_use_flash`` rule) over
@@ -12,7 +14,11 @@ from __future__ import annotations
 
 import torch
 
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_per_device
 from triton_dist_tpu_torch.kernels.flash_decode import lse_merge
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+    gemm_rs_per_device,
+)
 from triton_dist_tpu_torch.kernels.paged_flash_decode import (
     paged_flash_decode_partial,
 )
@@ -29,7 +35,12 @@ def _qkv_project(mode: str, ctx: TPContext, arch, w: dict, x: torch.Tensor,
     check_mode(mode)
     b, t = x.shape[0], x.shape[1]
     hq, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    qkv = torch.matmul(x, w["wqkv"])
+    if mode == "triton_dist":
+        qkv2d, _ = ag_gemm_per_device(ctx.world, ctx.ag_method,
+                                      x.reshape(b * t, -1), w["wqkv"])
+        qkv = qkv2d.reshape(b, t, -1)
+    else:
+        qkv = torch.matmul(x, w["wqkv"])
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     q = q.reshape(b, t, hq, hd)
     k = k.reshape(b, t, hkv, hd)
@@ -42,10 +53,15 @@ def _qkv_project(mode: str, ctx: TPContext, arch, w: dict, x: torch.Tensor,
 
 def _o_project(mode: str, ctx: TPContext, w: dict, out: torch.Tensor,
                dtype: torch.dtype, d_model: int) -> torch.Tensor:
-    """Output projection; the TP psum is the identity at world 1."""
+    """Output projection; the TP psum (xla) and the reduce-scatter
+    (triton_dist) are the identity at world 1."""
     check_mode(mode)
     b, t = out.shape[0], out.shape[1]
-    y2d = torch.matmul(out.reshape(b * t, -1), w["wo"]).to(dtype)
+    if mode == "triton_dist":
+        y2d = gemm_rs_per_device(ctx.world, ctx.rs_method,
+                                 out.reshape(b * t, -1), w["wo"])
+    else:
+        y2d = torch.matmul(out.reshape(b * t, -1), w["wo"]).to(dtype)
     return y2d.reshape(b, t, d_model)
 
 

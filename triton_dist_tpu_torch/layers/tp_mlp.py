@@ -1,12 +1,18 @@
-"""MLP block (the reference's layers/tp_mlp.py), mode "xla" at world 1:
-gate/up projection, silu(gate) * up in f32, down projection. The psum is
-the identity at world 1."""
+"""MLP block (the reference's layers/tp_mlp.py) at world 1: gate/up
+projection, silu(gate) * up in f32, down projection. Mode "xla" uses plain
+matmuls (the psum is the identity at world 1); mode "triton_dist" AG +
+GEMM and GEMM + RS (``ctx.ag_method`` / ``ctx.rs_method``; PALLAS runs
+B12), whose collectives are the identity at world 1."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_per_device
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+    gemm_rs_per_device,
+)
 from triton_dist_tpu_torch.layers.common import TPContext, check_mode
 
 
@@ -19,5 +25,12 @@ def mlp_fwd(mode: str, ctx: TPContext, w: dict,
             x: torch.Tensor) -> torch.Tensor:
     """x: (B, T, hidden) -> (B, T, hidden)."""
     check_mode(mode)
+    if mode == "triton_dist":
+        d_model, t = x.shape[-1], x.shape[1]
+        h2d, _ = ag_gemm_per_device(ctx.world, ctx.ag_method,
+                                    x.reshape(-1, d_model), w["w_gate_up"])
+        y2d = gemm_rs_per_device(ctx.world, ctx.rs_method, _silu_mul(h2d),
+                                 w["w_down"])
+        return y2d.reshape(-1, t, d_model)
     h = _silu_mul(torch.matmul(x, w["w_gate_up"]))
     return torch.matmul(h, w["w_down"])

@@ -7,8 +7,11 @@ add+RMSNorm boundary, the MLP with its down projection, and the logits
 tail, with the reference's task names and order, so a schedule policy gives
 the same order on the same graph. The o/down projections are
 ``linear_allreduce`` tasks (B4 in the pallas_chain tier), the boundary a
-``fused_chain`` task (B3). World 1 only (A5); the MoE expert task waits for
-ROADMAP A10 and the paged graph for the ContinuousEngine slice (A7).
+``fused_chain`` task (B3). For the MoE family the MLP half is one ``moe``
+task: the layer library's xla-mode math (router, ``dense_grouped_moe``),
+with no fused tier, as in the reference. World 1 only (A5); the
+expert-parallel fused tier waits for ROADMAP A10 and the paged graph for
+the ContinuousEngine slice (A7).
 """
 
 from __future__ import annotations
@@ -17,24 +20,55 @@ import torch
 
 from triton_dist_tpu_torch.layers.common import check_world, dot_f32
 from triton_dist_tpu_torch.mega.builder import ModelBuilder
-from triton_dist_tpu_torch.models.config import Qwen3Arch
+from triton_dist_tpu_torch.models.config import Qwen3Arch, Qwen3MoEArch
+
+
+def _moe_task(b: ModelBuilder, arch, n_tp: int, hn: str, wr: str, wgu: str,
+              wd: str, *, layer_id: int) -> str:
+    """One MoE expert block as a task: the layer library's xla-mode math
+    (layers/tp_moe.moe_fwd "xla", op for op, so the tier is bit-identical
+    to the layer-by-layer path); the TP psum is the identity at world 1.
+    No fused tier, as in the reference's tensor-parallel branch."""
+    from triton_dist_tpu_torch.kernels import moe_utils
+    from triton_dist_tpu_torch.layers.tp_moe import dense_grouped_moe
+
+    check_world(n_tp, "the MoE task")
+    topk, num_experts = arch.num_experts_per_tok, arch.num_experts
+
+    def xla_fn(x_, wr_, wgu_, wd_):
+        tokens = x_.reshape(-1, x_.shape[-1])
+        topk_w, topk_ids = moe_utils.route_topk(
+            dot_f32(tokens, wr_), topk, norm_topk_prob=arch.norm_topk_prob)
+        y = dense_grouped_moe(tokens, topk_ids, topk_w, wgu_, wd_,
+                              num_experts)
+        return y.to(x_.dtype).reshape(x_.shape)
+
+    return b.make_custom("moe", (hn, wr, wgu, wd), xla_fn, layer_id=layer_id,
+                         is_comm=True)
 
 
 def _layer_tail_tasks(b: ModelBuilder, arch, n_tp: int, h: str, a: str,
                       i: int, postn: str, mlp_inputs, *,
                       gemm_ar_method=None) -> str:
-    """Attention→MLP boundary + the MLP half of layer i. Returns the
+    """Attention→MLP boundary + the MLP/MoE half of layer i. Returns the
     layer's output h name."""
     h, hn = b.make_fused_chain(h, a, postn, arch.rms_eps, layer_id=i)
-    wgu, wd = mlp_inputs
-    gu = b.make_linear(hn, wgu, layer_id=i)
-    act = b.make_silu_mul(gu, layer_id=i)
-    dn = b.make_linear_allreduce(act, wd, layer_id=i, world=n_tp,
-                                 gemm_ar_method=gemm_ar_method)
+    if isinstance(arch, Qwen3MoEArch):
+        wr, wgu, wd = mlp_inputs
+        dn = _moe_task(b, arch, n_tp, hn, wr, wgu, wd, layer_id=i)
+    else:
+        wgu, wd = mlp_inputs
+        gu = b.make_linear(hn, wgu, layer_id=i)
+        act = b.make_silu_mul(gu, layer_id=i)
+        dn = b.make_linear_allreduce(act, wd, layer_id=i, world=n_tp,
+                                     gemm_ar_method=gemm_ar_method)
     return b.make_add(h, dn, layer_id=i)
 
 
 def _mlp_layer_inputs(b: ModelBuilder, arch, i: int):
+    if isinstance(arch, Qwen3MoEArch):
+        return (b.add_input(f"w_router_{i}"), b.add_input(f"w_gate_up_{i}"),
+                b.add_input(f"w_down_{i}"))
     return (b.add_input(f"w_gate_up_{i}"), b.add_input(f"w_down_{i}"))
 
 
@@ -55,15 +89,15 @@ def _logits_tail_tasks(b: ModelBuilder, h: str, final_norm: str,
 def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
                        dtype: torch.dtype = torch.bfloat16, *,
                        gemm_ar_method=None) -> ModelBuilder:
-    """Record the dense-cache decode step of a Qwen3 dense model.
+    """Record the dense-cache decode step of a Qwen3 dense or MoE model.
 
     Step inputs (env keys): input_ids (B, T), positions (T,), offset ()
     on the device, cos_sin, embed, lm_head (d, V), final_norm, and per
     layer i: wqkv_i, wo_i, q_norm_i, k_norm_i, in_norm_i, post_norm_i,
-    w_gate_up_i, w_down_i and k_cache_i / v_cache_i (B, S, Hkv, D) — the
-    cache slabs, written in place. Outputs: logits (B, V) f32
-    (``builder.logits_name``) and each layer's slabs
-    (``builder.kv_outputs``)."""
+    w_gate_up_i, w_down_i (and w_router_i for MoE) and k_cache_i /
+    v_cache_i (B, S, Hkv, D) — the cache slabs, written in place.
+    Outputs: logits (B, V) f32 (``builder.logits_name``) and each layer's
+    slabs (``builder.kv_outputs``)."""
     check_world(n_tp, "the Qwen3 decode graph")
     hq, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     q_l, kv_l = hq * hd, hkv * hd

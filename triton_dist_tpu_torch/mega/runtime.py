@@ -69,10 +69,11 @@ class MegaDecodeRuntime:
         self.launches = 0
         self._dense: ModelBuilder | None = None
         self._compiled: dict[str, object] = {}
-        # Qwen3 dense models in xla mode get the per-layer task graph
+        # Qwen3-family models (dense and MoE) in xla mode get the
+        # per-layer task graph
         self.kind = "generic"
-        if (mode == "xla" and getattr(model, "model_type", None) == "dense"
-                and hasattr(model, "ctx")):
+        if (mode == "xla" and getattr(model, "model_type", None)
+                in ("dense", "moe") and hasattr(model, "ctx")):
             self.kind = "qwen3"
 
     def dense_builder(self) -> ModelBuilder:

@@ -8,8 +8,10 @@ import torch
 from triton_dist_tpu_torch.models.config import (  # noqa: F401
     ModelConfig,
     Qwen3Arch,
+    Qwen3MoEArch,
     QWEN3_ARCHS,
     tiny_qwen3,
+    tiny_qwen3_moe,
 )
 from triton_dist_tpu_torch.models.kv_cache import (  # noqa: F401
     KVCache,
@@ -17,6 +19,7 @@ from triton_dist_tpu_torch.models.kv_cache import (  # noqa: F401
     paged_write_layer,
 )
 from triton_dist_tpu_torch.models.qwen import Qwen3  # noqa: F401
+from triton_dist_tpu_torch.models.qwen_moe import Qwen3MoE  # noqa: F401
 from triton_dist_tpu_torch.models.weights import (  # noqa: F401
     init_random_params,
     params_from_numpy,
@@ -27,7 +30,8 @@ from triton_dist_tpu_torch.runtime.device import resolve_device
 
 
 class AutoLLM:
-    """Name -> (model, params) factory."""
+    """Name -> (model, params) factory: Qwen3 for the dense archs, Qwen3MoE
+    for the MoE ones."""
 
     @staticmethod
     def from_pretrained(config: "ModelConfig | str", ctx=None,
@@ -51,8 +55,9 @@ class AutoLLM:
                 "pass checkpoint_dir=None for random weights")
         dev = resolve_device(device)
         arch = QWEN3_ARCHS[config.model_name]
-        model = Qwen3(arch, ctx, max_length=config.max_length,
-                      dtype=config.dtype, device=dev)
+        cls = Qwen3MoE if isinstance(arch, Qwen3MoEArch) else Qwen3
+        model = cls(arch, ctx, max_length=config.max_length,
+                    dtype=config.dtype, device=dev)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         params = init_random_params(generator, arch, dev, config.dtype)

@@ -10,6 +10,12 @@ CUDA graph over static token and cache buffers, and every step is then one
 ``graph.replay()``: the reference's "jit IS the graph capture". Sampling
 stays outside the graph. On the CPU the step runs eagerly.
 
+With ``backend="triton_dist"`` the decode step is
+``model.inference(mode="triton_dist")`` (B12 projections; for Qwen3MoE the
+B14/B15 expert GEMMs), captured and replayed the same way; the mega graph
+serves the "xla" backend only, as in the reference. Prefill always runs in
+mode "xla", as in the reference.
+
 On the paged cache (``cache_mode="paged"``) the decode step is eager
 (paged flash decode, B2); as in the reference, ``mega`` is ignored there.
 Its graph comes with the paged mega step (ROADMAP A7); speculative decode
@@ -66,7 +72,7 @@ class Engine:
         self.last_decode_s = 0.0
         self.last_decode_steps = 0
         # the dense decode step on the mega task graph, where it applies
-        # (Qwen3 dense, dense cache, xla backend), as in the reference
+        # (the Qwen3 family, dense cache, xla backend), as in the reference
         self._mega_rt = None
         if mega != "off" and cache_mode == "dense" and backend == "xla":
             from triton_dist_tpu_torch.mega.runtime import MegaDecodeRuntime

@@ -1,12 +1,13 @@
-"""Qwen3 dense model (the reference's models/qwen.py), one device, mode
-"xla", on the dense KVCache or the PagedKVCache.
+"""Qwen3 dense model (the reference's models/qwen.py), one device, modes
+"xla" and "triton_dist", on the dense KVCache or the PagedKVCache.
 
 Parameters are a plain dict with the reference's layout: layer weights
 stay STACKED along a leading num_layers axis and are indexed per layer (as
 views, never copies); the reference's decoder ``lax.scan`` is a Python
 loop over layers. Both caches are updated in place; the dense cache's
-offset never leaves the device. prefill_slot and the other TP modes wait
-for their ROADMAP items.
+offset never leaves the device. The per-layer ``mlp`` hook is the dense
+MLP here; Qwen3MoE (models/qwen_moe.py) overrides it with the MoE layer.
+prefill_slot and the triton_dist_AR mode wait for their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -71,6 +72,10 @@ class Qwen3:
 
     # -- forward ----------------------------------------------------------
 
+    def mlp(self, mode: str, lw: dict, x: torch.Tensor) -> torch.Tensor:
+        """Per-layer MLP hook; Qwen3MoE overrides it with the MoE layer."""
+        return mlp_fwd(mode, self.ctx, lw, x)
+
     def _decoder_stack(self, mode: str, input_ids: torch.Tensor,
                        params: dict, attn_call) -> torch.Tensor:
         """embed -> L x (norm, attn, norm, mlp) -> final norm.
@@ -83,12 +88,14 @@ class Qwen3:
             hn = rms_norm(h, lw["in_norm"], arch.rms_eps)
             h = h + attn_call(i, lw, hn)
             hn = rms_norm(h, lw["post_norm"], arch.rms_eps)
-            h = h + mlp_fwd(mode, self.ctx, lw, hn)
+            h = h + self.mlp(mode, lw, hn)
         return rms_norm(h, params["final_norm"], arch.rms_eps)
 
     def _logits_tail(self, mode: str, h: torch.Tensor,
                      params: dict) -> torch.Tensor:
-        """(B, V) f32 logits of the last position."""
+        """(B, V) f32 logits of the last position. In triton_dist mode
+        the reference gathers the batch-sharded last rows and transposes
+        the vocab-sharded logits, both the identity at world 1."""
         check_mode(mode)
         return dot_f32(h[:, -1], params["lm_head"])
 

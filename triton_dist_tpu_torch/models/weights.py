@@ -4,7 +4,9 @@ reference (the reference's models/weights.py).
 The dict layout is the reference's parameter pytree at TP=1, where its
 rank-contiguous ``_shard_concat`` is a plain concat, so the layouts match
 one to one: x @ W everywhere, wqkv columns [q | k | v], w_gate_up columns
-[gate | up], layer weights stacked on a leading num_layers axis.
+[gate | up], layer weights stacked on a leading num_layers axis. For the
+MoE family the MLP weights are w_router (L, d, E), w_gate_up (L, E, d, 2I)
+with the columns [gate | up] per expert, and w_down (L, E, I, d).
 Reading HF checkpoints (load_hf_qwen3) waits until checkpoint files can
 be read on the card (ROADMAP A2).
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.models.config import Qwen3Arch
+from triton_dist_tpu_torch.models.config import Qwen3Arch, Qwen3MoEArch
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
 _RANDN_CHUNK = 1 << 24     # f32 elements drawn at a time
@@ -23,6 +25,12 @@ _RANDN_CHUNK = 1 << 24     # f32 elements drawn at a time
 def param_shapes(arch: Qwen3Arch) -> dict:
     """The parameter dict's shapes (nested like the parameters)."""
     L, d, inter = arch.num_layers, arch.hidden_size, arch.intermediate_size
+    if isinstance(arch, Qwen3MoEArch):
+        e, im = arch.num_experts, arch.moe_intermediate_size
+        mlp = {"w_router": (L, d, e), "w_gate_up": (L, e, d, 2 * im),
+               "w_down": (L, e, im, d)}
+    else:
+        mlp = {"w_gate_up": (L, d, 2 * inter), "w_down": (L, inter, d)}
     return {
         "embed": (arch.vocab_size, d),
         "lm_head": (d, arch.vocab_size),
@@ -34,8 +42,7 @@ def param_shapes(arch: Qwen3Arch) -> dict:
             "k_norm": (L, arch.head_dim),
             "in_norm": (L, d),
             "post_norm": (L, d),
-            "w_gate_up": (L, d, 2 * inter),
-            "w_down": (L, inter, d),
+            **mlp,
         },
     }
 
@@ -89,8 +96,8 @@ def _to_tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 def params_from_numpy(raw: dict, arch: Qwen3Arch,
                       device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The reference's parameter pytree exported as numpy arrays (dense
-    Qwen3, TP=1) -> the port's parameter dict on ``device`` in ``dtype``.
+    """The reference's parameter pytree exported as numpy arrays (Qwen3
+    dense or MoE, TP=1) -> the port's parameter dict on ``device`` in ``dtype``.
     Shapes are checked against ``arch``."""
     dev = resolve_device(device)
     shapes = param_shapes(arch)
