@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Chip smoke run of the PyTorch + CUDA port on one NVIDIA H100.
+"""Chip smoke run of the PyTorch + CUDA port on NVIDIA H100s.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
 
-Builds the port's CUDA kernels from csrc/ (one nvcc per source, all
+Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
 started together) and holds each against its plain PyTorch version on the
 card. Serves Qwen3-8B (published widths, all 36 layers, random bf16
 weights from a seed) down its paths: ``Engine.serve`` on the paged cache
@@ -16,10 +16,19 @@ all 48 layers, 61.1 GB of random bf16 weights) in the triton_dist mode
 counts each path's kernel launches in one serve, checks prefill against
 prefill + one decode step, the graph-replayed steps against the eager xla
 steps, and small f32 models (dense and MoE) served on the card against
-the CPU. One JSON line per phase; the line before the last lists every
-kernel with its times and bound; the last line is the device record. Any
-failed check exits non-zero. Imports nothing of JAX. Needs one card;
-without one it exits non-zero and prints no result.
+the CPU. Then the tensor-parallel kernels: tutorial 01's notify / wait,
+B10 (AllGather + GEMM) and B13a (GEMM + ReduceScatter) against their
+plain versions with four logical ranks on one card (the one-card world);
+and, when four cards are present, Qwen3-32B (published widths, all 64
+layers, bf16) served at TP=4 by four rank processes (prefill in xla,
+every decode step one graph replay with 128 B10 and 128 B13a), the f32
+4-layer gate across TP=4 triton_dist, TP=4 xla and world 1, and B10 /
+B13a timed on each card. With fewer than four cards those phases print
+that they did not run. Named phases run alone (see ``main``). One JSON
+line per phase; the line before the last lists every kernel with its
+times and bound; the last line is the device record. Any failed check
+exits non-zero. Imports nothing of JAX. Needs one card; without one it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -34,8 +43,6 @@ MEM_BW = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
 F32_FLOPS = 67e12         # H100 SXM f32 FLOP/s outside the tensor cores
 DEV = "cuda"
-KERNEL_SOURCES = ["flash_prefill", "paged_flash_decode", "fused_add_rms",
-                  "gemm_ar", "matmul", "moe_group_gemm"]
 MOE_MODEL = "Qwen/Qwen3-30B-A3B"
 
 
@@ -1311,52 +1318,667 @@ def _small_moe_reference(torch, models, rng, make):
             "tol": 1e-3, "ok": err <= 1e-3 and same}
 
 
-def main() -> None:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        sys.exit(2)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# -- across ranks: the one-card world (B10, B13a, notify / wait) -------------
+
+TP = 4                    # ranks of the tensor-parallel phases
+NVLINK_BW = 450e9         # H100 NVLink bytes/s each way (data sheet)
+SLEEP_CYCLES = 300_000_000  # ~0.15 s at the H100's clock: holds the stream
+TP_MODEL = "Qwen/Qwen3-32B"
+FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency")
+ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs")
+
+
+def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
+    """Device ms per call of fn() with no host gaps between calls: the
+    current stream is held by a sleep kernel while the host enqueues
+    `warm` + `iters` calls (the timed ones between CUDA events), so the
+    card runs them back to back. For calls whose launch costs more host
+    time than the card spends, and for work that spans streams or ranks
+    (a CUDA graph of spinning kernels on several streams is not used).
+    Returns (ms, host enqueue s, whether the sleep outlasted the
+    enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        fn()
+    ev[2].record()
+    for _ in range(iters):
+        fn()
+    ev[3].record()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return (ev[2].elapsed_time(ev[3]) / iters, host_s,
+            host_s * 1e3 < ev[0].elapsed_time(ev[1]))
+
+
+def tp_bound_ms(hbm_bytes: float, link_bytes: float, flops: float,
+                peak: float = BF16_FLOPS) -> tuple[float, str]:
+    """The least time: HBM bytes at 3.35 TB/s, NVLink bytes at 450 GB/s
+    each way, FLOPs at the dtype's peak; the largest of the three."""
+    t = {"bytes": hbm_bytes / MEM_BW, "nvlink_bytes": link_bytes / NVLINK_BW,
+         "operations": flops / peak}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def phase_dist_notify_wait(torch, symm, lang, calls: int = 3):
+    """tutorials/01-distributed-notify-wait.py on four logical ranks of
+    one card: after a barrier rank 0 puts its tensor into every rank's
+    symmetric buffer and raises a flag there; each rank waits and returns
+    what landed. Every rank must return rank 0's tensor, bit for bit, on
+    every call (fresh tensors each call: the flags' epochs advance)."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(21)
+    ok = []
+    for _ in range(calls):
+        xs = [torch.randn(4096, generator=g, device=DEV) for _ in range(TP)]
+        outs = world.run(lambda r: lang.notify_wait(world.mesh(r), xs[r]))
+        torch.cuda.synchronize()
+        ok.append(all(torch.equal(o, xs[0]) for o in outs))
+    emit({"phase": "dist_notify_wait", "ranks": TP, "calls": calls,
+          "identical": ok, "ok": all(ok)})
+    if not all(ok):
+        fail(f"notify/wait: ranks did not all receive rank 0's data: {ok}")
+
+
+def _tp_shards(torch, g, dt, m, k, n, a_scale=1.0):
+    a = [(torch.randn((m, k), generator=g, device=DEV) * a_scale).to(dt)
+         for _ in range(TP)]
+    b = [(torch.randn((k, n), generator=g, device=DEV) * k ** -0.5).to(dt)
+         for _ in range(TP)]
+    return a, b
+
+
+def _tp_tol(torch, dt):
+    return 1e-2 if dt == torch.bfloat16 else 1e-4
+
+
+def _one_card_kernel_row(torch, world, name, run, plain, nbytes, flops):
+    ms, host_s, covered = queued_ms(torch, lambda: world.run(run))
+    plain_ms, _, _ = queued_ms(torch, plain)
+    bms, by = bound_ms(nbytes, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+            "host_enqueue_s": host_s, "queued_ahead": covered, "case": name}
+
+
+def phase_b10(torch, symm, agm, calls: int = 20):
+    """B10 against its plain version (torch.cat of the ranks' shards, then
+    matmul_ref) in the one-card world: four logical ranks, each its own
+    stream and symmetric buffer, the peer-pointer tables the four-card
+    world uses. Qwen3-32B at TP=4, B=16 decode (m_loc 4): QKV K 5120 ->
+    N_loc 2560 and gate/up -> N_loc 12800, bf16 and f32; the prefill-sized
+    m_loc 512 (QKV, bf16); then `calls` successive calls with fresh inputs,
+    every one checked. The gathered A must equal the concatenated shards
+    exactly; the product within 1e-2 x max|ref| in bf16 (one bf16 rounding
+    of the output, another f32 summation order), 1e-4 in f32. Timed: the
+    four ranks' calls together on the one card (queued_ms), bound by the
+    four ranks' bytes at HBM speed."""
+    bf, f32 = torch.bfloat16, torch.float32
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(31)
+    cases = [("qkv_m4", bf, 4, 5120, 2560), ("gate_up_m4", bf, 4, 5120, 12800),
+             ("qkv_m512", bf, 512, 5120, 2560),
+             ("qkv_m4_f32", f32, 4, 5120, 2560),
+             ("gate_up_m4_f32", f32, 4, 5120, 12800)]
+    rows, timed = [], {}
+
+    def check(name, a, b, outs, tol):
+        res = []
+        for r in range(TP):
+            ref, ref_ag = agm.ag_gemm_ref_shards(a, b[r])
+            row = _held(torch, f"{name}/rank{r}", outs[r][0], ref, tol)
+            row["gathered_exact"] = bool(torch.equal(outs[r][1], ref_ag))
+            row["ok"] = row["ok"] and row["gathered_exact"]
+            res.append(row)
+        return res
+
+    for name, dt, m, k, n in cases:
+        a, b = _tp_shards(torch, g, dt, m, k, n)
+        outs = world.run(lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r],
+                                                       b[r]))
+        torch.cuda.synchronize()
+        rows += check(name, a, b, outs, _tp_tol(torch, dt))
+        if name in ("qkv_m4", "gate_up_m4"):
+            es = a[0].element_size()
+            nbytes = TP * (m * k + k * n + TP * m * n + TP * m * k) * es
+            timed[name] = _one_card_kernel_row(
+                torch, world, name,
+                lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r], b[r]),
+                lambda: [agm.ag_gemm_ref_shards(a, b[r]) for r in range(TP)],
+                nbytes, TP * 2.0 * TP * m * k * n)
+            timed[name]["max_abs_err"] = max(
+                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+    seq_ok = []
+    for _ in range(calls):
+        a, b = _tp_shards(torch, g, bf, 4, 5120, 2560)
+        outs = world.run(lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r],
+                                                       b[r]))
+        torch.cuda.synchronize()
+        seq_ok.append(all(x["ok"] for x in check("seq", a, b, outs, 1e-2)))
+    emit({"phase": "b10_ag_gemm", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"B10 disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+    return _tp_kernel_record("pallas_ag_gemm", "ag_gemm.cu",
+                             "triton_dist_tpu/kernels/allgather_gemm.py:293",
+                             timed, "one card, 4 logical ranks")
+
+
+def phase_b13(torch, symm, grs, calls: int = 20):
+    """B13a against its plain version (every rank's f32 partial of the
+    destination's rows added in ascending rank, the kernel's fold order,
+    cast once) in the one-card world. Qwen3-32B at TP=4, B=16 decode
+    (m_loc 4, A (16, K_loc)): o K_loc 2048 -> N 5120 and down K_loc 6400
+    -> N 5120, bf16 and f32; the prefill-sized m_loc 512 (o, bf16); then
+    `calls` successive calls with fresh inputs, every one checked.
+    Tolerance and timing as B10's."""
+    bf, f32 = torch.bfloat16, torch.float32
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(41)
+    cases = [("o_m4", bf, 4, 2048, 5120), ("down_m4", bf, 4, 6400, 5120),
+             ("o_m512", bf, 512, 2048, 5120), ("o_m4_f32", f32, 4, 2048, 5120),
+             ("down_m4_f32", f32, 4, 6400, 5120)]
+    rows, timed = [], {}
+
+    def check(name, a, b, outs, tol):
+        refs = grs.gemm_rs_ref_shards(a, b)
+        return [_held(torch, f"{name}/rank{r}", outs[r], refs[r], tol)
+                for r in range(TP)]
+
+    for name, dt, m, k, n in cases:
+        a, b = _tp_shards(torch, g, dt, TP * m, k, n)
+        outs = world.run(lambda r: grs.pallas_gemm_rs(world.mesh(r), a[r],
+                                                       b[r]))
+        torch.cuda.synchronize()
+        rows += check(name, a, b, outs, _tp_tol(torch, dt))
+        if name in ("o_m4", "down_m4"):
+            es = a[0].element_size()
+            nbytes = TP * (TP * m * k + k * n + m * n) * es
+            timed[name] = _one_card_kernel_row(
+                torch, world, name,
+                lambda r: grs.pallas_gemm_rs(world.mesh(r), a[r], b[r]),
+                lambda: grs.gemm_rs_ref_shards(a, b),
+                nbytes, TP * 2.0 * TP * m * k * n)
+            timed[name]["max_abs_err"] = max(
+                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+    seq_ok = []
+    for _ in range(calls):
+        a, b = _tp_shards(torch, g, bf, TP * 4, 2048, 5120)
+        outs = world.run(lambda r: grs.pallas_gemm_rs(world.mesh(r), a[r],
+                                                       b[r]))
+        torch.cuda.synchronize()
+        seq_ok.append(all(x["ok"] for x in check("seq", a, b, outs, 1e-2)))
+    emit({"phase": "b13_gemm_rs", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"B13a disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+    return _tp_kernel_record(
+        "pallas_gemm_rs", "gemm_rs.cu",
+        "triton_dist_tpu/kernels/gemm_reduce_scatter.py:321", timed,
+        "one card, 4 logical ranks")
+
+
+def _tp_kernel_record(name, source, replaces, timed, world):
+    """A kernels-line row: the mean over the decode shapes (one of each per
+    layer on the main path). ``launches`` stays None unless the TP=4 serve
+    ran and counted them."""
+    mean = {key: sum(t[key] for t in timed.values()) / len(timed)
+            for key in ("ms", "plain_ms", "bound_ms")}
+    libs = [t["library_ms"] for t in timed.values()]
+    by = max(timed.values(), key=lambda t: t["bound_ms"])["bound_by"]
+    return {"name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "max_abs_err": max(t["max_abs_err"] for t in timed.values()),
+            **mean, "bound_by": by,
+            "library_ms": (sum(libs) / len(libs)
+                           if all(x is not None for x in libs) else None),
+            "launches": None, "measured_on": world, "shapes": timed}
+
+
+# -- across ranks: four cards (rank processes) -------------------------------
+
+_TP_SHAPES = (("qkv_m4", "ag", 4, 5120, 2560),
+              ("gate_up_m4", "ag", 4, 5120, 12800),
+              ("o_m4", "rs", 4, 2048, 5120),
+              ("down_m4", "rs", 4, 6400, 5120))
+
+
+def _tp_case(torch, mesh, agm, grs, kind, m, k, n, seed):
+    """This rank's bf16 inputs of one decode shape and the three calls of
+    the same function: the kernel, its plain version and torch's fused
+    symmetric-memory op. Every rank draws its own shards."""
+    g = torch.Generator(device=mesh.device).manual_seed(seed + mesh.rank)
+    rows = m if kind == "ag" else TP * m
+    a = torch.randn((rows, k), generator=g, device=mesh.device).to(
+        torch.bfloat16)
+    b = (torch.randn((k, n), generator=g, device=mesh.device)
+         * k ** -0.5).to(torch.bfloat16)
+    group_name = mesh.group.group_name
+    if kind == "ag":
+        def lib():
+            from torch.distributed import _symmetric_memory as symm_mem
+            return symm_mem._fused_all_gather_matmul(
+                a, [b], gather_dim=0, group_name=group_name)[1][0]
+        return (lambda: agm.pallas_ag_gemm(mesh, a, b)[0],
+                lambda: agm.ag_gemm_ref(mesh, a, b)[0], lib)
+
+    def lib():
+        from torch.distributed import _symmetric_memory as symm_mem
+        return symm_mem._fused_matmul_reduce_scatter(
+            a, b, "sum", scatter_dim=0, group_name=group_name)
+    return (lambda: grs.pallas_gemm_rs(mesh, a, b),
+            lambda: grs.gemm_rs_ref(mesh, a, b), lib)
+
+
+def _tp_ranks_time(torch, dist, mesh, agm, grs):
+    """On each of the four cards: B10 and B13a against their plain
+    versions (NCCL all-gather + matmul_ref; f32 product + NCCL
+    reduce-scatter + cast) at the TP=4 decode shapes of Qwen3-32B, B=16,
+    bf16, and the device time per call of both (queued_ms; each rank
+    times its own calls, all ranks in step). The bound counts this rank's
+    HBM bytes, the bytes it sends over NVLink and the FLOPs. Returns
+    {shape: row} of this rank."""
+    out = {}
+    for name, kind, m, k, n in _TP_SHAPES:
+        run, plain, _ = _tp_case(torch, mesh, agm, grs, kind, m, k, n, 50)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        held = _held(torch, name, got, ref, 1e-2)
+        dist.barrier()
+        ms, host_s, ahead = queued_ms(torch, run)
+        dist.barrier()
+        plain_ms, _, _ = queued_ms(torch, plain)
+        dist.barrier()
+        if kind == "ag":
+            hbm = (m * k + k * n + TP * m * n + TP * m * k) * 2
+            link = (TP - 1) * m * k * 2
+        else:
+            hbm = (TP * m * k + k * n + m * n) * 2
+            link = (TP - 1) * m * n * 4
+        bms, by = tp_bound_ms(hbm, link, 2.0 * TP * m * k * n)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "hbm_bytes": hbm, "nvlink_bytes": link,
+                     "max_abs_err": held["max_abs_err"], "ok": held["ok"],
+                     "host_enqueue_s": host_s, "queued_ahead": ahead}
+    return out
+
+
+def _tp_library_time(torch, dist, mesh, agm, grs):
+    """torch's fused symmetric-memory ops at the same shapes, the
+    yardstick of B10 / B13a (the port never calls them): device ms per
+    call, or why it could not run. Run last: a failure here costs
+    nothing else."""
+    out = {}
+    for name, kind, m, k, n in _TP_SHAPES:
+        _, plain, lib = _tp_case(torch, mesh, agm, grs, kind, m, k, n, 50)
+        try:
+            from torch.distributed import _symmetric_memory as symm_mem
+            if hasattr(symm_mem, "enable_symm_mem_for_group"):
+                symm_mem.enable_symm_mem_for_group(mesh.group.group_name)
+            err = (lib().float() - plain().float()).abs().max().item()
+            dist.barrier()
+            out[name] = {"library_ms": queued_ms(torch, lib)[0],
+                         "library_max_abs_err": err}
+        except Exception as exc:     # the yardstick only; not the port
+            out[name] = {"library_ms": None,
+                         "library_note": f"{type(exc).__name__}: "
+                                         f"{str(exc)[:300]}"}
+        dist.barrier()
+    return out
+
+
+def _rank_logits(torch, dist, engine, ids, fixed):
+    """Prefill ``ids`` (no decode step), then ONE decode step of the
+    given tokens: the (B, V) f32 logits of the whole batch (a
+    batch-sharded engine's rows all-gathered)."""
+    engine.serve(ids, gen_len=1)
+    logits = engine.decode_logits(fixed).clone()
+    mesh = engine.model.ctx.mesh
+    if engine.backend == "triton_dist" and mesh.world > 1:
+        full = torch.empty((mesh.world * logits.shape[0], logits.shape[1]),
+                           dtype=logits.dtype, device=logits.device)
+        dist.all_gather_into_tensor(full, logits, group=mesh.group)
+        logits = full
+    return logits
+
+
+def _tp_prompt(torch, vocab, batch, length, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (batch, length + 1), generator=g)
+
+
+def _tp4_serve(torch, dist, mesh, models, kern, tmp, gen: int = 32):
+    """Qwen3-32B at its published widths, all 64 layers, bf16, random
+    weights from seed 0 (this rank's shard of the world-1 weights),
+    max_length 1024; B=16 prompts of 512 tokens, 32 tokens each. Prefill
+    in xla; decode in triton_dist (B10 for QKV and gate/up, B13a for o and
+    down), one CUDA-graph replay per step; the idle share by events and a
+    profile of one prefill and 4 steps on every rank. Then the same
+    weights served by the plain TP=4 xla decode (mega off) for the logits
+    comparison."""
+    from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+        GemmRsMethod,
+    )
+    from triton_dist_tpu_torch.layers.common import TPContext
+    arch = models.QWEN3_ARCHS[TP_MODEL]
+    ctx = TPContext(mesh, ag_method=AgGemmMethod.PALLAS,
+                    rs_method=GemmRsMethod.PALLAS)
+    model = models.Qwen3(arch, ctx, max_length=1024, dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(0), arch,
+        mesh.device, torch.bfloat16, rank=mesh.rank, world=mesh.world)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      [*(v for k, v in params.items() if k != "layers"),
+                       *params["layers"].values()])
+    ids = _tp_prompt(torch, arch.vocab_size, 16, 512, 1).to(mesh.device)
+    prompt, fixed = ids[:, :512], ids[:, 512].to(torch.int32)
+    engine = models.Engine(model, params, backend="triton_dist")
+    out, launches, per_step, eager, replays = _serve_counted(
+        torch, kern, engine, prompt, gen)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = engine.last_decode_s * 1e3 / engine.last_decode_steps
+    rec = {"model": TP_MODEL, "layers": arch.num_layers, "tp": mesh.world,
+           "batch": 16, "prompt": 512, "gen_len": gen, "dtype": "bf16",
+           "param_bytes_per_card": param_bytes, "init_s": init_s,
+           "init_peak_bytes": init_peak, "peak_bytes": peak,
+           "prefill_ms": engine.last_prefill_s * 1e3,
+           "decode_ms_per_step": step_ms,
+           "decode_tok_s": 16 * engine.last_decode_steps
+           / engine.last_decode_s,
+           "graph_replays": replays, "launches_per_replay": per_step,
+           "eager_launches": eager, "launches": launches}
+    wall_ms, replay_ms = _replay_idle(torch, engine, ids, 8)
+    rec.update(step_wall_ms=wall_ms, replay_device_ms=replay_ms,
+               idle_share_by_events=1 - replay_ms / wall_ms)
+    pre, dec = _profile_engine(torch, engine, ids, 4)
+    rec["profile"] = {"prefill": pre, "decode_step": dec}
+    toks = [torch.empty_like(out) for _ in range(mesh.world)]
+    dist.all_gather(toks, out.contiguous())
+    rec["tokens_same_on_every_rank"] = all(torch.equal(t, out) for t in toks)
+    rec["tokens_shape"] = list(out.shape)
+    td_logits = _rank_logits(torch, dist, engine, prompt, fixed)
+    del engine
+    torch.cuda.empty_cache()
+    xla = models.Engine(model, params, backend="xla", mega="off")
+    xla_logits = _rank_logits(torch, dist, xla, prompt, fixed)
+    if mesh.rank == 0:
+        torch.save({"td": td_logits.cpu(), "xla": xla_logits.cpu(),
+                    "tokens": out.cpu()}, os.path.join(tmp, "tp4_bf16.pt"))
+    del xla, params, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tp4_consistency(torch, dist, mesh, models, tmp, gen: int = 16):
+    """The f32 gate: Qwen3-32B's widths cut to 4 layers, f32 weights from
+    seed 7; B=16 prompts of 64 tokens, 16 greedy tokens, served at TP=4 in
+    triton_dist (B10/B13a, graph-replayed) and in xla with mega off (NCCL
+    all-reduce); rank 0 keeps both token sets for the parent, which serves
+    world 1 on card 0 from the same seed."""
+    import dataclasses
+    from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+        GemmRsMethod,
+    )
+    from triton_dist_tpu_torch.layers.common import TPContext
+    arch = dataclasses.replace(models.QWEN3_ARCHS[TP_MODEL], num_layers=4)
+    ctx = TPContext(mesh, ag_method=AgGemmMethod.PALLAS,
+                    rs_method=GemmRsMethod.PALLAS)
+    model = models.Qwen3(arch, ctx, max_length=128, dtype=torch.float32)
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(7), arch,
+        mesh.device, torch.float32, rank=mesh.rank, world=mesh.world)
+    ids = _tp_prompt(torch, arch.vocab_size, 16, 64, 2)[:, :64].to(
+        mesh.device)
+    td = models.Engine(model, params, backend="triton_dist").serve(ids, gen)
+    xla = models.Engine(model, params, backend="xla", mega="off").serve(
+        ids, gen)
+    if mesh.rank == 0:
+        torch.save({"td": td.cpu(), "xla": xla.cpu()},
+                   os.path.join(tmp, "tp4_f32.pt"))
+    del params, model
+    torch.cuda.empty_cache()
+    return {"tokens_td_equal_xla": bool(torch.equal(td, xla))}
+
+
+def _tp4_rank(rank, port, phases, tmp, queue):
+    """One rank process of the four-card phases (rank r on cuda:r)."""
+    import traceback
     try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from triton_dist_tpu_torch import kernels as kern
         from triton_dist_tpu_torch import models
         from triton_dist_tpu_torch.kernels import allgather_gemm as agm
-        from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
-        from triton_dist_tpu_torch.kernels import flash_attention as fa
-        from triton_dist_tpu_torch.kernels import fused_chain as fc
-        from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
-        from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
-        from triton_dist_tpu_torch.kernels import moe_utils as mu
-        from triton_dist_tpu_torch.kernels import paged_flash_decode as pfd
-        from triton_dist_tpu_torch.kernels import plain
-        from triton_dist_tpu_torch.quant import codec
-        from triton_dist_tpu_torch.runtime import build
-    except ImportError as exc:
-        print(f"chip_smoke: the port is not beside this script ({exc})",
-              file=sys.stderr)
-        sys.exit(3)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    emit({"phase": "env", "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "device": torch.cuda.get_device_name(0)})
+        from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+        from triton_dist_tpu_torch.runtime import mesh as tp_mesh
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        tp_mesh.initialize_distributed(f"tcp://localhost:{port}", TP, rank,
+                                       device="cuda")
+        mesh = tp_mesh.make_comm_mesh()
+        res = {}
+        if "tp4_serve" in phases:
+            res["kernels"] = _tp_ranks_time(torch, dist, mesh, agm, grs)
+            res["serve"] = _tp4_serve(torch, dist, mesh, models, kern, tmp)
+        if "tp4_consistency" in phases:
+            res["consistency"] = _tp4_consistency(torch, dist, mesh, models,
+                                                  tmp)
+        dist.barrier()
+        queue.put((rank, "ok", res))
+        if "tp4_serve" in phases:
+            queue.put((rank, "library",
+                       _tp_library_time(torch, dist, mesh, agm, grs)))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
 
-    t0 = time.perf_counter()
-    reports = build.build(KERNEL_SOURCES)
-    build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in text.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, text in reports.items()}
-    emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
-          "ptxas": ptxas})
 
+def _world1_logits_and_tokens(torch, models, tmp):
+    """World 1 on card 0, from the seeds the ranks used: the bf16 64-layer
+    logits of the comparison, the f32 4-layer greedy tokens."""
+    import dataclasses
+    res = {}
+    full = models.QWEN3_ARCHS[TP_MODEL]
+    if os.path.exists(os.path.join(tmp, "tp4_bf16.pt")):
+        model = models.Qwen3(full, max_length=1024, dtype=torch.bfloat16,
+                             device=DEV)
+        params = models.init_random_params(
+            torch.Generator(device=DEV).manual_seed(0), full, DEV,
+            torch.bfloat16)
+        ids = _tp_prompt(torch, full.vocab_size, 16, 512, 1).to(DEV)
+        engine = models.Engine(model, params, mega="off")
+        res["bf16"] = _rank_logits(torch, None, engine, ids[:, :512],
+                                   ids[:, 512].to(torch.int32)).cpu()
+        del engine, params, model
+        torch.cuda.empty_cache()
+    if os.path.exists(os.path.join(tmp, "tp4_f32.pt")):
+        arch = dataclasses.replace(full, num_layers=4)
+        model = models.Qwen3(arch, max_length=128, dtype=torch.float32,
+                             device=DEV)
+        params = models.init_random_params(
+            torch.Generator(device=DEV).manual_seed(7), arch, DEV,
+            torch.float32)
+        ids = _tp_prompt(torch, arch.vocab_size, 16, 64, 2)[:, :64].to(DEV)
+        res["f32"] = models.Engine(model, params, mega="off").serve(
+            ids, 16).cpu()
+        del params, model
+        torch.cuda.empty_cache()
+    return res
+
+
+def _rel_rms(torch, x, ref):
+    return ((x - ref).float().pow(2).mean().sqrt()
+            / ref.float().pow(2).mean().sqrt()).item()
+
+
+def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
+    """The four-card phases: the kernels are built (main, before this),
+    then four rank processes (one per card, NCCL over tcp://localhost)
+    run ``phases``; world 1 runs on card 0 after they exit. Returns the
+    B10 / B13a kernel rows (4 cards)."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp4_")
+    torch.cuda.empty_cache()
+    procs = [ctx.Process(target=_tp4_rank, args=(r, port, phases, tmp, queue))
+             for r in range(TP)]
+    for p in procs:
+        p.start()
+    results, libs, errors = {}, {}, []
+    want_libs = TP if "tp4_serve" in phases else 0
+    deadline = time.time() + timeout_s
+    lib_deadline = None
+    try:
+        while len(results) < TP or len(libs) < want_libs:
+            if len(results) == TP and lib_deadline is None:
+                lib_deadline = time.time() + 240
+            left = min(deadline, lib_deadline or deadline) - time.time()
+            if left <= 0:
+                if len(results) < TP:
+                    errors.append(f"timed out after {timeout_s} s")
+                break
+            try:
+                rank, status, payload = queue.get(timeout=min(left, 10))
+            except Exception:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    if len(results) < TP:
+                        errors.append("a rank process died: exit codes "
+                                      f"{[p.exitcode for p in procs]}")
+                    break
+                continue
+            if status == "ok":
+                results[rank] = payload
+            elif status == "library":
+                libs[rank] = payload
+            else:
+                errors.append(f"rank {rank}: {payload}")
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        fail("four-card phases: " + " | ".join(errors))
+    rows = {}
+    if "tp4_serve" in phases:
+        serve = [results[r]["serve"] for r in range(TP)]
+        rec = dict(serve[0])
+        rec["peak_bytes_per_card"] = [s["peak_bytes"] for s in serve]
+        rec["init_peak_bytes_per_card"] = [s["init_peak_bytes"]
+                                           for s in serve]
+        rec["decode_ms_per_step_per_rank"] = [s["decode_ms_per_step"]
+                                              for s in serve]
+        L = rec["layers"]
+        per_step = rec["launches_per_replay"]
+        want = _only(per_step, flash_prefill=L, pallas_ag_gemm=2 * L,
+                     pallas_gemm_rs=2 * L)
+        rec["phase"] = "tp4_serve"
+        emit(rec)
+        if any(s["launches_per_replay"] != want for s in serve) or \
+                rec["graph_replays"] != rec["gen_len"] - 1 or \
+                rec["eager_launches"] != _only(rec["eager_launches"],
+                                               flash_prefill=L):
+            fail(f"TP=4 serve: {per_step} per replay x "
+                 f"{rec['graph_replays']} + {rec['eager_launches']} eager; "
+                 f"want {want} per replay and no B12")
+        if not all(s["tokens_same_on_every_rank"] for s in serve) or \
+                rec["tokens_shape"] != [16, rec["gen_len"]]:
+            fail("TP=4 serve: ranks returned different tokens")
+        per_rank = [results[r]["kernels"] for r in range(TP)]
+        for name, shapes in (("pallas_ag_gemm", ("qkv_m4", "gate_up_m4")),
+                             ("pallas_gemm_rs", ("o_m4", "down_m4"))):
+            timed = {}
+            for shp in shapes:
+                rws = [k[shp] for k in per_rank]
+                if not all(x["ok"] for x in rws):
+                    fail(f"{name} on four cards disagrees with its plain "
+                         f"version at {shp}: {rws}")
+                timed[shp] = {key: max(x[key] for x in rws)
+                              for key in ("ms", "plain_ms", "bound_ms",
+                                          "max_abs_err")}
+                lib = [libs.get(r, {}).get(shp, {}) for r in range(TP)]
+                timed[shp]["library_ms"] = (
+                    max(x["library_ms"] for x in lib)
+                    if x_all_num(lib, "library_ms") else None)
+                timed[shp]["library_note"] = next(
+                    (x["library_note"] for x in lib if "library_note" in x),
+                    None if len(libs) == TP else
+                    f"library timing returned from {len(libs)} of {TP} "
+                    "ranks")
+                timed[shp]["bound_by"] = rws[0]["bound_by"]
+                timed[shp]["per_rank_ms"] = [x["ms"] for x in rws]
+            src = "ag_gemm.cu" if name == "pallas_ag_gemm" else "gemm_rs.cu"
+            rep = ("triton_dist_tpu/kernels/allgather_gemm.py:293"
+                   if name == "pallas_ag_gemm" else
+                   "triton_dist_tpu/kernels/gemm_reduce_scatter.py:321")
+            row = _tp_kernel_record(name, src, rep, timed, "4 cards, TP=4")
+            row["launches"] = rec["launches"][name]
+            row["library_ms_call"] = (
+                "torch.distributed._symmetric_memory._fused_all_gather_matmul"
+                if name == "pallas_ag_gemm" else
+                "torch.distributed._symmetric_memory."
+                "_fused_matmul_reduce_scatter")
+            rows[name] = row
+    w1 = _world1_logits_and_tokens(torch, models, tmp)
+    if "tp4_serve" in phases:
+        saved = torch.load(os.path.join(tmp, "tp4_bf16.pt"))
+        ref = w1["bf16"]
+        emit({"phase": "tp4_logits_bf16", "layers": 64,
+              "rel_rms_td_vs_world1": _rel_rms(torch, saved["td"], ref),
+              "rel_rms_xla_vs_world1": _rel_rms(torch, saved["xla"], ref),
+              "rel_rms_td_vs_xla": _rel_rms(torch, saved["td"],
+                                            saved["xla"]),
+              "argmax_agree_td_world1": (saved["td"].argmax(-1)
+                                         == ref.argmax(-1)).float().mean()
+              .item()})
+    if "tp4_consistency" in phases:
+        saved = torch.load(os.path.join(tmp, "tp4_f32.pt"))
+        same = {"td_vs_xla": bool(torch.equal(saved["td"], saved["xla"])),
+                "td_vs_world1": bool(torch.equal(saved["td"], w1["f32"])),
+                "xla_vs_world1": bool(torch.equal(saved["xla"], w1["f32"]))}
+        emit({"phase": "tp4_consistency", "layers": 4, "dtype": "f32",
+              "batch": 16, "prompt": 64, "gen_len": 16, "identical": same,
+              "ok": all(same.values())})
+        if not all(same.values()):
+            fail(f"TP=4 f32 gate: greedy tokens differ: {same}")
+    return rows
+
+
+def x_all_num(rows, key):
+    return all(isinstance(x.get(key), (int, float)) for x in rows)
+
+
+def run_earlier(torch, kern, models, mods) -> list:
+    """The phases of the earlier slices (one card): their kernels against
+    the plain versions, the Qwen3-8B and Qwen3-30B-A3B serves, their
+    consistency checks; returns their kernels-line rows."""
+    agm, agg, fa, fc, ga, mrs, mu, pfd, plain, codec = mods
     b1, b2 = phase_b1(torch, fa), phase_b2(torch, pfd, codec)
     b1_dec = phase_b1_decode(torch, fa)
     b3, b4 = phase_b3(torch, fc), phase_b4(torch, ga)
@@ -1414,10 +2036,109 @@ def main() -> None:
     b12["launches"] = sum(b12["launches_by_path"].values())
     b14["launches"] = td["group_gemm"]
     b15["launches"] = td["moe_rs"]
+    return [b1, b1_dec, b2, b3, b4, b12, b14, b15]
 
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else "nvidia-smi unavailable", flush=True)
-    emit({"kernels": [b1, b1_dec, b2, b3, b4, b12, b14, b15]})
+
+ALL_PHASES = ("earlier", *ONE_CARD_TP_PHASES, *FOUR_CARD_PHASES)
+
+
+def main() -> None:
+    """python3 chip_smoke.py [phase ...]: with no argument every phase
+    this machine allows (the four-card phases need four cards); named
+    phases run alone (after the build): "earlier" (the earlier slices'
+    phases), "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs" (the
+    one-card world), "tp4_serve", "tp4_consistency" (four cards)."""
+    import torch
+    phases = sys.argv[1:] or list(ALL_PHASES)
+    if any(p not in ALL_PHASES for p in phases):
+        print(f"chip_smoke: phases are {list(ALL_PHASES)}; got {phases}",
+              file=sys.stderr)
+        sys.exit(2)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from triton_dist_tpu_torch import kernels as kern
+        from triton_dist_tpu_torch import language as lang
+        from triton_dist_tpu_torch import models
+        from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+        from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+        from triton_dist_tpu_torch.kernels import flash_attention as fa
+        from triton_dist_tpu_torch.kernels import fused_chain as fc
+        from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
+        from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+        from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+        from triton_dist_tpu_torch.kernels import moe_utils as mu
+        from triton_dist_tpu_torch.kernels import paged_flash_decode as pfd
+        from triton_dist_tpu_torch.kernels import plain
+        from triton_dist_tpu_torch.quant import codec
+        from triton_dist_tpu_torch.runtime import build, symm
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not beside this script ({exc})",
+              file=sys.stderr)
+        sys.exit(3)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    cards = smi.stdout.strip().splitlines()
+    print(cards[0] if cards else f"nvidia-smi failed: {smi.stderr.strip()}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    emit({"phase": "env", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(), "cards": cards,
+          "phases": phases})
+
+    # every source, built here once: the four-card phases' rank processes
+    # only load the libraries
+    t0 = time.perf_counter()
+    reports = build.build(build.all_sources())
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in text.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, text in reports.items()}
+    emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
+          "ptxas": ptxas})
+
+    kernels = []
+    if "earlier" in phases:
+        kernels += run_earlier(torch, kern, models, (
+            agm, agg, fa, fc, ga, mrs, mu, pfd, plain, codec))
+    if "dist_notify_wait" in phases:
+        phase_dist_notify_wait(torch, symm, lang)
+    tp_rows = {}
+    if "b10_ag_gemm" in phases:
+        tp_rows["pallas_ag_gemm"] = phase_b10(torch, symm, agm)
+    if "b13_gemm_rs" in phases:
+        tp_rows["pallas_gemm_rs"] = phase_b13(torch, symm, grs)
+    four = [p for p in phases if p in FOUR_CARD_PHASES]
+    n_cards = torch.cuda.device_count()
+    if four and n_cards < TP:
+        for p in four:
+            emit({"phase": p, "ran": False,
+                  "reason": f"torch.cuda.device_count() = {n_cards} < {TP}"})
+    elif four:
+        torch.cuda.empty_cache()
+        for name, row in phase_four_cards(torch, models, kern, four).items():
+            if name in tp_rows:
+                row["one_card_world"] = {
+                    k: tp_rows[name][k] for k in
+                    ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")}
+            tp_rows[name] = row
+    for row in tp_rows.values():
+        if row["measured_on"].startswith("one card"):
+            row["launches_note"] = (
+                "the TP=4 serve needs four cards "
+                f"(torch.cuda.device_count() = {n_cards}); it did not run")
+    kernels += list(tp_rows.values())
+
+    print(cards[0] if cards else "nvidia-smi unavailable", flush=True)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -37,6 +37,11 @@ import triton_dist_tpu_torch.mega.models.qwen3
 import triton_dist_tpu_torch.quant.codec
 import triton_dist_tpu_torch.quant.policy
 import triton_dist_tpu_torch.runtime.build
+import triton_dist_tpu_torch.runtime.mesh
+import triton_dist_tpu_torch.runtime.symm
+import triton_dist_tpu_torch.language
+import triton_dist_tpu_torch.models.weights
+import triton_dist_tpu_torch.models.engine
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "triton_dist_tpu"
@@ -64,3 +69,21 @@ def test_port_sources_never_name_jax_or_the_jax_package():
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if pat.search(line)]
     assert not hits, "\n".join(hits)
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """chip_smoke.py runs on the machine with the cards, which has no
+    JAX: none of its imports (top level or inside functions) names JAX or
+    the JAX package."""
+    import ast
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert any(n.startswith("triton_dist_tpu_torch") for n in names)
+    bad = [n for n in names if n.split(".")[0] in
+           ("jax", "jaxlib", "triton_dist_tpu")]
+    assert not bad, bad

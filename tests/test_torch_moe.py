@@ -439,9 +439,9 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
     assert moe_utils.make_chunk_schedule(ids, 1, 4, 8, sched) is sched
     a = torch.ones((2, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ag_gemm_per_device(2, AgGemmMethod.XLA, a, a.T)
+        ag_gemm_per_device(2, AgGemmMethod.XLA_BIDIR, a, a.T)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        gemm_rs_per_device(2, GemmRsMethod.PALLAS, a, a.T)
+        gemm_rs_per_device(2, GemmRsMethod.PALLAS_BIDIR, a, a.T)
     with pytest.raises(ValueError, match="unresolved"):
         ag_gemm_per_device(1, AgGemmMethod.AUTO, a, a.T)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):

@@ -3,7 +3,9 @@
 // GEMM behind AG + GEMM and GEMM + RS at world 1): out = cast(A @ W) with f32
 // accumulation, A (M, K), W (K, N). Both TPU kernels compute this function
 // at world 1, so they share this device code; each source has its own C
-// entry point and its own launch counter in Python.
+// entry point and its own launch counter in Python. The overlapped kernels
+// across ranks (ag_gemm.cu, B10; gemm_rs.cu, B13a) run the same work item,
+// gemm_tile, from a persistent grid.
 //
 // What bounds it on this card. On the decode path M is the batch (4): the
 // o projection (K = N = 4096) and the down projection (K = 12288, N = 4096)
@@ -38,11 +40,18 @@ constexpr int NT = 256;
 constexpr int WARPS = NT / 32;
 constexpr int KC = 256;  // K rows of A staged per step
 
-template <typename T, int MT, int U>
-__global__ void __launch_bounds__(NT)
-    gemm_kernel(const T* __restrict__ a, const T* __restrict__ w,
-                float* __restrict__ part, T* __restrict__ out, int m_rows,
-                int k_dim, int n_cols, int k_chunk) {
+// One work item: rows [mt * MT, mt * MT + MT) of A against the BN
+// columns of column tile nt over K slice ks. The block's f32 sums are
+// handed to store(row, col, sum) by threads tid < BN, one output row at a
+// time. kCoherentA reads A with L1-bypassing loads (__ldcg): for an A that
+// other ranks wrote during this launch (the gathered A of B10). Any block
+// may run items back to back: the shared tiles are guarded by barriers.
+template <typename T, int MT, int U, bool kCoherentA, typename Store>
+__device__ __forceinline__ void gemm_tile(const T* __restrict__ a,
+                                          const T* __restrict__ w,
+                                          int m_rows, int k_dim, int n_cols,
+                                          int k_chunk, int nt, int ks,
+                                          int mt, Store store) {
   constexpr int VEC = td::kVec<T>;
   constexpr int BN = 32 * VEC;
   __shared__ float a_s[MT][KC];
@@ -50,11 +59,11 @@ __global__ void __launch_bounds__(NT)
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int n = blockIdx.x * BN + lane * VEC;
+  const int n = nt * BN + lane * VEC;
   const bool n_ok = n < n_cols;  // n_cols is a multiple of VEC
-  const int k_begin = blockIdx.y * k_chunk;
+  const int k_begin = ks * k_chunk;
   const int k_end = min(k_dim, k_begin + k_chunk);
-  const int m0 = blockIdx.z * MT;
+  const int m0 = mt * MT;
 
   float acc[MT][VEC];
 #pragma unroll
@@ -67,10 +76,12 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();  // the previous step's readers of a_s are done
     for (int i = tid; i < MT * KC; i += NT) {
       const int m = i / KC, kk = i % KC;
-      a_s[m][kk] = (m0 + m < m_rows && kk < kn)
-                       ? td::to_f(a[static_cast<long>(m0 + m) * k_dim + kc +
-                                    kk])
-                       : 0.f;
+      float v = 0.f;
+      if (m0 + m < m_rows && kk < kn) {
+        const T* p = a + static_cast<long>(m0 + m) * k_dim + kc + kk;
+        v = td::to_f(kCoherentA ? __ldcg(p) : *p);
+      }
+      a_s[m][kk] = v;
     }
     __syncthreads();
     if (n_ok) {
@@ -106,19 +117,30 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < VEC; ++j) red[warp][lane * VEC + j] = acc[m][j];
     __syncthreads();
-    const int col = blockIdx.x * BN + tid;
+    const int col = nt * BN + tid;
     if (tid < BN && col < n_cols && m0 + m < m_rows) {
       float sum = 0.f;
 #pragma unroll
       for (int i = 0; i < WARPS; ++i) sum += red[i][tid];
-      const long row = m0 + m;
-      if (part != nullptr)
-        part[(static_cast<long>(blockIdx.y) * m_rows + row) * n_cols + col] =
-            sum;
-      else
-        out[row * n_cols + col] = td::from_f<T>(sum);
+      store(m0 + m, col, sum);
     }
   }
+}
+
+template <typename T, int MT, int U>
+__global__ void __launch_bounds__(NT)
+    gemm_kernel(const T* __restrict__ a, const T* __restrict__ w,
+                float* __restrict__ part, T* __restrict__ out, int m_rows,
+                int k_dim, int n_cols, int k_chunk) {
+  const long ks = blockIdx.y;
+  gemm_tile<T, MT, U, false>(
+      a, w, m_rows, k_dim, n_cols, k_chunk, blockIdx.x, blockIdx.y,
+      blockIdx.z, [&](int row, int col, float sum) {
+        if (part != nullptr)
+          part[(ks * m_rows + row) * n_cols + col] = sum;
+        else
+          out[static_cast<long>(row) * n_cols + col] = td::from_f<T>(sum);
+      });
 }
 
 // out = cast(sum of the K slices' f32 partials, in slice order)

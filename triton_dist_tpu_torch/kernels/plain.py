@@ -1,6 +1,6 @@
 """Plain products shared by the kernels' plain versions and the layers: the
 reference's ``preferred_element_type=f32`` products, and the world check of
-this single-card port. A leaf module: the kernel modules import it, and
+the paths that still run at world 1 only. A leaf module: the kernel modules import it, and
 ``layers/common.py`` (which imports the kernel modules' method enums)
 re-exports it."""
 
@@ -10,7 +10,8 @@ import torch
 
 
 def check_world(world: int, what: str) -> None:
-    """This port runs at world 1; a larger world raises naming A5."""
+    """B4's push to the peers, the mega graph and the all-reduce kernels
+    run at world 1 only; a larger world raises naming A5."""
     if world != 1:
         raise NotImplementedError(
             f"{what} at world {world} (tensor-parallel collectives) waits "

@@ -6,6 +6,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
 from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
@@ -16,26 +17,31 @@ from triton_dist_tpu_torch.kernels.moe_reduce_rs import MoeReduceRsMethod
 from triton_dist_tpu_torch.kernels.plain import (  # noqa: F401
     check_world, dot_f32,
 )
+from triton_dist_tpu_torch.runtime.mesh import Mesh
 
 
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """Parallelism context of a model, with the reference's fields and
-    defaults. The port runs at world 1, where the reference's collectives
-    are the identity; tensor parallelism waits for ROADMAP A5/A9.
+    defaults. ``mesh`` is the ranks' Mesh (runtime/mesh.py); None means
+    world 1 on one device, where the reference's collectives are the
+    identity.
 
     ag_method / rs_method: the triton_dist mode's QKV and o (and dense
-    MLP) projections (PALLAS = B12); moe_ag_method / moe_rs_method: its
-    MoE gate/up (PALLAS = B14) and down + top-k combine (PALLAS = B15);
-    AUTO picks the kernels on CUDA and the plain products on the CPU.
-    tile_bm / tile_bn / tile_bk are the TPU kernels' tiles and
-    comm_blocks their ring blocks: carried for the reference's
-    signatures, nothing at world 1 reads them. ep_a2a_method and
-    ep_max_m (expert parallelism) raise when set: ROADMAP A10.
+    MLP) projections (PALLAS = B10 and B13a at world n > 1, B12 at world
+    1); moe_ag_method / moe_rs_method: its MoE gate/up (PALLAS = B14) and
+    down + top-k combine (PALLAS = B15), world 1 only; AUTO picks the
+    kernels on CUDA and the plain products on the CPU. tile_bm / tile_bn /
+    tile_bk are the TPU kernels' tiles and comm_blocks their ring blocks:
+    carried for the reference's signatures, nothing on the card reads
+    them. ep_a2a_method and ep_max_m (expert parallelism) raise when set:
+    ROADMAP A10.
 
     attn_method: "auto" (flash kernel when head_dim % 128 == 0 and the
     chunk has at least 128 keys), "pallas" (always the flash kernel —
     the reference's name for it) or "xla" (masked-einsum baseline)."""
+    mesh: Mesh | None = None
+    axis: str = "tp"
     ag_method: AgGemmMethod = AgGemmMethod.XLA_RING
     rs_method: GemmRsMethod = GemmRsMethod.XLA_RING
     moe_ag_method: AgGroupGemmMethod = AgGroupGemmMethod.AUTO
@@ -53,25 +59,37 @@ class TPContext:
             raise NotImplementedError(
                 "expert parallelism (ep_a2a_method, ep_max_m) waits for "
                 "ROADMAP A10")
+        if self.mesh is not None and self.mesh.axis != self.axis:
+            raise ValueError(f"mesh axis {self.mesh.axis!r} is not the TP "
+                             f"axis {self.axis!r}")
 
     @property
     def world(self) -> int:
-        return 1
+        return 1 if self.mesh is None else self.mesh.world
 
 
 MODES = ("xla", "triton_dist", "triton_dist_AR")
 
 
 def check_mode(mode: str) -> None:
-    """The "xla" forward (plain matmuls) and the "triton_dist" forward (its
-    AG + GEMM / GEMM + RS ops at world 1) are ported; "triton_dist_AR"
-    raises naming its ROADMAP item."""
+    """The "xla" forward (local matmuls, an all-reduce after the o and
+    down projections) and the "triton_dist" forward (batch-sharded rows
+    through AG + GEMM and GEMM + RS) are ported; "triton_dist_AR" raises
+    naming its ROADMAP item."""
     if mode in ("xla", "triton_dist"):
         return
     if mode == "triton_dist_AR":
         raise NotImplementedError(
             "mode 'triton_dist_AR' (fused all-reduce) waits for ROADMAP A5")
     raise ValueError(f"mode {mode!r} not in {MODES}")
+
+
+def psum(ctx: TPContext, y: torch.Tensor) -> torch.Tensor:
+    """The reference's ``lax.psum`` over the TP axis: an in-place
+    all-reduce of ``y`` across the mesh (the identity at world 1)."""
+    if ctx.world > 1:
+        dist.all_reduce(y, group=ctx.mesh.group)
+    return y
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

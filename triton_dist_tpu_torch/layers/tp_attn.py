@@ -1,14 +1,19 @@
-"""Attention blocks (the reference's layers/tp_attn.py) at world 1: QKV
-projection, per-head QK norm, rope, the cache write, causal GQA attention,
-the output projection. Mode "xla" projects with plain matmuls (the psum is
-the identity at world 1); mode "triton_dist" through AG + GEMM and GEMM +
-RS (``ctx.ag_method`` / ``ctx.rs_method``; PALLAS runs B12), whose
-collectives are the identity at world 1.
+"""Attention blocks (the reference's layers/tp_attn.py): QKV projection,
+per-head QK norm, rope, the cache write, causal GQA attention, the output
+projection, at world n (``ctx.world``): each rank holds hq/n query and
+hkv/n kv heads (its columns of wqkv, its rows of wo).
+
+Mode "xla": x is the whole batch on every rank; local matmuls, and the o
+projection's f32-accumulated product, cast, is all-reduced (the
+reference's psum). Mode "triton_dist": x is this rank's rows of the batch;
+AG + GEMM gathers the batch into the QKV projection and GEMM + RS hands
+each rank its rows back after the o projection (``ctx.ag_method`` /
+``ctx.rs_method``; PALLAS runs B10 / B13a at n > 1, B12 at world 1).
 
 ``attn_fwd`` runs over the dense cache: the K/V write at the on-device
 offset and B1 (or the einsum, by the reference's ``_use_flash`` rule) over
-the slabs. ``paged_attn_fwd`` runs over the paged cache: page write, then
-flash prefill (B1, T > 1) or paged flash decode (B2, T == 1)."""
+the slabs. ``paged_attn_fwd`` runs over the paged cache (world 1): page
+write, then flash prefill (B1, T > 1) or paged flash decode (B2, T == 1)."""
 
 from __future__ import annotations
 
@@ -24,23 +29,28 @@ from triton_dist_tpu_torch.kernels.paged_flash_decode import (
 )
 from triton_dist_tpu_torch.layers.attention_core import gqa_attend
 from triton_dist_tpu_torch.layers.common import (
-    TPContext, apply_rope, check_mode, rms_norm,
+    TPContext, apply_rope, check_mode, psum, rms_norm,
 )
 
 
 def _qkv_project(mode: str, ctx: TPContext, arch, w: dict, x: torch.Tensor,
                  positions: torch.Tensor, cos_sin: torch.Tensor):
     """QKV projection, split, per-head QK norm, rope. Returns
-    (q, k, v, b) with q (B, T, Hq, D) and k/v (B, T, Hkv, D), contiguous."""
+    (q, k, v, b_full) with q (B_full, T, Hq/n, D) and k/v (B_full, T,
+    Hkv/n, D), contiguous; B_full is the whole batch (gathered in
+    triton_dist mode)."""
     check_mode(mode)
-    b, t = x.shape[0], x.shape[1]
-    hq, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    n = ctx.world
+    t = x.shape[1]
+    hq, hkv, hd = arch.num_heads // n, arch.num_kv_heads // n, arch.head_dim
     if mode == "triton_dist":
-        qkv2d, _ = ag_gemm_per_device(ctx.world, ctx.ag_method,
-                                      x.reshape(b * t, -1), w["wqkv"])
-        qkv = qkv2d.reshape(b, t, -1)
+        qkv2d, _ = ag_gemm_per_device(n, ctx.ag_method,
+                                      x.reshape(-1, x.shape[-1]), w["wqkv"],
+                                      mesh=ctx.mesh)
+        qkv = qkv2d.reshape(qkv2d.shape[0] // t, t, -1)
     else:
         qkv = torch.matmul(x, w["wqkv"])
+    b = qkv.shape[0]
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     q = q.reshape(b, t, hq, hd)
     k = k.reshape(b, t, hkv, hd)
@@ -53,16 +63,19 @@ def _qkv_project(mode: str, ctx: TPContext, arch, w: dict, x: torch.Tensor,
 
 def _o_project(mode: str, ctx: TPContext, w: dict, out: torch.Tensor,
                dtype: torch.dtype, d_model: int) -> torch.Tensor:
-    """Output projection; the TP psum (xla) and the reduce-scatter
-    (triton_dist) are the identity at world 1."""
+    """Output projection. triton_dist: GEMM + RS back to this rank's rows
+    of the batch; xla: the f32-accumulated product, cast, all-reduced over
+    the ranks (the reference's psum: its product is cast before the
+    sum)."""
     check_mode(mode)
     b, t = out.shape[0], out.shape[1]
     if mode == "triton_dist":
         y2d = gemm_rs_per_device(ctx.world, ctx.rs_method,
-                                 out.reshape(b * t, -1), w["wo"])
-    else:
-        y2d = torch.matmul(out.reshape(b * t, -1), w["wo"]).to(dtype)
-    return y2d.reshape(b, t, d_model)
+                                 out.reshape(b * t, -1), w["wo"],
+                                 mesh=ctx.mesh)
+        return y2d.reshape(-1, t, d_model)
+    y2d = torch.matmul(out.reshape(b * t, -1), w["wo"]).to(dtype)
+    return psum(ctx, y2d).reshape(b, t, d_model)
 
 
 def attn_fwd(mode: str, ctx: TPContext, arch, w: dict, x: torch.Tensor,

@@ -1,8 +1,9 @@
-"""MLP block (the reference's layers/tp_mlp.py) at world 1: gate/up
-projection, silu(gate) * up in f32, down projection. Mode "xla" uses plain
-matmuls (the psum is the identity at world 1); mode "triton_dist" AG +
-GEMM and GEMM + RS (``ctx.ag_method`` / ``ctx.rs_method``; PALLAS runs
-B12), whose collectives are the identity at world 1."""
+"""MLP block (the reference's layers/tp_mlp.py) at world n: gate/up
+projection (each rank its columns [gate_r | up_r]), silu(gate) * up in f32,
+down projection (its rows). Mode "xla": local matmuls on the whole batch,
+the down projection all-reduced (the reference's psum); mode "triton_dist":
+this rank's rows through AG + GEMM and GEMM + RS (``ctx.ag_method`` /
+``ctx.rs_method``; PALLAS runs B10 / B13a at n > 1, B12 at world 1)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_per_device
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
     gemm_rs_per_device,
 )
-from triton_dist_tpu_torch.layers.common import TPContext, check_mode
+from triton_dist_tpu_torch.layers.common import TPContext, check_mode, psum
 
 
 def _silu_mul(gate_up: torch.Tensor) -> torch.Tensor:
@@ -28,9 +29,10 @@ def mlp_fwd(mode: str, ctx: TPContext, w: dict,
     if mode == "triton_dist":
         d_model, t = x.shape[-1], x.shape[1]
         h2d, _ = ag_gemm_per_device(ctx.world, ctx.ag_method,
-                                    x.reshape(-1, d_model), w["w_gate_up"])
+                                    x.reshape(-1, d_model), w["w_gate_up"],
+                                    mesh=ctx.mesh)
         y2d = gemm_rs_per_device(ctx.world, ctx.rs_method, _silu_mul(h2d),
-                                 w["w_down"])
+                                 w["w_down"], mesh=ctx.mesh)
         return y2d.reshape(-1, t, d_model)
     h = _silu_mul(torch.matmul(x, w["w_gate_up"]))
-    return torch.matmul(h, w["w_down"])
+    return psum(ctx, torch.matmul(h, w["w_down"]))

@@ -40,7 +40,10 @@ class AutoLLM:
                         generator: torch.Generator | None = None):
         """Build (model, params) from a ModelConfig (or bare model name)
         with random weights drawn from ``generator`` (default: seed 0 on
-        the device). Raises without a card unless device="cpu".
+        the device). Raises without a card unless device="cpu". With a
+        ``ctx`` over a mesh of n ranks, the model and this rank's shard of
+        the parameters live on the rank's device (the mesh's), and the
+        shards are those of the world-1 weights from the same seed.
         checkpoint_dir raises until HF checkpoints can be read on the card
         (load_hf_qwen3, ROADMAP A2)."""
         if isinstance(config, str):
@@ -53,12 +56,16 @@ class AutoLLM:
             raise NotImplementedError(
                 "checkpoint loading (load_hf_qwen3) waits for ROADMAP A2; "
                 "pass checkpoint_dir=None for random weights")
-        dev = resolve_device(device)
+        mesh = ctx.mesh if ctx is not None else None
+        dev = mesh.device if mesh is not None else resolve_device(device)
         arch = QWEN3_ARCHS[config.model_name]
         cls = Qwen3MoE if isinstance(arch, Qwen3MoEArch) else Qwen3
         model = cls(arch, ctx, max_length=config.max_length,
                     dtype=config.dtype, device=dev)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        params = init_random_params(generator, arch, dev, config.dtype)
+        params = init_random_params(
+            generator, arch, dev, config.dtype,
+            rank=mesh.rank if mesh is not None else 0,
+            world=mesh.world if mesh is not None else 1)
         return model, params

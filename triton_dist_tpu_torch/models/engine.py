@@ -20,6 +20,17 @@ On the paged cache (``cache_mode="paged"``) the decode step is eager
 (paged flash decode, B2); as in the reference, ``mega`` is ignored there.
 Its graph comes with the paged mega step (ROADMAP A7); speculative decode
 waits for A12.
+
+Tensor parallelism (``model.ctx.world`` n > 1, one Engine per rank
+process): every rank is given the whole batch and returns the whole
+batch's tokens. Prefill runs in "xla" on the whole batch. With
+``backend="triton_dist"`` each rank decodes its B/n rows (B10 for the QKV
+and gate/up projections, B13a for o and down, with ``ag_method`` /
+``rs_method`` PALLAS) in the captured step, samples them, and the ranks
+all-gather the sampled tokens outside the graph. With ``backend="xla"``
+the plain TP decode (``mega="off"``) runs on every rank; the mega step at
+n > 1 (B4's push to the peers) waits for ROADMAP A5, and the paged cache
+at n > 1 for A6.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
 from triton_dist_tpu_torch.kernels import launch_counts
 from triton_dist_tpu_torch.layers.common import check_mode
@@ -52,6 +64,15 @@ class Engine:
             raise NotImplementedError(
                 "speculative decode waits for ROADMAP A12")
         check_mode(backend)
+        world = model.ctx.world
+        if world > 1 and cache_mode == "paged":
+            raise NotImplementedError(
+                f"the paged cache at world {world} waits for ROADMAP A6")
+        if world > 1 and backend == "xla" and mega != "off":
+            raise NotImplementedError(
+                f"the mega decode step at world {world} (B4's push of "
+                "partials to the peers) waits for ROADMAP A5; pass "
+                "mega='off' for the plain tensor-parallel xla decode")
         if params["embed"].device != model.device:
             raise ValueError(f"params on {params['embed'].device}, model on "
                              f"{model.device}")
@@ -85,6 +106,8 @@ class Engine:
         self._logits_buf = None
         self.graph_launches: dict[str, int] = {}
         self.graph_replays = 0
+        # triton_dist at world n: this rank decodes its rows of the batch
+        self._sharded = world > 1 and backend == "triton_dist"
 
     @property
     def mega_tier(self) -> str | None:
@@ -111,7 +134,12 @@ class Engine:
 
     def _dense_forward(self, ids: torch.Tensor) -> torch.Tensor:
         """One dense decode forward over self.kv_cache (written and
-        advanced in place); returns the (B, V) f32 logits."""
+        advanced in place); returns the (B, V) f32 logits (this rank's
+        B/n rows when the decode is batch-sharded)."""
+        if self._sharded:
+            mesh = self.model.ctx.mesh
+            b = ids.shape[0] // mesh.world
+            ids = ids[mesh.rank * b:(mesh.rank + 1) * b]
         if self._mega_rt is not None:
             step = self._mega_rt.dense_step_fn(self.mega_tier)
             logits, _ = step(self.params, self.kv_cache, ids)
@@ -149,7 +177,9 @@ class Engine:
         """ONE decode step without sampling: ``token`` is the (B,) pending
         token; returns the (B, V) f32 logits and advances self.kv_cache in
         place. On the card's dense path the result is the captured
-        graph's output buffer, overwritten by the next step."""
+        graph's output buffer, overwritten by the next step. A
+        batch-sharded (triton_dist, n > 1) decode returns this rank's B/n
+        rows."""
         if self.kv_cache is None:
             raise RuntimeError("no KV cache: call serve() (or prefill) "
                                "before stepping")
@@ -178,7 +208,14 @@ class Engine:
         (B,) next token and advances self.kv_cache in place. On the card
         the dense step is one CUDA-graph replay."""
         logits = self.decode_logits(token)
-        return sample_token(logits, generator, self.temperature, self.top_p)
+        nxt = sample_token(logits, generator, self.temperature, self.top_p)
+        if not self._sharded:
+            return nxt
+        mesh = self.model.ctx.mesh
+        full = torch.empty((mesh.world * nxt.shape[0],), dtype=nxt.dtype,
+                           device=nxt.device)
+        dist.all_gather_into_tensor(full, nxt.contiguous(), group=mesh.group)
+        return full
 
     def serve(self, input_ids: torch.Tensor, gen_len: int,
               generator: torch.Generator | None = None) -> torch.Tensor:
@@ -188,6 +225,11 @@ class Engine:
         back to the host."""
         input_ids = torch.as_tensor(input_ids, device=self.model.device)
         bsz, t = input_ids.shape
+        if self._sharded and bsz % self.model.ctx.world:
+            raise ValueError(
+                f"batch {bsz} not divisible by the world "
+                f"{self.model.ctx.world}: the triton_dist decode gives "
+                "every rank B/n rows")
         if t + gen_len > self.model.max_length:
             raise ValueError(
                 f"prefill {t} + gen_len {gen_len} exceeds the model's "

@@ -1,5 +1,13 @@
-"""Qwen3 dense model (the reference's models/qwen.py), one device, modes
-"xla" and "triton_dist", on the dense KVCache or the PagedKVCache.
+"""Qwen3 dense model (the reference's models/qwen.py), modes "xla" and
+"triton_dist", on the dense KVCache or (world 1) the PagedKVCache.
+
+Tensor parallelism: one process per rank, each holding its shard of the
+parameters (``param_specs``: the reference's PartitionSpecs, as tuples) and
+its hkv/n heads of the dense cache. In mode "xla" every rank runs the
+whole batch and the logits are gathered along the vocabulary; in mode
+"triton_dist" ``inference`` takes this rank's rows of the batch
+(batch-sharded ids, the reference's ``P("tp", None)``) and returns their
+logits over the whole vocabulary.
 
 Parameters are a plain dict with the reference's layout: layer weights
 stay STACKED along a leading num_layers axis and are indexed per layer (as
@@ -13,16 +21,43 @@ prefill_slot and the triton_dist_AR mode wait for their ROADMAP items.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from triton_dist_tpu_torch.layers.common import (
     MODES, TPContext, check_mode, dot_f32, make_cos_sin_cache, rms_norm,
 )
 from triton_dist_tpu_torch.layers.tp_attn import attn_fwd, paged_attn_fwd
 from triton_dist_tpu_torch.layers.tp_mlp import mlp_fwd
-from triton_dist_tpu_torch.models.config import Qwen3Arch
+from triton_dist_tpu_torch.models.config import Qwen3Arch, Qwen3MoEArch
 from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedKVCache
 from triton_dist_tpu_torch.quant.policy import resolve_kv_resident
 from triton_dist_tpu_torch.runtime.device import resolve_device
+
+
+def param_specs(arch: Qwen3Arch) -> dict:
+    """The sharding of every parameter over the TP axis "tp", as tuples in
+    the place of the reference's PartitionSpecs (``None``: replicated along
+    that dimension). models/weights.py slices by it."""
+    tp = "tp"
+    if isinstance(arch, Qwen3MoEArch):
+        mlp = {"w_router": (), "w_gate_up": (None, None, None, tp),
+               "w_down": (None, None, tp, None)}
+    else:
+        mlp = {"w_gate_up": (None, None, tp), "w_down": (None, tp, None)}
+    return {
+        "embed": (),
+        "lm_head": (None, tp),
+        "final_norm": (),
+        "layers": {
+            "wqkv": (None, None, tp),
+            "wo": (None, tp, None),
+            "q_norm": (),
+            "k_norm": (),
+            "in_norm": (),
+            "post_norm": (),
+            **mlp,
+        },
+    }
 
 
 class Qwen3:
@@ -34,11 +69,16 @@ class Qwen3:
     def __init__(self, arch: Qwen3Arch, ctx: TPContext | None = None,
                  max_length: int = 4096, dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda"):
-        self.device = resolve_device(device)
         self.ctx = ctx if ctx is not None else TPContext()
-        if self.ctx.world != 1:
-            raise NotImplementedError("tensor parallelism waits for "
-                                      "ROADMAP A5/A9")
+        n = self.ctx.world
+        if arch.num_heads % n or arch.num_kv_heads % n:
+            raise ValueError(
+                f"heads {arch.num_heads}/{arch.num_kv_heads} not divisible "
+                f"by tp={n}")
+        self.device = resolve_device(device)
+        if n > 1 and self.device != self.ctx.mesh.device:
+            raise ValueError(f"model on {self.device}, its rank's mesh on "
+                             f"{self.ctx.mesh.device}")
         self.arch = arch
         self.max_length = max_length
         self.dtype = dtype
@@ -48,10 +88,12 @@ class Qwen3:
     # -- cache ------------------------------------------------------------
 
     def create_kv_cache(self, batch: int) -> KVCache:
-        """Dense max-length cache on the model's device."""
+        """Dense max-length cache on the model's device: this rank's
+        hkv/n heads of the whole batch."""
         arch = self.arch
         return KVCache.create(arch.num_layers, batch, self.max_length,
-                              arch.num_kv_heads, arch.head_dim,
+                              arch.num_kv_heads // self.ctx.world,
+                              arch.head_dim,
                               dtype=self.dtype, device=self.device)
 
     def create_paged_kv_cache(self, batch: int, page_size: int = 128,
@@ -61,7 +103,12 @@ class Qwen3:
                               ) -> PagedKVCache:
         """Paged cache on the model's device. kv_resident: "auto" (ask the
         TD_QUANT policy) | "int8" | "off"/None; kv_hbm_budget sizes
-        num_pages from a pool byte budget (PagedKVCache.create)."""
+        num_pages from a pool byte budget (PagedKVCache.create). World 1
+        only: the paged path at TP > 1 waits for ROADMAP A6."""
+        if self.ctx.world > 1:
+            raise NotImplementedError(
+                f"the paged cache at world {self.ctx.world} (the paged path "
+                "under tensor parallelism) waits for ROADMAP A6")
         arch = self.arch
         return PagedKVCache.create(
             arch.num_layers, batch, self.max_length, arch.num_kv_heads,
@@ -93,11 +140,31 @@ class Qwen3:
 
     def _logits_tail(self, mode: str, h: torch.Tensor,
                      params: dict) -> torch.Tensor:
-        """(B, V) f32 logits of the last position. In triton_dist mode
-        the reference gathers the batch-sharded last rows and transposes
-        the vocab-sharded logits, both the identity at world 1."""
+        """(B, V) f32 logits of the last position; lm_head is this rank's
+        vocabulary columns. triton_dist: gather the batch-sharded last
+        rows, take the vocab-sharded product, then all-to-all it into this
+        rank's rows over the whole vocabulary; xla: gather the product
+        along the vocabulary."""
         check_mode(mode)
-        return dot_f32(h[:, -1], params["lm_head"])
+        last = h[:, -1]
+        n, b = self.ctx.world, last.shape[0]
+        if n == 1:
+            return dot_f32(last, params["lm_head"])
+        group = self.ctx.mesh.group
+        if mode == "triton_dist":
+            full = torch.empty((n * last.shape[0], last.shape[1]),
+                               dtype=last.dtype, device=last.device)
+            dist.all_gather_into_tensor(full, last.contiguous(), group=group)
+            logits = dot_f32(full, params["lm_head"])        # (B, V/n)
+            recv = torch.empty_like(logits)
+            dist.all_to_all_single(recv, logits, group=group)
+        else:
+            logits = dot_f32(last, params["lm_head"]).contiguous()
+            recv = torch.empty((n * logits.shape[0], logits.shape[1]),
+                               dtype=logits.dtype, device=logits.device)
+            dist.all_gather_into_tensor(recv, logits, group=group)
+        # (n, b, V/n) blocks of vocabulary shards -> (b, V)
+        return recv.view(n, b, -1).transpose(0, 1).reshape(b, -1)
 
     def _inference_paged(self, params: dict, cache: PagedKVCache,
                          input_ids: torch.Tensor, mode: str,
@@ -152,7 +219,9 @@ class Qwen3:
         """Full forward; returns (logits (B, V) f32 of the LAST position,
         cache). ``cache`` is the dense KVCache or a PagedKVCache, updated
         in place. ``active`` ((B,) bool, paged decode only): False rows
-        neither grow nor write KV."""
+        neither grow nor write KV. In mode "triton_dist" at world n,
+        ``input_ids`` and the logits are this rank's B/n rows of the
+        batch."""
         if mode not in MODES:
             raise ValueError(f"mode {mode} not in {MODES}")
         if input_ids.shape[1] > self.max_length:

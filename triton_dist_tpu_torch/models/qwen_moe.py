@@ -28,6 +28,10 @@ class Qwen3MoE(Qwen3):
             raise NotImplementedError(
                 "the expert-parallel MoE layout (moe_parallel='ep') waits "
                 "for ROADMAP A10")
+        if ctx is not None and ctx.world > 1:
+            raise NotImplementedError(
+                f"the MoE layers at world {ctx.world} (the token ring of "
+                "B14/B15) wait for ROADMAP A10")
         super().__init__(arch, ctx, max_length=max_length, dtype=dtype,
                          device=device)
 

@@ -30,6 +30,14 @@ NVCC_TIMEOUT_S = 600
 _LOADED: dict[str, ctypes.CDLL] = {}   # name -> library, per process
 
 
+def all_sources() -> list[str]:
+    """Every ``csrc/<name>.cu`` of the port. A program that starts one
+    process per rank builds them all in the parent first (``build``); the
+    ranks then only load the libraries, instead of running one nvcc per
+    rank on the same sources."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, then PATH, then the
     toolkit's default prefix. Raises if none exists."""
