@@ -17,18 +17,22 @@ counts each path's kernel launches in one serve, checks prefill against
 prefill + one decode step, the graph-replayed steps against the eager xla
 steps, and small f32 models (dense and MoE) served on the card against
 the CPU. Then the tensor-parallel kernels: tutorial 01's notify / wait,
-B10 (AllGather + GEMM) and B13a (GEMM + ReduceScatter) against their
-plain versions with four logical ranks on one card (the one-card world);
-and, when four cards are present, Qwen3-32B (published widths, all 64
-layers, bf16) served at TP=4 by four rank processes (prefill in xla,
-every decode step one graph replay with 128 B10 and 128 B13a), the f32
-4-layer gate across TP=4 triton_dist, TP=4 xla and world 1, and B10 /
-B13a timed on each card. With fewer than four cards those phases print
-that they did not run. Named phases run alone (see ``main``). One JSON
-line per phase; the line before the last lists every kernel with its
-times and bound; the last line is the device record. Any failed check
-exits non-zero. Imports nothing of JAX. Needs one card; without one it
-exits non-zero and prints no result.
+B10 (AllGather + GEMM), B13a (GEMM + ReduceScatter), B4 across ranks
+(GEMM + AllReduce), B5 (one-shot all-reduce) and B6 (recursive
+halving-doubling all-reduce) against their plain versions with four
+logical ranks on one card (the one-card world); and, when four cards are
+present, Qwen3-32B (published widths, all 64 layers, bf16) served at TP=4
+by four rank processes from one weight draw (prefill in xla, every decode
+step one graph replay): in triton_dist (128 B10 and 128 B13a per replay),
+through ``Engine(model, params)`` at its defaults (the mega step: 128 B4,
+64 B3, 64 B1 per replay) and in triton_dist_AR under ONE_SHOT (128 B5)
+and RHD (128 B6); the f32 4-layer gate across every TP=4 path and world
+1; and B10 / B13a / B4 / B5 / B6 timed on each card. With fewer than four
+cards those phases print that they did not run. Named phases run alone
+(see ``main``). One JSON line per phase; the line before the last lists
+every kernel with its times and bound; the last line is the device
+record. Any failed check exits non-zero. Imports nothing of JAX. Needs
+one card; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -1325,7 +1329,8 @@ NVLINK_BW = 450e9         # H100 NVLink bytes/s each way (data sheet)
 SLEEP_CYCLES = 300_000_000  # ~0.15 s at the H100's clock: holds the stream
 TP_MODEL = "Qwen/Qwen3-32B"
 FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency")
-ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs")
+ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
+                      "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -1526,6 +1531,151 @@ def phase_b13(torch, symm, grs, calls: int = 20):
         "one card, 4 logical ranks")
 
 
+def _same_bytes(torch, outs):
+    """Every rank's output equal to rank 0's, bit for bit."""
+    return all(torch.equal(o, outs[0]) for o in outs)
+
+
+def _mm_f32(torch, a, b):
+    """torch.mm with f32 output (cuBLAS, f32 accumulation)."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def phase_b4_tp(torch, symm, ga, calls: int = 20):
+    """B4 across ranks (the f32 partials of every rank pushed into each
+    rank's sender-indexed slot, folded slot 0 + ... + slot 3, one cast)
+    against its plain version (gemm_ar_ref_shards: the same fold) in the
+    one-card world. Qwen3-32B at TP=4, B=16 replicated decode: o (16,
+    2048) x (2048, 5120) and down (16, 6400) x (6400, 5120), bf16 and
+    f32; then `calls` successive o calls with fresh inputs, every one
+    checked. Within 1e-2 x max|ref| in bf16, 1e-4 in f32 (B10/B13a's
+    tolerances), and the four ranks' outputs the same bytes. Timed: the
+    four ranks' calls together on the one card (queued_ms), bound by the
+    four ranks' bytes at HBM speed; the library yardstick each rank's
+    torch.mm (f32 output) and one torch.stack(...).sum(0) of the four
+    partials."""
+    bf, f32 = torch.bfloat16, torch.float32
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(43)
+    cases = [("o_m16", bf, 16, 2048, 5120), ("down_m16", bf, 16, 6400, 5120),
+             ("o_m16_f32", f32, 16, 2048, 5120),
+             ("down_m16_f32", f32, 16, 6400, 5120)]
+    rows, timed = [], {}
+
+    def run_check(name, a, b, tol):
+        outs = world.run(lambda r: ga.pallas_gemm_ar(world.mesh(r), a[r],
+                                                      b[r]))
+        torch.cuda.synchronize()
+        refs = ga.gemm_ar_ref_shards(a, b)
+        res = [_held(torch, f"{name}/rank{r}", outs[r], refs[r], tol)
+               for r in range(TP)]
+        res[0]["ranks_same_bytes"] = _same_bytes(torch, outs)
+        res[0]["ok"] = res[0]["ok"] and res[0]["ranks_same_bytes"]
+        return res
+
+    for name, dt, m, k, n in cases:
+        a, b = _tp_shards(torch, g, dt, m, k, n)
+        rows += run_check(name, a, b, _tp_tol(torch, dt))
+        if dt == bf:
+            es = a[0].element_size()
+            nbytes = TP * (m * k + k * n + m * n) * es
+            timed[name] = _one_card_kernel_row(
+                torch, world, name,
+                lambda r: ga.pallas_gemm_ar(world.mesh(r), a[r], b[r]),
+                lambda: ga.gemm_ar_ref_shards(a, b),
+                nbytes, TP * 2.0 * m * k * n)
+            timed[name]["library_ms"] = queued_ms(
+                torch, lambda: torch.stack(
+                    [_mm_f32(torch, a[r], b[r]) for r in range(TP)]).sum(0)
+                .to(dt))[0]
+            timed[name]["max_abs_err"] = max(
+                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+    seq_ok = []
+    for _ in range(calls):
+        a, b = _tp_shards(torch, g, bf, 16, 2048, 5120)
+        seq_ok.append(all(x["ok"] for x in run_check("seq", a, b, 1e-2)))
+    emit({"phase": "b4_gemm_ar_tp", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"B4 across ranks disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+    rec = _tp_kernel_record(
+        "pallas_gemm_ar", "gemm_ar.cu",
+        "triton_dist_tpu/kernels/gemm_allreduce.py:101", timed,
+        "one card, 4 logical ranks")
+    rec["library_ms_call"] = ("4 x torch.mm(a_r, b_r, out_dtype=f32), "
+                              "torch.stack(...).sum(0), cast")
+    return rec
+
+
+def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
+    """B5 (kind "one_shot") or B6 ("rhd") against its plain version in
+    the one-card world: each rank's x (16, 5120), Qwen3-32B's hidden rows
+    at B=16 (the sum after the o and down products), bf16 and f32, then
+    `calls` successive bf16 calls with fresh inputs. Both only add, so
+    each rank's output must equal its plain fold bit for bit (B5: own
+    term first, then the others ascending; B6: the halving tree, the same
+    bytes on every rank). Timed: the four ranks' calls together
+    (queued_ms), bound by each rank's x read and output written at HBM
+    speed; the library yardstick one torch.stack(...).sum(0) of the four
+    inputs."""
+    fn = (arm.one_shot_all_reduce if kind == "one_shot"
+          else arm.rhd_all_reduce)
+    ref = arm.one_shot_ref_shards if kind == "one_shot" else \
+        arm.rhd_ref_shards
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(47)
+    rows, timed = [], {}
+
+    def draw(dt):
+        return [torch.randn((16, 5120), generator=g, device=DEV).to(dt)
+                for _ in range(TP)]
+
+    def run_check(name, xs):
+        outs = world.run(lambda r: fn(world.mesh(r), xs[r]))
+        torch.cuda.synchronize()
+        refs = ref(xs)
+        res = [{"case": f"{name}/rank{r}",
+                "max_abs_err": (outs[r].float() - refs[r].float()).abs()
+                .max().item(),
+                "ok": bool(torch.equal(outs[r], refs[r]))}
+               for r in range(TP)]
+        if kind == "rhd":
+            res[0]["ranks_same_bytes"] = _same_bytes(torch, outs)
+            res[0]["ok"] = res[0]["ok"] and res[0]["ranks_same_bytes"]
+        return res
+
+    for name, dt in (("x_m16", torch.bfloat16), ("x_m16_f32", torch.float32)):
+        xs = draw(dt)
+        rows += run_check(name, xs)
+        if dt == torch.bfloat16:
+            nbytes = TP * 2 * xs[0].numel() * xs[0].element_size()
+            timed[name] = _one_card_kernel_row(
+                torch, world, name, lambda r: fn(world.mesh(r), xs[r]),
+                lambda: ref(xs), nbytes, TP * (TP - 1.0) * xs[0].numel())
+            timed[name]["library_ms"] = queued_ms(
+                torch, lambda: torch.stack(xs).sum(0))[0]
+            timed[name]["max_abs_err"] = max(
+                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+    seq_ok = [all(x["ok"] for x in run_check("seq", draw(torch.bfloat16)))
+              for _ in range(calls)]
+    phase = "b5_one_shot" if kind == "one_shot" else "b6_rhd"
+    emit({"phase": phase, "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"{phase} disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+    rec = _tp_kernel_record(
+        f"{kind}_all_reduce", "allreduce.cu",
+        "triton_dist_tpu/kernels/allreduce.py:"
+        + ("99" if kind == "one_shot" else "170"), timed,
+        "one card, 4 logical ranks")
+    rec["library_ms_call"] = "torch.stack(xs).sum(0)"
+    return rec
+
+
 def _tp_kernel_record(name, source, replaces, timed, world):
     """A kernels-line row: the mean over the decode shapes (one of each per
     layer on the main path). ``launches`` stays None unless the TP=4 serve
@@ -1549,62 +1699,122 @@ def _tp_kernel_record(name, source, replaces, timed, world):
 _TP_SHAPES = (("qkv_m4", "ag", 4, 5120, 2560),
               ("gate_up_m4", "ag", 4, 5120, 12800),
               ("o_m4", "rs", 4, 2048, 5120),
-              ("down_m4", "rs", 4, 6400, 5120))
+              ("down_m4", "rs", 4, 6400, 5120),
+              ("o_m16", "ar", 16, 2048, 5120),
+              ("down_m16", "ar", 16, 6400, 5120),
+              ("x_m16_one_shot", "one_shot", 16, 5120, 0),
+              ("x_m16_rhd", "rhd", 16, 5120, 0))
+# kernels-line rows of the four-card timings: (wrapper, its shapes,
+# source, the TPU kernel it replaces, the library call timed beside it)
+_TP_ROWS = (
+    ("pallas_ag_gemm", ("qkv_m4", "gate_up_m4"), "ag_gemm.cu",
+     "triton_dist_tpu/kernels/allgather_gemm.py:293",
+     "torch.distributed._symmetric_memory._fused_all_gather_matmul"),
+    ("pallas_gemm_rs", ("o_m4", "down_m4"), "gemm_rs.cu",
+     "triton_dist_tpu/kernels/gemm_reduce_scatter.py:321",
+     "torch.distributed._symmetric_memory._fused_matmul_reduce_scatter"),
+    ("pallas_gemm_ar", ("o_m16", "down_m16"), "gemm_ar.cu",
+     "triton_dist_tpu/kernels/gemm_allreduce.py:101",
+     "torch.mm + torch.distributed.all_reduce (NCCL)"),
+    ("one_shot_all_reduce", ("x_m16_one_shot",), "allreduce.cu",
+     "triton_dist_tpu/kernels/allreduce.py:99",
+     "torch.distributed.all_reduce (NCCL)"),
+    ("rhd_all_reduce", ("x_m16_rhd",), "allreduce.cu",
+     "triton_dist_tpu/kernels/allreduce.py:170",
+     "torch.distributed.all_reduce (NCCL)"))
 
 
-def _tp_case(torch, mesh, agm, grs, kind, m, k, n, seed):
+def _tp_case(torch, mesh, kind, m, k, n, seed):
     """This rank's bf16 inputs of one decode shape and the three calls of
-    the same function: the kernel, its plain version and torch's fused
-    symmetric-memory op. Every rank draws its own shards."""
+    the same function: the kernel, its plain version and the library
+    yardstick (torch's fused symmetric-memory ops for B10 / B13a, NCCL
+    for B4 / B5 / B6). Every rank draws its own inputs."""
+    import torch.distributed as dist
+    from torch.distributed import _symmetric_memory as symm_mem
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import allreduce as arm
+    from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
     g = torch.Generator(device=mesh.device).manual_seed(seed + mesh.rank)
-    rows = m if kind == "ag" else TP * m
+    rows = TP * m if kind == "rs" else m
     a = torch.randn((rows, k), generator=g, device=mesh.device).to(
         torch.bfloat16)
+    if kind in ("one_shot", "rhd"):
+        fn = (arm.one_shot_all_reduce if kind == "one_shot"
+              else arm.rhd_all_reduce)
+        plain = arm.one_shot_ref if kind == "one_shot" else arm.rhd_ref
+
+        def nccl():
+            y = a.clone()
+            dist.all_reduce(y, group=mesh.group)
+            return y
+        return (lambda: fn(mesh, a), lambda: plain(mesh, a), nccl)
     b = (torch.randn((k, n), generator=g, device=mesh.device)
          * k ** -0.5).to(torch.bfloat16)
     group_name = mesh.group.group_name
     if kind == "ag":
         def lib():
-            from torch.distributed import _symmetric_memory as symm_mem
             return symm_mem._fused_all_gather_matmul(
                 a, [b], gather_dim=0, group_name=group_name)[1][0]
         return (lambda: agm.pallas_ag_gemm(mesh, a, b)[0],
                 lambda: agm.ag_gemm_ref(mesh, a, b)[0], lib)
+    if kind == "ar":
+        def mm_nccl():
+            y = torch.mm(a, b)
+            dist.all_reduce(y, group=mesh.group)
+            return y
+        return (lambda: ga.pallas_gemm_ar(mesh, a, b),
+                lambda: ga.gemm_ar_ref_tp(mesh, a, b), mm_nccl)
 
     def lib():
-        from torch.distributed import _symmetric_memory as symm_mem
         return symm_mem._fused_matmul_reduce_scatter(
             a, b, "sum", scatter_dim=0, group_name=group_name)
     return (lambda: grs.pallas_gemm_rs(mesh, a, b),
             lambda: grs.gemm_rs_ref(mesh, a, b), lib)
 
 
-def _tp_ranks_time(torch, dist, mesh, agm, grs):
-    """On each of the four cards: B10 and B13a against their plain
-    versions (NCCL all-gather + matmul_ref; f32 product + NCCL
-    reduce-scatter + cast) at the TP=4 decode shapes of Qwen3-32B, B=16,
-    bf16, and the device time per call of both (queued_ms; each rank
-    times its own calls, all ranks in step). The bound counts this rank's
-    HBM bytes, the bytes it sends over NVLink and the FLOPs. Returns
-    {shape: row} of this rank."""
+def _tp_bound(kind, m, k, n):
+    """(HBM bytes, NVLink bytes this rank sends, FLOPs) of one call."""
+    if kind == "ag":
+        return ((m * k + k * n + TP * m * n + TP * m * k) * 2,
+                (TP - 1) * m * k * 2, 2.0 * TP * m * k * n)
+    if kind == "rs":
+        return ((TP * m * k + k * n + m * n) * 2, (TP - 1) * m * n * 4,
+                2.0 * TP * m * k * n)
+    if kind == "ar":
+        return ((m * k + k * n + m * n) * 2, (TP - 1) * m * n * 4,
+                2.0 * m * k * n)
+    if kind == "one_shot":
+        return 2 * m * k * 2, (TP - 1) * m * k * 2, (TP - 1.0) * m * k
+    # rhd: (1 - 1/n) of x out in each phase, as many adds in the halving
+    return (2 * m * k * 2, 2 * (TP - 1) * m * k * 2 // TP,
+            (TP - 1.0) * m * k / TP)
+
+
+def _tp_ranks_time(torch, dist, mesh):
+    """On each of the four cards: each kernel against its plain version
+    at the TP=4 decode shapes of Qwen3-32B, B=16, bf16 (B10 / B13a: 4
+    rows per rank, the batch-sharded triton_dist projections; B4, B5, B6:
+    the 16 replicated rows), and the device time per call of both
+    (queued_ms; each rank times its own calls, all ranks in step). B10,
+    B13a and B4 within 1e-2 x max|ref|; B5 and B6, which only add, bit
+    for bit. The bound counts this rank's HBM bytes, the bytes it sends
+    over NVLink and the FLOPs. Returns {shape: row} of this rank."""
     out = {}
     for name, kind, m, k, n in _TP_SHAPES:
-        run, plain, _ = _tp_case(torch, mesh, agm, grs, kind, m, k, n, 50)
+        run, plain, _ = _tp_case(torch, mesh, kind, m, k, n, 50)
         got, ref = run(), plain()
         torch.cuda.synchronize()
         held = _held(torch, name, got, ref, 1e-2)
+        if kind in ("one_shot", "rhd"):
+            held["ok"] = bool(torch.equal(got, ref))
         dist.barrier()
         ms, host_s, ahead = queued_ms(torch, run)
         dist.barrier()
         plain_ms, _, _ = queued_ms(torch, plain)
         dist.barrier()
-        if kind == "ag":
-            hbm = (m * k + k * n + TP * m * n + TP * m * k) * 2
-            link = (TP - 1) * m * k * 2
-        else:
-            hbm = (TP * m * k + k * n + m * n) * 2
-            link = (TP - 1) * m * n * 4
-        bms, by = tp_bound_ms(hbm, link, 2.0 * TP * m * k * n)
+        hbm, link, flops = _tp_bound(kind, m, k, n)
+        bms, by = tp_bound_ms(hbm, link, flops)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "hbm_bytes": hbm, "nvlink_bytes": link,
                      "max_abs_err": held["max_abs_err"], "ok": held["ok"],
@@ -1612,14 +1822,14 @@ def _tp_ranks_time(torch, dist, mesh, agm, grs):
     return out
 
 
-def _tp_library_time(torch, dist, mesh, agm, grs):
-    """torch's fused symmetric-memory ops at the same shapes, the
-    yardstick of B10 / B13a (the port never calls them): device ms per
-    call, or why it could not run. Run last: a failure here costs
-    nothing else."""
+def _tp_library_time(torch, dist, mesh):
+    """The library yardsticks at the same shapes (the port never calls
+    them): torch's fused symmetric-memory ops for B10 / B13a, NCCL for
+    B4 / B5 / B6; device ms per call, or why one could not run. Run last:
+    a failure here costs nothing else."""
     out = {}
     for name, kind, m, k, n in _TP_SHAPES:
-        _, plain, lib = _tp_case(torch, mesh, agm, grs, kind, m, k, n, 50)
+        _, plain, lib = _tp_case(torch, mesh, kind, m, k, n, 50)
         try:
             from torch.distributed import _symmetric_memory as symm_mem
             if hasattr(symm_mem, "enable_symm_mem_for_group"):
@@ -1656,24 +1866,84 @@ def _tp_prompt(torch, vocab, batch, length, seed):
     return torch.randint(0, vocab, (batch, length + 1), generator=g)
 
 
-def _tp4_serve(torch, dist, mesh, models, kern, tmp, gen: int = 32):
-    """Qwen3-32B at its published widths, all 64 layers, bf16, random
-    weights from seed 0 (this rank's shard of the world-1 weights),
-    max_length 1024; B=16 prompts of 512 tokens, 32 tokens each. Prefill
-    in xla; decode in triton_dist (B10 for QKV and gate/up, B13a for o and
-    down), one CUDA-graph replay per step; the idle share by events and a
-    profile of one prefill and 4 steps on every rank. Then the same
-    weights served by the plain TP=4 xla decode (mega off) for the logits
-    comparison."""
+# the replicated TP=4 serves: (label, TPContext fields,
+# backend); "mega_default" is Engine(model, params) at its defaults
+_TP4_REPLICATED = (("mega_default", {}, "xla"),
+                   ("ar_one_shot", {"ar_method": "one_shot"},
+                    "triton_dist_AR"),
+                   ("ar_rhd", {"ar_method": "rhd"}, "triton_dist_AR"))
+
+
+def _tp_ctx(mesh, **kw):
+    """TPContext on ``mesh`` with methods named by value (ag_method,
+    rs_method, ar_method, gemm_ar_method)."""
     from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
+    from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmArMethod
     from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
         GemmRsMethod,
     )
     from triton_dist_tpu_torch.layers.common import TPContext
+    enums = {"ag_method": AgGemmMethod, "rs_method": GemmRsMethod,
+             "ar_method": AllReduceMethod, "gemm_ar_method": GemmArMethod}
+    return TPContext(mesh, **{k: enums[k](v) for k, v in kw.items()})
+
+
+_TD_PALLAS = {"ag_method": "pallas", "rs_method": "pallas"}
+
+
+def _tp4_measure(torch, dist, kern, engine, ids, gen, profile):
+    """One graph-replayed TP=4 serve of ``engine``: the launches counted
+    in the measured serve (_serve_counted), its timings and peak memory,
+    whether every rank returned the same tokens, which tokens this rank's
+    own sample differed from rank 0's (replicated backends), the idle
+    share by events and, with ``profile``, a profile of one prefill and 4
+    steps."""
+    prompt = ids[:, :-1]
+    out, launches, per_step, eager, replays = _serve_counted(
+        torch, kern, engine, prompt, gen)
+    differs = engine.own_token_differs
+    rec = {"peak_bytes": torch.cuda.max_memory_allocated(),
+           "prefill_ms": engine.last_prefill_s * 1e3,
+           "decode_ms_per_step": engine.last_decode_s * 1e3
+           / engine.last_decode_steps,
+           "decode_tok_s": ids.shape[0] * engine.last_decode_steps
+           / engine.last_decode_s,
+           "graph_replays": replays, "launches_per_replay": per_step,
+           "eager_launches": eager, "launches": launches,
+           "own_token_differs": (None if differs is None
+                                 else differs.tolist())}
+    wall_ms, replay_ms = _replay_idle(torch, engine, ids, 8)
+    rec.update(step_wall_ms=wall_ms, replay_device_ms=replay_ms,
+               idle_share_by_events=1 - replay_ms / wall_ms)
+    if profile:
+        pre, dec = _profile_engine(torch, engine, ids, 4)
+        rec["profile"] = {"prefill": pre, "decode_step": dec}
+    toks = [torch.empty_like(out) for _ in range(TP)]
+    dist.all_gather(toks, out.contiguous())
+    rec["tokens_same_on_every_rank"] = all(torch.equal(t, out) for t in toks)
+    rec["tokens_shape"] = list(out.shape)
+    return rec, out
+
+
+def _tp4_serve(torch, dist, mesh, models, kern, tmp, gen: int = 32):
+    """Qwen3-32B at its published widths, all 64 layers, bf16, random
+    weights from seed 0 (this rank's shard of the world-1 weights, drawn
+    once), max_length 1024; B=16 prompts of 512 tokens, 32 tokens each,
+    prefill in xla, every decode step one CUDA-graph replay: in
+    triton_dist (B10 for QKV and gate/up, B13a for o and down, each rank
+    its 4 rows), then the replicated serves of _TP4_REPLICATED: the
+    Engine's defaults (the mega step on the pallas_chain tier: B4 for o
+    and down, B3, B1) and triton_dist_AR under ONE_SHOT (B5) and RHD (B6).
+    Each measured by _tp4_measure (triton_dist and the mega default also
+    profiled). Then the same weights served by the plain TP=4 xla decode
+    (mega off) for the logits comparison."""
     arch = models.QWEN3_ARCHS[TP_MODEL]
-    ctx = TPContext(mesh, ag_method=AgGemmMethod.PALLAS,
-                    rs_method=GemmRsMethod.PALLAS)
-    model = models.Qwen3(arch, ctx, max_length=1024, dtype=torch.bfloat16)
+
+    def model_of(**kw):
+        return models.Qwen3(arch, _tp_ctx(mesh, **kw), max_length=1024,
+                            dtype=torch.bfloat16)
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = models.init_random_params(
@@ -1687,73 +1957,79 @@ def _tp4_serve(torch, dist, mesh, models, kern, tmp, gen: int = 32):
                        *params["layers"].values()])
     ids = _tp_prompt(torch, arch.vocab_size, 16, 512, 1).to(mesh.device)
     prompt, fixed = ids[:, :512], ids[:, 512].to(torch.int32)
-    engine = models.Engine(model, params, backend="triton_dist")
-    out, launches, per_step, eager, replays = _serve_counted(
-        torch, kern, engine, prompt, gen)
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = engine.last_decode_s * 1e3 / engine.last_decode_steps
-    rec = {"model": TP_MODEL, "layers": arch.num_layers, "tp": mesh.world,
-           "batch": 16, "prompt": 512, "gen_len": gen, "dtype": "bf16",
-           "param_bytes_per_card": param_bytes, "init_s": init_s,
-           "init_peak_bytes": init_peak, "peak_bytes": peak,
-           "prefill_ms": engine.last_prefill_s * 1e3,
-           "decode_ms_per_step": step_ms,
-           "decode_tok_s": 16 * engine.last_decode_steps
-           / engine.last_decode_s,
-           "graph_replays": replays, "launches_per_replay": per_step,
-           "eager_launches": eager, "launches": launches}
-    wall_ms, replay_ms = _replay_idle(torch, engine, ids, 8)
-    rec.update(step_wall_ms=wall_ms, replay_device_ms=replay_ms,
-               idle_share_by_events=1 - replay_ms / wall_ms)
-    pre, dec = _profile_engine(torch, engine, ids, 4)
-    rec["profile"] = {"prefill": pre, "decode_step": dec}
-    toks = [torch.empty_like(out) for _ in range(mesh.world)]
-    dist.all_gather(toks, out.contiguous())
-    rec["tokens_same_on_every_rank"] = all(torch.equal(t, out) for t in toks)
-    rec["tokens_shape"] = list(out.shape)
-    td_logits = _rank_logits(torch, dist, engine, prompt, fixed)
+    engine = models.Engine(model_of(**_TD_PALLAS), params,
+                           backend="triton_dist")
+    rec, out = _tp4_measure(torch, dist, kern, engine, ids, gen, True)
+    rec.update({"model": TP_MODEL, "layers": arch.num_layers,
+                "tp": mesh.world, "batch": 16, "prompt": 512,
+                "gen_len": gen, "dtype": "bf16",
+                "param_bytes_per_card": param_bytes, "init_s": init_s,
+                "init_peak_bytes": init_peak})
+    logits = {"td": _rank_logits(torch, dist, engine, prompt, fixed).cpu()}
     del engine
     torch.cuda.empty_cache()
-    xla = models.Engine(model, params, backend="xla", mega="off")
-    xla_logits = _rank_logits(torch, dist, xla, prompt, fixed)
+    rec["replicated"] = {}
+    for label, kw, backend in _TP4_REPLICATED:
+        engine = models.Engine(model_of(**kw), params, backend=backend)
+        r, _ = _tp4_measure(torch, dist, kern, engine, ids, gen,
+                            label == "mega_default")
+        r["mega_tier"] = engine.mega_tier
+        rec["replicated"][label] = r
+        logits[label] = _rank_logits(torch, dist, engine, prompt,
+                                     fixed).cpu()
+        del engine
+        torch.cuda.empty_cache()
+    xla = models.Engine(model_of(), params, backend="xla", mega="off")
+    logits["xla"] = _rank_logits(torch, dist, xla, prompt, fixed).cpu()
     if mesh.rank == 0:
-        torch.save({"td": td_logits.cpu(), "xla": xla_logits.cpu(),
-                    "tokens": out.cpu()}, os.path.join(tmp, "tp4_bf16.pt"))
-    del xla, params, model
+        torch.save({**logits, "tokens": out.cpu()},
+                   os.path.join(tmp, "tp4_bf16.pt"))
+    del xla, params
     torch.cuda.empty_cache()
     return rec
 
 
+# the f32 gate's TP=4 serves: (label, TPContext fields, Engine arguments)
+_TP4_GATE = (
+    ("td", _TD_PALLAS, {"backend": "triton_dist"}),
+    ("xla", {}, {"mega": "off"}),
+    ("mega_pallas_chain", {}, {"mega": "pallas_chain"}),
+    ("mega_xla", {}, {"mega": "xla"}),
+    ("ar_one_shot", {"ar_method": "one_shot"},
+     {"backend": "triton_dist_AR"}),
+    ("ar_rhd", {"ar_method": "rhd"}, {"backend": "triton_dist_AR"}),
+    ("ar_gemm_ar", {"gemm_ar_method": "pallas"},
+     {"backend": "triton_dist_AR"}))
+
+
 def _tp4_consistency(torch, dist, mesh, models, tmp, gen: int = 16):
     """The f32 gate: Qwen3-32B's widths cut to 4 layers, f32 weights from
-    seed 7; B=16 prompts of 64 tokens, 16 greedy tokens, served at TP=4 in
-    triton_dist (B10/B13a, graph-replayed) and in xla with mega off (NCCL
-    all-reduce); rank 0 keeps both token sets for the parent, which serves
-    world 1 on card 0 from the same seed."""
+    seed 7 (drawn once); B=16 prompts of 64 tokens, 16 greedy tokens,
+    served at TP=4 down every path of _TP4_GATE: triton_dist (B10/B13a),
+    xla with mega off (NCCL all-reduce), the mega step on both tiers
+    (pallas_chain: B4 and B3), triton_dist_AR under ONE_SHOT (B5), RHD
+    (B6) and the fused gemm_ar (B4); rank 0 keeps the token sets for the
+    parent, which serves world 1 on card 0 from the same seed."""
     import dataclasses
-    from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
-    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
-        GemmRsMethod,
-    )
-    from triton_dist_tpu_torch.layers.common import TPContext
     arch = dataclasses.replace(models.QWEN3_ARCHS[TP_MODEL], num_layers=4)
-    ctx = TPContext(mesh, ag_method=AgGemmMethod.PALLAS,
-                    rs_method=GemmRsMethod.PALLAS)
-    model = models.Qwen3(arch, ctx, max_length=128, dtype=torch.float32)
     params = models.init_random_params(
         torch.Generator(device=mesh.device).manual_seed(7), arch,
         mesh.device, torch.float32, rank=mesh.rank, world=mesh.world)
     ids = _tp_prompt(torch, arch.vocab_size, 16, 64, 2)[:, :64].to(
         mesh.device)
-    td = models.Engine(model, params, backend="triton_dist").serve(ids, gen)
-    xla = models.Engine(model, params, backend="xla", mega="off").serve(
-        ids, gen)
+    toks = {}
+    for label, kw, engine_kw in _TP4_GATE:
+        model = models.Qwen3(arch, _tp_ctx(mesh, **kw), max_length=128,
+                             dtype=torch.float32)
+        toks[label] = models.Engine(model, params, **engine_kw).serve(
+            ids, gen).cpu()
+        torch.cuda.empty_cache()
     if mesh.rank == 0:
-        torch.save({"td": td.cpu(), "xla": xla.cpu()},
-                   os.path.join(tmp, "tp4_f32.pt"))
-    del params, model
+        torch.save(toks, os.path.join(tmp, "tp4_f32.pt"))
+    del params
     torch.cuda.empty_cache()
-    return {"tokens_td_equal_xla": bool(torch.equal(td, xla))}
+    return {"tokens_equal_td": {k: bool(torch.equal(v, toks["td"]))
+                                for k, v in toks.items()}}
 
 
 def _tp4_rank(rank, port, phases, tmp, queue):
@@ -1765,8 +2041,6 @@ def _tp4_rank(rank, port, phases, tmp, queue):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from triton_dist_tpu_torch import kernels as kern
         from triton_dist_tpu_torch import models
-        from triton_dist_tpu_torch.kernels import allgather_gemm as agm
-        from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
         from triton_dist_tpu_torch.runtime import mesh as tp_mesh
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -1775,7 +2049,7 @@ def _tp4_rank(rank, port, phases, tmp, queue):
         mesh = tp_mesh.make_comm_mesh()
         res = {}
         if "tp4_serve" in phases:
-            res["kernels"] = _tp_ranks_time(torch, dist, mesh, agm, grs)
+            res["kernels"] = _tp_ranks_time(torch, dist, mesh)
             res["serve"] = _tp4_serve(torch, dist, mesh, models, kern, tmp)
         if "tp4_consistency" in phases:
             res["consistency"] = _tp4_consistency(torch, dist, mesh, models,
@@ -1784,7 +2058,7 @@ def _tp4_rank(rank, port, phases, tmp, queue):
         queue.put((rank, "ok", res))
         if "tp4_serve" in phases:
             queue.put((rank, "library",
-                       _tp_library_time(torch, dist, mesh, agm, grs)))
+                       _tp_library_time(torch, dist, mesh)))
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -1833,7 +2107,7 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
     """The four-card phases: the kernels are built (main, before this),
     then four rank processes (one per card, NCCL over tcp://localhost)
     run ``phases``; world 1 runs on card 0 after they exit. Returns the
-    B10 / B13a kernel rows (4 cards)."""
+    kernel rows of the cross-rank kernels (4 cards)."""
     import multiprocessing as mp
     import socket
     import tempfile
@@ -1889,6 +2163,7 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
     if "tp4_serve" in phases:
         serve = [results[r]["serve"] for r in range(TP)]
         rec = dict(serve[0])
+        replicated = rec.pop("replicated")
         rec["peak_bytes_per_card"] = [s["peak_bytes"] for s in serve]
         rec["init_peak_bytes_per_card"] = [s["init_peak_bytes"]
                                            for s in serve]
@@ -1910,9 +2185,44 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         if not all(s["tokens_same_on_every_rank"] for s in serve) or \
                 rec["tokens_shape"] != [16, rec["gen_len"]]:
             fail("TP=4 serve: ranks returned different tokens")
+        launches_by_path = {"triton_dist": rec["launches"]}
+        wants = {"mega_default": {"pallas_gemm_ar": 2 * L,
+                                  "fused_add_rms": L},
+                 "ar_one_shot": {"one_shot_all_reduce": 2 * L},
+                 "ar_rhd": {"rhd_all_reduce": 2 * L}}
+        for label, _, backend in _TP4_REPLICATED:
+            per = [s["replicated"][label] for s in serve]
+            r = dict(replicated[label])
+            r.update(phase=f"tp4_serve_{label}", backend=backend,
+                     model=TP_MODEL, layers=L, tp=TP, batch=16, prompt=512,
+                     gen_len=rec["gen_len"], dtype="bf16")
+            r["peak_bytes_per_card"] = [x["peak_bytes"] for x in per]
+            r["decode_ms_per_step_per_rank"] = [x["decode_ms_per_step"]
+                                                for x in per]
+            differs = [x["own_token_differs"] for x in per]
+            r.pop("own_token_differs")
+            r["own_token_differs_per_rank"] = [sum(d) for d in differs]
+            # tokens (prefill's, then each step's) on which some rank's
+            # own sample was not rank 0's
+            r["tokens_own_argmax_disagreed"] = sum(
+                any(col) for col in zip(*differs))
+            want = _only(r["launches_per_replay"], flash_prefill=L,
+                         **wants[label])
+            emit(r)
+            if any(x["launches_per_replay"] != want for x in per) or \
+                    r["graph_replays"] != r["gen_len"] - 1 or \
+                    r["eager_launches"] != _only(r["eager_launches"],
+                                                 flash_prefill=L):
+                fail(f"TP=4 {label}: {r['launches_per_replay']} per replay "
+                     f"x {r['graph_replays']} + {r['eager_launches']} "
+                     f"eager; want {want} per replay")
+            if label == "mega_default" and r["mega_tier"] != "pallas_chain":
+                fail(f"TP=4 {label}: mega tier {r['mega_tier']}")
+            if not all(x["tokens_same_on_every_rank"] for x in per):
+                fail(f"TP=4 {label}: ranks returned different tokens")
+            launches_by_path[label] = r["launches"]
         per_rank = [results[r]["kernels"] for r in range(TP)]
-        for name, shapes in (("pallas_ag_gemm", ("qkv_m4", "gate_up_m4")),
-                             ("pallas_gemm_rs", ("o_m4", "down_m4"))):
+        for name, shapes, src, rep, lib_call in _TP_ROWS:
             timed = {}
             for shp in shapes:
                 rws = [k[shp] for k in per_rank]
@@ -1933,35 +2243,31 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                     "ranks")
                 timed[shp]["bound_by"] = rws[0]["bound_by"]
                 timed[shp]["per_rank_ms"] = [x["ms"] for x in rws]
-            src = "ag_gemm.cu" if name == "pallas_ag_gemm" else "gemm_rs.cu"
-            rep = ("triton_dist_tpu/kernels/allgather_gemm.py:293"
-                   if name == "pallas_ag_gemm" else
-                   "triton_dist_tpu/kernels/gemm_reduce_scatter.py:321")
             row = _tp_kernel_record(name, src, rep, timed, "4 cards, TP=4")
-            row["launches"] = rec["launches"][name]
-            row["library_ms_call"] = (
-                "torch.distributed._symmetric_memory._fused_all_gather_matmul"
-                if name == "pallas_ag_gemm" else
-                "torch.distributed._symmetric_memory."
-                "_fused_matmul_reduce_scatter")
+            row["launches_by_path"] = {
+                path: n[name] for path, n in launches_by_path.items()
+                if n[name]}
+            row["launches"] = sum(row["launches_by_path"].values())
+            row["library_ms_call"] = lib_call
             rows[name] = row
     w1 = _world1_logits_and_tokens(torch, models, tmp)
     if "tp4_serve" in phases:
         saved = torch.load(os.path.join(tmp, "tp4_bf16.pt"))
         ref = w1["bf16"]
+        paths = ["td", "xla", *(label for label, _, _ in _TP4_REPLICATED)]
         emit({"phase": "tp4_logits_bf16", "layers": 64,
-              "rel_rms_td_vs_world1": _rel_rms(torch, saved["td"], ref),
-              "rel_rms_xla_vs_world1": _rel_rms(torch, saved["xla"], ref),
-              "rel_rms_td_vs_xla": _rel_rms(torch, saved["td"],
-                                            saved["xla"]),
-              "argmax_agree_td_world1": (saved["td"].argmax(-1)
-                                         == ref.argmax(-1)).float().mean()
-              .item()})
+              "rel_rms_vs_world1": {p: _rel_rms(torch, saved[p], ref)
+                                    for p in paths},
+              "rel_rms_vs_xla": {p: _rel_rms(torch, saved[p], saved["xla"])
+                                 for p in paths if p != "xla"},
+              "argmax_agree_vs_world1": {
+                  p: (saved[p].argmax(-1) == ref.argmax(-1)).float().mean()
+                  .item() for p in paths}})
     if "tp4_consistency" in phases:
         saved = torch.load(os.path.join(tmp, "tp4_f32.pt"))
-        same = {"td_vs_xla": bool(torch.equal(saved["td"], saved["xla"])),
-                "td_vs_world1": bool(torch.equal(saved["td"], w1["f32"])),
-                "xla_vs_world1": bool(torch.equal(saved["xla"], w1["f32"]))}
+        same = {f"{label}_vs_world1": bool(torch.equal(saved[label],
+                                                       w1["f32"]))
+                for label, _, _ in _TP4_GATE}
         emit({"phase": "tp4_consistency", "layers": 4, "dtype": "f32",
               "batch": 16, "prompt": 64, "gen_len": 16, "identical": same,
               "ok": all(same.values())})
@@ -2046,8 +2352,9 @@ def main() -> None:
     """python3 chip_smoke.py [phase ...]: with no argument every phase
     this machine allows (the four-card phases need four cards); named
     phases run alone (after the build): "earlier" (the earlier slices'
-    phases), "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs" (the
-    one-card world), "tp4_serve", "tp4_consistency" (four cards)."""
+    phases), "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
+    "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd" (the one-card world),
+    "tp4_serve", "tp4_consistency" (four cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -2064,6 +2371,7 @@ def main() -> None:
         from triton_dist_tpu_torch import models
         from triton_dist_tpu_torch.kernels import allgather_gemm as agm
         from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+        from triton_dist_tpu_torch.kernels import allreduce as arm
         from triton_dist_tpu_torch.kernels import flash_attention as fa
         from triton_dist_tpu_torch.kernels import fused_chain as fc
         from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
@@ -2116,6 +2424,12 @@ def main() -> None:
         tp_rows["pallas_ag_gemm"] = phase_b10(torch, symm, agm)
     if "b13_gemm_rs" in phases:
         tp_rows["pallas_gemm_rs"] = phase_b13(torch, symm, grs)
+    if "b4_gemm_ar_tp" in phases:
+        tp_rows["pallas_gemm_ar"] = phase_b4_tp(torch, symm, ga)
+    for kind in ("one_shot", "rhd"):
+        if ("b5_one_shot" if kind == "one_shot" else "b6_rhd") in phases:
+            tp_rows[f"{kind}_all_reduce"] = phase_all_reduce(
+                torch, symm, arm, kind)
     four = [p for p in phases if p in FOUR_CARD_PHASES]
     n_cards = torch.cuda.device_count()
     if four and n_cards < TP:

@@ -207,7 +207,8 @@ def test_kv_cache_create_clear_rewind_match_jax():
 
 def test_cpu_gate_and_unported_options_raise():
     """No card: the default device raises at construction; device="cpu"
-    runs. Unported options name their ROADMAP item."""
+    runs. Unported options name their ROADMAP item; triton_dist_AR at
+    world 1 serves the xla decode's tokens."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     arch = Qwen3Arch(**TINY)
@@ -236,8 +237,12 @@ def test_cpu_gate_and_unported_options_raise():
         Engine(model, params, mega="fused")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         Engine(model, params, spec="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        Engine(model, params, backend="triton_dist_AR")
+    # triton_dist_AR at world 1: its sums are the identity, so its
+    # captured-step decode serves the xla decode's tokens
+    prompt = torch.arange(10, dtype=torch.int64).reshape(2, 5)
+    assert torch.equal(
+        Engine(model, params, backend="triton_dist_AR").serve(prompt, 4),
+        Engine(model, params, mega="off").serve(prompt, 4))
     with pytest.raises(RuntimeError, match="no KV cache"):
         Engine(model, params).step(torch.zeros(2, dtype=torch.int32))
 

@@ -30,6 +30,8 @@ from triton_dist_tpu.models.config import Qwen3Arch as JaxQwen3Arch
 from triton_dist_tpu.runtime import make_comm_mesh
 from triton_dist_tpu.runtime.compat import td_shard_map
 
+from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod
+from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmArMethod
 from triton_dist_tpu_torch.layers.attention_core import (
     _use_flash, gqa_attend_xla,
 )
@@ -105,13 +107,17 @@ def test_mlp_fwd_matches_jax():
                       mesh=mesh, in_specs=(P(), P()), out_specs=P())
     want = fn({k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    # triton_dist (AG + GEMM / GEMM + RS, identities at world 1) computes
-    # the same block; triton_dist_AR waits for its ROADMAP item
+    # triton_dist (AG + GEMM / GEMM + RS, identities at world 1) and
+    # triton_dist_AR (its all-reduce and fused GEMM + all-reduce,
+    # identities at world 1) compute the same block
     td = mlp_fwd("triton_dist", TPContext(), {k: _t(v) for k, v in w.items()},
                  _t(x))
     np.testing.assert_allclose(td.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlp_fwd("triton_dist_AR", TPContext(), {}, _t(x))
+    for ctx in (TPContext(), TPContext(ar_method=AllReduceMethod.ONE_SHOT),
+                TPContext(gemm_ar_method=GemmArMethod.PALLAS)):
+        ar = mlp_fwd("triton_dist_AR", ctx,
+                     {k: _t(v) for k, v in w.items()}, _t(x))
+        np.testing.assert_allclose(ar.numpy(), np.asarray(want), **TOL)
 
 
 def _layer_weights(rng):

@@ -217,8 +217,8 @@ def test_dense_pallas_chain_tier_matches_jax():
 
 def test_runtime_methods_dispatch_and_unported_paths():
     """AUTO resolves by device (pallas_chain on CUDA, xla on the CPU);
-    dispatch counts and has no fallback; the unported paths raise
-    naming their ROADMAP item."""
+    dispatch counts and has no fallback; a graph of world n builds; the
+    unported paths raise naming their ROADMAP item."""
     assert resolve_mega_method("auto", "cpu") == MegaMethod.XLA
     assert resolve_mega_method("auto", "cuda") == MegaMethod.PALLAS_CHAIN
     assert resolve_mega_method(MegaMethod.XLA, "cuda") == MegaMethod.XLA
@@ -235,10 +235,12 @@ def test_runtime_methods_dispatch_and_unported_paths():
     assert rt.launches == 2
     with pytest.raises(ValueError, match="dense mega program"):
         MegaDecodeRuntime(model, mode="triton_dist").dense_step_fn("xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        build_qwen3_decode(Qwen3Arch(**TINY), 2)
+    # a world-n graph records the same tasks as world 1 (its sums run on
+    # the ranks' mesh); B4 at world n needs that mesh
+    assert _graph_shape(build_qwen3_decode(Qwen3Arch(**TINY), 2).graph) == \
+        _graph_shape(build_qwen3_decode(Qwen3Arch(**TINY), 1).graph)
     a, w = torch.ones((2, 8)), torch.ones((8, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         gemm_ar_per_device(2, GemmArMethod.XLA, a, w)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         gemm_ar_per_device(1, GemmArMethod.XLA_RING, a, w)

@@ -458,8 +458,8 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
         TPContext(ep_max_m=64)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         Qwen3MoE(Qwen3MoEArch(moe_parallel="ep"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        mlp_fwd("triton_dist_AR", TPContext(), {}, a[None])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        build_qwen3_decode(_ARCHS["moe"], 2)
     big_arch = QWEN3_ARCHS["Qwen/Qwen3-30B-A3B"]
     n_params = sum(int(np.prod(s)) for s in jax.tree_util.tree_leaves(
         param_shapes(big_arch), is_leaf=lambda x: isinstance(x, tuple)))

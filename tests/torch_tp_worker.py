@@ -31,9 +31,12 @@ from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: E402
     GemmRsMethod, gemm_rs_per_device,
 )
 from triton_dist_tpu_torch.layers import TPContext  # noqa: E402
+from triton_dist_tpu_torch.mega.models.qwen3 import (  # noqa: E402
+    build_qwen3_decode,
+)
 from triton_dist_tpu_torch.models import (  # noqa: E402
     QWEN3_ARCHS, AutoLLM, Engine, Qwen3, init_random_params,
-    params_from_numpy, tiny_qwen3,
+    params_from_numpy, tiny_qwen3, tiny_qwen3_moe,
 )
 from triton_dist_tpu_torch.runtime import mesh as tp_mesh  # noqa: E402
 from triton_dist_tpu_torch.runtime import symm  # noqa: E402
@@ -171,8 +174,13 @@ def _model(inp: dict, mesh, out: dict, checks: dict) -> None:
         ValueError, "needs the mesh")
     model = Qwen3(arch, TPContext(mesh), max_length=MAX_LEN,
                   dtype=torch.float32, device="cpu")
-    checks["mega_raises_a5"] = _raises(lambda: Engine(model, params),
-                                       NotImplementedError, "ROADMAP A5")
+    # the default Engine builds the mega step at world n (its xla tier on
+    # the CPU); the MoE task of that graph waits for A10
+    checks["mega_builds_at_world_n"] = (
+        Engine(model, params).mega_tier == "xla"
+        and _raises(lambda: build_qwen3_decode(
+            tiny_qwen3_moe(num_layers=1, tp=mesh.world), mesh.world,
+            mesh=mesh), NotImplementedError, "ROADMAP A10"))
     checks["paged_raises_a6"] = _raises(
         lambda: Engine(model, params, cache_mode="paged"),
         NotImplementedError, "ROADMAP A6")

@@ -3,7 +3,10 @@
 B1 ``flash_attention.flash_prefill`` (prefill, and the dense decode step at
 T = 1), B2 ``paged_flash_decode.paged_flash_decode_partial`` (the paged
 decode step), B3 ``fused_chain.fused_add_rms`` and B4
-``gemm_allreduce.gemm_ar`` (the mega decode step's pallas_chain tier), and
+``gemm_allreduce.gemm_ar`` (the mega decode step's pallas_chain tier at
+world 1; ``gemm_allreduce.pallas_gemm_ar`` across ranks), B5
+``allreduce.one_shot_all_reduce`` and B6 ``allreduce.rhd_all_reduce``
+(the triton_dist_AR mode's sums after the o and down projections), and
 the triton_dist forward's B12 ``allgather_gemm.pallas_matmul`` (the QKV and
 o projections at world 1), B10 ``allgather_gemm.pallas_ag_gemm`` and B13a
 ``gemm_reduce_scatter.pallas_gemm_rs`` (the QKV and gate/up, and the o and
@@ -21,9 +24,14 @@ def launch_wrappers() -> dict:
         pallas_ag_gemm, pallas_matmul,
     )
     from triton_dist_tpu_torch.kernels.allgather_group_gemm import group_gemm
+    from triton_dist_tpu_torch.kernels.allreduce import (
+        one_shot_all_reduce, rhd_all_reduce,
+    )
     from triton_dist_tpu_torch.kernels.flash_attention import flash_prefill
     from triton_dist_tpu_torch.kernels.fused_chain import fused_add_rms
-    from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import (
+        gemm_ar, pallas_gemm_ar,
+    )
     from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
         pallas_gemm_rs,
     )
@@ -36,7 +44,10 @@ def launch_wrappers() -> dict:
             "fused_add_rms": fused_add_rms, "gemm_ar": gemm_ar,
             "pallas_matmul": pallas_matmul, "group_gemm": group_gemm,
             "moe_rs": moe_rs, "pallas_ag_gemm": pallas_ag_gemm,
-            "pallas_gemm_rs": pallas_gemm_rs}
+            "pallas_gemm_rs": pallas_gemm_rs,
+            "pallas_gemm_ar": pallas_gemm_ar,
+            "one_shot_all_reduce": one_shot_all_reduce,
+            "rhd_all_reduce": rhd_all_reduce}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,0 +1,226 @@
+"""All-reduce across ranks (the reference's kernels/allreduce.py).
+
+Every rank holds x (M, K) and returns the sum over the ranks, accumulated
+in x's dtype. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
+
+  * XLA — ``dist.all_reduce`` (NCCL on the card), the reference's psum;
+  * ONE_SHOT — B5, ``one_shot_all_reduce``: the hand-written CUDA kernel
+    ``csrc/allreduce.cu`` for CUDA tensors, ``one_shot_ref`` for CPU
+    tensors. Every rank pushes x into a sender-indexed slot on every peer
+    and adds its own term first, then the others in ascending rank, each
+    add rounded to x's dtype: the reference's order, which depends on the
+    rank, so float results may differ from rank to rank in the last bit;
+  * RHD — B6, ``rhd_all_reduce``: recursive halving-doubling (the same
+    kernel source; ``rhd_ref`` for CPU tensors), power-of-two n and M a
+    multiple of n (anything else raises: the reference's per-device
+    kernel would drop rows there). Every rank ends with the same bytes;
+  * TWO_SHOT (B9 then B7) waits for ROADMAP A9, the QINT8 tiers for A13;
+    AUTO is resolved above the per-device level ("unresolved method"), as
+    in the reference.
+
+At world 1 the all-reduce is the identity: every method returns x. No
+fallback: a CUDA call a kernel does not take raises. The mesh-level
+``all_reduce_op`` (with the reference's fault preamble) waits for A8.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import enum
+
+import torch
+import torch.distributed as dist
+
+from triton_dist_tpu_torch.kernels.plain import (
+    all_gather_list, one_shot_fold, rhd_fold,
+)
+from triton_dist_tpu_torch.runtime import build
+from triton_dist_tpu_torch.runtime.symm import op_workspace
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BLOCK_BYTES = 8192     # bytes of x each block of the grid aims to own
+_ALIGN = 256
+
+
+class AllReduceMethod(enum.Enum):
+    AUTO = "auto"
+    XLA = "xla"
+    ONE_SHOT = "one_shot"
+    TWO_SHOT = "two_shot"
+    RHD = "rhd"
+    QINT8 = "qint8"
+    QINT8_OS = "qint8_os"
+    QINT8_OS_STOCHASTIC = "qint8_os_stochastic"
+
+
+def one_shot_ref(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of B5 over the process group: every rank's x, folded
+    own first, then the others in ascending rank, in x's dtype."""
+    return one_shot_fold(all_gather_list(mesh, x), mesh.rank)
+
+
+def rhd_ref(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of B6 over the process group: every rank's x, folded
+    along the halving tree in x's dtype."""
+    check_rhd(mesh.world, x)
+    return rhd_fold(all_gather_list(mesh, x))
+
+
+def one_shot_ref_shards(xs) -> list[torch.Tensor]:
+    """Plain version of B5 over every rank's x in one process (the
+    one-card world): the ranks' outputs in rank order."""
+    return [one_shot_fold(xs, r) for r in range(len(xs))]
+
+
+def rhd_ref_shards(xs) -> list[torch.Tensor]:
+    """Plain version of B6 over every rank's x in one process: one value,
+    the same for every rank."""
+    out = rhd_fold(xs)
+    return [out] * len(xs)
+
+
+def check_rhd(n: int, x: torch.Tensor) -> None:
+    if n & (n - 1):
+        raise ValueError(f"all_reduce RHD needs a power-of-two world; got "
+                         f"{n}")
+    if x.shape[0] % n:
+        raise ValueError(f"all_reduce RHD needs M={x.shape[0]} divisible by "
+                         f"the world {n}")
+
+
+def _round_up(x: int, a: int = _ALIGN) -> int:
+    return -(-x // a) * a
+
+
+def grid_blocks(m: int, kv: int, sm_count: int, ranks_per_device: int) -> int:
+    """Blocks of B5/B6 for an (m, kv-vector) x: about _BLOCK_BYTES of x
+    each, at most one column vector wide each, and few enough that every
+    rank sharing the card is resident at once (one block per SM)."""
+    want = -(-m * kv * 16 // _BLOCK_BYTES)
+    return max(1, min(want, kv, sm_count // ranks_per_device))
+
+
+def _launch(kind: str, mesh, x: torch.Tensor) -> torch.Tensor:
+    """Launch B5 ("one_shot") or B6 ("rhd") on this rank's x."""
+    what = f"{kind}_all_reduce"
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: dtype {x.dtype} not in "
+                         f"{list(_DTYPE_CODE)}")
+    if x.ndim != 2 or not x.is_contiguous() or x.data_ptr() % 16 or \
+            (x.shape[1] * x.element_size()) % 16 or x.numel() == 0:
+        raise ValueError(f"{what}: x must be a non-empty contiguous 2-D "
+                         "tensor, 16-byte aligned, rows a multiple of 16 "
+                         f"bytes; got {tuple(x.shape)}")
+    world, (m, k) = mesh.world, x.shape
+    if kind == "rhd":
+        check_rhd(world, x)
+    es = x.element_size()
+    kv = k * es // 16
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = grid_blocks(m, kv, sms, mesh.ranks_per_device)
+    row_bytes = k * es
+    logn = world.bit_length() - 1
+    if kind == "one_shot":
+        land_off = 0
+        flag_off = _round_up(2 * world * m * row_bytes)
+        total = flag_off + grid * world * 8
+    else:
+        out_off = 0
+        land_off = _round_up(m * row_bytes)
+        flag_off = land_off + _round_up((m - m // world) * row_bytes)
+        total = flag_off + grid * 2 * max(logn, 1) * 8
+    ws = op_workspace(mesh, (kind, m, k, x.dtype), (total,), torch.uint8)
+    out = torch.empty_like(x)
+    base = ws.buf.table.data_ptr()
+    with torch.cuda.device(x.device):
+        if kind == "one_shot":
+            fn = build.function("allreduce", "td_one_shot", (
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+            err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, world, base,
+                     ws.ctl.data_ptr(), m, kv, land_off, flag_off, grid,
+                     mesh.ranks_per_device, _DTYPE_CODE[x.dtype],
+                     build.stream_of(x))
+        else:
+            fn = build.function("allreduce", "td_rhd", (
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+            err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, world, base,
+                     ws.ctl.data_ptr(), m, kv, out_off, land_off, flag_off,
+                     grid, mesh.ranks_per_device, _DTYPE_CODE[x.dtype],
+                     build.stream_of(x))
+    build.check(err, what)
+    return out
+
+
+def one_shot_all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
+    """B5 on this rank: the sum over the ranks of x (M, K), own term
+    first, then the others ascending, in x's dtype; a fresh tensor. CUDA
+    tensors launch the kernel (counted in ``one_shot_all_reduce.launches``);
+    CPU tensors run ``one_shot_ref``. Every rank calls it with the same
+    shape, in the same order."""
+    if x.device.type == "cpu":
+        return one_shot_ref(mesh, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"one_shot_all_reduce: unsupported device "
+                         f"{x.device}")
+    out = _launch("one_shot", mesh, x)
+    one_shot_all_reduce.launches += 1
+    return out
+
+
+one_shot_all_reduce.launches = 0
+
+
+def rhd_all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
+    """B6 on this rank: the sum over the ranks of x (M, K) by recursive
+    halving-doubling, in x's dtype; a fresh tensor, the same bytes on every
+    rank. CUDA tensors launch the kernel (counted in
+    ``rhd_all_reduce.launches``); CPU tensors run ``rhd_ref``."""
+    if x.device.type == "cpu":
+        return rhd_ref(mesh, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"rhd_all_reduce: unsupported device {x.device}")
+    out = _launch("rhd", mesh, x)
+    rhd_all_reduce.launches += 1
+    return out
+
+
+rhd_all_reduce.launches = 0
+
+
+def all_reduce_per_device(n: int, method: AllReduceMethod, x: torch.Tensor,
+                          mesh=None) -> torch.Tensor:
+    """The reference's per-device entry: this rank's x (M, K) -> the sum
+    over the n ranks. ``mesh`` (the ranks' Mesh) is needed at n > 1."""
+    if method in (AllReduceMethod.QINT8, AllReduceMethod.QINT8_OS,
+                  AllReduceMethod.QINT8_OS_STOCHASTIC):
+        raise NotImplementedError(
+            f"AllReduceMethod.{method.name} (int8 wire) waits for ROADMAP "
+            "A13")
+    if method == AllReduceMethod.TWO_SHOT:
+        raise NotImplementedError(
+            "AllReduceMethod.TWO_SHOT (ring reduce-scatter B9, then ring "
+            "all-gather B7) waits for ROADMAP A9")
+    if method == AllReduceMethod.AUTO:
+        raise ValueError(f"unresolved method {method}")
+    if n == 1:
+        return x
+    if method == AllReduceMethod.RHD:
+        check_rhd(n, x)
+    if mesh is None or mesh.world != n:
+        raise ValueError(f"all_reduce at world {n} needs the mesh of its {n} "
+                         f"ranks; got {mesh}")
+    if method == AllReduceMethod.XLA:
+        out = x.clone()
+        dist.all_reduce(out, group=mesh.group)
+        return out
+    if method == AllReduceMethod.ONE_SHOT:
+        return one_shot_all_reduce(mesh, x)
+    if method == AllReduceMethod.RHD:
+        return rhd_all_reduce(mesh, x)
+    raise ValueError(f"unresolved method {method}")

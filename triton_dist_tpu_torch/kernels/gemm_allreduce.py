@@ -1,17 +1,26 @@
-"""B4: fused GEMM + allreduce (the reference's kernels/gemm_allreduce.py),
-at world 1.
+"""B4: fused GEMM + allreduce (the reference's kernels/gemm_allreduce.py).
 
-At world 1 the reference's allreduce is the identity, so the op is the
-row-parallel projection: out = cast(a @ b) with f32 accumulation.
-``gemm_ar`` launches the hand-written CUDA kernel ``csrc/gemm_ar.cu`` (the
-world-1 body of ``_gemm_ar_kernel``) for CUDA tensors and runs
-``gemm_ar_ref``, its plain PyTorch version, for CPU tensors. There is no
-fallback between the two: a CUDA tensor the kernel does not take raises.
+Every rank holds A (M, K_loc) (K sharded over the mesh) and a (K_loc, N)
+row shard of B; every rank returns cast(sum over ranks of A_r @ B_r) from
+f32 partials: the row-parallel projection of the o and down products.
 
-Methods: XLA (the plain product: f32 dot, psum = identity, cast) and PALLAS
-(the kernel — the reference's name for its fused tier) are ported.
-XLA_RING waits for ROADMAP A9, the QINT8 tier for A13 and world > 1 (the
-push of partials to the peers) for A5; each raises naming its item.
+World 1: the allreduce is the identity, so the op is cast(a @ b) with f32
+accumulation. ``gemm_ar`` launches the hand-written CUDA kernel
+``csrc/gemm_ar.cu`` (the world-1 body of ``_gemm_ar_kernel``) for CUDA
+tensors and runs ``gemm_ar_ref``, its plain version, for CPU tensors.
+
+World n > 1 (``mesh`` is the ranks' Mesh): XLA is the f32 product,
+``dist.all_reduce`` in f32 and one cast (the reference's
+``psum(part).astype``); PALLAS is ``pallas_gemm_ar``, B4 across ranks: the
+kernel of ``csrc/gemm_ar.cu`` (td_gemm_ar_tp) for CUDA tensors, which
+stores each tile's f32 partial into every rank's sender-indexed landing
+slot and folds slot 0 + ... + slot n-1 (the reference's order, the same on
+every rank), and ``gemm_ar_ref_tp`` for CPU tensors, which folds the
+ranks' partials in that order.
+
+There is no fallback between a kernel and its plain version: a CUDA
+tensor a kernel does not take raises. XLA_RING waits for ROADMAP A9 (it
+needs B7), the int8 wire XLA_QINT8 for A13; each raises naming its item.
 """
 
 from __future__ import annotations
@@ -20,9 +29,13 @@ import ctypes
 import enum
 
 import torch
+import torch.distributed as dist
 
-from triton_dist_tpu_torch.kernels.plain import check_world, dot_f32
+from triton_dist_tpu_torch.kernels.plain import (
+    all_gather_list, dot_f32, slot_fold,
+)
 from triton_dist_tpu_torch.runtime import build
+from triton_dist_tpu_torch.runtime.symm import op_workspace
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCKS_PER_SM = 4    # blocks the K split aims for at decode M
@@ -39,12 +52,11 @@ class GemmArMethod(enum.Enum):
 
 
 def get_auto_gemm_ar_method(world: int, cuda: bool) -> GemmArMethod:
-    """The port's AUTO rule. The reference's size table is derived for a
-    TPU's ICI (queue C) and does not carry over; at world 1 there is no
-    transfer to size, so CUDA takes PALLAS (the kernel) and the CPU takes
-    XLA (the plain product, which the reference also picks off its chip).
-    Larger worlds wait for ROADMAP A5."""
-    check_world(world, "gemm_ar (the push of partials to the peers)")
+    """The port's AUTO rule, at every world: PALLAS (the kernel) on CUDA,
+    XLA (the plain product and, at n > 1, the process group's all-reduce)
+    on the CPU, which the reference also picks off its chip. The
+    reference's size table is derived for a TPU's ICI (queue C) and does
+    not carry over; a size rule measured on the card is later work."""
     return GemmArMethod.PALLAS if cuda else GemmArMethod.XLA
 
 
@@ -70,17 +82,54 @@ def gemm_ar(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 gemm_ar.launches = 0
 
 
+def _check_tp(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"{what}: a {tuple(a.shape)} @ b {tuple(b.shape)}")
+
+
+def gemm_ar_ref_tp(mesh, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of B4 across ranks: every rank's f32 partial, folded
+    slot 0 + slot 1 + ... + slot n-1, one cast."""
+    _check_tp(a, b, "gemm_ar")
+    parts = all_gather_list(mesh, dot_f32(a, b))
+    return slot_fold(parts).to(torch.result_type(a, b))
+
+
+def gemm_ar_ref_shards(a_shards, b_shards) -> list[torch.Tensor]:
+    """Plain version of B4 over every rank's A and B in one process (the
+    one-card world): the same output for every rank."""
+    out = slot_fold([dot_f32(a, b) for a, b in zip(a_shards, b_shards)])
+    out = out.to(torch.result_type(a_shards[0], b_shards[0]))
+    return [out] * len(a_shards)
+
+
+def pallas_gemm_ar(mesh, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B4 across ranks on this rank: cast(sum over ranks of a @ b), a
+    (M, K_loc), b (K_loc, N). CUDA tensors launch the kernel (counted in
+    ``pallas_gemm_ar.launches``); CPU tensors run ``gemm_ar_ref_tp``.
+    Every rank calls it with the same shapes, in the same order."""
+    if a.device.type == "cpu":
+        return gemm_ar_ref_tp(mesh, a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"pallas_gemm_ar: unsupported device {a.device}")
+    _check_tp(a, b, "pallas_gemm_ar")
+    out = landing_launch(mesh, a, b, a.shape[0], "gemm_ar", "td_gemm_ar_tp",
+                         "pallas_gemm_ar")
+    pallas_gemm_ar.launches += 1
+    return out
+
+
+pallas_gemm_ar.launches = 0
+
+
 def gemm_ar_per_device(n: int, method: GemmArMethod, a: torch.Tensor,
-                       b: torch.Tensor) -> torch.Tensor:
-    """The reference's per-device entry, at world n = 1 (its mesh axis,
-    TPU tiles and interpret flag have nothing to choose here)."""
-    check_world(n, "gemm_ar (the push of partials to the peers)")
+                       b: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The reference's per-device entry (its mesh axis, TPU tiles and
+    interpret flag have nothing to choose here): this rank's a (M, K_loc)
+    and b (K_loc, N) -> the (M, N) sum over the n ranks. ``mesh`` (the
+    ranks' Mesh) is needed at n > 1."""
     if method == GemmArMethod.AUTO:
         method = get_auto_gemm_ar_method(n, a.device.type == "cuda")
-    if method == GemmArMethod.XLA:
-        return gemm_ar_ref(a, b)
-    if method == GemmArMethod.PALLAS:
-        return gemm_ar(a, b)
     if method == GemmArMethod.XLA_RING:
         raise NotImplementedError(
             "GemmArMethod.XLA_RING (ring GEMM+RS then AG) waits for "
@@ -88,7 +137,19 @@ def gemm_ar_per_device(n: int, method: GemmArMethod, a: torch.Tensor,
     if method == GemmArMethod.XLA_QINT8:
         raise NotImplementedError(
             "GemmArMethod.XLA_QINT8 (int8 wire) waits for ROADMAP A13")
-    raise ValueError(f"unresolved method {method}")
+    if method not in (GemmArMethod.XLA, GemmArMethod.PALLAS):
+        raise ValueError(f"unresolved method {method}")
+    if n == 1:
+        return gemm_ar(a, b) if method == GemmArMethod.PALLAS else \
+            gemm_ar_ref(a, b)
+    if mesh is None or mesh.world != n:
+        raise ValueError(f"gemm_ar at world {n} needs the mesh of its {n} "
+                         f"ranks; got {mesh}")
+    if method == GemmArMethod.PALLAS:
+        return pallas_gemm_ar(mesh, a, b)
+    part = dot_f32(a, b)
+    dist.all_reduce(part, group=mesh.group)
+    return part.to(torch.result_type(a, b))
 
 
 def split_plan(m: int, k: int, n: int, vec: int,
@@ -137,5 +198,48 @@ def splitk_launch(a, b, source: str, symbol: str, what: str):
                  part.data_ptr() if part is not None else None,
                  out.data_ptr(), m, k, n, k_chunk, splits,
                  _DTYPE_CODE[a.dtype], build.stream_of(a))
+    build.check(err, what)
+    return out
+
+
+def landing_launch(mesh, a, b, m: int, source: str, symbol: str,
+                   what: str):
+    """Launch the landing GEMM of ``csrc/gemm_land.cuh`` through the C
+    entry point ``symbol`` of ``csrc/<source>.cu`` (B13a's td_gemm_rs: a
+    holds n*m rows, rank d keeps rows [d*m, (d+1)*m); B4's td_gemm_ar_tp:
+    a holds m rows, every rank keeps them): checks, the K split, this op's
+    landing slots (n, m, N) f32 with their control block, the output
+    (m, N) and the f32 K-slice workspace."""
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise ValueError(f"{what}: a/b must share one dtype of "
+                         f"{list(_DTYPE_CODE)}; got {a.dtype}/{b.dtype}")
+    a = a.contiguous()
+    if not b.is_contiguous() or b.data_ptr() % 16:
+        raise ValueError(f"{what}: b contiguous, 16-byte aligned")
+    world, (rows, k), n_cols = mesh.world, a.shape, b.shape[1]
+    vec = 16 // a.element_size()
+    if n_cols % vec:
+        raise ValueError(f"{what}: N={n_cols} must be a multiple of {vec}")
+    # the kernel's per-tile K-slice counters: one per (row, 32-vector
+    # column tile) covers any row tile it picks
+    tiles = rows * -(-n_cols // (32 * vec))
+    ws = op_workspace(mesh, (source, m, n_cols, a.dtype),
+                      (world, m, n_cols), torch.float32, ctl_words=tiles)
+    k_chunk, splits = split_plan(
+        rows, k, n_cols, vec,
+        torch.cuda.get_device_properties(a.device).multi_processor_count)
+    out = torch.empty((m, n_cols), dtype=a.dtype, device=a.device)
+    part = torch.empty((splits, rows, n_cols), dtype=torch.float32,
+                       device=a.device)
+    fn = build.function(source, symbol, (
+        *(ctypes.c_void_p,) * 4, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        *(ctypes.c_int,) * 7, ctypes.c_void_p))
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), mesh.rank, world, ws.buf.table.data_ptr(),
+                 ws.buf.sig_off, ws.ctl.data_ptr(), m, k, n_cols, k_chunk,
+                 splits, mesh.ranks_per_device, _DTYPE_CODE[a.dtype],
+                 build.stream_of(a))
     build.check(err, what)
     return out

@@ -28,7 +28,6 @@ n == 1 path runs ``_pallas_matmul``).
 
 from __future__ import annotations
 
-import ctypes
 import enum
 
 import torch
@@ -37,12 +36,8 @@ import torch.distributed as dist
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _peer, check_bidir, check_mesh, matmul_ref, pallas_matmul,
 )
-from triton_dist_tpu_torch.kernels.gemm_allreduce import (
-    _DTYPE_CODE, split_plan,
-)
+from triton_dist_tpu_torch.kernels.gemm_allreduce import landing_launch
 from triton_dist_tpu_torch.kernels.plain import dot_f32
-from triton_dist_tpu_torch.runtime import build
-from triton_dist_tpu_torch.runtime.symm import op_workspace
 
 
 class GemmRsMethod(enum.Enum):
@@ -118,40 +113,9 @@ def pallas_gemm_rs(mesh, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"pallas_gemm_rs: a {tuple(a.shape)} @ b "
                          f"{tuple(b.shape)}")
-    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
-        raise ValueError(f"pallas_gemm_rs: a/b must share one dtype of "
-                         f"{list(_DTYPE_CODE)}; got {a.dtype}/{b.dtype}")
-    a = a.contiguous()
-    if not b.is_contiguous() or b.data_ptr() % 16:
-        raise ValueError("pallas_gemm_rs: b contiguous, 16-byte aligned")
-    world, (rows, k), n_cols = mesh.world, a.shape, b.shape[1]
-    m = _rows_per_rank(mesh, a, "pallas_gemm_rs")
-    vec = 16 // a.element_size()
-    if n_cols % vec:
-        raise ValueError(f"pallas_gemm_rs: N={n_cols} must be a multiple "
-                         f"of {vec}")
-    # the kernel's per-tile K-slice counters: one per (row, 32-vector
-    # column tile) covers any row tile it picks
-    tiles = rows * -(-n_cols // (32 * vec))
-    ws = op_workspace(mesh, ("gemm_rs", m, n_cols, a.dtype),
-                      (world, m, n_cols), torch.float32, ctl_words=tiles)
-    k_chunk, splits = split_plan(
-        rows, k, n_cols, vec,
-        torch.cuda.get_device_properties(a.device).multi_processor_count)
-    out = torch.empty((m, n_cols), dtype=a.dtype, device=a.device)
-    part = torch.empty((splits, rows, n_cols), dtype=torch.float32,
-                       device=a.device)
-    fn = build.function("gemm_rs", "td_gemm_rs", (
-        *(ctypes.c_void_p,) * 4, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        *(ctypes.c_int,) * 7, ctypes.c_void_p))
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), part.data_ptr(),
-                 out.data_ptr(), mesh.rank, world, ws.buf.table.data_ptr(),
-                 ws.buf.sig_off, ws.ctl.data_ptr(), m, k, n_cols, k_chunk,
-                 splits, mesh.ranks_per_device, _DTYPE_CODE[a.dtype],
-                 build.stream_of(a))
-    build.check(err, "pallas_gemm_rs")
+    out = landing_launch(mesh, a, b,
+                         _rows_per_rank(mesh, a, "pallas_gemm_rs"),
+                         "gemm_rs", "td_gemm_rs", "pallas_gemm_rs")
     pallas_gemm_rs.launches += 1
     return out
 

@@ -1,21 +1,13 @@
-"""Plain products shared by the kernels' plain versions and the layers: the
-reference's ``preferred_element_type=f32`` products, and the world check of
-the paths that still run at world 1 only. A leaf module: the kernel modules import it, and
-``layers/common.py`` (which imports the kernel modules' method enums)
-re-exports it."""
+"""Plain products and folds shared by the kernels' plain versions and the
+layers: the reference's ``preferred_element_type=f32`` products, and the
+cross-rank folds of B4, B5 and B6 in each kernel's own order. A leaf
+module: the kernel modules import it, and ``layers/common.py`` (which
+imports the kernel modules' method enums) re-exports ``dot_f32``."""
 
 from __future__ import annotations
 
 import torch
-
-
-def check_world(world: int, what: str) -> None:
-    """B4's push to the peers, the mega graph and the all-reduce kernels
-    run at world 1 only; a larger world raises naming A5."""
-    if world != 1:
-        raise NotImplementedError(
-            f"{what} at world {world} (tensor-parallel collectives) waits "
-            "for ROADMAP A5")
+import torch.distributed as dist
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,3 +30,41 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
+
+
+def all_gather_list(mesh, x: torch.Tensor) -> list[torch.Tensor]:
+    """Every rank's ``x``, in rank order (the plain versions' exchange)."""
+    xs = [torch.empty_like(x) for _ in range(mesh.world)]
+    dist.all_gather(xs, x.contiguous(), group=mesh.group)
+    return xs
+
+
+def slot_fold(parts) -> torch.Tensor:
+    """B4's fold: slot 0 + slot 1 + ... + slot n-1 of the ranks' f32
+    partials (the same on every rank)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def one_shot_fold(xs, me: int) -> torch.Tensor:
+    """B5's fold on rank ``me``: its own term first, then the others in
+    ascending rank, each add in the terms' dtype."""
+    acc = xs[me]
+    for i, x in enumerate(xs):
+        if i != me:
+            acc = acc + x
+    return acc
+
+
+def rhd_fold(xs) -> torch.Tensor:
+    """B6's fold: the halving tree (pairs at distance n/2, then n/4, ...,
+    1), each add in the terms' dtype. a + b == b + a, so every rank's
+    shards hold this one value."""
+    vals = list(xs)
+    d = len(vals) // 2
+    while d >= 1:
+        vals = [vals[i] + vals[i ^ d] for i in range(len(vals))]
+        d //= 2
+    return vals[0]

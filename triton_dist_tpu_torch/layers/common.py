@@ -12,11 +12,11 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import AgGemmMethod
 from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
     AgGroupGemmMethod,
 )
+from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod
+from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmArMethod
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import GemmRsMethod
 from triton_dist_tpu_torch.kernels.moe_reduce_rs import MoeReduceRsMethod
-from triton_dist_tpu_torch.kernels.plain import (  # noqa: F401
-    check_world, dot_f32,
-)
+from triton_dist_tpu_torch.kernels.plain import dot_f32  # noqa: F401
 from triton_dist_tpu_torch.runtime.mesh import Mesh
 
 
@@ -29,8 +29,12 @@ class TPContext:
 
     ag_method / rs_method: the triton_dist mode's QKV and o (and dense
     MLP) projections (PALLAS = B10 and B13a at world n > 1, B12 at world
-    1); moe_ag_method / moe_rs_method: its MoE gate/up (PALLAS = B14) and
-    down + top-k combine (PALLAS = B15), world 1 only; AUTO picks the
+    1); ar_method: the triton_dist_AR mode's sum after the o and down
+    products (XLA = the process group's all-reduce, ONE_SHOT = B5, RHD =
+    B6); gemm_ar_method, when set, replaces that product and sum with the
+    fused GEMM + all-reduce (PALLAS = B4); moe_ag_method / moe_rs_method:
+    the MoE gate/up (PALLAS = B14) and down + top-k combine (PALLAS =
+    B15), world 1 only; AUTO picks the
     kernels on CUDA and the plain products on the CPU. tile_bm / tile_bn /
     tile_bk are the TPU kernels' tiles and comm_blocks their ring blocks:
     carried for the reference's signatures, nothing on the card reads
@@ -44,6 +48,8 @@ class TPContext:
     axis: str = "tp"
     ag_method: AgGemmMethod = AgGemmMethod.XLA_RING
     rs_method: GemmRsMethod = GemmRsMethod.XLA_RING
+    ar_method: AllReduceMethod = AllReduceMethod.XLA
+    gemm_ar_method: GemmArMethod | None = None
     moe_ag_method: AgGroupGemmMethod = AgGroupGemmMethod.AUTO
     moe_rs_method: MoeReduceRsMethod = MoeReduceRsMethod.AUTO
     ep_a2a_method: object = None
@@ -72,16 +78,13 @@ MODES = ("xla", "triton_dist", "triton_dist_AR")
 
 
 def check_mode(mode: str) -> None:
-    """The "xla" forward (local matmuls, an all-reduce after the o and
-    down projections) and the "triton_dist" forward (batch-sharded rows
-    through AG + GEMM and GEMM + RS) are ported; "triton_dist_AR" raises
-    naming its ROADMAP item."""
-    if mode in ("xla", "triton_dist"):
-        return
-    if mode == "triton_dist_AR":
-        raise NotImplementedError(
-            "mode 'triton_dist_AR' (fused all-reduce) waits for ROADMAP A5")
-    raise ValueError(f"mode {mode!r} not in {MODES}")
+    """The three forwards of the reference: "xla" (local matmuls, an
+    all-reduce after the o and down projections), "triton_dist"
+    (batch-sharded rows through AG + GEMM and GEMM + RS) and
+    "triton_dist_AR" (as xla, the sums through ``ctx.ar_method`` or the
+    fused ``ctx.gemm_ar_method``)."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
 
 
 def psum(ctx: TPContext, y: torch.Tensor) -> torch.Tensor:
@@ -90,6 +93,21 @@ def psum(ctx: TPContext, y: torch.Tensor) -> torch.Tensor:
     if ctx.world > 1:
         dist.all_reduce(y, group=ctx.mesh.group)
     return y
+
+
+def gather_vocab(ctx: TPContext, logits: torch.Tensor) -> torch.Tensor:
+    """(b, V/n) f32 logits of this rank's vocabulary columns -> (b, V):
+    the reference's all-gather along the vocabulary (the identity at world
+    1)."""
+    n, b = ctx.world, logits.shape[0]
+    if n == 1:
+        return logits
+    logits = logits.contiguous()
+    recv = torch.empty((n * b, logits.shape[1]), dtype=logits.dtype,
+                       device=logits.device)
+    dist.all_gather_into_tensor(recv, logits, group=ctx.mesh.group)
+    # (n, b, V/n) blocks of vocabulary shards -> (b, V)
+    return recv.view(n, b, -1).transpose(0, 1).reshape(b, -1)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

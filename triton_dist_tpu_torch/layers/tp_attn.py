@@ -5,10 +5,14 @@ hkv/n kv heads (its columns of wqkv, its rows of wo).
 
 Mode "xla": x is the whole batch on every rank; local matmuls, and the o
 projection's f32-accumulated product, cast, is all-reduced (the
-reference's psum). Mode "triton_dist": x is this rank's rows of the batch;
-AG + GEMM gathers the batch into the QKV projection and GEMM + RS hands
-each rank its rows back after the o projection (``ctx.ag_method`` /
-``ctx.rs_method``; PALLAS runs B10 / B13a at n > 1, B12 at world 1).
+reference's psum). Mode "triton_dist_AR": as xla, the sum through
+``ctx.ar_method`` (ONE_SHOT = B5, RHD = B6), or, with
+``ctx.gemm_ar_method`` set, the product and sum as one fused GEMM +
+all-reduce (PALLAS = B4). Mode "triton_dist": x is this rank's rows of
+the batch; AG + GEMM gathers the batch into the QKV projection and GEMM +
+RS hands each rank its rows back after the o projection
+(``ctx.ag_method`` / ``ctx.rs_method``; PALLAS runs B10 / B13a at n > 1,
+B12 at world 1).
 
 ``attn_fwd`` runs over the dense cache: the K/V write at the on-device
 offset and B1 (or the einsum, by the reference's ``_use_flash`` rule) over
@@ -20,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_per_device
+from triton_dist_tpu_torch.kernels.allreduce import all_reduce_per_device
 from triton_dist_tpu_torch.kernels.flash_decode import lse_merge
+from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_per_device
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
     gemm_rs_per_device,
 )
@@ -66,15 +72,25 @@ def _o_project(mode: str, ctx: TPContext, w: dict, out: torch.Tensor,
     """Output projection. triton_dist: GEMM + RS back to this rank's rows
     of the batch; xla: the f32-accumulated product, cast, all-reduced over
     the ranks (the reference's psum: its product is cast before the
-    sum)."""
+    sum); triton_dist_AR: the fused GEMM + all-reduce when
+    ``ctx.gemm_ar_method`` is set, else the cast product through
+    ``ctx.ar_method``."""
     check_mode(mode)
     b, t = out.shape[0], out.shape[1]
+    out2d = out.reshape(b * t, -1)
     if mode == "triton_dist":
-        y2d = gemm_rs_per_device(ctx.world, ctx.rs_method,
-                                 out.reshape(b * t, -1), w["wo"],
+        y2d = gemm_rs_per_device(ctx.world, ctx.rs_method, out2d, w["wo"],
                                  mesh=ctx.mesh)
         return y2d.reshape(-1, t, d_model)
-    y2d = torch.matmul(out.reshape(b * t, -1), w["wo"]).to(dtype)
+    if mode == "triton_dist_AR" and ctx.gemm_ar_method is not None:
+        y2d = gemm_ar_per_device(ctx.world, ctx.gemm_ar_method, out2d,
+                                 w["wo"], mesh=ctx.mesh)
+        return y2d.reshape(b, t, d_model)
+    y2d = torch.matmul(out2d, w["wo"]).to(dtype)
+    if mode == "triton_dist_AR":
+        y2d = all_reduce_per_device(ctx.world, ctx.ar_method, y2d,
+                                    mesh=ctx.mesh)
+        return y2d.reshape(b, t, d_model)
     return psum(ctx, y2d).reshape(b, t, d_model)
 
 

@@ -9,9 +9,10 @@ kernels (B3 fused add+RMSNorm, B4 GEMM+AR). ``compile`` validates a
 schedule and returns a plain Python function that runs the tasks in that
 order; on the card the engine captures one call of it as a CUDA graph.
 
-This slice runs at world 1: the reference's psum is the identity there,
-and a world > 1 raises naming ROADMAP A5. Tasks are per-device ops; the
-dense KV write is in place (the cache slabs are views of the cache).
+Tasks are per-device ops of one rank; the builder holds the ranks' mesh
+(None at world 1, where the reference's psum is the identity) for the
+tasks that sum over the ranks. The dense KV write is in place (the cache
+slabs are views of the cache).
 The paged task kinds (``make_paged_kv_write``/``make_paged_attend``) wait
 for the paged mega graph, the per-task flight spans for ROADMAP A8.
 """
@@ -21,11 +22,10 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from triton_dist_tpu_torch.layers.attention_core import gqa_attend
-from triton_dist_tpu_torch.layers.common import (
-    apply_rope, check_world, rms_norm,
-)
+from triton_dist_tpu_torch.layers.common import apply_rope, rms_norm
 from triton_dist_tpu_torch.layers.tp_attn import write_kv_slabs
 from triton_dist_tpu_torch.layers.tp_mlp import _silu_mul
 from triton_dist_tpu_torch.mega.scheduler import schedule_tasks
@@ -33,9 +33,12 @@ from triton_dist_tpu_torch.mega.task import TaskGraph
 
 
 class ModelBuilder:
-    """Records tasks into a TaskGraph; names are the step's tensor env."""
+    """Records tasks into a TaskGraph; names are the step's tensor env.
+    ``mesh``: the ranks' Mesh of the tasks that sum over them (the
+    reference's mesh axis); None at world 1."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
+        self.mesh = mesh
         self.graph = TaskGraph()
         self.inputs: list[str] = []
         self.outputs: list[str] = []
@@ -142,16 +145,45 @@ class ModelBuilder:
         """Residual add."""
         return self._add("add", layer_id, (a, b), lambda x, y: x + y)
 
+    def mesh_of(self, world: int):
+        """The mesh a task of ``world`` ranks runs on: None at world 1;
+        at n > 1 the builder's mesh, which must span n ranks. Checked when
+        the task runs, so a graph of any world can be recorded (and
+        scheduled) without a process group."""
+        if world == 1:
+            return None
+        if self.mesh is None or self.mesh.world != world:
+            raise ValueError(f"a task of world {world} runs on the mesh of "
+                             f"its {world} ranks; the builder has "
+                             f"{self.mesh}")
+        return self.mesh
+
+    def psum(self, x: torch.Tensor, world: int) -> torch.Tensor:
+        """The reference's psum over the builder's mesh: an in-place
+        all-reduce of ``x`` over ``world`` ranks (the identity at 1)."""
+        mesh = self.mesh_of(world)
+        if mesh is not None:
+            dist.all_reduce(x, group=mesh.group)
+        return x
+
+    def make_allreduce(self, x: str, *, layer_id: int,
+                       world: int = 1) -> str:
+        """TP sum (the reference's make_allreduce: its psum over the mesh
+        axis) as one comm task."""
+        return self._add("allreduce", layer_id, (x,),
+                         lambda x_: self.psum(x_.clone(), world),
+                         is_comm=True)
+
     def make_linear_allreduce(self, x: str, w: str, *, layer_id: int,
                               world: int = 1, gemm_ar_method=None) -> str:
         """Row-parallel projection + TP sum as ONE task. The xla tier is
-        the layer path's GEMM in x's dtype (the sum is the identity at
-        world 1); the pallas_chain tier dispatches gemm_ar_per_device (B4
-        under AUTO on the card: f32 accumulation, then the cast)."""
-        check_world(world, "linear_allreduce")
+        the layer path's GEMM in x's dtype, then the process group's
+        all-reduce of that cast product (the identity at world 1); the
+        pallas_chain tier dispatches gemm_ar_per_device (B4 under AUTO on
+        the card: f32 partials summed over the ranks, then the cast)."""
 
         def xla_fn(x_, w_):
-            return torch.matmul(x_, w_).to(x_.dtype)
+            return self.psum(torch.matmul(x_, w_).to(x_.dtype), world)
 
         def fused_fn(x_, w_):
             from triton_dist_tpu_torch.kernels.gemm_allreduce import (
@@ -160,7 +192,8 @@ class ModelBuilder:
             method = gemm_ar_method or GemmArMethod.AUTO
             shape = x_.shape
             y2d = gemm_ar_per_device(world, method,
-                                     x_.reshape(-1, shape[-1]), w_)
+                                     x_.reshape(-1, shape[-1]), w_,
+                                     mesh=self.mesh_of(world))
             return y2d.reshape(shape[:-1] + (w_.shape[-1],)).to(x_.dtype)
 
         return self._add("linear_allreduce", layer_id, (x, w), xla_fn,

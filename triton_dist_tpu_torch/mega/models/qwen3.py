@@ -1,24 +1,28 @@
 """Qwen3 decode steps as mega task graphs (the reference's
 mega/models/qwen3.py).
 
-``build_qwen3_decode`` records the dense max-length-cache decode step:
-every layer's rms/qkv/rope/kv-write/attention/o-projection, the fused
-add+RMSNorm boundary, the MLP with its down projection, and the logits
-tail, with the reference's task names and order, so a schedule policy gives
-the same order on the same graph. The o/down projections are
-``linear_allreduce`` tasks (B4 in the pallas_chain tier), the boundary a
-``fused_chain`` task (B3). For the MoE family the MLP half is one ``moe``
-task: the layer library's xla-mode math (router, ``dense_grouped_moe``),
-with no fused tier, as in the reference. World 1 only (A5); the
-expert-parallel fused tier waits for ROADMAP A10 and the paged graph for
-the ContinuousEngine slice (A7).
+``build_qwen3_decode`` records the dense max-length-cache decode step of
+one rank of an n_tp-way tensor-parallel model: every layer's
+rms/qkv/rope/kv-write/attention/o-projection over the rank's hq/n and
+hkv/n heads, the fused add+RMSNorm boundary, the MLP with its down
+projection, and the logits tail with its vocabulary gather, with the
+reference's task names and order, so a schedule policy gives the same
+order on the same graph. The o/down projections are ``linear_allreduce``
+tasks (B4 in the pallas_chain tier, the process group's all-reduce in the
+xla tier), the boundary a ``fused_chain`` task (B3). For the MoE family
+the MLP half is one ``moe`` task: the layer library's xla-mode math
+(router, ``dense_grouped_moe``), with no fused tier, as in the reference;
+at n_tp > 1 it raises naming ROADMAP A10. The paged graph waits for the
+ContinuousEngine slice (A7).
 """
 
 from __future__ import annotations
 
 import torch
 
-from triton_dist_tpu_torch.layers.common import check_world, dot_f32
+from triton_dist_tpu_torch.layers.common import (
+    TPContext, dot_f32, gather_vocab,
+)
 from triton_dist_tpu_torch.mega.builder import ModelBuilder
 from triton_dist_tpu_torch.models.config import Qwen3Arch, Qwen3MoEArch
 
@@ -32,7 +36,10 @@ def _moe_task(b: ModelBuilder, arch, n_tp: int, hn: str, wr: str, wgu: str,
     from triton_dist_tpu_torch.kernels import moe_utils
     from triton_dist_tpu_torch.layers.tp_moe import dense_grouped_moe
 
-    check_world(n_tp, "the MoE task")
+    if n_tp > 1:
+        raise NotImplementedError(
+            f"the MoE task at world {n_tp} (tensor-parallel experts in the "
+            "mega graph) waits for ROADMAP A10")
     topk, num_experts = arch.num_experts_per_tok, arch.num_experts
 
     def xla_fn(x_, wr_, wgu_, wd_):
@@ -72,37 +79,42 @@ def _mlp_layer_inputs(b: ModelBuilder, arch, i: int):
     return (b.add_input(f"w_gate_up_{i}"), b.add_input(f"w_down_{i}"))
 
 
-def _logits_tail_tasks(b: ModelBuilder, h: str, final_norm: str,
-                       lm_head: str, eps: float) -> str:
-    """Final norm + last-position vocab projection (f32) + the vocab
-    gather (the identity at world 1) — the task mirror of
-    Qwen3._logits_tail."""
+def _logits_tail_tasks(b: ModelBuilder, n_tp: int, h: str,
+                       final_norm: str, lm_head: str, eps: float) -> str:
+    """Final norm + last-position vocab projection (f32) + the gather
+    along the vocabulary over the builder's mesh (the identity at world
+    1) — the task mirror of Qwen3._logits_tail in the replicated modes."""
     h = b.make_rms_norm(h, final_norm, eps, layer_id=-2)
     last = b.make_custom("last_tok", (h,), lambda h_: h_[:, -1],
                          layer_id=-2)
     logits_l = b.make_custom("lm_head", (last, lm_head), dot_f32,
                              layer_id=-2)
-    return b.make_custom("vocab_gather", (logits_l,), lambda x_: x_,
-                         layer_id=-2, is_comm=True)
+    return b.make_custom(
+        "vocab_gather", (logits_l,),
+        lambda x_: gather_vocab(TPContext(b.mesh_of(n_tp)), x_),
+        layer_id=-2, is_comm=True)
 
 
 def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
-                       dtype: torch.dtype = torch.bfloat16, *,
+                       dtype: torch.dtype = torch.bfloat16, *, mesh=None,
                        gemm_ar_method=None) -> ModelBuilder:
-    """Record the dense-cache decode step of a Qwen3 dense or MoE model.
+    """Record one rank's dense-cache decode step of an n_tp-way
+    tensor-parallel Qwen3 dense or MoE model (``mesh``: the ranks' Mesh,
+    needed to run the step at n_tp > 1).
 
     Step inputs (env keys): input_ids (B, T), positions (T,), offset ()
-    on the device, cos_sin, embed, lm_head (d, V), final_norm, and per
-    layer i: wqkv_i, wo_i, q_norm_i, k_norm_i, in_norm_i, post_norm_i,
-    w_gate_up_i, w_down_i (and w_router_i for MoE) and k_cache_i /
-    v_cache_i (B, S, Hkv, D) — the cache slabs, written in place.
-    Outputs: logits (B, V) f32 (``builder.logits_name``) and each layer's
-    slabs (``builder.kv_outputs``)."""
-    check_world(n_tp, "the Qwen3 decode graph")
-    hq, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    on the device, cos_sin, embed, lm_head (d, V/n), final_norm, and per
+    layer i: wqkv_i (d, qkv/n), wo_i (q/n, d), q_norm_i, k_norm_i,
+    in_norm_i, post_norm_i, w_gate_up_i (d, 2I/n), w_down_i (I/n, d) (and
+    w_router_i for MoE) and k_cache_i / v_cache_i (B, S, Hkv/n, D) — the
+    cache slabs, written in place. Outputs: logits (B, V) f32
+    (``builder.logits_name``) and each layer's slabs
+    (``builder.kv_outputs``)."""
+    hq, hkv = arch.num_heads // n_tp, arch.num_kv_heads // n_tp
+    hd = arch.head_dim
     q_l, kv_l = hq * hd, hkv * hd
 
-    b = ModelBuilder()
+    b = ModelBuilder(mesh)
     ids = b.add_input("input_ids")
     positions = b.add_input("positions")
     offset = b.add_input("offset")
@@ -141,7 +153,8 @@ def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
         b.mark_output(nk, nv)
         b.kv_outputs.append((nk, nv))
 
-    logits = _logits_tail_tasks(b, h, final_norm, lm_head, arch.rms_eps)
+    logits = _logits_tail_tasks(b, n_tp, h, final_norm, lm_head,
+                                arch.rms_eps)
     b.mark_output(logits)
     b.logits_name = logits
     return b

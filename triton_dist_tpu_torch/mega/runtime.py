@@ -4,8 +4,14 @@ method tier (the reference's mega/runtime.py).
   * ``MegaMethod.XLA`` — every task runs its plain PyTorch function: the
     ops of the layer-by-layer path, bit-identical to ``Qwen3.inference``.
   * ``MegaMethod.PALLAS_CHAIN`` — the o/down projections run B4 (the
-    GEMM+AR kernel at world 1) and the attention→MLP boundary runs B3 (the
+    GEMM+AR kernel: its world-1 body, or at world n its push of f32
+    partials to the peers) and the attention→MLP boundary runs B3 (the
     fused add+RMSNorm kernel); attention runs B1 in both tiers.
+
+At world n (``model.ctx.world``, one runtime per rank) the graph is one
+rank's step over its shard of the weights and cache, on the model's mesh:
+the xla tier sums the o/down products with the process group's
+all-reduce, both tiers gather the logits along the vocabulary.
 
 AUTO resolves to PALLAS_CHAIN on CUDA and to XLA on the CPU, the same
 platform choice the reference makes. ``dense_step_fn(tier)`` returns the
@@ -84,7 +90,7 @@ class MegaDecodeRuntime:
             model = self.model
             self._dense = build_qwen3_decode(
                 model.arch, model.ctx.world, dtype=model.dtype,
-                gemm_ar_method=self.gemm_ar_method)
+                mesh=model.ctx.mesh, gemm_ar_method=self.gemm_ar_method)
         return self._dense
 
     def graph_tasks(self) -> int:

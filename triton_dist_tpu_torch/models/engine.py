@@ -21,16 +21,24 @@ On the paged cache (``cache_mode="paged"``) the decode step is eager
 Its graph comes with the paged mega step (ROADMAP A7); speculative decode
 waits for A12.
 
+With ``backend="triton_dist_AR"`` the decode step is
+``model.inference(mode="triton_dist_AR")`` (the sums after the o and down
+projections through ``ctx.ar_method``: B5 for ONE_SHOT, B6 for RHD; or
+the fused B4 with ``ctx.gemm_ar_method``), captured the same way.
+
 Tensor parallelism (``model.ctx.world`` n > 1, one Engine per rank
 process): every rank is given the whole batch and returns the whole
 batch's tokens. Prefill runs in "xla" on the whole batch. With
 ``backend="triton_dist"`` each rank decodes its B/n rows (B10 for the QKV
 and gate/up projections, B13a for o and down, with ``ag_method`` /
 ``rs_method`` PALLAS) in the captured step, samples them, and the ranks
-all-gather the sampled tokens outside the graph. With ``backend="xla"``
-the plain TP decode (``mega="off"``) runs on every rank; the mega step at
-n > 1 (B4's push to the peers) waits for ROADMAP A5, and the paged cache
-at n > 1 for A6.
+all-gather the sampled tokens outside the graph. The replicated backends
+("xla": the mega step at its defaults, B4 across ranks on the card; and
+"triton_dist_AR") decode the whole batch on every rank; B5 leaves the
+ranks' sums different in the last bit, so every rank takes rank 0's
+sampled tokens (one broadcast outside the graph per token) and records
+whether its own differed (``own_token_differs``). The paged cache at
+n > 1 waits for ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -68,11 +76,6 @@ class Engine:
         if world > 1 and cache_mode == "paged":
             raise NotImplementedError(
                 f"the paged cache at world {world} waits for ROADMAP A6")
-        if world > 1 and backend == "xla" and mega != "off":
-            raise NotImplementedError(
-                f"the mega decode step at world {world} (B4's push of "
-                "partials to the peers) waits for ROADMAP A5; pass "
-                "mega='off' for the plain tensor-parallel xla decode")
         if params["embed"].device != model.device:
             raise ValueError(f"params on {params['embed'].device}, model on "
                              f"{model.device}")
@@ -106,8 +109,33 @@ class Engine:
         self._logits_buf = None
         self.graph_launches: dict[str, int] = {}
         self.graph_replays = 0
-        # triton_dist at world n: this rank decodes its rows of the batch
+        # triton_dist at world n: this rank decodes its rows of the batch;
+        # the replicated backends take rank 0's tokens
         self._sharded = world > 1 and backend == "triton_dist"
+        self._replicated = world > 1 and not self._sharded
+        self._differs: list[torch.Tensor] = []
+
+    @property
+    def own_token_differs(self) -> torch.Tensor | None:
+        """(tokens,) bool of the last serve in a replicated backend at
+        world n: whether this rank's own sampled token differed from rank
+        0's, for the prefill token and each decode step (None elsewhere).
+        Reads the device."""
+        if not self._differs:
+            return None
+        return torch.stack(self._differs).cpu()
+
+    def _rank0_tokens(self, tok: torch.Tensor) -> torch.Tensor:
+        """Rank 0's sampled tokens on every rank (a replicated backend at
+        world n); records whether this rank's own differed."""
+        if not self._replicated:
+            return tok
+        mesh = self.model.ctx.mesh
+        got = tok.clone()
+        dist.broadcast(got, src=dist.get_global_rank(mesh.group, 0),
+                       group=mesh.group)
+        self._differs.append((got != tok).any())
+        return got
 
     @property
     def mega_tier(self) -> str | None:
@@ -210,7 +238,7 @@ class Engine:
         logits = self.decode_logits(token)
         nxt = sample_token(logits, generator, self.temperature, self.top_p)
         if not self._sharded:
-            return nxt
+            return self._rank0_tokens(nxt)
         mesh = self.model.ctx.mesh
         full = torch.empty((mesh.world * nxt.shape[0],), dtype=nxt.dtype,
                            device=nxt.device)
@@ -237,6 +265,7 @@ class Engine:
         self._init_kv_cache(bsz)
         self.kv_cache.clear()
         self.graph_replays = 0
+        self._differs = []
         if self.verbose:
             self.logger.log(
                 f"serve: prefill {tuple(input_ids.shape)}, gen_len={gen_len}"
@@ -246,8 +275,8 @@ class Engine:
         t0 = time.perf_counter()
         logits, self.kv_cache = self.model.inference(
             self.params, self.kv_cache, input_ids, mode="xla")
-        next_token = sample_token(logits, generator, self.temperature,
-                                  self.top_p)
+        next_token = self._rank0_tokens(sample_token(
+            logits, generator, self.temperature, self.top_p))
         self._sync()
         self.last_prefill_s = time.perf_counter() - t0
 

@@ -1,10 +1,12 @@
-"""Qwen3 dense model (the reference's models/qwen.py), modes "xla" and
-"triton_dist", on the dense KVCache or (world 1) the PagedKVCache.
+"""Qwen3 dense model (the reference's models/qwen.py), modes "xla",
+"triton_dist_AR" and "triton_dist", on the dense KVCache or (world 1) the
+PagedKVCache.
 
 Tensor parallelism: one process per rank, each holding its shard of the
 parameters (``param_specs``: the reference's PartitionSpecs, as tuples) and
-its hkv/n heads of the dense cache. In mode "xla" every rank runs the
-whole batch and the logits are gathered along the vocabulary; in mode
+its hkv/n heads of the dense cache. In the replicated modes "xla" and
+"triton_dist_AR" every rank runs the whole batch and the logits are
+gathered along the vocabulary; in mode
 "triton_dist" ``inference`` takes this rank's rows of the batch
 (batch-sharded ids, the reference's ``P("tp", None)``) and returns their
 logits over the whole vocabulary.
@@ -15,7 +17,7 @@ views, never copies); the reference's decoder ``lax.scan`` is a Python
 loop over layers. Both caches are updated in place; the dense cache's
 offset never leaves the device. The per-layer ``mlp`` hook is the dense
 MLP here; Qwen3MoE (models/qwen_moe.py) overrides it with the MoE layer.
-prefill_slot and the triton_dist_AR mode wait for their ROADMAP items.
+prefill_slot waits for its ROADMAP item (A7).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 import torch.distributed as dist
 
 from triton_dist_tpu_torch.layers.common import (
-    MODES, TPContext, check_mode, dot_f32, make_cos_sin_cache, rms_norm,
+    MODES, TPContext, check_mode, dot_f32, gather_vocab, make_cos_sin_cache,
+    rms_norm,
 )
 from triton_dist_tpu_torch.layers.tp_attn import attn_fwd, paged_attn_fwd
 from triton_dist_tpu_torch.layers.tp_mlp import mlp_fwd
@@ -143,28 +146,23 @@ class Qwen3:
         """(B, V) f32 logits of the last position; lm_head is this rank's
         vocabulary columns. triton_dist: gather the batch-sharded last
         rows, take the vocab-sharded product, then all-to-all it into this
-        rank's rows over the whole vocabulary; xla: gather the product
-        along the vocabulary."""
+        rank's rows over the whole vocabulary; xla and triton_dist_AR:
+        gather the product along the vocabulary."""
         check_mode(mode)
         last = h[:, -1]
-        n, b = self.ctx.world, last.shape[0]
-        if n == 1:
-            return dot_f32(last, params["lm_head"])
+        n = self.ctx.world
+        if n == 1 or mode != "triton_dist":
+            return gather_vocab(self.ctx, dot_f32(last, params["lm_head"]))
         group = self.ctx.mesh.group
-        if mode == "triton_dist":
-            full = torch.empty((n * last.shape[0], last.shape[1]),
-                               dtype=last.dtype, device=last.device)
-            dist.all_gather_into_tensor(full, last.contiguous(), group=group)
-            logits = dot_f32(full, params["lm_head"])        # (B, V/n)
-            recv = torch.empty_like(logits)
-            dist.all_to_all_single(recv, logits, group=group)
-        else:
-            logits = dot_f32(last, params["lm_head"]).contiguous()
-            recv = torch.empty((n * logits.shape[0], logits.shape[1]),
-                               dtype=logits.dtype, device=logits.device)
-            dist.all_gather_into_tensor(recv, logits, group=group)
+        full = torch.empty((n * last.shape[0], last.shape[1]),
+                           dtype=last.dtype, device=last.device)
+        dist.all_gather_into_tensor(full, last.contiguous(), group=group)
+        logits = dot_f32(full, params["lm_head"])        # (B, V/n)
+        recv = torch.empty_like(logits)
+        dist.all_to_all_single(recv, logits, group=group)
         # (n, b, V/n) blocks of vocabulary shards -> (b, V)
-        return recv.view(n, b, -1).transpose(0, 1).reshape(b, -1)
+        return recv.view(n, last.shape[0], -1).transpose(0, 1).reshape(
+            last.shape[0], -1)
 
     def _inference_paged(self, params: dict, cache: PagedKVCache,
                          input_ids: torch.Tensor, mode: str,
