@@ -177,7 +177,11 @@ def phase_b1(torch, fa):
 def phase_b2(torch, pfd, codec):
     """Kernel vs plain version at B=4, Hq=32, Hkv=8, D=128, page 128, a
     shuffled table with garbage in dead slots, ragged lengths with 0, 1 and
-    a page boundary; bf16 and int8 pools. Compared on the normalized
+    a page boundary; bf16 and int8 pools. Then the ContinuousEngine's
+    shapes (bf16, page 128, 16-page rows of max_length 2048): Qwen3-8B at
+    max_batch 8 (Hq 32, Hkv 8, ragged lengths up to 1600) and one rank of
+    Qwen3-32B at TP=4, max_batch 16 (Hq 16, Hkv 2: a GQA group of 8, rows
+    of 2048 tokens and four ragged ones). Compared on the normalized
     output acc/l and on m and l. Tolerance 2e-3 absolute on acc/l (P is
     rounded to bf16 at the same points in both; f32 summation order
     otherwise), 1e-4 relative on m and l."""
@@ -200,29 +204,35 @@ def phase_b2(torch, pfd, codec):
     dead[1] = torch.tensor([-7, 99, 5, 3, 1000, -1, 2, 0])   # len-0 row
     main_lens = torch.full((b,), 528, dtype=torch.int32, device=DEV)
 
+    def check(mode, case, q, kp, vp, tab, lens, kw):
+        acc, m, l = pfd.paged_flash_decode_partial(q, kp, vp, tab, lens,
+                                                   **kw)
+        racc, rm, rl = pfd.paged_flash_decode_partial_ref(
+            q, kp, vp, tab, lens, **kw)
+        torch.cuda.synchronize()
+        out = acc / l.clamp_min(1e-30)[..., None]
+        rout = racc / rl.clamp_min(1e-30)[..., None]
+        err = (out - rout).abs().max().item()
+        m_err = ((m - rm).abs() / rm.abs().clamp_min(1)).max().item()
+        l_err = ((l - rl).abs() / rl.abs().clamp_min(1)).max().item()
+        empty = lens == 0
+        empty_ok = bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
+                        and (acc[empty] == 0).all())
+        ok = (err <= 2e-3 and m_err <= 1e-4 and l_err <= 1e-4
+              and empty_ok and bool(torch.isfinite(acc).all()))
+        return {"mode": mode, "case": case,
+                "shape": [q.shape[0], q.shape[1], kp.shape[0],
+                          tab.shape[1]],
+                "max_abs_err": err, "tol": 2e-3, "m_rel_err": m_err,
+                "l_rel_err": l_err, "ok": ok}
+
     modes = {"bf16": (k16, v16, {}),
              "int8": (k8, v8, {"k_scales": ks, "v_scales": vs})}
     rows, timed = [], {}
     for mode, (kp, vp, kw) in modes.items():
         for case, tab, lens in (("ragged", dead, check_lens),
                                 ("main", table, main_lens)):
-            acc, m, l = pfd.paged_flash_decode_partial(q, kp, vp, tab, lens,
-                                                       **kw)
-            racc, rm, rl = pfd.paged_flash_decode_partial_ref(
-                q, kp, vp, tab, lens, **kw)
-            torch.cuda.synchronize()
-            out = acc / l.clamp_min(1e-30)[..., None]
-            rout = racc / rl.clamp_min(1e-30)[..., None]
-            err = (out - rout).abs().max().item()
-            m_err = ((m - rm).abs() / rm.abs().clamp_min(1)).max().item()
-            l_err = ((l - rl).abs() / rl.abs().clamp_min(1)).max().item()
-            empty = lens == 0
-            empty_ok = bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
-                            and (acc[empty] == 0).all())
-            ok = (err <= 2e-3 and m_err <= 1e-4 and l_err <= 1e-4
-                  and empty_ok and bool(torch.isfinite(acc).all()))
-            rows.append({"mode": mode, "case": case, "max_abs_err": err,
-                         "m_rel_err": m_err, "l_rel_err": l_err, "ok": ok})
+            rows.append(check(mode, case, q, kp, vp, tab, lens, kw))
         ms = time_ms(lambda: pfd.paged_flash_decode_partial(
             q, kp, vp, table, main_lens, **kw), iters=50)
         plain_ms = time_ms(lambda: pfd.paged_flash_decode_partial_ref(
@@ -233,11 +243,28 @@ def phase_b2(torch, pfd, codec):
                   + table.numel() * 4 + b * 4 + (b * hq * d + 2 * b * hq) * 4)
         flops = 4.0 * hq * d * tokens
         bms, by = bound_ms(nbytes, flops)
-        timed[mode] = {
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["mode"] == mode),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "bytes": nbytes, "flops": flops}
+        timed[mode] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "bytes": nbytes, "flops": flops}
+    for case, pb, phq, phkv, plens in (
+            ("continuous_8b_b8", 8, 32, 8,
+             [1600, 0, 1, 128, 129, 777, 1536, 1023]),
+            ("continuous_tp4_rank_b16", 16, 16, 2,
+             [2048] * 12 + [1, 0, 1000, 2047])):
+        pnp = 16                                  # 2048 / page 128
+        ptab = torch.randperm(pb * pnp, generator=g, device=DEV).reshape(
+            pb, pnp).to(torch.int32).contiguous()
+        pk = torch.randn((phkv, pb * pnp, ps, d), generator=g,
+                         device=DEV).to(torch.bfloat16)
+        pv = torch.randn((phkv, pb * pnp, ps, d), generator=g,
+                         device=DEV).to(torch.bfloat16)
+        pq = torch.randn((pb, phq, d), generator=g,
+                         device=DEV).to(torch.bfloat16)
+        plen = torch.tensor(plens, dtype=torch.int32, device=DEV)
+        rows.append(check("bf16", case, pq, pk, pv, ptab, plen, {}))
+        del pk, pv
+    for mode in timed:
+        timed[mode]["max_abs_err"] = max(r["max_abs_err"] for r in rows
+                                         if r["mode"] == mode)
     emit({"phase": "b2_paged_flash_decode", "cases": rows})
     bad = [(r["mode"], r["case"]) for r in rows if not r["ok"]]
     if bad:
@@ -321,8 +348,9 @@ def phase_b1_decode(torch, fa):
 # -- B3: fused add + RMSNorm -------------------------------------------------
 
 def phase_b3(torch, fc):
-    """Kernel vs plain version, bf16 and f32, d 4096 and 128, 4 and 2048
-    rows. s must be bitwise equal (one rounding of h + a in both). The
+    """Kernel vs plain version, bf16 and f32, d 4096 (Qwen3-8B), 5120
+    (Qwen3-32B) and 128, at 4, 8 and 16 rows (the decode batches of the
+    static and continuous engines) and 2048. s must be bitwise equal (one rounding of h + a in both). The
     f32 square sums are taken in another order, so the normalized value
     x * rsqrt(var + eps), rounded to bf16 before the multiply by w, may
     take the neighbouring bf16 value: bf16 normed must lie within
@@ -332,8 +360,8 @@ def phase_b3(torch, fc):
     g = torch.Generator(device=DEV).manual_seed(12)
     rows, main = [], None
     for dt in (torch.bfloat16, torch.float32):
-        for d in (4096, 128):
-            for n in (4, 2048):
+        for d in (4096, 5120, 128):
+            for n in (4, 8, 16, 2048):
                 h = torch.randn((n, d), generator=g, device=DEV).to(dt)
                 a = torch.randn((n, d), generator=g, device=DEV).to(dt)
                 w = (torch.rand((d,), generator=g, device=DEV) + 0.5).to(dt)
@@ -376,7 +404,7 @@ def phase_b3(torch, fc):
             "source": "triton_dist_tpu_torch/csrc/fused_add_rms.cu",
             "replaces": "triton_dist_tpu/kernels/fused_chain.py:51",
             "max_abs_err": max(r["normed_max_abs_err"] for r in rows
-                               if r["rows"] == 4 and r["d"] == 4096),
+                               if r["rows"] <= 16 and r["d"] != 128),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "shape": [n, d], "bytes": nbytes,
             "flops": flops}
@@ -395,8 +423,9 @@ def _held(torch, name, out, ref, tol):
 
 def phase_b4(torch, ga):
     """Kernel vs plain version at the decode path's o (K = N = 4096) and
-    down (K = 12288, N = 4096) shapes at M = 4, and M = 2048, bf16; o at
-    M = 4 in f32. Max abs error <= 1e-2 x max|ref| for bf16 (one bf16
+    down (K = 12288, N = 4096) shapes at M = 4 (the static Engine's batch)
+    and M = 8 (the ContinuousEngine's max_batch), and M = 2048, bf16; o
+    at M = 4 in f32. Max abs error <= 1e-2 x max|ref| for bf16 (one bf16
     rounding of the output, 2^-9, and another f32 summation order), 1e-4
     relative for f32. Timed at the two decode shapes; the row's times are
     the mean over the main path's launches (one o and one down per
@@ -404,6 +433,8 @@ def phase_b4(torch, ga):
     g = torch.Generator(device=DEV).manual_seed(13)
     cases = [("o_m4", torch.bfloat16, 4, 4096, 4096, 1e-2),
              ("down_m4", torch.bfloat16, 4, 12288, 4096, 1e-2),
+             ("o_m8", torch.bfloat16, 8, 4096, 4096, 1e-2),
+             ("down_m8", torch.bfloat16, 8, 12288, 4096, 1e-2),
              ("o_m2048", torch.bfloat16, 2048, 4096, 4096, 1e-2),
              ("o_m4_f32", torch.float32, 4, 4096, 4096, 1e-4)]
     rows, timed = [], {}
@@ -435,7 +466,7 @@ def phase_b4(torch, ga):
     return {"name": "gemm_ar", "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/gemm_ar.cu",
             "replaces": "triton_dist_tpu/kernels/gemm_allreduce.py:101",
-            "max_abs_err": max(t["max_abs_err"] for t in timed.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
             **mean, "bound_by": "bytes", "library_ms_call":
                 "torch.mm(a, b, out_dtype=torch.float32)",
             "shapes": timed}
@@ -644,48 +675,56 @@ def phase_b14_b15(torch, agg, mrs, mu, plain):
 
 # -- the main paths ----------------------------------------------------------
 
-def phase_main(torch, models, kern):
+def _qwen3_8b(torch, models, shared):
+    """Qwen3-8B's random bf16 weights from seed 0, drawn once per run and
+    kept in ``shared`` for the phases that serve it (dropped before the
+    MoE model is loaded)."""
+    if "8b" not in shared:
+        arch = models.QWEN3_ARCHS["Qwen/Qwen3-8B"]
+        t0 = time.perf_counter()
+        params = models.init_random_params(
+            torch.Generator(device=DEV).manual_seed(0), arch, DEV,
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        shared["8b"] = (arch, params, time.perf_counter() - t0)
+    return shared["8b"]
+
+
+def phase_main(torch, models, kern, shared):
     """Qwen3-8B at its published widths, all 36 layers, random bf16
     weights; Engine(cache_mode="paged", page_size=128) serves B=4 prompts
-    of T=512 for gen_len=32 (the decode crosses the page boundary at 512).
-    One warm-up serve first; the counts are zeroed just before the
-    measured serve and read just after it."""
-    cfg = models.ModelConfig(model_name="Qwen/Qwen3-8B", max_length=1024,
-                             dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    model, params = models.AutoLLM.from_pretrained(
-        cfg, device=DEV,
-        generator=torch.Generator(device=DEV).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    arch = model.arch
+    of T=512 for gen_len=32 (the decode crosses the page boundary at 512),
+    each decode step one CUDA-graph replay. One warm-up serve first (it
+    captures the graph); the counts are zeroed just before the measured
+    serve and read just after it (_serve_counted)."""
+    arch, params, init_s = _qwen3_8b(torch, models, shared)
+    model = models.Qwen3(arch, max_length=1024, dtype=torch.bfloat16,
+                         device=DEV)
     b, t, gen = 4, 512, 32
     ids = torch.randint(0, arch.vocab_size, (b, t + 1), device=DEV,
                         generator=torch.Generator(device=DEV).manual_seed(3))
     engine = models.Engine(model, params, cache_mode="paged", page_size=128)
-    engine.serve(ids[:, :t], gen_len=2)                       # warm-up
-    torch.cuda.reset_peak_memory_stats()
-
-    kern.reset_launch_counts()
-    out = engine.serve(ids[:, :t], gen_len=gen)
-    launches = kern.launch_counts()
-
+    out, launches, per_step, eager, replays = _serve_counted(
+        torch, kern, engine, ids[:, :t], gen)
     steps = engine.last_decode_steps
-    rec = {"phase": "main_path", "model": cfg.model_name,
+    rec = {"phase": "main_path", "model": "Qwen/Qwen3-8B",
            "layers": arch.num_layers, "hidden": arch.hidden_size,
            "batch": b, "prompt": t, "gen_len": gen, "page_size": 128,
            "init_s": init_s, "prefill_ms": engine.last_prefill_s * 1e3,
            "decode_ms_per_step": engine.last_decode_s * 1e3 / steps,
            "decode_tok_per_s": b * steps / engine.last_decode_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches,
+           "graph_replays": replays, "launches_per_replay": per_step,
+           "eager_launches": eager, "launches": launches,
            "overflow": int(engine.kv_cache.overflow),
            "tokens_shape": list(out.shape)}
     emit(rec)
-    want = _only(launches, flash_prefill=arch.num_layers,
-                 paged_flash_decode_partial=arch.num_layers * (gen - 1))
-    if launches != want:
-        fail(f"launch counts {launches}, want {want}")
+    L = arch.num_layers
+    want_step = _only(per_step, paged_flash_decode_partial=L)
+    if per_step != want_step or replays != gen - 1 or \
+            eager != _only(eager, flash_prefill=L):
+        fail(f"paged path: {per_step} per replay x {replays} + {eager} "
+             f"eager; want {want_step} x {gen - 1} + {L} B1")
     if tuple(out.shape) != (b, gen) or not bool(
             ((out >= 0) & (out < arch.vocab_size)).all()) or rec["overflow"]:
         fail("served tokens out of range or the page pool overflowed")
@@ -969,9 +1008,10 @@ def _replay_idle(torch, engine, ids, steps):
 
 
 def phase_profile(torch, engine, dense_engine, ids, steps: int = 4):
-    """Where each main path's time goes (_profile_engine), the paged
-    engine's eager step and the dense engine's graph-replayed step; for
-    the dense step also the idle share by CUDA events (_replay_idle)."""
+    """Where each main path's time goes (_profile_engine), the paged and
+    the dense engines' graph-replayed steps; for the dense step also the
+    idle share by CUDA events (_replay_idle; the paged step's is in phase
+    paged_graph)."""
     pre, dec = _profile_engine(torch, engine, ids, steps)
     dpre, ddec = _profile_engine(torch, dense_engine, ids, steps)
     wall_ms, replay_ms = _replay_idle(torch, dense_engine, ids, steps)
@@ -979,6 +1019,348 @@ def phase_profile(torch, engine, dense_engine, ids, steps: int = 4):
           "dense_prefill": dpre, "dense_decode_step": ddec,
           "dense_step_wall_ms": wall_ms, "dense_replay_device_ms": replay_ms,
           "dense_idle_share_by_events": 1 - replay_ms / wall_ms})
+
+
+def phase_paged_graph(torch, models, kern, shared, gen: int = 32,
+                      steps: int = 8):
+    """Engine(cache_mode="paged") on Qwen3-8B (36 layers, bf16, B=4
+    prompts of 512, page 128): the decode step captured once as a CUDA
+    graph and replayed (B2 per layer); its serve's launches
+    (_serve_counted), the host's wall ms per step against one bare
+    replay's device ms (CUDA events, _replay_idle), and in the same call
+    the eager step (Qwen3.inference on the paged cache, no graph) over
+    `steps` steps after the same prefill: the comparison with slice 1's
+    eager paged step."""
+    arch, params, _ = _qwen3_8b(torch, models, shared)
+    model = models.Qwen3(arch, max_length=1024, dtype=torch.bfloat16,
+                         device=DEV)
+    b, t = 4, 512
+    ids = torch.randint(0, arch.vocab_size, (b, t + 1), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(3))
+    engine = models.Engine(model, params, cache_mode="paged", page_size=128)
+    out, launches, per_step, eager, replays = _serve_counted(
+        torch, kern, engine, ids[:, :t], gen)
+    graph_ms = engine.last_decode_s * 1e3 / engine.last_decode_steps
+    wall_ms, replay_ms = _replay_idle(torch, engine, ids, steps)
+    cache = model.create_paged_kv_cache(b, page_size=128)
+    logits, _ = model.inference(params, cache, ids[:, :t])
+    tok = logits.argmax(-1).to(torch.int32)
+    model.inference(params, cache, tok[:, None])               # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, _ = model.inference(params, cache, tok[:, None])
+        tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / steps
+    L = arch.num_layers
+    rec = {"phase": "paged_graph", "model": "Qwen/Qwen3-8B", "layers": L,
+           "batch": b, "prompt": t, "gen_len": gen, "page_size": 128,
+           "decode_ms_per_step": graph_ms,
+           "decode_tok_per_s": b / graph_ms * 1e3,
+           "step_wall_ms": wall_ms, "replay_device_ms": replay_ms,
+           "idle_share_by_events": 1 - replay_ms / wall_ms,
+           "eager_step_ms_same_call": eager_ms,
+           "eager_over_graph": eager_ms / graph_ms,
+           "graph_replays": replays, "launches_per_replay": per_step,
+           "launches": launches}
+    emit(rec)
+    if per_step != _only(per_step, paged_flash_decode_partial=L) or \
+            replays != gen - 1 or tuple(out.shape) != (b, gen):
+        fail(f"paged graph: {per_step} per replay x {replays}")
+    return launches
+
+
+def _traffic(torch, vocab, n_req, seed, *, n_shared=8, prefix_len=384,
+             lo=16, hi=1536):
+    """The continuous phases' requests: [(prompt, max_new_tokens)], prompt
+    lengths drawn in [lo, hi] and budgets in [16, 64] from a seeded
+    generator; n_shared of them (spread over the waves) start with one
+    prefix_len-token prefix."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(lo_, hi_):
+        return int(torch.randint(lo_, hi_ + 1, (1,), generator=g))
+
+    prefix = torch.randint(0, vocab, (prefix_len,), generator=g).tolist()
+    shared = set(range(1, n_req, n_req // n_shared))
+    out = []
+    for i in range(n_req):
+        n = draw(lo, hi)
+        if i in shared:
+            n = max(n, prefix_len + 16)
+        body = torch.randint(0, vocab, (n,), generator=g).tolist()
+        if i in shared:
+            body = prefix + body[prefix_len:]
+        out.append((body, draw(16, 64)))
+    return out
+
+
+def _drive_waves(torch, eng, traffic, wave: int = 8, every: int = 4):
+    """Serve ``traffic`` through ``eng`` in waves of ``wave`` requests,
+    the next wave submitted every `every` harvests (or at once when the
+    engine ran dry). Every harvest is timed: its host wall ms (it ends
+    with the one device read) and, with CUDA events around the mega
+    dispatch, the device ms of its graph replay. Returns (finished
+    requests in uid order, harvest records, run wall s)."""
+    harvests, events = [], []
+    decode_once, dispatch = eng._decode_once, eng._mega.dispatch
+
+    def timed_dispatch(launch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = dispatch(launch)
+        ev[1].record()
+        events.append(ev)
+        return res
+
+    def timed_decode():
+        tokens = eng.stats()["tokens_out"]
+        t0 = time.perf_counter()
+        res = decode_once()
+        harvests.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                         "tokens": eng.stats()["tokens_out"] - tokens})
+        return res
+
+    eng._decode_once, eng._mega.dispatch = timed_decode, timed_dispatch
+    submitted, mark = 0, 0
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slots) or \
+            submitted < len(traffic):
+        idle = not eng.queue and all(r is None for r in eng.slots)
+        if submitted < len(traffic) and (
+                submitted == 0 or idle
+                or eng.stats()["decode_batches"] - mark >= every):
+            for prompt, gen in traffic[submitted:submitted + wave]:
+                eng.submit(prompt, max_new_tokens=gen)
+            submitted += len(traffic[submitted:submitted + wave])
+            mark = eng.stats()["decode_batches"]
+        eng.step()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    # drop the instance overrides (assigning the bound methods back would
+    # keep the engine, its graph and its NCCL work alive in a cycle)
+    del eng._decode_once, eng._mega.dispatch
+    for h, ev in zip(harvests, events):
+        h["replay_ms"] = ev[0].elapsed_time(ev[1])
+    return sorted(eng.finished, key=lambda r: r.uid), harvests, wall_s
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[int(q * (len(xs) - 1))] if xs else None
+
+
+def _serve_continuous(torch, kern, models, model, params, traffic, *,
+                      decode_steps, max_batch, label, **kw):
+    """One ContinuousEngine serve of ``traffic`` (model at its mode's
+    defaults: the paged mega step, pallas_chain on the card). A one-token
+    warm-up request first (it captures the decode graph); the counts are
+    zeroed just before the measured traffic and read just after it, and a
+    kernel's launches are its eager count (the prefill chunks) plus the
+    replays times its launches recorded per captured program. Returns
+    (record, finished requests, the engine)."""
+    eng = models.ContinuousEngine(model, params, max_batch=max_batch,
+                                  page_size=128, prefill_chunk=512,
+                                  decode_steps=decode_steps,
+                                  prefix_cache=True, **kw)
+    eng.submit([1, 2, 3], max_new_tokens=2)
+    eng.run()
+    eng.finished.clear()
+    before = eng.stats()
+    replays0 = eng.graph_replays
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    done, harvests, wall_s = _drive_waves(torch, eng, traffic, wave=8)
+    eager = kern.launch_counts()
+    after = eng.stats()
+    replays = eng.graph_replays - replays0
+    per = {k: eng.graph_launches.get(k, 0) for k in eager}
+    launches = {k: eager[k] + replays * per[k] for k in eager}
+    hv = harvests[1:] or harvests
+    wall = sum(h["wall_ms"] for h in hv)
+    dev = sum(h["replay_ms"] for h in hv)
+    toks = sum(h["tokens"] for h in hv)
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in done]
+    gen_total = sum(len(r.out) for r in done)
+    rec = {"phase": label, "decode_steps": decode_steps,
+           "max_batch": max_batch, "requests": len(traffic),
+           "prompt_tokens": sum(len(p) for p, _ in traffic),
+           "generated_tokens": gen_total, "mode": eng.mode,
+           "mega_tier": after["mega"],
+           "harvests": after["decode_batches"] - before["decode_batches"],
+           "graph_replays": replays,
+           "replays_per_harvest": replays / max(
+               after["decode_batches"] - before["decode_batches"], 1),
+           "harvest_wall_ms_mean": wall / len(hv),
+           "harvest_wall_ms_p50": _pct([h["wall_ms"] for h in hv], 0.5),
+           "replay_device_ms_mean": dev / len(hv),
+           "idle_share_by_events": 1 - dev / wall,
+           "ms_per_generated_token_in_harvests": wall / max(toks, 1),
+           "decode_tok_s_in_harvests": toks / wall * 1e3,
+           "run_wall_s": wall_s, "run_tok_s": gen_total / wall_s,
+           "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p95": _pct(ttft, 0.95),
+           "prefix_pages_adopted": after["prefix_pages_adopted"]
+           - before["prefix_pages_adopted"],
+           "prefill_chunks": after["prefill_chunks"]
+           - before["prefill_chunks"],
+           "admission_deferrals": after["admission_deferrals"]
+           - before["admission_deferrals"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_replay": per, "eager_launches": eager,
+           "launches": launches,
+           "overflow": int(eng.cache.overflow),
+           "own_token_differs": eng.own_token_differs}
+    return rec, done, eng
+
+
+def _check_continuous(rec, done, traffic, vocab, per_replay_want):
+    """The gates of a continuous serve: one replay per harvest, every
+    request its whole budget of in-range tokens, no overflow, a prefix
+    adopted, the launches per replay."""
+    bad = []
+    if rec["graph_replays"] != rec["harvests"]:
+        bad.append("not one graph replay per harvest")
+    if len(done) != len(traffic) or any(
+            len(r.out) != g or not all(0 <= x < vocab for x in r.out)
+            for r, (_, g) in zip(done, traffic)):
+        bad.append("a request's tokens are missing or out of range")
+    if rec["overflow"] or rec["prefix_pages_adopted"] <= 0:
+        bad.append("pool overflow or no prefix adopted")
+    if rec["launches_per_replay"] != per_replay_want:
+        bad.append(f"launches per replay {rec['launches_per_replay']}, want "
+                   f"{per_replay_want}")
+    if bad:
+        fail(f"{rec['phase']}: " + "; ".join(bad))
+
+
+def _b1_continuation(torch, fa):
+    """B1 in its continuation form: one 512-token chunk of a row at
+    offset 1024 (a 0-d int32 tensor on the card) over the row's 2048
+    gathered keys, at Qwen3-8B's heads (Hq 32, Hkv 8) and one TP=4 rank's
+    of Qwen3-32B (Hq 16, Hkv 2), bf16 and f32, against its plain version.
+    Tolerances relative to max|ref|: bf16 2e-2 (the output's bf16
+    rounding, 2^-9, and P rounded to bf16 at other running maxima), f32
+    1e-4 (summation order). The f32 error must also lie 10x below the
+    gap between the plain version at offset 1024 and at 1025, so a kernel
+    off by one key at the causal boundary fails. Timed at Qwen3-8B's
+    heads, bf16, beside SDPA with the same causal-with-offset mask."""
+    g = torch.Generator(device=DEV).manual_seed(61)
+    b, t, s, d, off = 1, 512, 2048, 128, 1024
+    offset = torch.tensor(off, dtype=torch.int32, device=DEV)
+    cases, timed = [], None
+    for heads, hq, hkv in (("8b", 32, 8), ("tp4_rank", 16, 2)):
+        q = torch.randn((b, t, hq, d), generator=g, device=DEV)
+        k = torch.randn((b, s, hkv, d), generator=g, device=DEV)
+        v = torch.randn((b, s, hkv, d), generator=g, device=DEV)
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            out = fa.flash_prefill(qd, kd, vd, offset)
+            ref = fa.flash_prefill_ref(qd, kd, vd, off)
+            torch.cuda.synchronize()
+            row = _held(torch, f"{heads}_{str(dt).split('.')[-1]}", out,
+                        ref, tol)
+            if dt == torch.float32:
+                gap = (fa.flash_prefill_ref(qd, kd, vd, off + 1).float()
+                       - ref.float()).abs().max().item()
+                row["off_by_one_gap"] = gap
+                row["ok"] = row["ok"] and row["max_abs_err"] * 10 < gap
+            cases.append(row)
+            if heads == "8b" and dt == torch.bfloat16:
+                timed = (qd, kd, vd)
+    q, k, v = timed
+    hq, hkv = q.shape[2], k.shape[2]
+    ms = time_ms(lambda: fa.flash_prefill(q, k, v, offset))
+    plain_ms = time_ms(lambda: fa.flash_prefill_ref(q, k, v, off), iters=5)
+    mask = (torch.arange(s, device=DEV)[None, :]
+            <= off + torch.arange(t, device=DEV)[:, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                      enable_gqa=True))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    pairs = sum(min(off + i + 1, s) for i in range(t))
+    bms, by = bound_ms(nbytes, 4.0 * b * hq * d * pairs)
+    return {"case": "continuation_t512_s2048_offset1024", "cases": cases,
+            "max_abs_err": max(c["max_abs_err"] for c in cases
+                               if "bfloat16" in c["case"]),
+            "ok": all(c["ok"] for c in cases),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_continuous(torch, models, kern, fa, shared):
+    """The north star's main path on one card: Qwen3-8B at its published
+    widths, all 36 layers, bf16, through ContinuousEngine(mode="xla") at
+    its defaults (the paged mega step on the pallas_chain tier: B2, B3
+    and B4 per layer; each harvest of decode_steps=4 steps one CUDA-graph
+    replay), max_batch 8, page 128, max_length 2048, prefill_chunk 512
+    (prefill chunks eager: B1, its continuation form past the first
+    chunk), prefix cache on. Traffic: 24 requests (_traffic, seed 11),
+    three waves of 8, one wave every 4 harvests. Then the same traffic at
+    decode_steps=1, whose greedy tokens must equal the K=4 run's; B1 at
+    its continuation shape against its plain version; and the f32 gate:
+    4 layers of these widths, ContinuousEngine tokens per request equal to
+    the static Engine's for the same prompt (the reference's ground
+    truth)."""
+    import dataclasses
+    arch, params, _ = _qwen3_8b(torch, models, shared)
+    model = models.Qwen3(arch, max_length=2048, dtype=torch.bfloat16,
+                         device=DEV)
+    traffic = _traffic(torch, arch.vocab_size, 24, 11)
+    L = arch.num_layers
+    runs, outs = {}, {}
+    for k_steps in (4, 1):
+        rec, done, eng = _serve_continuous(
+            torch, kern, models, model, params, traffic,
+            decode_steps=k_steps, max_batch=8, label="continuous")
+        want = _only(rec["launches_per_replay"],
+                     paged_flash_decode_partial=L * k_steps,
+                     fused_add_rms=L * k_steps, gemm_ar=2 * L * k_steps)
+        _check_continuous(rec, done, traffic, arch.vocab_size, want)
+        runs[k_steps], outs[k_steps] = rec, [r.out for r in done]
+        del eng
+        torch.cuda.empty_cache()
+    same_k = outs[4] == outs[1]
+    b1 = _b1_continuation(torch, fa)
+    # the f32 gate
+    arch4 = dataclasses.replace(arch, num_layers=4)
+    m32 = models.Qwen3(arch4, max_length=1024, dtype=torch.float32,
+                       device=DEV)
+    p32 = models.init_random_params(
+        torch.Generator(device=DEV).manual_seed(5), arch4, DEV,
+        torch.float32)
+    small = _traffic(torch, arch4.vocab_size, 6, 12, n_shared=2,
+                     prefix_len=256, lo=40, hi=700)
+    small = [(p, 8) for p, _ in small]
+    eng = models.ContinuousEngine(m32, p32, max_batch=4, page_size=128,
+                                  prefill_chunk=256, decode_steps=4,
+                                  prefix_cache=True)
+    for p, g in small:
+        eng.submit(p, max_new_tokens=g)
+    cont = [r.out for r in eng.run()]
+    static = models.Engine(m32, p32)
+    want = [static.serve(torch.tensor([p], device=DEV), g)[0].tolist()
+            for p, g in small]
+    gate = {"requests": len(small), "identical": cont == want,
+            "prefix_pages_adopted": eng.stats()["prefix_pages_adopted"],
+            "continuous": cont, "static": want}
+    del eng, static, m32, p32
+    torch.cuda.empty_cache()
+    emit({"phase": "continuous", "model": "Qwen/Qwen3-8B", "layers": L,
+          "page_size": 128, "max_length": 2048, "prefill_chunk": 512,
+          "runs": {f"decode_steps_{k}": r for k, r in runs.items()},
+          "tokens_equal_k4_k1": same_k, "b1_continuation": b1,
+          "f32_gate": gate})
+    if not same_k:
+        fail("continuous: decode_steps=4 and =1 served different tokens")
+    if not b1["ok"]:
+        fail(f"B1 continuation form disagrees with its plain version: {b1}")
+    if not gate["identical"]:
+        fail("continuous f32 gate: ContinuousEngine tokens differ from the "
+             "static Engine's")
+    return {"continuous": runs[4]["launches"],
+            "continuous_k1": runs[1]["launches"]}, b1
 
 
 def _pallas_ctx():
@@ -1003,7 +1385,7 @@ def _serve_counted(torch, kern, engine, prompt, gen):
     kern.reset_launch_counts()
     out = engine.serve(prompt, gen_len=gen)
     eager = kern.launch_counts()
-    per_step = dict(engine.graph_launches)
+    per_step = {k: engine.graph_launches.get(k, 0) for k in eager}
     replays = engine.graph_replays
     launches = {k: eager[k] + replays * per_step[k] for k in eager}
     return out, launches, per_step, eager, replays
@@ -1328,9 +1710,11 @@ TP = 4                    # ranks of the tensor-parallel phases
 NVLINK_BW = 450e9         # H100 NVLink bytes/s each way (data sheet)
 SLEEP_CYCLES = 300_000_000  # ~0.15 s at the H100's clock: holds the stream
 TP_MODEL = "Qwen/Qwen3-32B"
-FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency")
+FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
+                    "tp4_continuous_consistency")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
-                      "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd")
+                      "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
+                      "b9_ring_rs", "b7_ring_ag", "two_shot")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -1676,6 +2060,114 @@ def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
     return rec
 
 
+# the ring collectives' one-card shapes: (name, kind, rows m of each
+# rank's chunk, K); kinds "ring_rs" (B9: each rank's x (4m, K) -> (m, K)),
+# "ring_ag" (B7: (m, K) -> (4m, K)) and "two_shot" (B9 then B7: (4m, K)
+# -> (4m, K)). m 4: a TP=4 decode step's 16 rows; m 128: one 512-token
+# prefill chunk.
+_RING_SHAPES = (("m4", 4, 5120), ("m128", 128, 5120))
+
+
+def _ring_io(kind, m, k):
+    """(elements of one rank's input, of its output) for one call."""
+    full = TP * m * k
+    return {"ring_rs": (full, m * k), "ring_ag": (m * k, full),
+            "two_shot": (full, full)}[kind]
+
+
+def phase_ring(torch, symm, rsm, agm, arm, kind, calls: int = 20):
+    """B9 ("ring_rs"), B7 ("ring_ag") or TWO_SHOT (B9 then B7) against
+    the plain version in the one-card world (four logical ranks, each its
+    stream and symmetric buffer): Qwen3-32B's hidden rows at TP=4, a
+    decode step's 16 rows and a 512-token prefill chunk (_RING_SHAPES),
+    bf16 and f32, then `calls` successive bf16 calls of each shape with
+    fresh inputs. They only add (B9, in the ring's order) or move rows
+    (B7), so every rank's output must equal the plain version bit for bit
+    (ring_rs_ref_shards; the concatenation in rank order). Timed: the four
+    ranks' calls together (queued_ms); the bound is the four ranks' input
+    read once and output written once at HBM speed (the exchange is the
+    kernel's own traffic); the library yardstick one torch op of the same
+    function on the four inputs (stack-sum-slice, cat, stack-sum)."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(53)
+    fns = {"ring_rs": rsm.ring_reduce_scatter, "ring_ag": agm.ring_all_gather,
+           "two_shot": lambda mesh, x: arm.all_reduce_per_device(
+               TP, arm.AllReduceMethod.TWO_SHOT, x, mesh=mesh)}
+    fn = fns[kind]
+
+    def plain(xs):
+        if kind == "ring_ag":
+            full = torch.cat(xs)
+            return [full] * TP
+        outs = rsm.ring_rs_ref_shards(xs)
+        if kind == "two_shot":
+            full = torch.cat(outs)
+            return [full] * TP
+        return outs
+
+    def library(xs):
+        if kind == "ring_ag":
+            return torch.cat(xs)
+        total = torch.stack(xs).sum(0)
+        if kind == "ring_rs":
+            return list(total.chunk(TP))
+        return total
+
+    def draw(dt, m, k):
+        rows = m if kind == "ring_ag" else TP * m
+        return [torch.randn((rows, k), generator=g, device=DEV).to(dt)
+                for _ in range(TP)]
+
+    def run_check(name, xs):
+        outs = world.run(lambda r: fn(world.mesh(r), xs[r]))
+        torch.cuda.synchronize()
+        refs = plain(xs)
+        return [{"case": f"{name}/rank{r}",
+                 "max_abs_err": (outs[r].float() - refs[r].float()).abs()
+                 .max().item(),
+                 "ok": bool(torch.equal(outs[r], refs[r]))}
+                for r in range(TP)]
+
+    rows, timed, seq_ok = [], {}, []
+    for shp, m, k in _RING_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            name = shp if dt == torch.bfloat16 else f"{shp}_f32"
+            xs = draw(dt, m, k)
+            rows += run_check(name, xs)
+            if dt != torch.bfloat16:
+                continue
+            n_in, n_out = _ring_io(kind, m, k)
+            nbytes = TP * (n_in + n_out) * xs[0].element_size()
+            adds = 0 if kind == "ring_ag" else TP * (TP - 1.0) * m * k
+            timed[name] = _one_card_kernel_row(
+                torch, world, name, lambda r: fn(world.mesh(r), xs[r]),
+                lambda: plain(xs), nbytes, adds)
+            timed[name]["library_ms"] = queued_ms(
+                torch, lambda: library(xs))[0]
+            timed[name]["max_abs_err"] = max(
+                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+        seq_ok += [all(x["ok"] for x in run_check(
+            f"seq_{shp}", draw(torch.bfloat16, m, k))) for _ in range(calls)]
+    phase = {"ring_rs": "b9_ring_rs", "ring_ag": "b7_ring_ag",
+             "two_shot": "two_shot"}[kind]
+    emit({"phase": phase, "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"{phase} disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+    if kind == "two_shot":
+        return None
+    rec = _tp_kernel_record(
+        "ring_reduce_scatter" if kind == "ring_rs" else "ring_all_gather",
+        "ring_collectives.cu",
+        "triton_dist_tpu/kernels/reduce_scatter.py:38" if kind == "ring_rs"
+        else "triton_dist_tpu/kernels/allgather.py:59", timed,
+        "one card, 4 logical ranks")
+    rec["library_ms_call"] = ("[torch.stack(xs).sum(0).chunk(4)]"
+                              if kind == "ring_rs" else "torch.cat(xs)")
+    return rec
+
+
 def _tp_kernel_record(name, source, replaces, timed, world):
     """A kernels-line row: the mean over the decode shapes (one of each per
     layer on the main path). ``launches`` stays None unless the TP=4 serve
@@ -1703,7 +2195,11 @@ _TP_SHAPES = (("qkv_m4", "ag", 4, 5120, 2560),
               ("o_m16", "ar", 16, 2048, 5120),
               ("down_m16", "ar", 16, 6400, 5120),
               ("x_m16_one_shot", "one_shot", 16, 5120, 0),
-              ("x_m16_rhd", "rhd", 16, 5120, 0))
+              ("x_m16_rhd", "rhd", 16, 5120, 0),
+              ("rs_m16", "ring_rs", 16, 5120, 0),
+              ("rs_m512", "ring_rs", 512, 5120, 0),
+              ("ag_m16", "ring_ag", 16, 5120, 0),
+              ("ag_m512", "ring_ag", 512, 5120, 0))
 # kernels-line rows of the four-card timings: (wrapper, its shapes,
 # source, the TPU kernel it replaces, the library call timed beside it)
 _TP_ROWS = (
@@ -1721,21 +2217,47 @@ _TP_ROWS = (
      "torch.distributed.all_reduce (NCCL)"),
     ("rhd_all_reduce", ("x_m16_rhd",), "allreduce.cu",
      "triton_dist_tpu/kernels/allreduce.py:170",
-     "torch.distributed.all_reduce (NCCL)"))
+     "torch.distributed.all_reduce (NCCL)"),
+    ("ring_reduce_scatter", ("rs_m16", "rs_m512"), "ring_collectives.cu",
+     "triton_dist_tpu/kernels/reduce_scatter.py:38",
+     "torch.distributed.reduce_scatter_tensor (NCCL)"),
+    ("ring_all_gather", ("ag_m16", "ag_m512"), "ring_collectives.cu",
+     "triton_dist_tpu/kernels/allgather.py:59",
+     "torch.distributed.all_gather_into_tensor (NCCL)"))
 
 
 def _tp_case(torch, mesh, kind, m, k, n, seed):
     """This rank's bf16 inputs of one decode shape and the three calls of
     the same function: the kernel, its plain version and the library
     yardstick (torch's fused symmetric-memory ops for B10 / B13a, NCCL
-    for B4 / B5 / B6). Every rank draws its own inputs."""
+    for B4 / B5 / B6 / B9 / B7). Every rank draws its own inputs."""
     import torch.distributed as dist
     from torch.distributed import _symmetric_memory as symm_mem
     from triton_dist_tpu_torch.kernels import allgather_gemm as agm
     from triton_dist_tpu_torch.kernels import allreduce as arm
     from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
     from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import allgather as ring_ag
+    from triton_dist_tpu_torch.kernels import reduce_scatter as ring_rs
     g = torch.Generator(device=mesh.device).manual_seed(seed + mesh.rank)
+    if kind in ("ring_rs", "ring_ag"):
+        # m: rows of the whole (reduce-scattered or gathered) array
+        a = torch.randn((m if kind == "ring_rs" else m // TP, k),
+                        generator=g, device=mesh.device).to(torch.bfloat16)
+        if kind == "ring_rs":
+            def nccl_rs():
+                y = a.new_empty((m // TP, k))
+                dist.reduce_scatter_tensor(y, a, group=mesh.group)
+                return y
+            return (lambda: ring_rs.ring_reduce_scatter(mesh, a),
+                    lambda: ring_rs.ring_rs_ref(mesh, a), nccl_rs)
+
+        def nccl_ag():
+            y = a.new_empty((m, k))
+            dist.all_gather_into_tensor(y, a, group=mesh.group)
+            return y
+        return (lambda: ring_ag.ring_all_gather(mesh, a),
+                lambda: ring_ag.ring_ag_ref(mesh, a), nccl_ag)
     rows = TP * m if kind == "rs" else m
     a = torch.randn((rows, k), generator=g, device=mesh.device).to(
         torch.bfloat16)
@@ -1786,6 +2308,11 @@ def _tp_bound(kind, m, k, n):
                 2.0 * m * k * n)
     if kind == "one_shot":
         return 2 * m * k * 2, (TP - 1) * m * k * 2, (TP - 1.0) * m * k
+    if kind == "ring_rs":     # x (m, K) in, its (m/n, K) chunk out
+        return ((m + m // TP) * k * 2, (TP - 1) * (m // TP) * k * 2,
+                (TP - 1.0) * (m // TP) * k)
+    if kind == "ring_ag":     # (m/n, K) in, (m, K) out
+        return (m + m // TP) * k * 2, (TP - 1) * (m // TP) * k * 2, 0.0
     # rhd: (1 - 1/n) of x out in each phase, as many adds in the halving
     return (2 * m * k * 2, 2 * (TP - 1) * m * k * 2 // TP,
             (TP - 1.0) * m * k / TP)
@@ -1806,7 +2333,7 @@ def _tp_ranks_time(torch, dist, mesh):
         got, ref = run(), plain()
         torch.cuda.synchronize()
         held = _held(torch, name, got, ref, 1e-2)
-        if kind in ("one_shot", "rhd"):
+        if kind in ("one_shot", "rhd", "ring_rs", "ring_ag"):
             held["ok"] = bool(torch.equal(got, ref))
         dist.barrier()
         ms, host_s, ahead = queued_ms(torch, run)
@@ -1871,7 +2398,9 @@ def _tp_prompt(torch, vocab, batch, length, seed):
 _TP4_REPLICATED = (("mega_default", {}, "xla"),
                    ("ar_one_shot", {"ar_method": "one_shot"},
                     "triton_dist_AR"),
-                   ("ar_rhd", {"ar_method": "rhd"}, "triton_dist_AR"))
+                   ("ar_rhd", {"ar_method": "rhd"}, "triton_dist_AR"),
+                   ("ar_two_shot", {"ar_method": "two_shot"},
+                    "triton_dist_AR"))
 
 
 def _tp_ctx(mesh, **kw):
@@ -1926,15 +2455,30 @@ def _tp4_measure(torch, dist, kern, engine, ids, gen, profile):
     return rec, out
 
 
-def _tp4_serve(torch, dist, mesh, models, kern, tmp, gen: int = 32):
+def _tp4_params(torch, mesh, models):
+    """This rank's shard of Qwen3-32B's world-1 bf16 weights from seed 0
+    (drawn once per run): (params, draw s, peak bytes while drawn)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(0),
+        models.QWEN3_ARCHS[TP_MODEL], mesh.device, torch.bfloat16,
+        rank=mesh.rank, world=mesh.world)
+    torch.cuda.synchronize()
+    return (params, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def _tp4_serve(torch, dist, mesh, models, kern, tmp, drawn, gen: int = 32):
     """Qwen3-32B at its published widths, all 64 layers, bf16, random
     weights from seed 0 (this rank's shard of the world-1 weights, drawn
-    once), max_length 1024; B=16 prompts of 512 tokens, 32 tokens each,
+    once: ``drawn``), max_length 1024; B=16 prompts of 512 tokens, 32 tokens each,
     prefill in xla, every decode step one CUDA-graph replay: in
     triton_dist (B10 for QKV and gate/up, B13a for o and down, each rank
     its 4 rows), then the replicated serves of _TP4_REPLICATED: the
     Engine's defaults (the mega step on the pallas_chain tier: B4 for o
-    and down, B3, B1) and triton_dist_AR under ONE_SHOT (B5) and RHD (B6).
+    and down, B3, B1) and triton_dist_AR under ONE_SHOT (B5), RHD (B6) and
+    TWO_SHOT (B9 then B7).
     Each measured by _tp4_measure (triton_dist and the mega default also
     profiled). Then the same weights served by the plain TP=4 xla decode
     (mega off) for the logits comparison."""
@@ -1944,14 +2488,7 @@ def _tp4_serve(torch, dist, mesh, models, kern, tmp, gen: int = 32):
         return models.Qwen3(arch, _tp_ctx(mesh, **kw), max_length=1024,
                             dtype=torch.bfloat16)
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = models.init_random_params(
-        torch.Generator(device=mesh.device).manual_seed(0), arch,
-        mesh.device, torch.bfloat16, rank=mesh.rank, world=mesh.world)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated()
+    params, init_s, init_peak = drawn
     param_bytes = sum(t.numel() * t.element_size() for t in
                       [*(v for k, v in params.items() if k != "layers"),
                        *params["layers"].values()])
@@ -1989,6 +2526,113 @@ def _tp4_serve(torch, dist, mesh, models, kern, tmp, gen: int = 32):
     return rec
 
 
+# the continuous TP=4 paths: (label, TPContext fields, engine mode)
+_TP4_CONTINUOUS = (("xla", {}, "xla"),
+                   ("ar_two_shot", {"ar_method": "two_shot"},
+                    "triton_dist_AR"))
+
+
+def _tp4_continuous(torch, dist, mesh, models, kern, drawn):
+    """Qwen3-32B (64 layers, bf16, the same weights as tp4_serve) served
+    by ContinuousEngine at TP=4, max_batch 16, page 128, max_length
+    2048, prefill_chunk 512, decode_steps 4, prefix cache on: 32 requests
+    (_traffic, seed 13, prompts 16-1536, 8 of them behind one 384-token
+    prefix, budgets 16-64) in four waves of 8, one every 4 harvests; (a)
+    mode xla at the defaults (prefill chunks with NCCL all-reduces, each
+    harvest the paged mega graph: B4 across ranks, B3, B2), (b)
+    triton_dist_AR with TWO_SHOT (prefill chunks through B9 + B7, each
+    harvest the layer path's step: B9 + B7 after o and down, B2), both on
+    the same traffic. TWO_SHOT needs the world to divide the rows: the
+    engine pads a chunk's bucket to a multiple of the world (the f32 gate
+    serves 1- and 2-token chunks), and a direct 2-row TWO_SHOT sum is
+    shown to raise before any launch. Each rank returns its records and
+    its tokens."""
+    from triton_dist_tpu_torch.kernels.allreduce import (
+        AllReduceMethod, all_reduce_per_device,
+    )
+    arch = models.QWEN3_ARCHS[TP_MODEL]
+    params = drawn[0]
+    out = {}
+    for label, kw, mode in _TP4_CONTINUOUS:
+        traffic = _traffic(torch, arch.vocab_size, 32, 13)
+        model = models.Qwen3(arch, _tp_ctx(mesh, **kw), max_length=2048,
+                             dtype=torch.bfloat16)
+        rec, done, eng = _serve_continuous(
+            torch, kern, models, model, params, traffic, decode_steps=4,
+            max_batch=16, label=f"tp4_continuous_{label}", mode=mode)
+        rec["tokens"] = [r.out for r in done]
+        rec["traffic"] = [[len(p), g] for p, g in traffic]
+        out[label] = rec
+        del eng, model
+        torch.cuda.empty_cache()
+    before = kern.launch_counts()
+    x = torch.randn((2, arch.hidden_size), device=mesh.device).to(
+        torch.bfloat16)
+    try:
+        all_reduce_per_device(TP, AllReduceMethod.TWO_SHOT, x, mesh=mesh)
+        raised = None
+    except ValueError as exc:
+        raised = str(exc)
+    out["two_token_chunk"] = {"raised": raised,
+                              "launches_unchanged":
+                              kern.launch_counts() == before}
+    return out
+
+
+def _cont_gate_traffic(torch, vocab):
+    """The f32 continuous gates' requests: 8 prompts (40-700 tokens, two
+    behind one 256-token prefix) and three whose last prefill chunk of
+    256 holds 1 or 2 tokens (1, 2 and 257 tokens: TWO_SHOT pads them to
+    the world), 8 greedy tokens each."""
+    small = _traffic(torch, vocab, 8, 12, n_shared=2, prefix_len=256,
+                     lo=40, hi=700)
+    g = torch.Generator().manual_seed(14)
+    small += [(torch.randint(0, vocab, (n,), generator=g).tolist(), 8)
+              for n in (1, 2, 257)]
+    return [(p, 8) for p, _ in small]
+
+
+def _tp4_continuous_consistency(torch, dist, mesh, models, tmp):
+    """The f32 gate of the continuous paths: Qwen3-32B's widths cut to 4
+    layers, f32 weights from seed 7 (drawn once); every request of
+    _cont_gate_traffic through ContinuousEngine (max_batch 4, page 128,
+    prefill_chunk 256, decode_steps 4, prefix cache) on each path of
+    _TP4_CONTINUOUS, and through the static Engine at its defaults, one
+    prompt at a time; rank 0 keeps the token sets for the parent, which
+    serves world 1 on card 0 from the same seed."""
+    import dataclasses
+    arch = dataclasses.replace(models.QWEN3_ARCHS[TP_MODEL], num_layers=4)
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(7), arch,
+        mesh.device, torch.float32, rank=mesh.rank, world=mesh.world)
+    reqs = _cont_gate_traffic(torch, arch.vocab_size)
+    toks = {}
+    for label, kw, mode in _TP4_CONTINUOUS:
+        model = models.Qwen3(arch, _tp_ctx(mesh, **kw), max_length=1024,
+                             dtype=torch.float32)
+        eng = models.ContinuousEngine(model, params, max_batch=4,
+                                      page_size=128, prefill_chunk=256,
+                                      decode_steps=4, prefix_cache=True,
+                                      mode=mode)
+        for p, g in reqs:
+            eng.submit(p, max_new_tokens=g)
+        toks[f"continuous_{label}"] = [r.out for r in eng.run()]
+        del eng
+        torch.cuda.empty_cache()
+    model = models.Qwen3(arch, _tp_ctx(mesh), max_length=1024,
+                         dtype=torch.float32)
+    static = models.Engine(model, params)
+    toks["static_mega_default"] = [
+        static.serve(torch.tensor([p], device=mesh.device), g)[0].tolist()
+        for p, g in reqs]
+    if mesh.rank == 0:
+        torch.save(toks, os.path.join(tmp, "tp4_f32_continuous.pt"))
+    del static, params
+    torch.cuda.empty_cache()
+    return {"tokens_equal_static": {
+        k: v == toks["static_mega_default"] for k, v in toks.items()}}
+
+
 # the f32 gate's TP=4 serves: (label, TPContext fields, Engine arguments)
 _TP4_GATE = (
     ("td", _TD_PALLAS, {"backend": "triton_dist"}),
@@ -1998,6 +2642,8 @@ _TP4_GATE = (
     ("ar_one_shot", {"ar_method": "one_shot"},
      {"backend": "triton_dist_AR"}),
     ("ar_rhd", {"ar_method": "rhd"}, {"backend": "triton_dist_AR"}),
+    ("ar_two_shot", {"ar_method": "two_shot"},
+     {"backend": "triton_dist_AR"}),
     ("ar_gemm_ar", {"gemm_ar_method": "pallas"},
      {"backend": "triton_dist_AR"}))
 
@@ -2035,6 +2681,7 @@ def _tp4_consistency(torch, dist, mesh, models, tmp, gen: int = 16):
 def _tp4_rank(rank, port, phases, tmp, queue):
     """One rank process of the four-card phases (rank r on cuda:r)."""
     import traceback
+    t_start = time.time()
     try:
         import torch
         import torch.distributed as dist
@@ -2047,18 +2694,48 @@ def _tp4_rank(rank, port, phases, tmp, queue):
         tp_mesh.initialize_distributed(f"tcp://localhost:{port}", TP, rank,
                                        device="cuda")
         mesh = tp_mesh.make_comm_mesh()
-        res = {}
+        res = {"seconds": {"started_at": t_start}}
+        t0 = time.time()
+        res["seconds"]["imports_and_init"] = t0 - t_start
+
+        def lap(name):
+            nonlocal t0
+            now = time.time()
+            res["seconds"][name] = now - t0
+            t0 = now
+
         if "tp4_serve" in phases:
             res["kernels"] = _tp_ranks_time(torch, dist, mesh)
-            res["serve"] = _tp4_serve(torch, dist, mesh, models, kern, tmp)
+            lap("tp4_serve_kernels")
+        drawn = None
+        if "tp4_serve" in phases or "tp4_continuous" in phases:
+            drawn = _tp4_params(torch, mesh, models)
+            lap("weights_draw")
+        if "tp4_serve" in phases:
+            res["serve"] = _tp4_serve(torch, dist, mesh, models, kern, tmp,
+                                      drawn)
+            lap("tp4_serve")
+        if "tp4_continuous" in phases:
+            res["continuous"] = _tp4_continuous(torch, dist, mesh, models,
+                                                kern, drawn)
+            lap("tp4_continuous")
+        drawn = None
+        torch.cuda.empty_cache()
         if "tp4_consistency" in phases:
             res["consistency"] = _tp4_consistency(torch, dist, mesh, models,
                                                   tmp)
+            lap("tp4_consistency")
+        if "tp4_continuous_consistency" in phases:
+            res["continuous_consistency"] = _tp4_continuous_consistency(
+                torch, dist, mesh, models, tmp)
+            lap("tp4_continuous_consistency")
         dist.barrier()
         queue.put((rank, "ok", res))
         if "tp4_serve" in phases:
-            queue.put((rank, "library",
-                       _tp_library_time(torch, dist, mesh)))
+            t_lib = time.time()
+            lib = _tp_library_time(torch, dist, mesh)
+            lib["seconds"] = time.time() - t_lib
+            queue.put((rank, "library", lib))
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -2095,6 +2772,22 @@ def _world1_logits_and_tokens(torch, models, tmp):
             ids, 16).cpu()
         del params, model
         torch.cuda.empty_cache()
+    if os.path.exists(os.path.join(tmp, "tp4_f32_continuous.pt")):
+        arch = dataclasses.replace(full, num_layers=4)
+        model = models.Qwen3(arch, max_length=1024, dtype=torch.float32,
+                             device=DEV)
+        params = models.init_random_params(
+            torch.Generator(device=DEV).manual_seed(7), arch, DEV,
+            torch.float32)
+        reqs = _cont_gate_traffic(torch, arch.vocab_size)
+        eng = models.ContinuousEngine(model, params, max_batch=4,
+                                      page_size=128, prefill_chunk=256,
+                                      decode_steps=4, prefix_cache=True)
+        for p, g in reqs:
+            eng.submit(p, max_new_tokens=g)
+        res["f32_continuous"] = [r.out for r in eng.run()]
+        del eng, params, model
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2120,9 +2813,11 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
     torch.cuda.empty_cache()
     procs = [ctx.Process(target=_tp4_rank, args=(r, port, phases, tmp, queue))
              for r in range(TP)]
+    t_spawn = time.time()
     for p in procs:
         p.start()
     results, libs, errors = {}, {}, []
+    t_results = t_libs = None
     want_libs = TP if "tp4_serve" in phases else 0
     deadline = time.time() + timeout_s
     lib_deadline = None
@@ -2146,20 +2841,28 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                 continue
             if status == "ok":
                 results[rank] = payload
+                t_results = time.time()
             elif status == "library":
                 libs[rank] = payload
+                t_libs = time.time()
             else:
                 errors.append(f"rank {rank}: {payload}")
                 break
     finally:
+        # the ranks have handed over everything: 30 s in all for them to
+        # tear down, then the stragglers are killed
+        join_by = time.time() + (30 if not errors else 1)
+        killed = 0
         for p in procs:
-            p.join(timeout=30 if not errors else 1)
+            p.join(timeout=max(join_by - time.time(), 0.1))
             if p.is_alive():
+                killed += 1
                 p.kill()
                 p.join()
+        t_joined = time.time()
     if errors:
         fail("four-card phases: " + " | ".join(errors))
-    rows = {}
+    rows, extra = {}, {}
     if "tp4_serve" in phases:
         serve = [results[r]["serve"] for r in range(TP)]
         rec = dict(serve[0])
@@ -2189,7 +2892,9 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         wants = {"mega_default": {"pallas_gemm_ar": 2 * L,
                                   "fused_add_rms": L},
                  "ar_one_shot": {"one_shot_all_reduce": 2 * L},
-                 "ar_rhd": {"rhd_all_reduce": 2 * L}}
+                 "ar_rhd": {"rhd_all_reduce": 2 * L},
+                 "ar_two_shot": {"ring_reduce_scatter": 2 * L,
+                                 "ring_all_gather": 2 * L}}
         for label, _, backend in _TP4_REPLICATED:
             per = [s["replicated"][label] for s in serve]
             r = dict(replicated[label])
@@ -2250,7 +2955,71 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
             row["launches"] = sum(row["launches_by_path"].values())
             row["library_ms_call"] = lib_call
             rows[name] = row
+    if "tp4_continuous" in phases:
+        per = [results[r]["continuous"] for r in range(TP)]
+        L = models.QWEN3_ARCHS[TP_MODEL].num_layers
+        k_steps = 4
+        wants = {"xla": {"paged_flash_decode_partial": L * k_steps,
+                         "fused_add_rms": L * k_steps,
+                         "pallas_gemm_ar": 2 * L * k_steps},
+                 "ar_two_shot": {"paged_flash_decode_partial": L * k_steps,
+                                 "ring_reduce_scatter": 2 * L * k_steps,
+                                 "ring_all_gather": 2 * L * k_steps}}
+        for label, _, mode in _TP4_CONTINUOUS:
+            recs = [p[label] for p in per]
+            r = {k: v for k, v in recs[0].items()
+                 if k not in ("tokens", "own_token_differs")}
+            r.update(phase=f"tp4_continuous_{label}", model=TP_MODEL,
+                     layers=L, tp=TP, dtype="bf16", max_length=2048,
+                     page_size=128, prefill_chunk=512)
+            for key in ("harvest_wall_ms_mean", "replay_device_ms_mean",
+                        "run_wall_s", "peak_mem_gb"):
+                r[f"{key}_per_rank"] = [x[key] for x in recs]
+            r["own_token_differs_per_rank"] = [x["own_token_differs"]
+                                               for x in recs]
+            r["tokens_same_on_every_rank"] = all(
+                x["tokens"] == recs[0]["tokens"] for x in recs)
+            emit(r)
+            vocab = models.QWEN3_ARCHS[TP_MODEL].vocab_size
+            gens = [g for _, g in r["traffic"]]
+            bad = []
+            if any(x["graph_replays"] != x["harvests"] for x in recs):
+                bad.append("not one graph replay per harvest")
+            if not r["tokens_same_on_every_rank"]:
+                bad.append("ranks served different tokens")
+            if [len(t) for t in recs[0]["tokens"]] != gens or not all(
+                    0 <= t < vocab for ts in recs[0]["tokens"] for t in ts):
+                bad.append("tokens missing or out of range")
+            if any(x["overflow"] for x in recs) or \
+                    r["prefix_pages_adopted"] <= 0:
+                bad.append("pool overflow or no prefix adopted")
+            want = _only(r["launches_per_replay"], **wants[label])
+            if any(x["launches_per_replay"] != want for x in recs):
+                bad.append(f"launches per replay "
+                           f"{r['launches_per_replay']}, want {want}")
+            if bad:
+                fail(f"TP=4 continuous {label}: " + "; ".join(bad))
+            extra[f"tp4_continuous_{label}"] = r["launches"]
+        two = [p["two_token_chunk"] for p in per]
+        emit({"phase": "tp4_continuous_two_token_chunk", "ranks": two})
+        if not all(x["raised"] and "divisible" in x["raised"]
+                   and x["launches_unchanged"] for x in two):
+            fail(f"TWO_SHOT on a 2-row chunk did not raise before any "
+                 f"launch: {two}")
+    t_w1 = time.time()
     w1 = _world1_logits_and_tokens(torch, models, tmp)
+    rank0 = dict(results[0]["seconds"])
+    emit({"phase": "four_card_seconds",
+          "rank0_start_after_spawn": rank0.pop("started_at") - t_spawn,
+          "rank0": rank0,
+          "library_per_rank": [libs[r].get("seconds") for r in sorted(libs)],
+          "results_after_spawn": t_results - t_spawn,
+          "libraries_after_results": (None if t_libs is None
+                                      else t_libs - t_results),
+          "teardown": t_joined - (t_libs or t_results),
+          "ranks_killed_at_teardown": killed,
+          "world1_on_card0": time.time() - t_w1,
+          "ranks_wall": t_w1 - t_spawn})
     if "tp4_serve" in phases:
         saved = torch.load(os.path.join(tmp, "tp4_bf16.pt"))
         ref = w1["bf16"]
@@ -2263,6 +3032,18 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
               "argmax_agree_vs_world1": {
                   p: (saved[p].argmax(-1) == ref.argmax(-1)).float().mean()
                   .item() for p in paths}})
+    if "tp4_continuous_consistency" in phases:
+        saved = torch.load(os.path.join(tmp, "tp4_f32_continuous.pt"))
+        ref = w1["f32_continuous"]
+        static_w1 = saved["static_mega_default"]
+        same = {f"{k}_vs_world1_continuous": v == ref
+                for k, v in saved.items()}
+        same["world1_continuous_vs_tp4_static"] = ref == static_w1
+        emit({"phase": "tp4_continuous_consistency", "layers": 4,
+              "dtype": "f32", "requests": len(ref), "gen_len": 8,
+              "identical": same, "ok": all(same.values())})
+        if not all(same.values()):
+            fail(f"TP=4 continuous f32 gate: greedy tokens differ: {same}")
     if "tp4_consistency" in phases:
         saved = torch.load(os.path.join(tmp, "tp4_f32.pt"))
         same = {f"{label}_vs_world1": bool(torch.equal(saved[label],
@@ -2273,14 +3054,14 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
               "ok": all(same.values())})
         if not all(same.values()):
             fail(f"TP=4 f32 gate: greedy tokens differ: {same}")
-    return rows
+    return rows, extra
 
 
 def x_all_num(rows, key):
     return all(isinstance(x.get(key), (int, float)) for x in rows)
 
 
-def run_earlier(torch, kern, models, mods) -> list:
+def run_earlier(torch, kern, models, mods, shared) -> list:
     """The phases of the earlier slices (one card): their kernels against
     the plain versions, the Qwen3-8B and Qwen3-30B-A3B serves, their
     consistency checks; returns their kernels-line rows."""
@@ -2291,7 +3072,8 @@ def run_earlier(torch, kern, models, mods) -> list:
     b12 = phase_b12(torch, agm)
     b14, b15 = phase_b14_b15(torch, agg, mrs, mu, plain)
     torch.cuda.empty_cache()
-    model, params, ids, paged, engine = phase_main(torch, models, kern)
+    model, params, ids, paged, engine = phase_main(torch, models, kern,
+                                                   shared)
     dense_engine, dense = phase_main_dense(torch, models, kern, model,
                                            params, ids)
     m32, p32 = phase_consistency(torch, models, model, params, ids)
@@ -2302,6 +3084,7 @@ def run_earlier(torch, kern, models, mods) -> list:
     dense_td, dense_td_eager = phase_dense_triton_dist(
         torch, models, kern, model, params, ids)
     del model, params, engine, dense_engine
+    shared.clear()
     torch.cuda.empty_cache()
     # the 61.1 GB MoE model fits only once the 8B model is freed
     moe_model, moe_params, moe_ids, moe_engines, moe = phase_main_moe(
@@ -2345,16 +3128,40 @@ def run_earlier(torch, kern, models, mods) -> list:
     return [b1, b1_dec, b2, b3, b4, b12, b14, b15]
 
 
-ALL_PHASES = ("earlier", *ONE_CARD_TP_PHASES, *FOUR_CARD_PHASES)
+ALL_PHASES = ("paged_graph", "continuous", "earlier", *ONE_CARD_TP_PHASES,
+              *FOUR_CARD_PHASES)
+_RING_PHASES = (("b9_ring_rs", "ring_rs"), ("b7_ring_ag", "ring_ag"),
+                ("two_shot", "two_shot"))
+
+
+def merge_launches(rows, by_path: dict) -> None:
+    """Add each path's launch counts ({path: {kernel: n}}) to the kernel
+    rows of the same name: the row's launches_by_path gains the path, and
+    its launches become their sum (a row's own count without paths stays
+    as the path "earlier")."""
+    for row in rows:
+        for path, counts in by_path.items():
+            n = counts.get(row["name"], 0)
+            if not n:
+                continue
+            paths = row.get("launches_by_path")
+            if paths is None:
+                paths = row["launches_by_path"] = (
+                    {"earlier": row["launches"]} if row.get("launches")
+                    else {})
+            paths[path] = n
+            row["launches"] = sum(paths.values())
 
 
 def main() -> None:
     """python3 chip_smoke.py [phase ...]: with no argument every phase
     this machine allows (the four-card phases need four cards); named
-    phases run alone (after the build): "earlier" (the earlier slices'
-    phases), "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
-    "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd" (the one-card world),
-    "tp4_serve", "tp4_consistency" (four cards)."""
+    phases run alone (after the build): "paged_graph", "continuous" (one
+    card, Qwen3-8B), "earlier" (the earlier slices' phases),
+    "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs", "b4_gemm_ar_tp",
+    "b5_one_shot", "b6_rhd", "b9_ring_rs", "b7_ring_ag", "two_shot" (the
+    one-card world), "tp4_serve", "tp4_consistency", "tp4_continuous",
+    "tp4_continuous_consistency" (four cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -2413,10 +3220,18 @@ def main() -> None:
     emit({"phase": "build", "seconds": build_s, "built": sorted(reports),
           "ptxas": ptxas})
 
-    kernels = []
+    kernels, shared, by_path, b1_cont = [], {}, {}, None
+    if "paged_graph" in phases:
+        by_path["paged_graph"] = phase_paged_graph(torch, models, kern,
+                                                   shared)
+    if "continuous" in phases:
+        launches, b1_cont = phase_continuous(torch, models, kern, fa, shared)
+        by_path.update(launches)
     if "earlier" in phases:
         kernels += run_earlier(torch, kern, models, (
-            agm, agg, fa, fc, ga, mrs, mu, pfd, plain, codec))
+            agm, agg, fa, fc, ga, mrs, mu, pfd, plain, codec), shared)
+    shared.clear()
+    torch.cuda.empty_cache()
     if "dist_notify_wait" in phases:
         phase_dist_notify_wait(torch, symm, lang)
     tp_rows = {}
@@ -2430,6 +3245,13 @@ def main() -> None:
         if ("b5_one_shot" if kind == "one_shot" else "b6_rhd") in phases:
             tp_rows[f"{kind}_all_reduce"] = phase_all_reduce(
                 torch, symm, arm, kind)
+    from triton_dist_tpu_torch.kernels import allgather as ring_ag
+    from triton_dist_tpu_torch.kernels import reduce_scatter as ring_rs
+    for phase, kind in _RING_PHASES:
+        if phase in phases:
+            rec = phase_ring(torch, symm, ring_rs, ring_ag, arm, kind)
+            if rec is not None:
+                tp_rows[rec["name"]] = rec
     four = [p for p in phases if p in FOUR_CARD_PHASES]
     n_cards = torch.cuda.device_count()
     if four and n_cards < TP:
@@ -2438,7 +3260,9 @@ def main() -> None:
                   "reason": f"torch.cuda.device_count() = {n_cards} < {TP}"})
     elif four:
         torch.cuda.empty_cache()
-        for name, row in phase_four_cards(torch, models, kern, four).items():
+        rows, extra = phase_four_cards(torch, models, kern, four)
+        by_path.update(extra)
+        for name, row in rows.items():
             if name in tp_rows:
                 row["one_card_world"] = {
                     k: tp_rows[name][k] for k in
@@ -2450,6 +3274,10 @@ def main() -> None:
                 "the TP=4 serve needs four cards "
                 f"(torch.cuda.device_count() = {n_cards}); it did not run")
     kernels += list(tp_rows.values())
+    merge_launches(kernels, by_path)
+    for row in kernels:
+        if row["name"] == "flash_prefill" and b1_cont is not None:
+            row["continuation_form"] = b1_cont
 
     print(cards[0] if cards else "nvidia-smi unavailable", flush=True)
     emit({"kernels": kernels})

@@ -136,8 +136,9 @@ def _layer_weights(rng):
 @pytest.mark.parametrize("attn_method", ["auto", "xla"])
 def test_paged_attn_fwd_prefill_then_decode_matches_jax(attn_method):
     """Prefill (T=128: the flash kernel under "auto", the einsum under
-    "xla") into empty pages, then one decode step over the written pages
-    (B2): outputs and pools match the JAX layer."""
+    "xla") into empty pages, one decode step over the written pages (B2),
+    then a continuation chunk of one row over its pages: outputs and pools
+    match the JAX layer."""
     rng = np.random.default_rng(3)
     arch, jarch = Qwen3Arch(**ARCH_KW), JaxQwen3Arch(**ARCH_KW)
     w = _layer_weights(rng)
@@ -175,9 +176,27 @@ def test_paged_attn_fwd_prefill_then_decode_matches_jax(attn_method):
         np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
         np.testing.assert_allclose(lk.numpy(), np.asarray(jlk), **TOL)
         np.testing.assert_allclose(lv.numpy(), np.asarray(jlv), **TOL)
-    with pytest.raises(NotImplementedError, match="prefill_slot"):
-        paged_attn_fwd("xla", ctx, arch, tw, _t(x), _t(pos), cs, lk, lv,
-                       _t(table), _t(lengths), ps, continuation=True)
+    # a continuation chunk of row 0 (T=16 at offset 129): it attends the
+    # row's pages in logical order, this chunk's keys included (B1 at a
+    # device offset under "auto")
+    x2 = rng.standard_normal((1, 16, arch.hidden_size), np.float32)
+    len2 = np.array([t + 1], np.int32)
+    pos2 = len2[:, None] + np.arange(16, dtype=np.int32)
+    y = paged_attn_fwd("xla", ctx, arch, tw, _t(x2), _t(pos2), cs, lk, lv,
+                       _t(table[:1]), _t(len2), ps, continuation=True)
+
+    def jax_cont(w_, x_, pos_, lk_, lv_, tab_, len_):
+        return jax_paged_attn("xla", jctx, jarch, w_, x_, pos_, jcs, lk_,
+                              lv_, tab_, len_, ps, continuation=True)
+
+    jy, jlk, jlv = jax.jit(td_shard_map(
+        jax_cont, mesh=mesh, in_specs=(P(),) * 7,
+        out_specs=(P(), P(), P())))(jw, jnp.asarray(x2), jnp.asarray(pos2),
+                                    jlk, jlv, jnp.asarray(table[:1]),
+                                    jnp.asarray(len2))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(lk.numpy(), np.asarray(jlk), **TOL)
+    np.testing.assert_allclose(lv.numpy(), np.asarray(jlv), **TOL)
 
 
 @needs_interpreter()

@@ -289,13 +289,13 @@ def test_rank_init_is_the_world1_draw_cut(tp):
 def test_tp_refusals_and_cpu_runtime(tp):
     """The bidirectional rings raise naming A9, n > 1 without the mesh is
     refused, the default Engine builds the mega step at n > 1 while its
-    MoE task (A10) and the paged cache (A6) at n > 1 raise, a batch the
+    MoE task (A10) raises, the paged Engine builds at n > 1, a batch the
     world does not divide is refused; on the CPU a symmetric buffer is a
     plain tensor and notify_wait is a broadcast from rank 0."""
     for r, c in enumerate(tp["checks"]):
         for key in ("bidir_raises", "no_mesh_raises",
                     "mega_builds_at_world_n",
-                    "paged_raises_a6", "odd_batch_raises",
+                    "paged_builds_at_world_n", "odd_batch_raises",
                     "cpu_symm_is_plain", "notify_wait_is_rank0"):
             assert c[key] is True, (r, key)
         assert c["rank_world"] == [r, WORLD, WORLD]

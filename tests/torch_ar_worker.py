@@ -104,9 +104,6 @@ def _ops(inp: dict, mesh, out: dict, checks: dict) -> None:
                                               mesh=mesh),
                 ValueError, "power-of-two")])
     checks["waits_raise"] = all([
-        _raises(lambda: all_reduce_per_device(n, AllReduceMethod.TWO_SHOT,
-                                              a, mesh=mesh),
-                NotImplementedError, "ROADMAP A9"),
         _raises(lambda: gemm_ar_per_device(n, GemmArMethod.XLA_RING, a,
                                            a.T, mesh=mesh),
                 NotImplementedError, "ROADMAP A9"),
@@ -154,9 +151,9 @@ def _model(inp: dict, mesh, out: dict, checks: dict) -> None:
                                                   tp=mesh.world),
                                    mesh.world, mesh=mesh),
         NotImplementedError, "ROADMAP A10")
-    checks["paged_raises_a6"] = _raises(
-        lambda: Engine(model, params, cache_mode="paged"),
-        NotImplementedError, "ROADMAP A6")
+    paged = Engine(model, params, cache_mode="paged", page_size=8)
+    checks["paged_serves_at_world_n"] = bool(np.array_equal(
+        paged.serve(prompt, GEN).numpy(), out["tokens/mega_auto"]))
 
 
 def main(rank: str, world: str, store: str, inputs: str, outdir: str):

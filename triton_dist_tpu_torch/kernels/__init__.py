@@ -6,7 +6,10 @@ decode step), B3 ``fused_chain.fused_add_rms`` and B4
 ``gemm_allreduce.gemm_ar`` (the mega decode step's pallas_chain tier at
 world 1; ``gemm_allreduce.pallas_gemm_ar`` across ranks), B5
 ``allreduce.one_shot_all_reduce`` and B6 ``allreduce.rhd_all_reduce``
-(the triton_dist_AR mode's sums after the o and down projections), and
+(the triton_dist_AR mode's sums after the o and down projections), B9
+``reduce_scatter.ring_reduce_scatter`` and B7
+``allgather.ring_all_gather`` (TWO_SHOT: the ring reduce-scatter, then
+the ring all-gather), and
 the triton_dist forward's B12 ``allgather_gemm.pallas_matmul`` (the QKV and
 o projections at world 1), B10 ``allgather_gemm.pallas_ag_gemm`` and B13a
 ``gemm_reduce_scatter.pallas_gemm_rs`` (the QKV and gate/up, and the o and
@@ -20,6 +23,7 @@ kernel launches in a ``launches`` attribute."""
 def launch_wrappers() -> dict:
     """{kernel name: its wrapper}; each wrapper's ``launches`` counts the
     kernel launches it made (or recorded into a CUDA graph)."""
+    from triton_dist_tpu_torch.kernels.allgather import ring_all_gather
     from triton_dist_tpu_torch.kernels.allgather_gemm import (
         pallas_ag_gemm, pallas_matmul,
     )
@@ -39,6 +43,9 @@ def launch_wrappers() -> dict:
     from triton_dist_tpu_torch.kernels.paged_flash_decode import (
         paged_flash_decode_partial,
     )
+    from triton_dist_tpu_torch.kernels.reduce_scatter import (
+        ring_reduce_scatter,
+    )
     return {"flash_prefill": flash_prefill,
             "paged_flash_decode_partial": paged_flash_decode_partial,
             "fused_add_rms": fused_add_rms, "gemm_ar": gemm_ar,
@@ -47,7 +54,9 @@ def launch_wrappers() -> dict:
             "pallas_gemm_rs": pallas_gemm_rs,
             "pallas_gemm_ar": pallas_gemm_ar,
             "one_shot_all_reduce": one_shot_all_reduce,
-            "rhd_all_reduce": rhd_all_reduce}
+            "rhd_all_reduce": rhd_all_reduce,
+            "ring_reduce_scatter": ring_reduce_scatter,
+            "ring_all_gather": ring_all_gather}
 
 
 def launch_counts() -> dict[str, int]:

@@ -14,9 +14,14 @@ in x's dtype. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     kernel source; ``rhd_ref`` for CPU tensors), power-of-two n and M a
     multiple of n (anything else raises: the reference's per-device
     kernel would drop rows there). Every rank ends with the same bytes;
-  * TWO_SHOT (B9 then B7) waits for ROADMAP A9, the QINT8 tiers for A13;
-    AUTO is resolved above the per-device level ("unresolved method"), as
-    in the reference.
+  * TWO_SHOT — the ring reduce-scatter B9 (kernels/reduce_scatter.py)
+    then the ring all-gather B7 (kernels/allgather.py), composed as the
+    reference composes them. n must divide M: anything else raises (the
+    reference's per-device body fails there; its mesh-level demotion to
+    ONE_SHOT comes with ``all_reduce_op``). Every rank ends with the same
+    bytes;
+  * the QINT8 tiers wait for ROADMAP A13; AUTO is resolved above the
+    per-device level ("unresolved method"), as in the reference.
 
 At world 1 the all-reduce is the identity: every method returns x. No
 fallback: a CUDA call a kernel does not take raises. The mesh-level
@@ -86,6 +91,13 @@ def check_rhd(n: int, x: torch.Tensor) -> None:
     if x.shape[0] % n:
         raise ValueError(f"all_reduce RHD needs M={x.shape[0]} divisible by "
                          f"the world {n}")
+
+
+def check_two_shot(n: int, x: torch.Tensor) -> None:
+    if x.ndim != 2 or x.shape[0] % n:
+        raise ValueError(f"all_reduce TWO_SHOT needs 2-D x with M divisible "
+                         f"by the world {n} (the ring reduce-scatter hands "
+                         f"each rank M/n rows); got {tuple(x.shape)}")
 
 
 def _round_up(x: int, a: int = _ALIGN) -> int:
@@ -202,16 +214,14 @@ def all_reduce_per_device(n: int, method: AllReduceMethod, x: torch.Tensor,
         raise NotImplementedError(
             f"AllReduceMethod.{method.name} (int8 wire) waits for ROADMAP "
             "A13")
-    if method == AllReduceMethod.TWO_SHOT:
-        raise NotImplementedError(
-            "AllReduceMethod.TWO_SHOT (ring reduce-scatter B9, then ring "
-            "all-gather B7) waits for ROADMAP A9")
     if method == AllReduceMethod.AUTO:
         raise ValueError(f"unresolved method {method}")
     if n == 1:
         return x
     if method == AllReduceMethod.RHD:
         check_rhd(n, x)
+    if method == AllReduceMethod.TWO_SHOT:
+        check_two_shot(n, x)
     if mesh is None or mesh.world != n:
         raise ValueError(f"all_reduce at world {n} needs the mesh of its {n} "
                          f"ranks; got {mesh}")
@@ -223,4 +233,15 @@ def all_reduce_per_device(n: int, method: AllReduceMethod, x: torch.Tensor,
         return one_shot_all_reduce(mesh, x)
     if method == AllReduceMethod.RHD:
         return rhd_all_reduce(mesh, x)
+    if method == AllReduceMethod.TWO_SHOT:
+        from triton_dist_tpu_torch.kernels.allgather import ring_all_gather
+        from triton_dist_tpu_torch.kernels.reduce_scatter import (
+            ring_reduce_scatter, ring_workspace,
+        )
+        if x.is_cuda:
+            # B7's buffer is made before B9 spins: an allocation behind a
+            # spinning kernel can wait for ranks that share the card
+            ring_workspace("ring_ag", mesh, x.shape[0] // n, x.shape[1],
+                           x.dtype)
+        return ring_all_gather(mesh, ring_reduce_scatter(mesh, x))
     raise ValueError(f"unresolved method {method}")

@@ -1,6 +1,6 @@
 """Plain products and folds shared by the kernels' plain versions and the
 layers: the reference's ``preferred_element_type=f32`` products, and the
-cross-rank folds of B4, B5 and B6 in each kernel's own order. A leaf
+cross-rank folds of B4, B5, B6 and B9 in each kernel's own order. A leaf
 module: the kernel modules import it, and ``layers/common.py`` (which
 imports the kernel modules' method enums) re-exports ``dot_f32``."""
 
@@ -68,3 +68,18 @@ def rhd_fold(xs) -> torch.Tensor:
         vals = [vals[i] + vals[i ^ d] for i in range(len(vals))]
         d //= 2
     return vals[0]
+
+
+def ring_rs_fold(xs, me: int) -> torch.Tensor:
+    """B9's fold of rank ``me``'s row chunk of the ranks' (n*m, K) xs:
+    the chunk starts raw at rank me+1 and each hop adds the next rank's
+    rows, x_{me+1} + x_{me+2} + ... + x_{me} (ranks mod n), each add in
+    the terms' dtype. Every rank's chunk has one value, whichever rank
+    computes it."""
+    n = len(xs)
+    m = xs[0].shape[0] // n
+    rows = slice(me * m, (me + 1) * m)
+    acc = xs[(me + 1) % n][rows]
+    for j in range(2, n + 1):
+        acc = acc + xs[(me + j) % n][rows]
+    return acc

@@ -138,8 +138,12 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos_sin: torch.Tensor,
                positions: torch.Tensor):
     """Rotary embedding of q/k (B, T, H, D); positions (T,) shared or
-    (B, T) per sequence. Computed in f32, returned in the inputs' dtypes."""
-    table = cos_sin[positions.long()]                   # (..., T, 2, D)
+    (B, T) per sequence. Computed in f32, returned in the inputs' dtypes.
+    Positions past the table (the pad tail of a bucket-padded prefill
+    chunk, whose outputs are discarded) read its last row, as the
+    reference's clamping gather does."""
+    idx = positions.long().clamp_max(cos_sin.shape[0] - 1)
+    table = cos_sin[idx]                                # (..., T, 2, D)
     if positions.ndim == 2:
         cos = table[:, :, 0][:, :, None, :]             # (B, T, 1, D)
         sin = table[:, :, 1][:, :, None, :]

@@ -16,8 +16,10 @@ B12 at world 1).
 
 ``attn_fwd`` runs over the dense cache: the K/V write at the on-device
 offset and B1 (or the einsum, by the reference's ``_use_flash`` rule) over
-the slabs. ``paged_attn_fwd`` runs over the paged cache (world 1): page
-write, then flash prefill (B1, T > 1) or paged flash decode (B2, T == 1)."""
+the slabs. ``paged_attn_fwd`` runs over the paged cache (each rank its
+hkv/n heads of the pool): page write, then flash prefill (B1, T > 1; a
+continuation chunk attends the row's earlier pages too) or paged flash
+decode (B2, T == 1)."""
 
 from __future__ import annotations
 
@@ -134,14 +136,13 @@ def paged_attn_fwd(mode: str, ctx: TPContext, arch, w: dict,
     lk_pages/lv_pages (and lk_scales/lv_scales when int8-resident) are
     this layer's pool slabs, written IN PLACE; block_table/lengths are the
     allocated, pre-advance cache state. T > 1 is prefill into an empty
-    cache (attention within the chunk); T == 1 is paged flash decode over
-    lengths + 1 keys."""
+    cache (attention within the chunk) or, with ``continuation``, a chunk
+    that continues a single row's sequence (B == 1): it attends the row's
+    pages in logical order, this chunk's keys included, from offset
+    lengths[0]; T == 1 is paged flash decode over lengths + 1 keys."""
     # imported here: models/ imports this module (the reference does the same)
     from triton_dist_tpu_torch.models.kv_cache import paged_write_layer
 
-    if continuation:
-        raise NotImplementedError(
-            "continuation prefill waits for prefill_slot (ROADMAP A7)")
     t = x.shape[1]
     q, k, v, _ = _qkv_project(mode, ctx, arch, w, x, positions, cos_sin)
     paged_write_layer(block_table, lengths, page_size, lk_pages, lv_pages,
@@ -152,6 +153,27 @@ def paged_attn_fwd(mode: str, ctx: TPContext, arch, w: dict,
             q[:, 0].contiguous(), lk_pages, lv_pages, block_table,
             lengths + 1, k_scales=lk_scales, v_scales=lv_scales)
         out = lse_merge(acc[None], m[None], l[None])[:, None].to(x.dtype)
+    elif continuation:
+        # the chunk's KV was just written, so this row's pages in logical
+        # order hold prior + chunk as one buffer; keys past lengths + t are
+        # causally masked (they lie beyond every query position)
+        if q.shape[0] != 1:
+            raise ValueError("continuation prefill is the single-slot "
+                             f"path; got batch {q.shape[0]}")
+        pages = block_table[0].long()
+        hkv_l, d = lk_pages.shape[0], lk_pages.shape[-1]
+        k_all, v_all = lk_pages[:, pages], lv_pages[:, pages]
+        if lk_scales is not None:
+            # dequantize the gathered pages only, never the whole pool
+            k_all = k_all.float() * lk_scales[:, pages][..., None]
+            v_all = v_all.float() * lv_scales[:, pages][..., None]
+
+        def dense(pool):                               # (1, NP*ps, Hkv, D)
+            return pool.to(x.dtype).reshape(hkv_l, -1, d).transpose(
+                0, 1)[None].contiguous()
+
+        out = gqa_attend(q, dense(k_all), dense(v_all), lengths[0], t,
+                         method=ctx.attn_method)
     else:
         # prefill from empty: every key is in the current chunk
         out = gqa_attend(q, k, v, 0, t, method=ctx.attn_method)

@@ -11,10 +11,11 @@ order; on the card the engine captures one call of it as a CUDA graph.
 
 Tasks are per-device ops of one rank; the builder holds the ranks' mesh
 (None at world 1, where the reference's psum is the identity) for the
-tasks that sum over the ranks. The dense KV write is in place (the cache
-slabs are views of the cache).
-The paged task kinds (``make_paged_kv_write``/``make_paged_attend``) wait
-for the paged mega graph, the per-task flight spans for ROADMAP A8.
+tasks that sum over the ranks. The KV writes are in place (the dense
+cache slabs and the paged pools are views of the cache). The paged
+attend runs B2 and the LSE merge in every tier, as in the reference; its
+speculative-verify form (``make_paged_attend_spec``) waits for ROADMAP
+A12, the per-task flight spans for A8.
 """
 
 from __future__ import annotations
@@ -137,6 +138,64 @@ class ModelBuilder:
             out = gqa_attend(q_, kc, vc, off, t)
             return out.reshape(b, t, -1)
         return self._add("attn", layer_id, (q, k_cache, v_cache, offset), fn)
+
+    def make_paged_kv_write(self, k: str, v: str, k_pages: str,
+                            v_pages: str, table: str, lengths: str,
+                            active: str, page_size: int, *, layer_id: int,
+                            k_scales: str | None = None,
+                            v_scales: str | None = None):
+        """Write this step's (B, T, Hkv, D) K/V into the layer's paged
+        pool slabs IN PLACE (False ``active`` rows write nothing): the
+        write half of the layer path's paged_attn_fwd, through the same
+        paged_write_layer. With scale slab names the pool is int8-resident
+        (each row encoded once) and the task returns the scale slabs too
+        (n_out=4)."""
+        from triton_dist_tpu_torch.models.kv_cache import paged_write_layer
+
+        if k_scales is not None:
+            def fn_q(k_, v_, kp, vp, kps, vps, tb, ln, ac):
+                paged_write_layer(tb, ln, page_size, kp, vp, k_, v_,
+                                  active=ac, layer_k_scales=kps,
+                                  layer_v_scales=vps)
+                return kp, vp, kps, vps
+            return self._add("paged_kv_write", layer_id,
+                             (k, v, k_pages, v_pages, k_scales, v_scales,
+                              table, lengths, active), fn_q, n_out=4)
+
+        def fn(k_, v_, kp, vp, tb, ln, ac):
+            paged_write_layer(tb, ln, page_size, kp, vp, k_, v_, active=ac)
+            return kp, vp
+        return self._add("paged_kv_write", layer_id,
+                         (k, v, k_pages, v_pages, table, lengths, active),
+                         fn, n_out=2)
+
+    def make_paged_attend(self, q: str, k_pages: str, v_pages: str,
+                          table: str, lengths: str, dtype, *, layer_id: int,
+                          k_scales: str | None = None,
+                          v_scales: str | None = None) -> str:
+        """T=1 paged GQA flash decode over the block table (B2's split-KV
+        partials, then the row-wise LSE merge): the T == 1 branch of
+        paged_attn_fwd, in every tier. q is the rope'd (B, 1, Hq, D)
+        tensor; returns (B, 1, Hq, D)."""
+        from triton_dist_tpu_torch.kernels.flash_decode import lse_merge
+        from triton_dist_tpu_torch.kernels.paged_flash_decode import (
+            paged_flash_decode_partial,
+        )
+
+        def attend(q_, kp, vp, tb, ln, kps=None, vps=None):
+            acc, m, l = paged_flash_decode_partial(
+                q_[:, 0].contiguous(), kp, vp, tb, ln + 1, k_scales=kps,
+                v_scales=vps)
+            return lse_merge(acc[None], m[None], l[None])[:, None].to(dtype)
+
+        if k_scales is not None:
+            def fn_q(q_, kp, vp, kps, vps, tb, ln):
+                return attend(q_, kp, vp, tb, ln, kps, vps)
+            return self._add("paged_attend", layer_id,
+                             (q, k_pages, v_pages, k_scales, v_scales,
+                              table, lengths), fn_q)
+        return self._add("paged_attend", layer_id,
+                         (q, k_pages, v_pages, table, lengths), attend)
 
     def make_silu_mul(self, gate_up: str, *, layer_id: int) -> str:
         return self._add("silu_mul", layer_id, (gate_up,), _silu_mul)

@@ -12,8 +12,10 @@ tasks (B4 in the pallas_chain tier, the process group's all-reduce in the
 xla tier), the boundary a ``fused_chain`` task (B3). For the MoE family
 the MLP half is one ``moe`` task: the layer library's xla-mode math
 (router, ``dense_grouped_moe``), with no fused tier, as in the reference;
-at n_tp > 1 it raises naming ROADMAP A10. The paged graph waits for the
-ContinuousEngine slice (A7).
+at n_tp > 1 it raises naming ROADMAP A10. ``build_qwen3_paged_decode``
+records the paged-cache T = 1 step with the continuous-batching ``active``
+mask (``paged_kv_write`` and ``paged_attend``, B2, in place of the dense
+cache's write and attention), the step the ContinuousEngine replays.
 """
 
 from __future__ import annotations
@@ -152,6 +154,97 @@ def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
                               gemm_ar_method=gemm_ar_method)
         b.mark_output(nk, nv)
         b.kv_outputs.append((nk, nv))
+
+    logits = _logits_tail_tasks(b, n_tp, h, final_norm, lm_head,
+                                arch.rms_eps)
+    b.mark_output(logits)
+    b.logits_name = logits
+    return b
+
+
+def build_qwen3_paged_decode(arch: Qwen3Arch, n_tp: int, page_size: int,
+                             dtype: torch.dtype = torch.bfloat16, *,
+                             mesh=None, gemm_ar_method=None,
+                             resident: bool = False) -> ModelBuilder:
+    """Record one rank's T = 1 paged-cache decode step with the
+    continuous-batching ``active`` mask: the task mirror of the layer
+    path's paged decode (Qwen3._forward_paged at T == 1), so the xla tier
+    equals it bit for bit.
+
+    Step inputs (env keys): input_ids (B, 1), block_table (B, NP),
+    lengths (B,) (pre-advance, post-allocate), active (B,) bool, cos_sin,
+    embed, lm_head, final_norm, and per layer i the layer weights plus
+    k_pages_i / v_pages_i (Hkv/n, P, page_size, D) pool slabs, written in
+    place. Outputs: logits (B, V) f32 and every layer's pool slabs
+    (``builder.paged_kv_outputs``). ``resident=True`` records the
+    int8-resident variant: per layer also k_scales_i / v_scales_i
+    (Hkv/n, P, page_size) f32 slabs (``builder.paged_scale_outputs``)."""
+    hq, hkv = arch.num_heads // n_tp, arch.num_kv_heads // n_tp
+    hd = arch.head_dim
+    q_l, kv_l = hq * hd, hkv * hd
+
+    b = ModelBuilder(mesh)
+    ids = b.add_input("input_ids")
+    table = b.add_input("block_table")
+    lengths = b.add_input("lengths")
+    active = b.add_input("active")
+    cos_sin = b.add_input("cos_sin")
+    embed = b.add_input("embed")
+    lm_head = b.add_input("lm_head")
+    final_norm = b.add_input("final_norm")
+
+    # per-row decode positions: each row's next slot (a ragged batch)
+    positions = b.make_custom("positions", (lengths,),
+                              lambda ln: ln[:, None] + 0, layer_id=-1)
+
+    h = b.make_embedding(ids, embed, dtype=dtype)
+    b.paged_kv_outputs = []
+    b.paged_scale_outputs = []
+    for i in range(arch.num_layers):
+        wqkv = b.add_input(f"wqkv_{i}")
+        wo = b.add_input(f"wo_{i}")
+        qn = b.add_input(f"q_norm_{i}")
+        kn = b.add_input(f"k_norm_{i}")
+        inn = b.add_input(f"in_norm_{i}")
+        postn = b.add_input(f"post_norm_{i}")
+        mlp_inputs = _mlp_layer_inputs(b, arch, i)
+        kp = b.add_input(f"k_pages_{i}")
+        vp = b.add_input(f"v_pages_{i}")
+        kps = b.add_input(f"k_scales_{i}") if resident else None
+        vps = b.add_input(f"v_scales_{i}") if resident else None
+
+        hn = b.make_rms_norm(h, inn, arch.rms_eps, layer_id=i)
+        q, k, v = b.make_qkv_proj(hn, wqkv, q_l, kv_l, layer_id=i)
+        q, k = b.make_qk_norm_rope(q, k, qn, kn, cos_sin, positions,
+                                   hq, hkv, hd, arch.rms_eps, layer_id=i)
+        v = b.make_custom(
+            "reshape_v", (v,),
+            lambda v_: v_.reshape(v_.shape[0], v_.shape[1], hkv, hd),
+            layer_id=i)
+        if resident:
+            nk, nv, nks, nvs = b.make_paged_kv_write(
+                k, v, kp, vp, table, lengths, active, page_size,
+                layer_id=i, k_scales=kps, v_scales=vps)
+            a = b.make_paged_attend(q, nk, nv, table, lengths, dtype,
+                                    layer_id=i, k_scales=nks, v_scales=nvs)
+        else:
+            nk, nv = b.make_paged_kv_write(k, v, kp, vp, table, lengths,
+                                           active, page_size, layer_id=i)
+            a = b.make_paged_attend(q, nk, nv, table, lengths, dtype,
+                                    layer_id=i)
+        a = b.make_custom(
+            "flatten_heads", (a,),
+            lambda a_: a_.reshape(a_.shape[0], a_.shape[1], -1),
+            layer_id=i)
+        a = b.make_linear_allreduce(a, wo, layer_id=i, world=n_tp,
+                                    gemm_ar_method=gemm_ar_method)
+        h = _layer_tail_tasks(b, arch, n_tp, h, a, i, postn, mlp_inputs,
+                              gemm_ar_method=gemm_ar_method)
+        b.mark_output(nk, nv)
+        b.paged_kv_outputs.append((nk, nv))
+        if resident:
+            b.mark_output(nks, nvs)
+            b.paged_scale_outputs.append((nks, nvs))
 
     logits = _logits_tail_tasks(b, n_tp, h, final_norm, lm_head,
                                 arch.rms_eps)

@@ -15,15 +15,19 @@ all-reduce, both tiers gather the logits along the vocabulary.
 
 AUTO resolves to PALLAS_CHAIN on CUDA and to XLA on the CPU, the same
 platform choice the reference makes. ``dense_step_fn(tier)`` returns the
-step ``(params, KVCache, input_ids) -> (logits, KVCache)``; it never reads
-a device value on the host, so the engine captures one call of it as a
-CUDA graph and replays the graph per token (models/engine.py).
+step ``(params, KVCache, input_ids) -> (logits, KVCache)`` and
+``step_fn(tier)`` the paged one ``(params, PagedKVCache, input_ids,
+active) -> (logits, PagedKVCache)`` (the ContinuousEngine's): Qwen3-family
+models in xla mode run the per-layer paged graph, every other model and
+mode (triton_dist_AR) its ``inference`` directly (the reference records
+it as a one-task graph, which adds nothing to one call). Neither reads a
+device value on the host, so the engines capture calls of them as CUDA graphs and replay them
+(models/engine.py, models/continuous.py).
 
 ``dispatch`` counts a launch and runs it. Unlike the reference it has no
 fallback from the fused tier to the XLA tier: on the card a tier that
 fails raises. The fault guard and observability of the reference's
-dispatch preamble wait for ROADMAP A8; the paged graph and the generic
-one-task graph for the ContinuousEngine slice (A7).
+dispatch preamble wait for ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ class MegaDecodeRuntime:
         self.gemm_ar_method = gemm_ar_method
         self.launches = 0
         self._dense: ModelBuilder | None = None
-        self._compiled: dict[str, object] = {}
+        self._paged: dict[tuple[int, bool], ModelBuilder] = {}
+        self._compiled: dict[tuple, object] = {}
         # Qwen3-family models (dense and MoE) in xla mode get the
         # per-layer task graph
         self.kind = "generic"
@@ -93,8 +98,35 @@ class MegaDecodeRuntime:
                 mesh=model.ctx.mesh, gemm_ar_method=self.gemm_ar_method)
         return self._dense
 
+    def paged_builder(self, page_size: int,
+                      resident: bool = False) -> ModelBuilder:
+        b = self._paged.get((page_size, resident))
+        if b is None:
+            from triton_dist_tpu_torch.mega.models.qwen3 import (
+                build_qwen3_paged_decode,
+            )
+            model = self.model
+            b = build_qwen3_paged_decode(
+                model.arch, model.ctx.world, page_size, dtype=model.dtype,
+                mesh=model.ctx.mesh, gemm_ar_method=self.gemm_ar_method,
+                resident=resident)
+            self._paged[(page_size, resident)] = b
+        return b
+
     def graph_tasks(self) -> int:
-        return len(self._dense.graph.tasks) if self._dense is not None else 0
+        for b in (*self._paged.values(), self._dense):
+            if b is not None:
+                return len(b.graph.tasks)
+        return 0
+
+    def step_fn(self, tier: str):
+        """(params, PagedKVCache, input_ids (B, 1), active (B,) bool) ->
+        (logits (B, V) f32, PagedKVCache): one paged decode step on
+        ``tier``; False rows neither grow nor write KV. Outside the
+        Qwen3 xla graph the step is the model's ``inference`` itself."""
+        if self.kind == "qwen3":
+            return functools.partial(self._qwen3_paged_step, tier)
+        return self._inference_step
 
     def dense_step_fn(self, tier: str):
         """(params, KVCache, input_ids (B, T)) -> (logits (B, V) f32,
@@ -106,11 +138,14 @@ class MegaDecodeRuntime:
                 f"mode (got kind={self.kind!r})")
         return functools.partial(self._qwen3_dense_step, tier)
 
-    def _step(self, tier: str):
-        step = self._compiled.get(tier)
+    def _step(self, tier: str, builder: ModelBuilder | None = None,
+              policy: str = POLICY):
+        builder = builder or self.dense_builder()
+        key = (id(builder), tier)
+        step = self._compiled.get(key)
         if step is None:
-            step = self.dense_builder().compile(policy=POLICY, tier=tier)
-            self._compiled[tier] = step
+            step = builder.compile(policy=policy, tier=tier)
+            self._compiled[key] = step
         return step
 
     def _qwen3_dense_step(self, tier, params, cache, input_ids):
@@ -133,6 +168,45 @@ class MegaDecodeRuntime:
             env[f"v_cache_{i}"] = cache.v[i]
         out = self._step(tier)(env)
         return out[builder.logits_name], cache.advance(t)
+
+    def _inference_step(self, params, cache, input_ids, active):
+        return self.model.inference(params, cache, input_ids,
+                                    mode=self.mode, active=active)
+
+    def _qwen3_paged_step(self, tier, params, cache, input_ids, active):
+        """The task-graph twin of Qwen3._inference_paged at T == 1:
+        allocate, the compiled graph, advance, op for op the layer path's,
+        so the xla tier equals it bit for bit."""
+        model = self.model
+        t = input_ids.shape[1]
+        if t != 1:
+            raise ValueError("the mega paged program is decode-only "
+                             f"(T == 1); got T={t}")
+        if active is None:
+            active = torch.ones((cache.lengths.shape[0],), dtype=torch.bool,
+                                device=model.device)
+        grow = torch.where(active, t, 0).to(torch.int32)
+        cache.allocate(grow, max_tokens=t)
+        resident = cache.k_scales is not None
+        builder = self.paged_builder(cache.page_size, resident)
+        env = {
+            "input_ids": input_ids, "block_table": cache.block_table,
+            "lengths": cache.lengths, "active": active,
+            "cos_sin": model.cos_sin, "embed": params["embed"],
+            "lm_head": params["lm_head"],
+            "final_norm": params["final_norm"],
+        }
+        for key, stacked in params["layers"].items():
+            for i in range(model.arch.num_layers):
+                env[f"{key}_{i}"] = stacked[i]          # views, no copies
+        for i in range(model.arch.num_layers):
+            env[f"k_pages_{i}"] = cache.k_pages[i]
+            env[f"v_pages_{i}"] = cache.v_pages[i]
+            if resident:
+                env[f"k_scales_{i}"] = cache.k_scales[i]
+                env[f"v_scales_{i}"] = cache.v_scales[i]
+        out = self._step(tier, builder)(env)
+        return out[builder.logits_name], cache.advance(grow)
 
     def dispatch(self, primary):
         """Run one launch of the compiled step and count it. No fallback

@@ -25,7 +25,15 @@ from triton_dist_tpu_torch.models.weights import (  # noqa: F401
     params_from_numpy,
 )
 from triton_dist_tpu_torch.models.engine import Engine  # noqa: F401
-from triton_dist_tpu_torch.models.utils import logger, sample_token  # noqa: F401
+from triton_dist_tpu_torch.models.continuous import (  # noqa: F401
+    ContinuousEngine,
+    Request,
+)
+from triton_dist_tpu_torch.models.utils import (  # noqa: F401
+    logger,
+    sample_token,
+    sample_token_rows,
+)
 from triton_dist_tpu_torch.runtime.device import resolve_device
 
 

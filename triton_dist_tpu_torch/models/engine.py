@@ -16,10 +16,10 @@ B14/B15 expert GEMMs), captured and replayed the same way; the mega graph
 serves the "xla" backend only, as in the reference. Prefill always runs in
 mode "xla", as in the reference.
 
-On the paged cache (``cache_mode="paged"``) the decode step is eager
-(paged flash decode, B2); as in the reference, ``mega`` is ignored there.
-Its graph comes with the paged mega step (ROADMAP A7); speculative decode
-waits for A12.
+On the paged cache (``cache_mode="paged"``) the decode step is
+``Qwen3.inference`` over the pages (paged flash decode, B2), captured and
+replayed the same way; as in the reference, ``mega`` is ignored there.
+Speculative decode waits for ROADMAP A12.
 
 With ``backend="triton_dist_AR"`` the decode step is
 ``model.inference(mode="triton_dist_AR")`` (the sums after the o and down
@@ -37,8 +37,8 @@ all-gather the sampled tokens outside the graph. The replicated backends
 "triton_dist_AR") decode the whole batch on every rank; B5 leaves the
 ranks' sums different in the last bit, so every rank takes rank 0's
 sampled tokens (one broadcast outside the graph per token) and records
-whether its own differed (``own_token_differs``). The paged cache at
-n > 1 waits for ROADMAP A6.
+whether its own differed (``own_token_differs``). On the paged cache
+every rank holds its hkv/n heads of the pool and the same block table.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ import torch.distributed as dist
 
 from triton_dist_tpu_torch.kernels import launch_counts
 from triton_dist_tpu_torch.layers.common import check_mode
-from triton_dist_tpu_torch.models.kv_cache import KVCache
+from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedKVCache
 from triton_dist_tpu_torch.models.utils import logger, sample_token
 
 MEGA_MODES = ("auto", "xla", "pallas_chain", "off")
@@ -73,9 +73,6 @@ class Engine:
                 "speculative decode waits for ROADMAP A12")
         check_mode(backend)
         world = model.ctx.world
-        if world > 1 and cache_mode == "paged":
-            raise NotImplementedError(
-                f"the paged cache at world {world} waits for ROADMAP A6")
         if params["embed"].device != model.device:
             raise ValueError(f"params on {params['embed'].device}, model on "
                              f"{model.device}")
@@ -144,26 +141,27 @@ class Engine:
         return self._mega_rt.method.value if self._mega_rt else None
 
     def _init_kv_cache(self, bsz: int) -> None:
-        if self.cache_mode == "paged":
+        # the cache is kept across serves of one batch size: the captured
+        # step reads and writes its buffers by address
+        kind = PagedKVCache if self.cache_mode == "paged" else KVCache
+        if isinstance(self.kv_cache, kind) and self.kv_cache.batch == bsz:
+            return
+        if kind is PagedKVCache:
             self.kv_cache = self.model.create_paged_kv_cache(
                 bsz, page_size=self.page_size, num_pages=self.num_pages,
                 kv_resident=self.kv_resident)
-            return
-        # the dense cache is kept across serves of one batch size: the
-        # captured step reads and writes its buffers by address
-        if not (isinstance(self.kv_cache, KVCache)
-                and self.kv_cache.batch == bsz):
+        else:
             self.kv_cache = self.model.create_kv_cache(bsz)
-            self._graph = None
+        self._graph = None
 
     def _sync(self) -> None:
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)
 
-    def _dense_forward(self, ids: torch.Tensor) -> torch.Tensor:
-        """One dense decode forward over self.kv_cache (written and
-        advanced in place); returns the (B, V) f32 logits (this rank's
-        B/n rows when the decode is batch-sharded)."""
+    def _forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """One decode forward over self.kv_cache (written and advanced in
+        place); returns the (B, V) f32 logits (this rank's B/n rows when
+        the decode is batch-sharded)."""
         if self._sharded:
             mesh = self.model.ctx.mesh
             b = ids.shape[0] // mesh.world
@@ -177,26 +175,27 @@ class Engine:
         return logits
 
     def _build_decode_step(self) -> None:
-        """Capture the dense decode step as a CUDA graph: static token
-        and cache buffers; one warm-up on a side stream first (it builds
-        and loads every kernel, which must not happen under capture), its
-        offset advance undone afterwards (its K/V write lands where the
-        first replay writes again)."""
+        """Capture the decode step as a CUDA graph: static token and cache
+        buffers; one warm-up on a side stream first (it builds and loads
+        every kernel, which must not happen under capture), its cache
+        update undone afterwards (the offset, or the paged allocator's
+        state; its K/V write lands where the first replay writes
+        again)."""
         dev = self.model.device
         cache = self.kv_cache
         self._tok_buf = torch.zeros((cache.batch,), dtype=torch.int32,
                                     device=dev)
-        saved = cache.offset.clone()
+        saved = cache_state(cache)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._dense_forward(self._tok_buf[:, None])
+            self._forward(self._tok_buf[:, None])
         torch.cuda.current_stream(dev).wait_stream(side)
-        cache.offset.copy_(saved)
+        restore_cache_state(cache, saved)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         with torch.cuda.graph(graph):
-            self._logits_buf = self._dense_forward(self._tok_buf[:, None])
+            self._logits_buf = self._forward(self._tok_buf[:, None])
         after = launch_counts()
         self.graph_launches = {k: after[k] - before[k] for k in after}
         self._graph = graph
@@ -204,20 +203,16 @@ class Engine:
     def decode_logits(self, token: torch.Tensor) -> torch.Tensor:
         """ONE decode step without sampling: ``token`` is the (B,) pending
         token; returns the (B, V) f32 logits and advances self.kv_cache in
-        place. On the card's dense path the result is the captured
-        graph's output buffer, overwritten by the next step. A
+        place. On the card the result is the captured graph's output
+        buffer, overwritten by the next step. A
         batch-sharded (triton_dist, n > 1) decode returns this rank's B/n
         rows."""
         if self.kv_cache is None:
             raise RuntimeError("no KV cache: call serve() (or prefill) "
                                "before stepping")
         ids = token[:, None]
-        if self.cache_mode == "paged":
-            logits, self.kv_cache = self.model.inference(
-                self.params, self.kv_cache, ids, mode=self.backend)
-            return logits
         if self.model.device.type != "cuda":
-            return self._dispatch(lambda: self._dense_forward(ids))
+            return self._dispatch(lambda: self._forward(ids))
         if self._graph is None:
             self._build_decode_step()
         self._tok_buf.copy_(token)
@@ -295,3 +290,22 @@ class Engine:
                 f"decode: {gen_len - 1} steps in {dt:.3f}s "
                 f"({(gen_len - 1) * bsz / max(dt, 1e-9):.1f} tok/s)")
         return out
+
+
+_PAGED_STATE = ("block_table", "lengths", "free_stack", "next_free",
+                "overflow", "ref_count")
+
+
+def cache_state(cache) -> dict:
+    """A copy of what a decode step changes in ``cache`` besides the K/V
+    it writes past the rows' lengths: the dense offset, or the paged
+    allocator's tensors."""
+    names = (_PAGED_STATE if isinstance(cache, PagedKVCache)
+             else ("offset",))
+    return {n: getattr(cache, n).clone() for n in names}
+
+
+def restore_cache_state(cache, saved: dict) -> None:
+    """Put back ``cache_state``'s copy, in place."""
+    for n, t in saved.items():
+        getattr(cache, n).copy_(t)

@@ -10,15 +10,16 @@ graph and replayed.
 
 Unlike the reference's functional pytree, this cache is MUTABLE: the page
 pools are written in place by ``paged_write_layer`` and the allocator
-methods (``clear``, ``allocate``, ``advance``) update the cache's tensors
-in place and return the cache itself, so ``cache = cache.allocate(...)``
-reads as it does in the reference. The allocator arithmetic is the
-reference's, step for step, so block tables, lengths, free stacks,
-refcounts and the overflow count stay exactly equal to it.
-
-The paged cache's ``release``, ``rewind``, ``adopt_prefix`` and
-``pin_pages``/``unpin_pages`` wait for the ContinuousEngine slice (ROADMAP
-A7).
+methods (``clear``, ``allocate``, ``advance``, ``release``,
+``adopt_prefix``, ``pin_pages``, ``unpin_pages``) update the cache's
+tensors in place and return the cache itself, so ``cache =
+cache.allocate(...)`` reads as it does in the reference. The allocator
+arithmetic is the reference's, step for step, so block tables, lengths,
+free stacks, refcounts and the overflow count stay exactly equal to it.
+None of them reads a device value on the host: the reference's
+out-of-range (dropped) scatters become scatters into a spare lane past the
+end, so every method can be captured in a CUDA graph. ``rewind`` (the
+speculative-decode reclaim) waits for ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -170,6 +171,10 @@ class PagedKVCache:
         return "kv_int8_row" if self.k_scales is not None else None
 
     @property
+    def batch(self) -> int:
+        return self.lengths.shape[0]
+
+    @property
     def max_tokens_per_alloc(self) -> int:
         """Bound for per-row allocations given as a tensor: one full
         sequence."""
@@ -210,8 +215,11 @@ class PagedKVCache:
         b = self.lengths.shape[0]
         num_pages = self.num_pages
         dev = self.lengths.device
-        per_row = torch.as_tensor(new_tokens, dtype=_I32,
-                                  device=dev).expand(b)
+        if isinstance(new_tokens, int):      # no host-to-device copy
+            per_row = torch.full((b,), new_tokens, dtype=_I32, device=dev)
+        else:
+            per_row = torch.as_tensor(new_tokens, dtype=_I32,
+                                      device=dev).expand(b)
         if max_tokens is not None:
             max_tok = max_tokens
         elif isinstance(new_tokens, int):
@@ -250,8 +258,97 @@ class PagedKVCache:
 
     def advance(self, new_tokens) -> "PagedKVCache":
         """lengths += new_tokens (int: every row; (B,) tensor: per row)."""
-        self.lengths += torch.as_tensor(new_tokens, dtype=_I32,
-                                        device=self.lengths.device)
+        self.lengths += new_tokens
+        return self
+
+    def _add_refs(self, ids: torch.Tensor, valid: torch.Tensor,
+                  delta: int) -> torch.Tensor:
+        """ref_count + delta at ``ids`` where ``valid`` (duplicates
+        accumulate), as a new (P,) tensor."""
+        p = self.num_pages
+        idx = torch.where(valid, ids.long(), p)
+        refs = torch.cat([self.ref_count, self.ref_count.new_zeros(1)])
+        refs.index_add_(0, idx, torch.full_like(idx, delta, dtype=_I32))
+        return refs[:p]
+
+    def _dec_and_free(self, ids: torch.Tensor, valid: torch.Tensor) -> None:
+        """Decrement the refcounts of ``ids`` where ``valid`` (ids unique
+        among the valid lanes) and push the pages that reach zero back
+        onto the free stack, in lane order, in place."""
+        p = self.num_pages
+        refs = self._add_refs(ids, valid, -1)
+        gathered = refs[torch.clamp_max(ids.long(), p - 1)]
+        freed = valid & (gathered == 0)
+        k = freed.sum(dtype=_I32)
+        # stable-compact the freed ids to the front, push at [nf, nf + k)
+        order = torch.argsort((~freed).to(_I32), stable=True)
+        freed_ids = ids[order].to(_I32)
+        nf = self.next_free - k
+        lane = torch.arange(ids.shape[0], dtype=_I32, device=ids.device)
+        dst = torch.where(lane < k, nf + lane, p).long()
+        stack = torch.cat([self.free_stack, self.free_stack.new_zeros(1)])
+        stack[dst] = freed_ids
+        self.free_stack.copy_(stack[:p])
+        self.ref_count.copy_(refs)
+        self.next_free.copy_(nf)
+
+    def _slot_index(self, slot) -> torch.Tensor:
+        return torch.as_tensor(slot, device=self.lengths.device).reshape(
+            1).long()
+
+    def release(self, slot) -> "PagedKVCache":
+        """Drop ``slot``'s references and zero its row (the
+        continuous-batching reclaim). Pages return to the free stack only
+        when their refcount reaches zero (they may be shared as cached
+        prefixes). ``slot``: int or a one-element tensor."""
+        ps = self.page_size
+        np_ = self.block_table.shape[1]
+        si = self._slot_index(slot)
+        row = self.block_table.index_select(0, si)[0]          # (NP,)
+        cnt = -(-self.lengths.index_select(0, si) // ps)       # pages held
+        idx = torch.arange(np_, dtype=_I32, device=row.device)
+        self._dec_and_free(row, idx < cnt)
+        self.lengths.index_fill_(0, si, 0)
+        self.block_table.index_fill_(0, si, 0)
+        return self
+
+    def rewind(self, extra, max_tokens: int | None = None):
+        """The speculative-decode reclaim waits for ROADMAP A12."""
+        raise NotImplementedError(
+            "PagedKVCache.rewind (the speculative-decode reclaim) waits for "
+            "ROADMAP A12")
+
+    def adopt_prefix(self, slot, page_ids: torch.Tensor,
+                     n_pages) -> "PagedKVCache":
+        """Point ``slot``'s first n_pages logical pages at existing
+        physical pages (a cached prompt prefix) and take a reference on
+        each. page_ids: (NP,) int32, the first n_pages valid. The slot must
+        be empty; lengths[slot] becomes n_pages * page_size, so every later
+        write lands in freshly allocated pages."""
+        np_ = self.block_table.shape[1]
+        si = self._slot_index(slot)
+        page_ids = page_ids.to(_I32)
+        n = torch.as_tensor(n_pages, dtype=_I32, device=page_ids.device)
+        valid = torch.arange(np_, dtype=_I32, device=page_ids.device) < n
+        row = self.block_table.index_select(0, si)[0]
+        self.block_table.index_copy_(
+            0, si, torch.where(valid, page_ids, row)[None])
+        self.ref_count.copy_(self._add_refs(page_ids, valid, 1))
+        self.lengths.index_copy_(0, si, (n * self.page_size).reshape(1))
+        return self
+
+    def pin_pages(self, page_ids: torch.Tensor, n) -> "PagedKVCache":
+        """Take a reference on the first n of page_ids (a prefix-cache
+        index pinning entries so that they outlive their writer)."""
+        lane = torch.arange(page_ids.shape[0], device=page_ids.device)
+        self.ref_count.copy_(self._add_refs(page_ids, lane < n, 1))
+        return self
+
+    def unpin_pages(self, page_ids: torch.Tensor, n) -> "PagedKVCache":
+        """Drop the pin on the first n of page_ids, freeing any page whose
+        refcount reaches zero (prefix-cache eviction)."""
+        lane = torch.arange(page_ids.shape[0], device=page_ids.device)
+        self._dec_and_free(page_ids.to(_I32), lane < n)
         return self
 
 
@@ -271,8 +368,12 @@ def paged_write_layer(block_table: torch.Tensor, lengths: torch.Tensor,
     the only quantization event of its lifetime.
 
     active: optional (B,) or (B, T) bool. False entries write nothing (the
-    reference pushes their index out of range and drops the scatter;
-    PyTorch indexing raises on that, so they are masked out here)."""
+    reference pushes their index out of range and drops the scatter).
+    Here each False entry repeats the write of the first True entry (or,
+    with none True, writes the first entry's current bytes back), so the
+    scatter keeps a fixed size, its duplicates write identical bytes, and
+    no device value is read on the host: the write can be captured in a
+    CUDA graph."""
     b, t = k_new.shape[0], k_new.shape[1]
     dev = k_new.device
     pos = lengths[:, None].long() + torch.arange(t, device=dev)[None]
@@ -287,15 +388,29 @@ def paged_write_layer(block_table: torch.Tensor, lengths: torch.Tensor,
         kq, ks = kv_row_encode(kf)                         # (Hkv,B*T,D) i8
         vq, vs = kv_row_encode(vf)
         kf, vf, ksf, vsf = kq, vq, ks[..., 0], vs[..., 0]
+    kf = kf.to(layer_k_pages.dtype)
+    vf = vf.to(layer_v_pages.dtype)
     if active is not None:
         act = active if active.ndim == 2 else active[:, None]
         keep = act.expand(b, t).reshape(-1)
-        phys, row = phys[keep], row[keep]
-        kf, vf = kf[:, keep], vf[:, keep]
+        first = keep.to(_I32).argmax().reshape(1)     # first True, else 0
+        some = keep.any()
+        p0, r0 = phys.index_select(0, first), row.index_select(0, first)
+
+        def masked(new, pool):
+            old = pool[:, p0, r0]                     # (Hkv, 1[, D])
+            fill = torch.where(some, new.index_select(1, first), old)
+            shape = (1, -1) + (1,) * (new.ndim - 2)
+            return torch.where(keep.view(shape), new, fill)
+
+        kf, vf = masked(kf, layer_k_pages), masked(vf, layer_v_pages)
         if ksf is not None:
-            ksf, vsf = ksf[:, keep], vsf[:, keep]
-    layer_k_pages[:, phys, row] = kf.to(layer_k_pages.dtype)
-    layer_v_pages[:, phys, row] = vf.to(layer_v_pages.dtype)
+            ksf = masked(ksf, layer_k_scales)
+            vsf = masked(vsf, layer_v_scales)
+        phys = torch.where(keep, phys, p0)
+        row = torch.where(keep, row, r0)
+    layer_k_pages[:, phys, row] = kf
+    layer_v_pages[:, phys, row] = vf
     if ksf is not None:
         layer_k_scales[:, phys, row] = ksf
         layer_v_scales[:, phys, row] = vsf

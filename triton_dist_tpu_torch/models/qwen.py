@@ -1,6 +1,7 @@
 """Qwen3 dense model (the reference's models/qwen.py), modes "xla",
-"triton_dist_AR" and "triton_dist", on the dense KVCache or (world 1) the
-PagedKVCache.
+"triton_dist_AR" and "triton_dist", on the dense KVCache or the
+PagedKVCache (each rank its hkv/n heads of the pool; block table,
+lengths, refcounts and free stack the same on every rank).
 
 Tensor parallelism: one process per rank, each holding its shard of the
 parameters (``param_specs``: the reference's PartitionSpecs, as tuples) and
@@ -17,7 +18,8 @@ views, never copies); the reference's decoder ``lax.scan`` is a Python
 loop over layers. Both caches are updated in place; the dense cache's
 offset never leaves the device. The per-layer ``mlp`` hook is the dense
 MLP here; Qwen3MoE (models/qwen_moe.py) overrides it with the MoE layer.
-prefill_slot waits for its ROADMAP item (A7).
+``prefill_slot`` prefills one row of a paged cache (the ContinuousEngine's
+admission), whole or in chunks that continue the row's sequence.
 """
 
 from __future__ import annotations
@@ -106,16 +108,12 @@ class Qwen3:
                               ) -> PagedKVCache:
         """Paged cache on the model's device. kv_resident: "auto" (ask the
         TD_QUANT policy) | "int8" | "off"/None; kv_hbm_budget sizes
-        num_pages from a pool byte budget (PagedKVCache.create). World 1
-        only: the paged path at TP > 1 waits for ROADMAP A6."""
-        if self.ctx.world > 1:
-            raise NotImplementedError(
-                f"the paged cache at world {self.ctx.world} (the paged path "
-                "under tensor parallelism) waits for ROADMAP A6")
+        num_pages from a pool byte budget (PagedKVCache.create). At world
+        n the pools hold this rank's hkv/n heads."""
         arch = self.arch
         return PagedKVCache.create(
-            arch.num_layers, batch, self.max_length, arch.num_kv_heads,
-            arch.head_dim, page_size=page_size, num_pages=num_pages,
+            arch.num_layers, batch, self.max_length,
+            arch.num_kv_heads // self.ctx.world, arch.head_dim, page_size=page_size, num_pages=num_pages,
             dtype=self.dtype, device=self.device,
             resident=resolve_kv_resident(kv_resident),
             hbm_budget_bytes=kv_hbm_budget)
@@ -141,15 +139,20 @@ class Qwen3:
             h = h + self.mlp(mode, lw, hn)
         return rms_norm(h, params["final_norm"], arch.rms_eps)
 
-    def _logits_tail(self, mode: str, h: torch.Tensor,
-                     params: dict) -> torch.Tensor:
-        """(B, V) f32 logits of the last position; lm_head is this rank's
+    def _logits_tail(self, mode: str, h: torch.Tensor, params: dict,
+                     last_idx=None) -> torch.Tensor:
+        """(B, V) f32 logits of the last position (or of position
+        ``last_idx``, an int or 0-d tensor); lm_head is this rank's
         vocabulary columns. triton_dist: gather the batch-sharded last
         rows, take the vocab-sharded product, then all-to-all it into this
         rank's rows over the whole vocabulary; xla and triton_dist_AR:
         gather the product along the vocabulary."""
         check_mode(mode)
-        last = h[:, -1]
+        if last_idx is None:
+            last = h[:, -1]
+        else:
+            idx = torch.as_tensor(last_idx, device=h.device).reshape(1)
+            last = h.index_select(1, idx.long())[:, 0]
         n = self.ctx.world
         if n == 1 or mode != "triton_dist":
             return gather_vocab(self.ctx, dot_f32(last, params["lm_head"]))
@@ -163,6 +166,36 @@ class Qwen3:
         # (n, b, V/n) blocks of vocabulary shards -> (b, V)
         return recv.view(n, last.shape[0], -1).transpose(0, 1).reshape(
             last.shape[0], -1)
+
+    def _forward_paged(self, params: dict, cache: PagedKVCache,
+                       input_ids: torch.Tensor, mode: str,
+                       table: torch.Tensor, lengths: torch.Tensor,
+                       active: torch.Tensor | None = None,
+                       continuation: bool = False, emit_logits: bool = True,
+                       last_idx=None) -> torch.Tensor:
+        """The reference's _fwd_per_device_paged: the decoder over the
+        pools of ``cache`` with the rows' ``table`` (B, NP) and pre-advance
+        ``lengths`` (B,), positions per row. active: (B,) or (B, T) bool,
+        False entries write no KV; continuation: T > 1 chunks attend the
+        row's earlier pages too; emit_logits=False (a non-final prefill
+        chunk) skips the head and returns zeros (B, 1)."""
+        t = input_ids.shape[1]
+        positions = lengths[:, None] + torch.arange(t, device=self.device)
+        resident = cache.k_scales is not None
+
+        def attn_call(i, lw, hn):
+            return paged_attn_fwd(
+                mode, self.ctx, self.arch, lw, hn, positions, self.cos_sin,
+                cache.k_pages[i], cache.v_pages[i], table, lengths,
+                cache.page_size, active=active, continuation=continuation,
+                lk_scales=cache.k_scales[i] if resident else None,
+                lv_scales=cache.v_scales[i] if resident else None)
+
+        h = self._decoder_stack(mode, input_ids, params, attn_call)
+        if not emit_logits:
+            return torch.zeros((input_ids.shape[0], 1), dtype=torch.float32,
+                               device=self.device)
+        return self._logits_tail(mode, h, params, last_idx=last_idx)
 
     def _inference_paged(self, params: dict, cache: PagedKVCache,
                          input_ids: torch.Tensor, mode: str,
@@ -182,20 +215,50 @@ class Qwen3:
         grow = t if active is None else torch.where(active, t, 0).to(
             torch.int32)
         cache.allocate(grow, max_tokens=t)
-        lengths = cache.lengths     # pre-advance: advance() follows every use
-        positions = lengths[:, None] + torch.arange(t, device=self.device)
-        resident = cache.k_scales is not None
+        # pre-advance lengths: advance() follows every use
+        logits = self._forward_paged(params, cache, input_ids, mode,
+                                     cache.block_table, cache.lengths,
+                                     active=active)
+        return logits, cache.advance(grow)
 
-        def attn_call(i, lw, hn):
-            return paged_attn_fwd(
-                mode, self.ctx, self.arch, lw, hn, positions, self.cos_sin,
-                cache.k_pages[i], cache.v_pages[i], cache.block_table,
-                lengths, cache.page_size, active=active,
-                lk_scales=cache.k_scales[i] if resident else None,
-                lv_scales=cache.v_scales[i] if resident else None)
+    def prefill_slot(self, params: dict, cache: PagedKVCache, slot,
+                     input_ids: torch.Tensor, valid_len=None,
+                     mode: str = "xla", continuation: bool = False,
+                     emit_logits: bool = True):
+        """Prefill ONE row (``slot``, an int) of a multi-row paged cache
+        without touching the others: the continuous-batching admission.
 
-        h = self._decoder_stack(mode, input_ids, params, attn_call)
-        logits = self._logits_tail(mode, h, params)
+        input_ids: (1, T); valid_len: the real length of a bucket-padded
+        prompt (pad tails write no KV, and the logits are taken at
+        valid_len - 1). continuation=False: the row is empty and
+        attention is within the chunk; continuation=True: the chunk
+        continues the row's sequence (earlier chunks, or adopted prefix
+        pages) and attends its earlier pages too (chunked prefill).
+        emit_logits=False (non-final chunks) skips the head and returns
+        zeros. Returns (logits (1, V), cache) with only ``slot``'s table
+        and length advanced by valid_len."""
+        check_mode(mode)
+        t = input_ids.shape[1]
+        if input_ids.shape[0] != 1:
+            raise ValueError("prefill_slot takes a single (1, T) prompt")
+        if t > self.max_length:
+            raise ValueError(f"chunk {t} exceeds max_length "
+                             f"{self.max_length}")
+        b = cache.lengths.shape[0]
+        dev = self.device
+        vl = t if valid_len is None else int(valid_len)
+        grow = torch.where(torch.arange(b, device=dev) == slot, vl,
+                           0).to(torch.int32)
+        cache.allocate(grow, max_tokens=t)
+        si = torch.tensor([slot], device=dev)
+        table1 = cache.block_table.index_select(0, si)
+        lengths1 = cache.lengths.index_select(0, si)
+        token_mask = torch.arange(t, device=dev)[None] < vl     # (1, T)
+        last = vl - 1 if (valid_len is not None and emit_logits) else None
+        logits = self._forward_paged(
+            params, cache, input_ids, mode, table1, lengths1,
+            active=token_mask, continuation=continuation,
+            emit_logits=emit_logits, last_idx=last)
         return logits, cache.advance(grow)
 
     def _inference_dense(self, params: dict, cache: KVCache,

@@ -4,7 +4,8 @@ Greedy sampling is ``argmax`` with first-index ties, as in the reference.
 Temperature / top-p draws come from the caller's ``torch.Generator``: the
 same filtering as the reference and a Gumbel-max draw like the reference's
 categorical sampler, but not its threefry bits (porting threefry is
-ROADMAP A2).
+ROADMAP A2). ``sample_token_rows`` (the ContinuousEngine's per-request
+streams) is greedy only until then.
 """
 
 from __future__ import annotations
@@ -35,6 +36,14 @@ def sample_token(logits: torch.Tensor,
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+def sample_token_rows(logits: torch.Tensor) -> torch.Tensor:
+    """The ContinuousEngine's per-row tokens from (B, V) logits; returns
+    (B,) int32. Greedy only: argmax with first-index ties. The
+    reference's per-request threefry streams (temperature / top-p) wait
+    for ROADMAP A2, and the engine refuses temperature > 0 until then."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 class Logger:
