@@ -18,8 +18,11 @@ prefill + one decode step, the graph-replayed steps against the eager xla
 steps, and small f32 models (dense and MoE) served on the card against
 the CPU. Then the tensor-parallel kernels: tutorial 01's notify / wait,
 B10 (AllGather + GEMM), B13a (GEMM + ReduceScatter), B4 across ranks
-(GEMM + AllReduce), B5 (one-shot all-reduce) and B6 (recursive
-halving-doubling all-reduce) against their plain versions with four
+(GEMM + AllReduce), B5 (one-shot all-reduce), B6 (recursive
+halving-doubling all-reduce), B9 / B7 (the ring reduce-scatter and
+all-gather) and B14 / B15 across ranks (the MoE token all-gather + gate/up
+grouped GEMM, the down grouped GEMM + top-k combine + reduce-scatter, at
+Qwen3-30B-A3B's TP=4 shapes) against their plain versions with four
 logical ranks on one card (the one-card world); and, when four cards are
 present, Qwen3-32B (published widths, all 64 layers, bf16) served at TP=4
 by four rank processes from one weight draw (prefill in xla, every decode
@@ -27,9 +30,14 @@ step one graph replay): in triton_dist (128 B10 and 128 B13a per replay),
 through ``Engine(model, params)`` at its defaults (the mega step: 128 B4,
 64 B3, 64 B1 per replay) and in triton_dist_AR under ONE_SHOT (128 B5)
 and RHD (128 B6); the f32 4-layer gate across every TP=4 path and world
-1; and B10 / B13a / B4 / B5 / B6 timed on each card. With fewer than four
-cards those phases print that they did not run. Named phases run alone
-(see ``main``). One JSON line per phase; the line before the last lists
+1; B10 / B13a / B4 / B5 / B6 timed on each card; then Qwen3-30B-A3B
+(published widths, all 48 layers, bf16, ~15.3 GB per card) served at
+TP=4 in triton_dist (48 B14 and 48 B15 across ranks per replay) and at
+the Engine's defaults (the mega step, its moe task with NCCL's f32
+all-reduce), B14 / B15 timed on each card, and its f32 4-layer gate
+(tokens identical across both TP=4 paths, the eager xla step and world
+1). With fewer than four cards those phases print that they did not
+run. Named phases run alone (see ``main``). One JSON line per phase; the line before the last lists
 every kernel with its times and bound; the last line is the device
 record. Any failed check exits non-zero. Imports nothing of JAX. Needs
 one card; without one it exits non-zero and prints no result.
@@ -550,9 +558,9 @@ def _randn_bf16(torch, g, shape, scale):
     return out
 
 
-def _grouped_mm_ms(torch, mu, lhs_flat, ids, w, num_experts):
-    """library_ms of one torch._grouped_mm over the expert-sorted rows, or
-    (None, why) where this torch has none that takes these inputs."""
+def _grouped_mm_fn(torch, mu, lhs_flat, ids, w, num_experts):
+    """(one torch._grouped_mm over the expert-sorted rows, how), or (None,
+    why) where this torch has none that takes these inputs."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
         return None, "torch._grouped_mm missing"
@@ -566,10 +574,17 @@ def _grouped_mm_ms(torch, mu, lhs_flat, ids, w, num_experts):
         try:
             fn(lhs, wb, offs=offs)
             torch.cuda.synchronize()
-            return graph_time_ms(lambda: fn(lhs, wb, offs=offs)), label
+            return (lambda: fn(lhs, wb, offs=offs)), label
         except Exception as exc:  # noqa: BLE001 - recorded, not hidden
             why.append(f"{label}: {str(exc).splitlines()[0][:160]}")
     return None, "; ".join(why)
+
+
+def _grouped_mm_ms(torch, mu, lhs_flat, ids, w, num_experts):
+    """library_ms of one torch._grouped_mm over the expert-sorted rows, or
+    (None, why) where this torch has none that takes these inputs."""
+    fn, how = _grouped_mm_fn(torch, mu, lhs_flat, ids, w, num_experts)
+    return (None if fn is None else graph_time_ms(fn)), how
 
 
 def phase_b14_b15(torch, agg, mrs, mu, plain):
@@ -1711,10 +1726,11 @@ NVLINK_BW = 450e9         # H100 NVLink bytes/s each way (data sheet)
 SLEEP_CYCLES = 300_000_000  # ~0.15 s at the H100's clock: holds the stream
 TP_MODEL = "Qwen/Qwen3-32B"
 FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
-                    "tp4_continuous_consistency")
+                    "tp4_continuous_consistency", "tp4_moe",
+                    "tp4_moe_consistency")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
-                      "b9_ring_rs", "b7_ring_ag", "two_shot")
+                      "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -2166,6 +2182,196 @@ def phase_ring(torch, symm, rsm, agm, arm, kind, calls: int = 20):
     rec["library_ms_call"] = ("[torch.stack(xs).sum(0).chunk(4)]"
                               if kind == "ring_rs" else "torch.cat(xs)")
     return rec
+
+
+MOE_TP_DIMS = (2048, 128, 768 // 4, 8)   # d, experts, I/n, top-k at TP=4
+
+
+def _moe_tp_case(torch, mu, plain, g, m_loc, dt, w_gu, w_dn):
+    """One decode routing of Qwen3-30B-A3B at TP=4 (m_loc tokens per rank,
+    a random router): every rank's token shard, the whole routing and its
+    n-chunk schedule, every rank's B15 input rows (random, the silu * up
+    rows of B14's output), each rank's weight shards in ``dt``."""
+    d, e, il, topk = MOE_TP_DIMS
+    x, ids, w = _moe_routing(torch, mu, plain, g, TP * m_loc, d, e, topk)
+    bm = min(128, max(8, m_loc * topk))
+    sched = mu.aligned_chunk_schedule(ids, TP, e, bm)
+    inter = [torch.randn((TP * m_loc * topk, il), generator=g,
+                         device=DEV).to(dt) for _ in range(TP)]
+    return {"tok": [t.to(dt) for t in x.chunk(TP)], "ids": ids, "w": w,
+            "sched": sched, "inter": inter, "bm": bm, "m_loc": m_loc,
+            "w_gu": [t.to(dt) for t in w_gu], "w_dn": [t.to(dt) for t in w_dn],
+            "live": int(torch.unique(ids).numel())}
+
+
+def _moe_tp_bytes(c, kind):
+    """(HBM bytes of one rank's call, NVLink bytes it sends, FLOPs) of B14
+    ("b14") or B15 ("b15") on case c: the live experts' weight slabs read
+    once, the rows in and out once."""
+    d, _, il, topk = MOE_TP_DIMS
+    es = c["tok"][0].element_size()
+    m, rows = c["m_loc"], TP * c["m_loc"] * topk
+    if kind == "b14":
+        return ((c["live"] * d * 2 * il + m * d + TP * m * d
+                 + rows * 2 * il) * es, (TP - 1) * m * d * es,
+                2.0 * rows * d * 2 * il)
+    return ((c["live"] * il * d + rows * il + m * d) * es + rows * 8,
+            (TP - 1) * m * d * 4, 2.0 * rows * il * d + 2.0 * rows * d)
+
+
+def phase_b14_b15_tp(torch, symm, agg, mrs, mu, plain, calls: int = 5):
+    """B14 and B15 across ranks in the one-card world (four logical ranks
+    of one card, each its stream and symmetric buffers) at Qwen3-30B-A3B's
+    TP=4 shapes: d 2048, 128 experts, I/4 = 192, top-8, each rank's one
+    layer of random expert shards (gate/up (128, 2048, 384), down (128,
+    192, 2048)), decode routing from a random router at 4 and 16 tokens
+    per rank (B=16 and 64), bf16 and f32. B14's output against its plain
+    version (the shards concatenated, the world-1 plain version per chunk:
+    cuBLAS) and B15's against its plain version (each rank's chunk
+    partials, the fold in ascending sender) within 1e-2 x max|ref| in bf16
+    and 1e-4 in f32 (the world-1 tolerances: one rounding of the output,
+    another f32 summation order); B14's gathered tokens exact and its rows
+    BITWISE the world-1 kernel's on each chunk; then `calls` layer-shaped
+    calls (B14 then B15 on every rank) whose outputs must repeat the
+    first's bits. Timed at 4 tokens per rank in bf16: the four ranks'
+    calls together (queued_ms) against the plain versions (eager: they
+    read used_tiles on the host) and the library yardstick, one
+    torch._grouped_mm per rank over the gathered, expert-sorted rows (B15:
+    then torch.stack(...).sum(0)); the bound counts the four ranks' HBM
+    bytes (each rank's live experts' slabs once) at HBM speed."""
+    world = symm.OneCardWorld(TP)
+    d, e, il, topk = MOE_TP_DIMS
+    g = torch.Generator(device=DEV).manual_seed(61)
+    w_gu = [_randn_bf16(torch, g, (e, d, 2 * il), d ** -0.5)
+            for _ in range(TP)]
+    w_dn = [_randn_bf16(torch, g, (e, il, d), il ** -0.5)
+            for _ in range(TP)]
+    rows14, rows15, timed = [], [], {"b14": {}, "b15": {}}
+
+    def b14(c):
+        return world.run(lambda r: agg.pallas_ag_group_gemm(
+            world.mesh(r), c["tok"][r], c["w_gu"][r], c["sched"], topk, 4))
+
+    def b15(c):
+        return world.run(lambda r: mrs.pallas_moe_reduce_rs(
+            world.mesh(r), c["inter"][r], c["w_dn"][r], c["ids"], c["w"],
+            c["sched"]))
+
+    def plain14(c):
+        ag = torch.cat(c["tok"])
+        return [agg.ag_group_gemm_ref_chunks(ag, c["w_gu"][r], c["sched"],
+                                             topk) for r in range(TP)]
+
+    def plain15(c):
+        return mrs.moe_reduce_rs_ref_shards(c["inter"], c["w_dn"], c["ids"],
+                                            c["w"], c["sched"])
+
+    for m_loc in (4, 16):
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"m{m_loc}_{str(dt).split('.')[-1]}"
+            tol = _tp_tol(torch, dt)
+            c = _moe_tp_case(torch, mu, plain, g, m_loc, dt, w_gu, w_dn)
+            out14, out15 = b14(c), b15(c)
+            torch.cuda.synchronize()
+            ref14, ref15 = plain14(c), plain15(c)
+            ag = torch.cat(c["tok"])
+            nf = m_loc * topk
+            for r in range(TP):
+                row = _held(torch, f"{tag}/rank{r}", out14[r][0], ref14[r],
+                            tol)
+                row["gathered_exact"] = bool(torch.equal(out14[r][1], ag))
+                w1 = torch.cat([agg.group_gemm(
+                    c["tok"][ch], c["w_gu"][r], agg.chunk_of(c["sched"], ch),
+                    topk) for ch in range(TP)])
+                row["world1_kernel_bitwise"] = bool(torch.equal(
+                    out14[r][0], w1))
+                row["ok"] = (row["ok"] and row["gathered_exact"]
+                             and row["world1_kernel_bitwise"])
+                rows14.append(row)
+                rows15.append(_held(torch, f"{tag}/rank{r}", out15[r],
+                                    ref15[r], tol))
+            # layer-shaped repeats: B14 then B15 on every rank, the same bits
+            same = []
+            for _ in range(calls):
+                again = world.run(lambda r: (
+                    agg.pallas_ag_group_gemm(world.mesh(r), c["tok"][r],
+                                             c["w_gu"][r], c["sched"], topk,
+                                             4)[0],
+                    mrs.pallas_moe_reduce_rs(world.mesh(r), c["inter"][r],
+                                             c["w_dn"][r], c["ids"], c["w"],
+                                             c["sched"])))
+                torch.cuda.synchronize()
+                same.append(all(torch.equal(again[r][0], out14[r][0])
+                                and torch.equal(again[r][1], out15[r])
+                                for r in range(TP)))
+            rows14[-1]["repeats_bitwise"] = rows15[-1]["repeats_bitwise"] = \
+                same
+            rows14[-1]["ok"] = rows14[-1]["ok"] and all(same)
+            rows15[-1]["ok"] = rows15[-1]["ok"] and all(same)
+            if m_loc != 4 or dt != torch.bfloat16:
+                continue
+            for key, run, ref, lib_parts in (
+                    ("b14", lambda: b14(c), lambda: plain14(c),
+                     [_grouped_mm_fn(torch, mu, ag[torch.arange(
+                         TP * nf, device=DEV) // topk], c["ids"],
+                         c["w_gu"][r], e) for r in range(TP)]),
+                    ("b15", lambda: b15(c), lambda: plain15(c),
+                     [_grouped_mm_fn(torch, mu, c["inter"][r], c["ids"],
+                                     c["w_dn"][r], e) for r in range(TP)])):
+                hbm, _, flops = _moe_tp_bytes(c, key)
+                bms, by = bound_ms(TP * hbm, TP * flops)
+                ms, host_s, ahead = queued_ms(torch, run)
+                lib_fns = [f for f, _ in lib_parts]
+                lib_ms = None
+                if all(f is not None for f in lib_fns):
+                    if key == "b14":
+                        lib_ms = graph_time_ms(lambda: [f() for f in lib_fns])
+                    else:
+                        lib_ms = graph_time_ms(lambda: torch.stack(
+                            [f() for f in lib_fns]).sum(0))
+                # the world-1 kernel on one chunk, four times (a rank's
+                # share of the work), for scale
+                s1 = mu.aligned_chunk_schedule(c["ids"][:m_loc], 1, e,
+                                               c["bm"])
+                w1_ms = graph_time_ms(lambda: [
+                    agg.group_gemm(c["tok"][0], c["w_gu"][0],
+                                   agg.chunk_of(c["sched"], 0), topk)
+                    if key == "b14" else mrs.moe_rs(
+                        c["inter"][0][:nf], c["w_dn"][0], c["ids"][:m_loc],
+                        c["w"][:m_loc], s1)
+                    for _ in range(TP)])
+                timed[key]["decode_m4"] = {
+                    "world1_kernel_4_chunks_ms": w1_ms,
+                    "ms": ms, "plain_ms": time_ms(ref, iters=3, warmup=1),
+                    "library_ms": lib_ms, "library_how": lib_parts[0][1],
+                    "bound_ms": bms, "bound_by": by, "bytes": TP * hbm,
+                    "live_experts": c["live"], "bm": c["bm"],
+                    "tiles": int(c["sched"].tile_expert.shape[1]),
+                    "live_tiles": c["sched"].used_tiles.tolist(),
+                    "host_enqueue_s": host_s, "queued_ahead": ahead,
+                    "max_abs_err": max(x["max_abs_err"] for x in (
+                        rows14 if key == "b14" else rows15)
+                        if x["case"].startswith(tag))}
+    emit({"phase": "b14_b15_tp", "world": "one card, 4 logical ranks",
+          "b14_cases": rows14, "b15_cases": rows15, "timed": timed})
+    bad = [x for x in rows14 + rows15 if not x["ok"]]
+    if bad:
+        fail(f"B14/B15 across ranks disagree with their plain versions, "
+             f"the world-1 kernel or their own repeats: {bad}")
+    recs = []
+    for key, name, rep, call in (
+            ("b14", "pallas_ag_group_gemm",
+             "triton_dist_tpu/kernels/allgather_group_gemm.py:146",
+             "4 x torch._grouped_mm over the gathered expert-sorted rows"),
+            ("b15", "pallas_moe_reduce_rs",
+             "triton_dist_tpu/kernels/moe_reduce_rs.py:130",
+             "4 x torch._grouped_mm over the expert-sorted rows, "
+             "torch.stack(...).sum(0)")):
+        rec = _tp_kernel_record(name, "moe_group_gemm.cu", rep, timed[key],
+                                "one card, 4 logical ranks")
+        rec["library_ms_call"] = call
+        recs.append(rec)
+    return recs
 
 
 def _tp_kernel_record(name, source, replaces, timed, world):
@@ -2678,6 +2884,231 @@ def _tp4_consistency(torch, dist, mesh, models, tmp, gen: int = 16):
                                 for k, v in toks.items()}}
 
 
+def _tp4_moe_kernels(torch, dist, mesh, calls: int = 5):
+    """On each of the four cards: B14 and B15 across ranks at
+    Qwen3-30B-A3B's TP=4 decode shapes (4 tokens per rank, B=16, bf16;
+    the same random routing on every rank, each rank its own tokens, B15
+    rows and one layer's random expert shards) against their plain
+    versions (NCCL all-gather + the world-1 plain version per chunk; each
+    chunk's f32 partial + NCCL all_to_all_single + the fold in ascending
+    sender) within 1e-2 x max|ref|, B14's rows BITWISE the world-1
+    kernel's on the gathered chunks, `calls` repeats the same bits; device
+    ms per call (queued_ms; the plain versions eagerly, they read the
+    schedule on the host) and the library yardstick: NCCL
+    all_gather_into_tensor + one torch._grouped_mm over the gathered,
+    expert-sorted rows (B14), torch._grouped_mm + NCCL reduce_scatter_tensor
+    of the (M, d) f32 rows (B15, its top-k combine left out)."""
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+    from triton_dist_tpu_torch.kernels import plain
+    d, e, il, topk = MOE_TP_DIMS
+    dev, m = mesh.device, 4
+    g = torch.Generator(device=dev).manual_seed(71)   # the same routing
+    xr = torch.randn((TP * m, d), generator=g, device=dev)
+    wr = torch.randn((d, e), generator=g, device=dev) * d ** -0.5
+    w, ids = mu.route_topk(plain.dot_f32(xr, wr), topk)
+    bm = min(128, max(8, m * topk))
+    sched = mu.aligned_chunk_schedule(ids, TP, e, bm)
+    g = torch.Generator(device=dev).manual_seed(72 + mesh.rank)
+    tok = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+    inter = torch.randn((TP * m * topk, il), generator=g, device=dev).to(
+        torch.bfloat16)
+    w_gu = (torch.randn((e, d, 2 * il), generator=g, device=dev)
+            * d ** -0.5).to(torch.bfloat16)
+    w_dn = (torch.randn((e, il, d), generator=g, device=dev)
+            * il ** -0.5).to(torch.bfloat16)
+    c = {"tok": [tok], "m_loc": m, "live": int(torch.unique(ids).numel())}
+
+    def b14():
+        return agg.pallas_ag_group_gemm(mesh, tok, w_gu, sched, topk, 4)
+
+    def b15():
+        return mrs.pallas_moe_reduce_rs(mesh, inter, w_dn, ids, w, sched)
+
+    out14, ag = b14()
+    out15 = b15()
+    ref14, ref_ag = agg.ag_group_gemm_ref(mesh, tok, w_gu, sched, topk)
+    ref15 = mrs.moe_reduce_rs_tp_ref(mesh, inter, w_dn, ids, w, sched)
+    torch.cuda.synchronize()
+    w1 = torch.cat([agg.group_gemm(ag[ch * m:(ch + 1) * m], w_gu,
+                                   agg.chunk_of(sched, ch), topk)
+                    for ch in range(TP)])
+    same = []
+    for _ in range(calls):
+        a14, _ = b14()
+        a15 = b15()
+        torch.cuda.synchronize()
+        same.append(bool(torch.equal(a14, out14) and torch.equal(a15, out15)))
+    held = {"b14": _held(torch, "b14_m4", out14, ref14, 1e-2),
+            "b15": _held(torch, "b15_m4", out15, ref15, 1e-2)}
+    held["b14"]["gathered_exact"] = bool(torch.equal(ag, ref_ag))
+    held["b14"]["world1_kernel_bitwise"] = bool(torch.equal(out14, w1))
+    for h in held.values():
+        h["repeats_bitwise"] = same
+        h["ok"] = (h["ok"] and all(same) and h.get("gathered_exact", True)
+                   and h.get("world1_kernel_bitwise", True))
+
+    st = mu.sort_by_expert(ids, e)
+    offs = torch.cumsum(st.group_sizes, 0).to(torch.int32)
+    flat_tok = torch.arange(TP * m * topk, device=dev) // topk
+    gmm = getattr(torch, "_grouped_mm", None)
+
+    def lib14():
+        full = tok.new_empty((TP * m, d))
+        dist.all_gather_into_tensor(full, tok, group=mesh.group)
+        return gmm(full[flat_tok[st.sort_idx.long()]], w_gu, offs=offs)
+
+    def lib15():
+        y = gmm(inter[st.sort_idx.long()], w_dn, offs=offs)
+        rows = torch.zeros((TP * m, d), dtype=torch.float32, device=dev)
+        rows.index_add_(0, st.token_idx.long(), y.float())
+        part = rows.new_empty((m, d))
+        dist.reduce_scatter_tensor(part, rows, group=mesh.group)
+        return part
+
+    out = {}
+    for key, run, ref, lib in (("b14", b14, lambda: agg.ag_group_gemm_ref(
+            mesh, tok, w_gu, sched, topk), lib14),
+            ("b15", b15, lambda: mrs.moe_reduce_rs_tp_ref(
+                mesh, inter, w_dn, ids, w, sched), lib15)):
+        dist.barrier()
+        ms, host_s, ahead = queued_ms(torch, run)
+        dist.barrier()
+        plain_ms = time_ms(ref, iters=3, warmup=1)
+        dist.barrier()
+        lib_ms, note = None, None
+        try:
+            if gmm is None:
+                raise RuntimeError("torch._grouped_mm missing")
+            lib()
+            torch.cuda.synchronize()
+            dist.barrier()
+            lib_ms = queued_ms(torch, lib)[0]
+        except Exception as exc:     # the yardstick only; not the port
+            note = f"{type(exc).__name__}: {str(exc)[:200]}"
+        dist.barrier()
+        hbm, link, flops = _moe_tp_bytes(c, key)
+        bms, by = tp_bound_ms(hbm, link, flops)
+        out[key] = {**held[key], "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library_note": note,
+                    "bound_ms": bms, "bound_by": by, "hbm_bytes": hbm,
+                    "nvlink_bytes": link, "live_experts": c["live"],
+                    "host_enqueue_s": host_s, "queued_ahead": ahead}
+    return out
+
+
+def _tp4_moe(torch, dist, mesh, models, kern, gen: int = 32):
+    """Qwen3-30B-A3B at its published widths (hidden 2048, 48 layers, 32 q
+    / 4 kv heads, 128 experts, top-8, expert width 768: 192 per rank),
+    bf16, random weights from seed 0 (this rank's shard of the world-1
+    draw, about 15.3 GB), max_length 1024, served at TP=4 on B=16 prompts
+    of 512 tokens, 32 tokens each, prefill in xla (the experts per expert,
+    then NCCL's all-reduce), each decode step one CUDA-graph replay:
+    (a) backend triton_dist with B10 / B13a on the attention projections
+    and the MoE AUTO rule (B14 and B15 across ranks), each rank its 4 rows;
+    (b) Engine(model, params) at its defaults (the mega step: B1 at T=1,
+    B4 across ranks on the o projection, B3; the moe task's xla tier with
+    NCCL's f32 all-reduce). Each measured by _tp4_measure, both profiled;
+    then B14 / B15 timed on the card (_tp4_moe_kernels)."""
+    arch = models.QWEN3_ARCHS[MOE_MODEL]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(0), arch,
+        mesh.device, torch.bfloat16, rank=mesh.rank, world=mesh.world)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      [*(v for k, v in params.items() if k != "layers"),
+                       *params["layers"].values()])
+    ids = _tp_prompt(torch, arch.vocab_size, 16, 512, 4).to(mesh.device)
+
+    def model_of(**kw):
+        return models.Qwen3MoE(arch, _tp_ctx(mesh, **kw), max_length=1024,
+                               dtype=torch.bfloat16)
+
+    rec = {"model": MOE_MODEL, "layers": arch.num_layers, "tp": mesh.world,
+           "batch": 16, "prompt": 512, "gen_len": gen, "dtype": "bf16",
+           "param_bytes_per_card": param_bytes, "init_s": init_s,
+           "init_peak_bytes": init_peak, "paths": {}}
+    toks = {}
+    for label, kw, engine_kw in (
+            ("triton_dist", _TD_PALLAS, {"backend": "triton_dist"}),
+            ("mega_default", {}, {})):
+        torch.cuda.empty_cache()
+        engine = models.Engine(model_of(**kw), params, **engine_kw)
+        r, toks[label] = _tp4_measure(torch, dist, kern, engine, ids, gen,
+                                      True)
+        r["mega_tier"] = engine.mega_tier
+        rec["paths"][label] = r
+        del engine
+    rec["tokens_agree_triton_dist_vs_mega"] = (
+        toks["triton_dist"] == toks["mega_default"]).float().mean().item()
+    del params
+    torch.cuda.empty_cache()
+    rec["kernels"] = _tp4_moe_kernels(torch, dist, mesh)
+    return rec
+
+
+def _tp4_moe_gate_arch(models):
+    import dataclasses
+    return dataclasses.replace(models.QWEN3_ARCHS[MOE_MODEL], num_layers=4)
+
+
+def _eager_greedy(torch, model, params, ids, gen):
+    """Greedy tokens of the eager xla step (Qwen3MoE.inference, no graph,
+    no mega) after an xla prefill."""
+    cache = model.create_kv_cache(ids.shape[0])
+    logits, cache = model.inference(params, cache, ids)
+    tok = logits.argmax(-1).to(torch.int32)
+    out = [tok]
+    for _ in range(gen - 1):
+        logits, cache = model.inference(params, cache, tok[:, None].long())
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def _tp4_moe_consistency(torch, dist, mesh, models, tmp, gen: int = 8):
+    """The f32 gate of tp4_moe: Qwen3-30B-A3B's widths cut to 4 layers,
+    f32 weights from seed 7 (this rank's shard of the world-1 draw); B=16
+    prompts of 64 tokens, 8 greedy tokens through (a) triton_dist (B14,
+    B15 across ranks; B10, B13a), (b) the Engine's defaults (the mega
+    step) and (c) the eager xla step; rank 0 keeps them for the parent,
+    which serves world 1 on card 0 from the same seed."""
+    arch = _tp4_moe_gate_arch(models)
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(7), arch,
+        mesh.device, torch.float32, rank=mesh.rank, world=mesh.world)
+    ids = _tp_prompt(torch, arch.vocab_size, 16, 64, 5)[:, :64].to(
+        mesh.device)
+
+    def model_of(**kw):
+        return models.Qwen3MoE(arch, _tp_ctx(mesh, **kw), max_length=128,
+                               dtype=torch.float32)
+
+    toks, ran = {}, {}
+    for label, kw, engine_kw in (
+            ("td", _TD_PALLAS, {"backend": "triton_dist"}),
+            ("mega_default", {}, {})):
+        engine = models.Engine(model_of(**kw), params, **engine_kw)
+        toks[label] = engine.serve(ids, gen).cpu()
+        ran[label] = {k: v for k, v in engine.graph_launches.items() if v}
+        del engine
+        torch.cuda.empty_cache()
+    toks["eager_xla"] = _eager_greedy(torch, model_of(), params, ids,
+                                      gen).cpu()
+    if mesh.rank == 0:
+        torch.save(toks, os.path.join(tmp, "tp4_moe_f32.pt"))
+    del params
+    torch.cuda.empty_cache()
+    return {"launches_per_replay": ran,
+            "tokens_equal_td": {k: bool(torch.equal(v, toks["td"]))
+                                for k, v in toks.items()}}
+
+
 def _tp4_rank(rank, port, phases, tmp, queue):
     """One rank process of the four-card phases (rank r on cuda:r)."""
     import traceback
@@ -2729,6 +3160,13 @@ def _tp4_rank(rank, port, phases, tmp, queue):
             res["continuous_consistency"] = _tp4_continuous_consistency(
                 torch, dist, mesh, models, tmp)
             lap("tp4_continuous_consistency")
+        if "tp4_moe" in phases:
+            res["moe"] = _tp4_moe(torch, dist, mesh, models, kern)
+            lap("tp4_moe")
+        if "tp4_moe_consistency" in phases:
+            res["moe_consistency"] = _tp4_moe_consistency(
+                torch, dist, mesh, models, tmp)
+            lap("tp4_moe_consistency")
         dist.barrier()
         queue.put((rank, "ok", res))
         if "tp4_serve" in phases:
@@ -2740,6 +3178,86 @@ def _tp4_rank(rank, port, phases, tmp, queue):
         dist.destroy_process_group()
     except BaseException:
         queue.put((rank, "error", traceback.format_exc()))
+
+
+def _tp4_moe_rows(torch, models, results, extra):
+    """The parent's side of tp4_moe: each path's record (launches per
+    replay, replays and tokens checked on every rank), and the kernel rows
+    of B14 and B15 across ranks from the four cards' timings (slowest
+    rank), their launches those of the triton_dist serve."""
+    moe = [results[r]["moe"] for r in range(TP)]
+    L = models.QWEN3_ARCHS[MOE_MODEL].num_layers
+    wants = {"triton_dist": {"pallas_ag_gemm": L, "pallas_gemm_rs": L,
+                             "pallas_ag_group_gemm": L,
+                             "pallas_moe_reduce_rs": L},
+             "mega_default": {"pallas_gemm_ar": L, "fused_add_rms": L}}
+    head = {k: v for k, v in moe[0].items() if k not in ("paths",
+                                                         "kernels")}
+    for label, want_kw in wants.items():
+        per = [x["paths"][label] for x in moe]
+        r = {**head, **per[0], "phase": f"tp4_moe_{label}"}
+        r["peak_gb_per_card"] = [x["peak_bytes"] / 1e9 for x in per]
+        r["init_peak_gb_per_card"] = [x["init_peak_bytes"] / 1e9
+                                      for x in moe]
+        r["decode_ms_per_step_per_rank"] = [x["decode_ms_per_step"]
+                                            for x in per]
+        differs = [x["own_token_differs"] for x in per]
+        r.pop("own_token_differs")
+        r["own_token_differs_per_rank"] = (
+            None if differs[0] is None else [sum(d) for d in differs])
+        r["tokens_own_argmax_disagreed"] = (
+            None if differs[0] is None
+            else sum(any(col) for col in zip(*differs)))
+        want = _only(r["launches_per_replay"], flash_prefill=L, **want_kw)
+        emit(r)
+        bad = []
+        if any(x["launches_per_replay"] != want for x in per):
+            bad.append(f"{r['launches_per_replay']} per replay, want {want}")
+        if any(x["graph_replays"] != r["gen_len"] - 1 for x in per):
+            bad.append(f"{r['graph_replays']} replays")
+        if any(x["eager_launches"] != _only(x["eager_launches"],
+                                            flash_prefill=L) for x in per):
+            bad.append(f"eager launches {r['eager_launches']}")
+        if not all(x["tokens_same_on_every_rank"] for x in per) or \
+                r["tokens_shape"] != [16, r["gen_len"]]:
+            bad.append("ranks returned different tokens")
+        if label == "mega_default" and r["mega_tier"] != "pallas_chain":
+            bad.append(f"mega tier {r['mega_tier']}")
+        if bad:
+            fail(f"TP=4 MoE {label}: " + "; ".join(bad))
+        extra[f"tp4_moe_{label}"] = r["launches"]
+    rows = {}
+    for key, name, rep, call in (
+            ("b14", "pallas_ag_group_gemm",
+             "triton_dist_tpu/kernels/allgather_group_gemm.py:146",
+             "NCCL all_gather_into_tensor + torch._grouped_mm over the "
+             "gathered expert-sorted rows"),
+            ("b15", "pallas_moe_reduce_rs",
+             "triton_dist_tpu/kernels/moe_reduce_rs.py:130",
+             "torch._grouped_mm + index_add_ of the rows + NCCL "
+             "reduce_scatter_tensor (f32)")):
+        rws = [x["kernels"][key] for x in moe]
+        if not all(x["ok"] for x in rws):
+            fail(f"{name} on four cards disagrees with its plain version, "
+                 f"the world-1 kernel or its repeats: {rws}")
+        t = {k: max(x[k] for x in rws)
+             for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+        t["library_ms"] = (max(x["library_ms"] for x in rws)
+                           if x_all_num(rws, "library_ms") else None)
+        t["library_note"] = next((x["library_note"] for x in rws
+                                  if x["library_note"]), None)
+        t["bound_by"] = rws[0]["bound_by"]
+        t["per_rank_ms"] = [x["ms"] for x in rws]
+        t["live_experts"] = rws[0]["live_experts"]
+        row = _tp_kernel_record(name, "moe_group_gemm.cu", rep,
+                                {"decode_m4": t}, "4 cards, TP=4")
+        row["launches_by_path"] = {"tp4_moe_triton_dist": moe[0]["paths"][
+            "triton_dist"]["launches"][name]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        row["library_ms_call"] = call
+        emit({"phase": f"tp4_moe_{name}", "per_rank": rws})
+        rows[name] = row
+    return rows
 
 
 def _world1_logits_and_tokens(torch, models, tmp):
@@ -2770,6 +3288,18 @@ def _world1_logits_and_tokens(torch, models, tmp):
         ids = _tp_prompt(torch, arch.vocab_size, 16, 64, 2)[:, :64].to(DEV)
         res["f32"] = models.Engine(model, params, mega="off").serve(
             ids, 16).cpu()
+        del params, model
+        torch.cuda.empty_cache()
+    if os.path.exists(os.path.join(tmp, "tp4_moe_f32.pt")):
+        arch = _tp4_moe_gate_arch(models)
+        model = models.Qwen3MoE(arch, max_length=128, dtype=torch.float32,
+                                device=DEV)
+        params = models.init_random_params(
+            torch.Generator(device=DEV).manual_seed(7), arch, DEV,
+            torch.float32)
+        ids = _tp_prompt(torch, arch.vocab_size, 16, 64, 5)[:, :64].to(DEV)
+        res["moe_f32"] = models.Engine(model, params, mega="off").serve(
+            ids, 8).cpu()
         del params, model
         torch.cuda.empty_cache()
     if os.path.exists(os.path.join(tmp, "tp4_f32_continuous.pt")):
@@ -3006,6 +3536,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                    and x["launches_unchanged"] for x in two):
             fail(f"TWO_SHOT on a 2-row chunk did not raise before any "
                  f"launch: {two}")
+    if "tp4_moe" in phases:
+        rows.update(_tp4_moe_rows(torch, models, results, extra))
     t_w1 = time.time()
     w1 = _world1_logits_and_tokens(torch, models, tmp)
     rank0 = dict(results[0]["seconds"])
@@ -3044,6 +3576,24 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
               "identical": same, "ok": all(same.values())})
         if not all(same.values()):
             fail(f"TP=4 continuous f32 gate: greedy tokens differ: {same}")
+    if "tp4_moe_consistency" in phases:
+        saved = torch.load(os.path.join(tmp, "tp4_moe_f32.pt"))
+        ran = [results[r]["moe_consistency"]["launches_per_replay"]["td"]
+               for r in range(TP)]
+        same = {f"{k}_vs_world1": bool(torch.equal(v, w1["moe_f32"]))
+                for k, v in saved.items()}
+        kernels_ran = all(x.get("pallas_ag_group_gemm") == 4
+                          and x.get("pallas_moe_reduce_rs") == 4
+                          for x in ran)
+        emit({"phase": "tp4_moe_consistency", "model": MOE_MODEL,
+              "layers": 4, "dtype": "f32", "batch": 16, "prompt": 64,
+              "gen_len": 8, "identical": same,
+              "td_launches_per_replay": ran,
+              "tokens": {k: v.tolist() for k, v in saved.items()},
+              "ok": all(same.values()) and kernels_ran})
+        if not all(same.values()) or not kernels_ran:
+            fail(f"TP=4 MoE f32 gate: greedy tokens differ ({same}) or "
+                 f"B14/B15 did not run in the triton_dist step ({ran})")
     if "tp4_consistency" in phases:
         saved = torch.load(os.path.join(tmp, "tp4_f32.pt"))
         same = {f"{label}_vs_world1": bool(torch.equal(saved[label],
@@ -3159,9 +3709,10 @@ def main() -> None:
     phases run alone (after the build): "paged_graph", "continuous" (one
     card, Qwen3-8B), "earlier" (the earlier slices' phases),
     "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs", "b4_gemm_ar_tp",
-    "b5_one_shot", "b6_rhd", "b9_ring_rs", "b7_ring_ag", "two_shot" (the
-    one-card world), "tp4_serve", "tp4_consistency", "tp4_continuous",
-    "tp4_continuous_consistency" (four cards)."""
+    "b5_one_shot", "b6_rhd", "b9_ring_rs", "b7_ring_ag", "two_shot",
+    "b14_b15_tp" (the one-card world), "tp4_serve", "tp4_consistency",
+    "tp4_continuous", "tp4_continuous_consistency", "tp4_moe",
+    "tp4_moe_consistency" (four cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -3252,6 +3803,10 @@ def main() -> None:
             rec = phase_ring(torch, symm, ring_rs, ring_ag, arm, kind)
             if rec is not None:
                 tp_rows[rec["name"]] = rec
+    if "b14_b15_tp" in phases:
+        for rec in phase_b14_b15_tp(torch, symm, agg, mrs, mu, plain):
+            tp_rows[rec["name"]] = rec
+        torch.cuda.empty_cache()
     four = [p for p in phases if p in FOUR_CARD_PHASES]
     n_cards = torch.cuda.device_count()
     if four and n_cards < TP:

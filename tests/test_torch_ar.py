@@ -302,13 +302,15 @@ def test_world4_schedule_matches_jax(policy):
 
 
 def test_what_waits_raises(ar):
-    """gemm_ar XLA_RING names A9, the int8 wires A13, the MoE mega task
-    at n > 1 A10; RHD refuses an M the world does not divide and a world
-    that is no power of two; AUTO is resolved above the per-device level;
+    """gemm_ar XLA_RING names A9, the int8 wires A13; the MoE mega task
+    builds at n > 1 (one per layer); RHD refuses an M the world does not
+    divide and a world that is no power of two; AUTO is resolved above
+    the per-device level;
     the paged Engine at world 4 serves the dense Engine's greedy tokens
     (TWO_SHOT and the paged cache at n > 1 are held to the JAX package in
     tests/test_torch_continuous_tp.py)."""
     for r, c in enumerate(ar["checks"]):
-        for key in ("rhd_refusals", "waits_raise", "moe_task_raises_a10",
+        for key in ("rhd_refusals", "waits_raise",
+                    "moe_task_builds_at_world_n",
                     "paged_serves_at_world_n"):
             assert c[key] is True, (r, key)

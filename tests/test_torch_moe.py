@@ -419,8 +419,9 @@ def test_mlp_hook_leaves_dense_tokens_unchanged():
 
 
 def test_auto_rules_and_unported_options_raise(monkeypatch):
-    """The port's MoE AUTO rule at world 1 (kernels on CUDA, plain on the
-    CPU, B15 only up to 1024 tokens), and what waits for ROADMAP A9/A10."""
+    """The port's MoE AUTO rule (kernels on CUDA, plain on the CPU, B15
+    only up to 1024 tokens a chunk), what waits for ROADMAP A9 / A10's EP
+    half, and what world n > 1 needs (its mesh)."""
     assert resolve_ag_group_gemm_method(AgGroupGemmMethod.AUTO, 4, 8,
                                         cuda=True) == AgGroupGemmMethod.PALLAS
     assert resolve_ag_group_gemm_method(AgGroupGemmMethod.AUTO, 4, 8) == \
@@ -433,7 +434,7 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
     assert r(MoeReduceRsMethod.AUTO, 4, 1) == MoeReduceRsMethod.XLA
     assert r(MoeReduceRsMethod.XLA_RING, 4, 1) == MoeReduceRsMethod.XLA_RING
     ids = torch.zeros((4, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         moe_utils.make_chunk_schedule(ids, 1, 4, 8, provider="native")
     sched = moe_utils.make_chunk_schedule(ids, 1, 4, 8)
     assert moe_utils.make_chunk_schedule(ids, 1, 4, 8, sched) is sched
@@ -444,11 +445,12 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
         gemm_rs_per_device(2, GemmRsMethod.PALLAS_BIDIR, a, a.T)
     with pytest.raises(ValueError, match="unresolved"):
         ag_gemm_per_device(1, AgGemmMethod.AUTO, a, a.T)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         ag_group_gemm_per_device(2, 4, AgGroupGemmMethod.XLA, a, ids,
                                  torch.ones((4, 8, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        r(MoeReduceRsMethod.AUTO, 4, 2)
+    assert r(MoeReduceRsMethod.AUTO, 4, 2) == MoeReduceRsMethod.XLA
+    assert r(MoeReduceRsMethod.AUTO, 4, 2, cuda=True) == \
+        MoeReduceRsMethod.PALLAS
     big = torch.zeros((1025, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="1024 tokens"):
         moe_reduce_rs_per_device(1, 4, 1, MoeReduceRsMethod.PALLAS,
@@ -458,8 +460,9 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
         TPContext(ep_max_m=64)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         Qwen3MoE(Qwen3MoEArch(moe_parallel="ep"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        build_qwen3_decode(_ARCHS["moe"], 2)
+    graph = build_qwen3_decode(_ARCHS["moe"], 2).graph
+    assert sum(t.task_type == "moe" for t in graph.tasks) == \
+        _ARCHS["moe"].num_layers
     big_arch = QWEN3_ARCHS["Qwen/Qwen3-30B-A3B"]
     n_params = sum(int(np.prod(s)) for s in jax.tree_util.tree_leaves(
         param_shapes(big_arch), is_leaf=lambda x: isinstance(x, tuple)))

@@ -288,8 +288,8 @@ def test_rank_init_is_the_world1_draw_cut(tp):
 
 def test_tp_refusals_and_cpu_runtime(tp):
     """The bidirectional rings raise naming A9, n > 1 without the mesh is
-    refused, the default Engine builds the mega step at n > 1 while its
-    MoE task (A10) raises, the paged Engine builds at n > 1, a batch the
+    refused, the default Engine builds the mega step at n > 1 (a MoE
+    graph's moe task too), the paged Engine builds at n > 1, a batch the
     world does not divide is refused; on the CPU a symmetric buffer is a
     plain tensor and notify_wait is a broadcast from rank 0."""
     for r, c in enumerate(tp["checks"]):

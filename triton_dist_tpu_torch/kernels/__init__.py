@@ -15,7 +15,9 @@ o projections at world 1), B10 ``allgather_gemm.pallas_ag_gemm`` and B13a
 ``gemm_reduce_scatter.pallas_gemm_rs`` (the QKV and gate/up, and the o and
 down projections across ranks), B14 ``allgather_group_gemm.group_gemm``
 (the MoE gate/up) and B15 ``moe_reduce_rs.moe_rs`` (the MoE down + top-k
-combine);
+combine) at world 1, and across ranks B14
+``allgather_group_gemm.pallas_ag_group_gemm`` and B15
+``moe_reduce_rs.pallas_moe_reduce_rs``;
 ``flash_decode`` holds the LSE merge B2 feeds. Each wrapper counts its
 kernel launches in a ``launches`` attribute."""
 
@@ -27,7 +29,9 @@ def launch_wrappers() -> dict:
     from triton_dist_tpu_torch.kernels.allgather_gemm import (
         pallas_ag_gemm, pallas_matmul,
     )
-    from triton_dist_tpu_torch.kernels.allgather_group_gemm import group_gemm
+    from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
+        group_gemm, pallas_ag_group_gemm,
+    )
     from triton_dist_tpu_torch.kernels.allreduce import (
         one_shot_all_reduce, rhd_all_reduce,
     )
@@ -39,7 +43,9 @@ def launch_wrappers() -> dict:
     from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
         pallas_gemm_rs,
     )
-    from triton_dist_tpu_torch.kernels.moe_reduce_rs import moe_rs
+    from triton_dist_tpu_torch.kernels.moe_reduce_rs import (
+        moe_rs, pallas_moe_reduce_rs,
+    )
     from triton_dist_tpu_torch.kernels.paged_flash_decode import (
         paged_flash_decode_partial,
     )
@@ -56,7 +62,9 @@ def launch_wrappers() -> dict:
             "one_shot_all_reduce": one_shot_all_reduce,
             "rhd_all_reduce": rhd_all_reduce,
             "ring_reduce_scatter": ring_reduce_scatter,
-            "ring_all_gather": ring_all_gather}
+            "ring_all_gather": ring_all_gather,
+            "pallas_ag_group_gemm": pallas_ag_group_gemm,
+            "pallas_moe_reduce_rs": pallas_moe_reduce_rs}
 
 
 def launch_counts() -> dict[str, int]:

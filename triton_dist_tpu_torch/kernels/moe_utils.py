@@ -16,7 +16,8 @@ kernels (B14, B15) consume: every bm-row tile touches one expert. The
 in-graph builder ``aligned_chunk_schedule`` is ported; the reference's
 host-side native schedulers (its C++ tile swizzle and block align) are
 not, and ``make_chunk_schedule(provider="native")`` raises naming ROADMAP
-A10.
+A9: only the reference's mesh-level ops use them, and the model path
+builds its schedule in the graph.
 """
 
 from __future__ import annotations
@@ -185,14 +186,14 @@ def make_chunk_schedule(topk_ids: torch.Tensor, n_chunks: int,
     AlignedSchedule passes through untouched (a precomputed plan);
     "auto" and "device" build it in-graph (aligned_chunk_schedule). The
     reference's "native" provider (its C++ schedulers on the host) raises:
-    it waits for ROADMAP A10."""
+    it waits for ROADMAP A9, with the mesh-level ops that use it."""
     if isinstance(provider, AlignedSchedule):
         return provider
     if provider in ("auto", "device"):
         return aligned_chunk_schedule(topk_ids, n_chunks, num_experts, bm)
     if provider == "native":
         raise NotImplementedError(
-            "the native (host C++) schedule provider waits for ROADMAP A10")
+            "the native (host C++) schedule provider waits for ROADMAP A9")
     raise ValueError(f"unknown schedule provider {provider!r}")
 
 
@@ -203,8 +204,10 @@ def arrival_ordered_schedule(sched: AlignedSchedule, mc: int, bm: int,
     reordered tiles runnable once blocks 0..b of chunk c have arrived.
     Sentinel rows gather the clamped row mc - 1, so a tile with padding
     needs the last block; dead tiles (t >= used) sort after every live
-    one. At one block (world 1) the order is the identity. Returns
-    (sched', tiles_ready)."""
+    one. At one block (world 1) the order is the identity. B14 across
+    ranks (csrc/moe_group_gemm.cu) runs a remote chunk's tiles in this
+    order, tile t once blocks 0..b with t < tiles_ready[c, b] have
+    landed. Returns (sched', tiles_ready)."""
     n, t_tiles = sched.tile_expert.shape
     r = t_tiles * bm
     if mc % comm_blocks:

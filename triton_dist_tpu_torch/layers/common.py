@@ -33,13 +33,13 @@ class TPContext:
     products (XLA = the process group's all-reduce, ONE_SHOT = B5, RHD =
     B6); gemm_ar_method, when set, replaces that product and sum with the
     fused GEMM + all-reduce (PALLAS = B4); moe_ag_method / moe_rs_method:
-    the MoE gate/up (PALLAS = B14) and down + top-k combine (PALLAS =
-    B15), world 1 only; AUTO picks the
+    the triton_dist mode's MoE gate/up (PALLAS = B14) and down + top-k
+    combine (PALLAS = B15), at world 1 and across ranks; AUTO picks the
     kernels on CUDA and the plain products on the CPU. tile_bm / tile_bn /
     tile_bk are the TPU kernels' tiles and comm_blocks their ring blocks:
     carried for the reference's signatures, nothing on the card reads
     them. ep_a2a_method and ep_max_m (expert parallelism) raise when set:
-    ROADMAP A10.
+    ROADMAP A10 (EP half).
 
     attn_method: "auto" (flash kernel when head_dim % 128 == 0 and the
     chunk has at least 128 keys), "pallas" (always the flash kernel —
@@ -64,7 +64,7 @@ class TPContext:
         if self.ep_a2a_method is not None or self.ep_max_m is not None:
             raise NotImplementedError(
                 "expert parallelism (ep_a2a_method, ep_max_m) waits for "
-                "ROADMAP A10")
+                "ROADMAP A10 (EP half)")
         if self.mesh is not None and self.mesh.axis != self.axis:
             raise ValueError(f"mesh axis {self.mesh.axis!r} is not the TP "
                              f"axis {self.axis!r}")

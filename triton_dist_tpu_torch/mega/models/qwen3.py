@@ -11,11 +11,12 @@ order on the same graph. The o/down projections are ``linear_allreduce``
 tasks (B4 in the pallas_chain tier, the process group's all-reduce in the
 xla tier), the boundary a ``fused_chain`` task (B3). For the MoE family
 the MLP half is one ``moe`` task: the layer library's xla-mode math
-(router, ``dense_grouped_moe``), with no fused tier, as in the reference;
-at n_tp > 1 it raises naming ROADMAP A10. ``build_qwen3_paged_decode``
-records the paged-cache T = 1 step with the continuous-batching ``active``
-mask (``paged_kv_write`` and ``paged_attend``, B2, in place of the dense
-cache's write and attention), the step the ContinuousEngine replays.
+(router, ``dense_grouped_moe``, the process group's f32 all-reduce at
+n_tp > 1, the cast), with no fused tier, as in the reference.
+``build_qwen3_paged_decode`` records the paged-cache T = 1 step with the
+continuous-batching ``active`` mask (``paged_kv_write`` and
+``paged_attend``, B2, in place of the dense cache's write and
+attention), the step the ContinuousEngine replays.
 """
 
 from __future__ import annotations
@@ -33,15 +34,13 @@ def _moe_task(b: ModelBuilder, arch, n_tp: int, hn: str, wr: str, wgu: str,
               wd: str, *, layer_id: int) -> str:
     """One MoE expert block as a task: the layer library's xla-mode math
     (layers/tp_moe.moe_fwd "xla", op for op, so the tier is bit-identical
-    to the layer-by-layer path); the TP psum is the identity at world 1.
-    No fused tier, as in the reference's tensor-parallel branch."""
+    to the layer-by-layer path): router, ``dense_grouped_moe`` over this
+    rank's expert shards, the f32 partial all-reduced over the builder's
+    mesh (the identity at world 1), the cast. No fused tier, as in the
+    reference's tensor-parallel branch."""
     from triton_dist_tpu_torch.kernels import moe_utils
     from triton_dist_tpu_torch.layers.tp_moe import dense_grouped_moe
 
-    if n_tp > 1:
-        raise NotImplementedError(
-            f"the MoE task at world {n_tp} (tensor-parallel experts in the "
-            "mega graph) waits for ROADMAP A10")
     topk, num_experts = arch.num_experts_per_tok, arch.num_experts
 
     def xla_fn(x_, wr_, wgu_, wd_):
@@ -50,6 +49,7 @@ def _moe_task(b: ModelBuilder, arch, n_tp: int, hn: str, wr: str, wgu: str,
             dot_f32(tokens, wr_), topk, norm_topk_prob=arch.norm_topk_prob)
         y = dense_grouped_moe(tokens, topk_ids, topk_w, wgu_, wd_,
                               num_experts)
+        y = b.psum(y, n_tp)                    # I is TP-sharded
         return y.to(x_.dtype).reshape(x_.shape)
 
     return b.make_custom("moe", (hn, wr, wgu, wd), xla_fn, layer_id=layer_id,

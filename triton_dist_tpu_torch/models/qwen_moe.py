@@ -1,10 +1,12 @@
-"""Qwen3 MoE model (the reference's models/qwen_moe.py), one device.
+"""Qwen3 MoE model (the reference's models/qwen_moe.py), at world 1 or
+tensor-parallel over n ranks.
 
 The decoder of models/qwen.py with the dense MLP replaced, through the
 ``mlp`` hook, by the tensor-parallel MoE layer (layers/tp_moe.py): top-k
 router -> gate/up grouped GEMM -> silu * up -> down grouped GEMM + top-k
-reduce. The expert-parallel layout (``moe_parallel="ep"``) waits for
-ROADMAP A10.
+reduce, the experts sharded on their intermediate width. The
+expert-parallel layout (``moe_parallel="ep"``) waits for ROADMAP A10's
+EP half.
 """
 
 from __future__ import annotations
@@ -27,11 +29,12 @@ class Qwen3MoE(Qwen3):
         if arch.moe_parallel == "ep":
             raise NotImplementedError(
                 "the expert-parallel MoE layout (moe_parallel='ep') waits "
-                "for ROADMAP A10")
-        if ctx is not None and ctx.world > 1:
-            raise NotImplementedError(
-                f"the MoE layers at world {ctx.world} (the token ring of "
-                "B14/B15) wait for ROADMAP A10")
+                "for ROADMAP A10 (EP half)")
+        world = ctx.world if ctx is not None else 1
+        if arch.moe_intermediate_size % world:
+            raise ValueError(
+                f"moe_intermediate_size {arch.moe_intermediate_size} not "
+                f"divisible by tp={world}")
         super().__init__(arch, ctx, max_length=max_length, dtype=dtype,
                          device=device)
 
