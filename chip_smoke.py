@@ -1730,7 +1730,9 @@ FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
                     "tp4_moe_consistency")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
-                      "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp")
+                      "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp",
+                      "b8_full_mesh_ag", "b11_ag_gemm_bidir",
+                      "b13b_gemm_rs_bidir")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -2184,6 +2186,227 @@ def phase_ring(torch, symm, rsm, agm, arm, kind, calls: int = 20):
     return rec
 
 
+# -- slice 8 in the one-card world: B8, B11, B13b ----------------------------
+
+_B8_SHAPES = (("m4", 4, 5120), ("m128", 128, 5120))
+
+
+def phase_b8(torch, symm, kern, ring_ag, calls: int = 20):
+    """B8 (the full-mesh all-gather) against its plain version, the
+    concatenation in rank order, in the one-card world: the B7 shapes, a
+    decode step's 4 rows per rank and a 512-token chunk's 128 (Qwen3-32B's
+    hidden, TP=4), bf16 and f32, then `calls` successive bf16 calls of
+    each shape with fresh inputs; every rank's rows must be the plain
+    version's bytes. Timed: the four ranks' calls together, beside B7 on
+    the same inputs (queued_ms). Then the mesh-level path: the counts
+    zeroed, ``all_gather_op`` at AUTO on every rank at the decode shape
+    (FULL_MESH: B8), the counts read."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(57)
+
+    def draw(dt, m, k):
+        return [torch.randn((m, k), generator=g, device=DEV).to(dt)
+                for _ in range(TP)]
+
+    def run_check(name, xs, fn=ring_ag.full_mesh_all_gather):
+        outs = world.run(lambda r: fn(world.mesh(r), xs[r]))
+        torch.cuda.synchronize()
+        ref = torch.cat(xs)
+        return [{"case": f"{name}/rank{r}",
+                 "max_abs_err": (outs[r].float() - ref.float()).abs()
+                 .max().item(), "ok": bool(torch.equal(outs[r], ref))}
+                for r in range(TP)]
+
+    rows, timed, seq_ok = [], {}, []
+    for shp, m, k in _B8_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            name = shp if dt == torch.bfloat16 else f"{shp}_f32"
+            xs = draw(dt, m, k)
+            rows += run_check(name, xs)
+            if dt != torch.bfloat16:
+                continue
+            nbytes = TP * (m * k + TP * m * k) * xs[0].element_size()
+            timed[name] = _one_card_kernel_row(
+                torch, world, name,
+                lambda r: ring_ag.full_mesh_all_gather(world.mesh(r), xs[r]),
+                lambda: [torch.cat(xs)] * TP, nbytes, 0.0)
+            timed[name]["library_ms"] = queued_ms(
+                torch, lambda: torch.cat(xs))[0]
+            timed[name]["b7_ms"] = queued_ms(torch, lambda: world.run(
+                lambda r: ring_ag.ring_all_gather(world.mesh(r), xs[r])))[0]
+            timed[name]["max_abs_err"] = max(
+                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+        seq_ok += [all(x["ok"] for x in run_check(
+            f"seq_{shp}", draw(torch.bfloat16, m, k))) for _ in range(calls)]
+    xs = draw(torch.bfloat16, 4, 5120)
+    kern.reset_launch_counts()
+    outs = world.run(lambda r: ring_ag.all_gather_op(world.mesh(r), xs[r]))
+    torch.cuda.synchronize()
+    path = kern.launch_counts()
+    op_ok = all(torch.equal(o, torch.cat(xs)) for o in outs) and \
+        path == _only(path, full_mesh_all_gather=TP)
+    emit({"phase": "b8_full_mesh_ag", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed,
+          "all_gather_op_auto": {"launches": path, "ok": op_ok}})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or not op_ok:
+        fail(f"B8 disagrees with its plain version or all_gather_op did "
+             f"not take it: {[x for x in rows if not x['ok']]}; successive "
+             f"{seq_ok}; all_gather_op {path}")
+    rec = _tp_kernel_record("full_mesh_all_gather", "ring_collectives.cu",
+                            "triton_dist_tpu/kernels/allgather.py:114",
+                            timed, "one card, 4 logical ranks")
+    rec["library_ms_call"] = "torch.cat(xs)"
+    rec["launches_by_path"] = {"all_gather_op_one_card": path[
+        "full_mesh_all_gather"]}
+    rec["launches"] = path["full_mesh_all_gather"]
+    return rec
+
+
+def _int_shards(torch, g, dt, m, k, n):
+    """Integer-valued shards in [-3, 3]: every product and sum exact in
+    f32 whatever the order, so kernel and plain version agree bit for
+    bit."""
+    a = [torch.randint(-3, 4, (m, k), generator=g, device=DEV).to(dt)
+         for _ in range(TP)]
+    b = [torch.randint(-3, 4, (k, n), generator=g, device=DEV).to(dt)
+         for _ in range(TP)]
+    return a, b
+
+
+def phase_b11(torch, symm, agm, calls: int = 20):
+    """B11 (the bidirectional-ring AllGather + GEMM) in the one-card world
+    at B10's shapes: Qwen3-32B at TP=4, B=16 decode (m_loc 4): QKV K 5120
+    -> N_loc 2560 and gate/up -> N_loc 12800, bf16 and f32; and a
+    prefill-sized m_loc 2048 (QKV, bf16), where the ring has bytes to
+    carry; then `calls` successive calls with fresh inputs. Every call is
+    run by B10 too on the same inputs: B11's out must be B10's bits and
+    its gathered A the concatenated shards exactly (the same K split, the
+    same items); both are held to the plain version (ag_gemm_ref_shards)
+    within 1e-2 x max|ref| in bf16, 1e-4 in f32. Timed: the four ranks'
+    calls together (queued_ms), B10 beside it."""
+    bf, f32 = torch.bfloat16, torch.float32
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(61)
+    cases = [("qkv_m4", bf, 4, 5120, 2560), ("gate_up_m4", bf, 4, 5120, 12800),
+             ("qkv_m2048", bf, 2048, 5120, 2560),
+             ("qkv_m4_f32", f32, 4, 5120, 2560)]
+    rows, timed = [], {}
+
+    def run_check(name, a, b, tol):
+        outs = world.run(lambda r: agm.pallas_ag_gemm_bidir(
+            world.mesh(r), a[r], b[r]))
+        b10 = world.run(lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r],
+                                                     b[r]))
+        torch.cuda.synchronize()
+        res = []
+        for r in range(TP):
+            ref, ref_ag = agm.ag_gemm_ref_shards(a, b[r])
+            row = _held(torch, f"{name}/rank{r}", outs[r][0], ref, tol)
+            row["b10_bits"] = bool(torch.equal(outs[r][0], b10[r][0]))
+            row["gathered_exact"] = bool(torch.equal(outs[r][1], ref_ag))
+            row["ok"] = row["ok"] and row["b10_bits"] and \
+                row["gathered_exact"]
+            res.append(row)
+        return res
+
+    for name, dt, m, k, n in cases:
+        a, b = _tp_shards(torch, g, dt, m, k, n)
+        rows += run_check(name, a, b, _tp_tol(torch, dt))
+        if dt != bf:
+            continue
+        es = a[0].element_size()
+        nbytes = TP * (m * k + k * n + TP * m * n + TP * m * k) * es
+        timed[name] = _one_card_kernel_row(
+            torch, world, name,
+            lambda r: agm.pallas_ag_gemm_bidir(world.mesh(r), a[r], b[r]),
+            lambda: [agm.ag_gemm_ref_shards(a, b[r]) for r in range(TP)],
+            nbytes, TP * 2.0 * TP * m * k * n)
+        timed[name]["b10_ms"] = queued_ms(torch, lambda: world.run(
+            lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r], b[r])))[0]
+        timed[name]["max_abs_err"] = max(
+            x["max_abs_err"] for x in rows if x["case"].startswith(name))
+    seq_ok = []
+    for _ in range(calls):
+        a, b = _tp_shards(torch, g, bf, 4, 5120, 2560)
+        seq_ok.append(all(x["ok"] for x in run_check("seq", a, b, 1e-2)))
+    emit({"phase": "b11_ag_gemm_bidir", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"B11 disagrees with B10 or its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+    decode = {k: v for k, v in timed.items() if k.endswith("_m4")}
+    rec = _tp_kernel_record("pallas_ag_gemm_bidir", "ag_gemm.cu",
+                            "triton_dist_tpu/kernels/allgather_gemm.py:498",
+                            decode, "one card, 4 logical ranks")
+    rec["prefill_shape"] = timed["qkv_m2048"]
+    return rec
+
+
+def phase_b13b(torch, symm, grs, calls: int = 20):
+    """B13b (the bidirectional-ring GEMM + ReduceScatter) against its plain
+    version (gemm_rs_bidir_ref_shards: the same arcs, the same fold) in
+    the one-card world at B13a's shapes: Qwen3-32B at TP=4, B=16 decode
+    (m_loc 4, A (16, K_loc)): o K_loc 2048 -> N 5120 and down K_loc 6400
+    -> N 5120, bf16 and f32, random (within 1e-2 x max|ref| in bf16, 1e-4
+    in f32: the products are summed in another order) and integer-valued
+    (bit for bit: every sum exact); then `calls` successive calls with
+    fresh inputs. Timed: the four ranks' calls together, B13a beside
+    it."""
+    bf, f32 = torch.bfloat16, torch.float32
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(67)
+    cases = [("o_m4", bf, 4, 2048, 5120), ("down_m4", bf, 4, 6400, 5120),
+             ("o_m4_f32", f32, 4, 2048, 5120),
+             ("o_m4_int", bf, 4, 2048, 5120),
+             ("down_m4_int_f32", f32, 4, 6400, 5120)]
+    rows, timed = [], {}
+
+    def run_check(name, a, b, tol):
+        outs = world.run(lambda r: grs.pallas_gemm_rs_bidir(
+            world.mesh(r), a[r], b[r]))
+        torch.cuda.synchronize()
+        refs = grs.gemm_rs_bidir_ref_shards(a, b)
+        res = [_held(torch, f"{name}/rank{r}", outs[r], refs[r], tol)
+               for r in range(TP)]
+        if "_int" in name:
+            for r, row in enumerate(res):
+                row["exact"] = bool(torch.equal(outs[r], refs[r]))
+                row["ok"] = row["ok"] and row["exact"]
+        return res
+
+    for name, dt, m, k, n in cases:
+        draw = _int_shards if "_int" in name else _tp_shards
+        a, b = draw(torch, g, dt, TP * m, k, n)
+        rows += run_check(name, a, b, _tp_tol(torch, dt))
+        if name not in ("o_m4", "down_m4"):
+            continue
+        es = a[0].element_size()
+        nbytes = TP * (TP * m * k + k * n + m * n) * es
+        timed[name] = _one_card_kernel_row(
+            torch, world, name,
+            lambda r: grs.pallas_gemm_rs_bidir(world.mesh(r), a[r], b[r]),
+            lambda: grs.gemm_rs_bidir_ref_shards(a, b),
+            nbytes, TP * 2.0 * TP * m * k * n)
+        timed[name]["b13a_ms"] = queued_ms(torch, lambda: world.run(
+            lambda r: grs.pallas_gemm_rs(world.mesh(r), a[r], b[r])))[0]
+        timed[name]["max_abs_err"] = max(
+            x["max_abs_err"] for x in rows if x["case"].startswith(name))
+    seq_ok = []
+    for _ in range(calls):
+        a, b = _tp_shards(torch, g, bf, TP * 4, 2048, 5120)
+        seq_ok.append(all(x["ok"] for x in run_check("seq", a, b, 1e-2)))
+    emit({"phase": "b13b_gemm_rs_bidir",
+          "world": "one card, 4 logical ranks", "cases": rows,
+          "successive_calls_ok": seq_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"B13b disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+    return _tp_kernel_record(
+        "pallas_gemm_rs_bidir", "gemm_rs.cu",
+        "triton_dist_tpu/kernels/gemm_reduce_scatter.py:432", timed,
+        "one card, 4 logical ranks")
+
+
 MOE_TP_DIMS = (2048, 128, 768 // 4, 8)   # d, experts, I/n, top-k at TP=4
 
 
@@ -2405,7 +2628,15 @@ _TP_SHAPES = (("qkv_m4", "ag", 4, 5120, 2560),
               ("rs_m16", "ring_rs", 16, 5120, 0),
               ("rs_m512", "ring_rs", 512, 5120, 0),
               ("ag_m16", "ring_ag", 16, 5120, 0),
-              ("ag_m512", "ring_ag", 512, 5120, 0))
+              ("ag_m512", "ring_ag", 512, 5120, 0),
+              ("fm_m16", "full_mesh", 16, 5120, 0),
+              ("fm_m512", "full_mesh", 512, 5120, 0),
+              ("qkv_m4_bidir", "ag_bidir", 4, 5120, 2560),
+              ("gate_up_m4_bidir", "ag_bidir", 4, 5120, 12800),
+              ("qkv_m2048", "ag", 2048, 5120, 2560),
+              ("qkv_m2048_bidir", "ag_bidir", 2048, 5120, 2560),
+              ("o_m4_bidir", "rs_bidir", 4, 2048, 5120),
+              ("down_m4_bidir", "rs_bidir", 4, 6400, 5120))
 # kernels-line rows of the four-card timings: (wrapper, its shapes,
 # source, the TPU kernel it replaces, the library call timed beside it)
 _TP_ROWS = (
@@ -2429,14 +2660,25 @@ _TP_ROWS = (
      "torch.distributed.reduce_scatter_tensor (NCCL)"),
     ("ring_all_gather", ("ag_m16", "ag_m512"), "ring_collectives.cu",
      "triton_dist_tpu/kernels/allgather.py:59",
-     "torch.distributed.all_gather_into_tensor (NCCL)"))
+     "torch.distributed.all_gather_into_tensor (NCCL)"),
+    ("full_mesh_all_gather", ("fm_m16", "fm_m512"), "ring_collectives.cu",
+     "triton_dist_tpu/kernels/allgather.py:114",
+     "torch.distributed.all_gather_into_tensor (NCCL)"),
+    ("pallas_ag_gemm_bidir", ("qkv_m4_bidir", "gate_up_m4_bidir"),
+     "ag_gemm.cu", "triton_dist_tpu/kernels/allgather_gemm.py:498",
+     "torch.distributed._symmetric_memory._fused_all_gather_matmul"),
+    ("pallas_gemm_rs_bidir", ("o_m4_bidir", "down_m4_bidir"), "gemm_rs.cu",
+     "triton_dist_tpu/kernels/gemm_reduce_scatter.py:432",
+     "torch.distributed._symmetric_memory._fused_matmul_reduce_scatter"))
 
 
 def _tp_case(torch, mesh, kind, m, k, n, seed):
-    """This rank's bf16 inputs of one decode shape and the three calls of
-    the same function: the kernel, its plain version and the library
-    yardstick (torch's fused symmetric-memory ops for B10 / B13a, NCCL
-    for B4 / B5 / B6 / B9 / B7). Every rank draws its own inputs."""
+    """This rank's bf16 inputs of one decode shape and the calls of the
+    same function: the kernel, its plain version, the library yardstick
+    (torch's fused symmetric-memory ops for B10 / B13a / B11 / B13b, NCCL
+    for B4 / B5 / B6 / B9 / B7 / B8) and a second yardstick or None (NCCL
+    + torch.mm for B11 / B13b; B7 for B8; B10 for B11, whose out must be
+    its bits). Every rank draws its own inputs."""
     import torch.distributed as dist
     from torch.distributed import _symmetric_memory as symm_mem
     from triton_dist_tpu_torch.kernels import allgather_gemm as agm
@@ -2446,7 +2688,7 @@ def _tp_case(torch, mesh, kind, m, k, n, seed):
     from triton_dist_tpu_torch.kernels import allgather as ring_ag
     from triton_dist_tpu_torch.kernels import reduce_scatter as ring_rs
     g = torch.Generator(device=mesh.device).manual_seed(seed + mesh.rank)
-    if kind in ("ring_rs", "ring_ag"):
+    if kind in ("ring_rs", "ring_ag", "full_mesh"):
         # m: rows of the whole (reduce-scattered or gathered) array
         a = torch.randn((m if kind == "ring_rs" else m // TP, k),
                         generator=g, device=mesh.device).to(torch.bfloat16)
@@ -2456,15 +2698,19 @@ def _tp_case(torch, mesh, kind, m, k, n, seed):
                 dist.reduce_scatter_tensor(y, a, group=mesh.group)
                 return y
             return (lambda: ring_rs.ring_reduce_scatter(mesh, a),
-                    lambda: ring_rs.ring_rs_ref(mesh, a), nccl_rs)
+                    lambda: ring_rs.ring_rs_ref(mesh, a), nccl_rs, None)
 
         def nccl_ag():
             y = a.new_empty((m, k))
             dist.all_gather_into_tensor(y, a, group=mesh.group)
             return y
+        if kind == "full_mesh":
+            return (lambda: ring_ag.full_mesh_all_gather(mesh, a),
+                    lambda: ring_ag.ring_ag_ref(mesh, a), nccl_ag,
+                    lambda: ring_ag.ring_all_gather(mesh, a))
         return (lambda: ring_ag.ring_all_gather(mesh, a),
-                lambda: ring_ag.ring_ag_ref(mesh, a), nccl_ag)
-    rows = TP * m if kind == "rs" else m
+                lambda: ring_ag.ring_ag_ref(mesh, a), nccl_ag, None)
+    rows = TP * m if kind in ("rs", "rs_bidir") else m
     a = torch.randn((rows, k), generator=g, device=mesh.device).to(
         torch.bfloat16)
     if kind in ("one_shot", "rhd"):
@@ -2476,33 +2722,48 @@ def _tp_case(torch, mesh, kind, m, k, n, seed):
             y = a.clone()
             dist.all_reduce(y, group=mesh.group)
             return y
-        return (lambda: fn(mesh, a), lambda: plain(mesh, a), nccl)
+        return (lambda: fn(mesh, a), lambda: plain(mesh, a), nccl, None)
     b = (torch.randn((k, n), generator=g, device=mesh.device)
          * k ** -0.5).to(torch.bfloat16)
     group_name = mesh.group.group_name
-    if kind == "ag":
+    if kind in ("ag", "ag_bidir"):
         def lib():
             return symm_mem._fused_all_gather_matmul(
                 a, [b], gather_dim=0, group_name=group_name)[1][0]
-        return (lambda: agm.pallas_ag_gemm(mesh, a, b)[0],
-                lambda: agm.ag_gemm_ref(mesh, a, b)[0], lib)
+
+        def b10():
+            return agm.pallas_ag_gemm(mesh, a, b)[0]
+        if kind == "ag":
+            return b10, lambda: agm.ag_gemm_ref(mesh, a, b)[0], lib, None
+        return (lambda: agm.pallas_ag_gemm_bidir(mesh, a, b)[0],
+                lambda: agm.ag_gemm_ref(mesh, a, b)[0], lib, b10)
     if kind == "ar":
         def mm_nccl():
             y = torch.mm(a, b)
             dist.all_reduce(y, group=mesh.group)
             return y
         return (lambda: ga.pallas_gemm_ar(mesh, a, b),
-                lambda: ga.gemm_ar_ref_tp(mesh, a, b), mm_nccl)
+                lambda: ga.gemm_ar_ref_tp(mesh, a, b), mm_nccl, None)
 
     def lib():
         return symm_mem._fused_matmul_reduce_scatter(
             a, b, "sum", scatter_dim=0, group_name=group_name)
+    if kind == "rs_bidir":
+        def mm_nccl_rs():
+            part = torch.mm(a, b)
+            y = part.new_empty((m, n))
+            dist.reduce_scatter_tensor(y, part, group=mesh.group)
+            return y
+        return (lambda: grs.pallas_gemm_rs_bidir(mesh, a, b),
+                lambda: grs.gemm_rs_bidir_ref(mesh, a, b), lib, mm_nccl_rs)
     return (lambda: grs.pallas_gemm_rs(mesh, a, b),
-            lambda: grs.gemm_rs_ref(mesh, a, b), lib)
+            lambda: grs.gemm_rs_ref(mesh, a, b), lib, None)
 
 
 def _tp_bound(kind, m, k, n):
     """(HBM bytes, NVLink bytes this rank sends, FLOPs) of one call."""
+    kind = {"ag_bidir": "ag", "rs_bidir": "rs",
+            "full_mesh": "ring_ag"}.get(kind, kind)
     if kind == "ag":
         return ((m * k + k * n + TP * m * n + TP * m * k) * 2,
                 (TP - 1) * m * k * 2, 2.0 * TP * m * k * n)
@@ -2535,12 +2796,15 @@ def _tp_ranks_time(torch, dist, mesh):
     over NVLink and the FLOPs. Returns {shape: row} of this rank."""
     out = {}
     for name, kind, m, k, n in _TP_SHAPES:
-        run, plain, _ = _tp_case(torch, mesh, kind, m, k, n, 50)
+        run, plain, _, alt = _tp_case(torch, mesh, kind, m, k, n, 50)
         got, ref = run(), plain()
         torch.cuda.synchronize()
         held = _held(torch, name, got, ref, 1e-2)
-        if kind in ("one_shot", "rhd", "ring_rs", "ring_ag"):
+        if kind in ("one_shot", "rhd", "ring_rs", "ring_ag", "full_mesh"):
             held["ok"] = bool(torch.equal(got, ref))
+        if kind == "ag_bidir":      # B11's out: B10's bits
+            held["b10_bits"] = bool(torch.equal(got, alt()))
+            held["ok"] = held["ok"] and held["b10_bits"]
         dist.barrier()
         ms, host_s, ahead = queued_ms(torch, run)
         dist.barrier()
@@ -2552,7 +2816,87 @@ def _tp_ranks_time(torch, dist, mesh):
                      "bound_by": by, "hbm_bytes": hbm, "nvlink_bytes": link,
                      "max_abs_err": held["max_abs_err"], "ok": held["ok"],
                      "host_enqueue_s": host_s, "queued_ahead": ahead}
+        if alt is not None:
+            out[name]["alt_ms"] = queued_ms(torch, alt)[0]
+            dist.barrier()
     return out
+
+
+# all-gather shards of the AUTO sweep: rows per rank of Qwen3-32B's hidden
+_AG_SWEEP_ROWS = (1, 4, 16, 64, 128, 512, 2048)
+
+
+def _tp4_ag_sweep(torch, dist, mesh):
+    """The sweep that sets all_gather_op's AUTO crossover on the card: at
+    each shard size (rows per rank of 5120 bf16), B8 (full mesh), B7
+    (ring) and NCCL's all_gather_into_tensor, device ms per call
+    (queued_ms), each rank its own; B8's rows must be NCCL's bytes."""
+    from triton_dist_tpu_torch.kernels import allgather as agk
+    out = []
+    for rows in _AG_SWEEP_ROWS:
+        g = torch.Generator(device=mesh.device).manual_seed(70 + mesh.rank)
+        x = torch.randn((rows, 5120), generator=g, device=mesh.device).to(
+            torch.bfloat16)
+
+        def nccl():
+            y = x.new_empty((TP * rows, 5120))
+            dist.all_gather_into_tensor(y, x, group=mesh.group)
+            return y
+        same = bool(torch.equal(agk.full_mesh_all_gather(mesh, x), nccl()))
+        rec = {"rows_per_rank": rows,
+               "shard_bytes": rows * 5120 * 2, "b8_equals_nccl": same}
+        for label, fn in (("b8_ms", lambda: agk.full_mesh_all_gather(mesh,
+                                                                     x)),
+                          ("b7_ms", lambda: agk.ring_all_gather(mesh, x)),
+                          ("nccl_ms", nccl)):
+            dist.barrier()
+            rec[label] = queued_ms(torch, fn)[0]
+        dist.barrier()
+        out.append(rec)
+    return out
+
+
+def _tp4_mesh_ops(torch, dist, mesh, kern):
+    """The mesh-level ops' path on four cards, each rank on its shards:
+    the counts zeroed, ``all_gather_op`` at AUTO on a decode step's 4 rows
+    (FULL_MESH: B8), ``ag_gemm`` and ``gemm_rs`` through PALLAS_BIDIR
+    contexts at the QKV and o shapes (B11, B13b), the counts read; each
+    output held to its plain version."""
+    from triton_dist_tpu_torch.kernels import allgather as agk
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    g = torch.Generator(device=mesh.device).manual_seed(80 + mesh.rank)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=mesh.device)
+                * scale).to(torch.bfloat16)
+    x, a = randn(4, 5120), randn(4, 5120)
+    b = randn(5120, 2560, scale=5120 ** -0.5)
+    ra, rb = randn(16, 2048), randn(2048, 5120, scale=2048 ** -0.5)
+    # warm-up calls first: they make the ops' symmetric buffers
+    agk.all_gather_op(mesh, x)
+    agm.ag_gemm(agm.create_ag_gemm_context(
+        mesh, method=agm.AgGemmMethod.PALLAS_BIDIR), a, b)
+    grs.gemm_rs(grs.create_gemm_rs_context(
+        mesh, method=grs.GemmRsMethod.PALLAS_BIDIR), ra, rb)
+    torch.cuda.synchronize()
+    dist.barrier()
+    kern.reset_launch_counts()
+    gathered = agk.all_gather_op(mesh, x)
+    c, ag = agm.ag_gemm(agm.create_ag_gemm_context(
+        mesh, method=agm.AgGemmMethod.PALLAS_BIDIR), a, b)
+    y = grs.gemm_rs(grs.create_gemm_rs_context(
+        mesh, method=grs.GemmRsMethod.PALLAS_BIDIR), ra, rb)
+    torch.cuda.synchronize()
+    counts = kern.launch_counts()
+    ref_c, ref_ag = agm.ag_gemm_ref(mesh, a, b)
+    ok = {"all_gather_op": bool(torch.equal(gathered,
+                                            agk.ring_ag_ref(mesh, x))),
+          "ag_gemm": _held(torch, "ag_gemm", c, ref_c, 1e-2)["ok"]
+          and bool(torch.equal(ag, ref_ag)),
+          "gemm_rs": _held(torch, "gemm_rs", y,
+                           grs.gemm_rs_bidir_ref(mesh, ra, rb), 1e-2)["ok"]}
+    return {"launches": counts, "ok": ok}
 
 
 def _tp_library_time(torch, dist, mesh):
@@ -2562,7 +2906,7 @@ def _tp_library_time(torch, dist, mesh):
     a failure here costs nothing else."""
     out = {}
     for name, kind, m, k, n in _TP_SHAPES:
-        _, plain, lib = _tp_case(torch, mesh, kind, m, k, n, 50)
+        _, plain, lib, _ = _tp_case(torch, mesh, kind, m, k, n, 50)
         try:
             from torch.distributed import _symmetric_memory as symm_mem
             if hasattr(symm_mem, "enable_symm_mem_for_group"):
@@ -2625,6 +2969,7 @@ def _tp_ctx(mesh, **kw):
 
 
 _TD_PALLAS = {"ag_method": "pallas", "rs_method": "pallas"}
+_TD_BIDIR = {"ag_method": "pallas_bidir", "rs_method": "pallas_bidir"}
 
 
 def _tp4_measure(torch, dist, kern, engine, ids, gen, profile):
@@ -2709,6 +3054,16 @@ def _tp4_serve(torch, dist, mesh, models, kern, tmp, drawn, gen: int = 32):
                 "param_bytes_per_card": param_bytes, "init_s": init_s,
                 "init_peak_bytes": init_peak})
     logits = {"td": _rank_logits(torch, dist, engine, prompt, fixed).cpu()}
+    del engine
+    torch.cuda.empty_cache()
+    engine = models.Engine(model_of(**_TD_BIDIR), params,
+                           backend="triton_dist")
+    rec["bidir"], bidir_out = _tp4_measure(torch, dist, kern, engine, ids,
+                                           gen, False)
+    rec["bidir"]["tokens_equal_triton_dist"] = bool(torch.equal(bidir_out,
+                                                                out))
+    logits["td_bidir"] = _rank_logits(torch, dist, engine, prompt,
+                                      fixed).cpu()
     del engine
     torch.cuda.empty_cache()
     rec["replicated"] = {}
@@ -2842,6 +3197,7 @@ def _tp4_continuous_consistency(torch, dist, mesh, models, tmp):
 # the f32 gate's TP=4 serves: (label, TPContext fields, Engine arguments)
 _TP4_GATE = (
     ("td", _TD_PALLAS, {"backend": "triton_dist"}),
+    ("td_bidir", _TD_BIDIR, {"backend": "triton_dist"}),
     ("xla", {}, {"mega": "off"}),
     ("mega_pallas_chain", {}, {"mega": "pallas_chain"}),
     ("mega_xla", {}, {"mega": "xla"}),
@@ -3137,6 +3493,8 @@ def _tp4_rank(rank, port, phases, tmp, queue):
 
         if "tp4_serve" in phases:
             res["kernels"] = _tp_ranks_time(torch, dist, mesh)
+            res["ag_sweep"] = _tp4_ag_sweep(torch, dist, mesh)
+            res["mesh_ops"] = _tp4_mesh_ops(torch, dist, mesh, kern)
             lap("tp4_serve_kernels")
         drawn = None
         if "tp4_serve" in phases or "tp4_continuous" in phases:
@@ -3334,6 +3692,7 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
     import multiprocessing as mp
     import socket
     import tempfile
+    from triton_dist_tpu_torch.kernels import allgather as agk
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     with socket.socket() as s:
@@ -3397,6 +3756,7 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         serve = [results[r]["serve"] for r in range(TP)]
         rec = dict(serve[0])
         replicated = rec.pop("replicated")
+        rb = dict(rec.pop("bidir"))
         rec["peak_bytes_per_card"] = [s["peak_bytes"] for s in serve]
         rec["init_peak_bytes_per_card"] = [s["init_peak_bytes"]
                                            for s in serve]
@@ -3419,6 +3779,52 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                 rec["tokens_shape"] != [16, rec["gen_len"]]:
             fail("TP=4 serve: ranks returned different tokens")
         launches_by_path = {"triton_dist": rec["launches"]}
+        bidir = [s["bidir"] for s in serve]
+        rb.update(phase="tp4_serve_triton_dist_bidir", backend="triton_dist",
+                  ag_method="pallas_bidir", rs_method="pallas_bidir",
+                  model=TP_MODEL, layers=L, tp=TP, batch=16, prompt=512,
+                  gen_len=rec["gen_len"], dtype="bf16")
+        rb["peak_bytes_per_card"] = [x["peak_bytes"] for x in bidir]
+        rb["decode_ms_per_step_per_rank"] = [x["decode_ms_per_step"]
+                                             for x in bidir]
+        emit(rb)
+        want_b = _only(rb["launches_per_replay"], flash_prefill=L,
+                       pallas_ag_gemm_bidir=2 * L,
+                       pallas_gemm_rs_bidir=2 * L)
+        if any(x["launches_per_replay"] != want_b for x in bidir) or \
+                rb["graph_replays"] != rb["gen_len"] - 1 or \
+                rb["eager_launches"] != _only(rb["eager_launches"],
+                                              flash_prefill=L):
+            fail(f"TP=4 triton_dist_bidir: {rb['launches_per_replay']} per "
+                 f"replay x {rb['graph_replays']} + {rb['eager_launches']} "
+                 f"eager; want {want_b} per replay")
+        if not all(x["tokens_same_on_every_rank"] for x in bidir):
+            fail("TP=4 triton_dist_bidir: ranks returned different tokens")
+        launches_by_path["triton_dist_bidir"] = rb["launches"]
+        sweep = [results[r]["ag_sweep"] for r in range(TP)]
+        rows_sweep = []
+        for i, first in enumerate(sweep[0]):
+            per = [sw[i] for sw in sweep]
+            rows_sweep.append({
+                "rows_per_rank": first["rows_per_rank"],
+                "shard_bytes": first["shard_bytes"],
+                **{key: max(x[key] for x in per)
+                   for key in ("b8_ms", "b7_ms", "nccl_ms")},
+                "b8_equals_nccl": all(x["b8_equals_nccl"] for x in per)})
+        emit({"phase": "b8_auto_sweep", "tp": TP, "dtype": "bf16",
+              "hidden": 5120, "slowest_rank": rows_sweep,
+              "auto_full_mesh_max_shard_bytes":
+              agk.FULL_MESH_MAX_SHARD_BYTES})
+        if not all(x["b8_equals_nccl"] for x in rows_sweep):
+            fail(f"B8's rows are not NCCL's bytes: {rows_sweep}")
+        mops = [results[r]["mesh_ops"] for r in range(TP)]
+        emit({"phase": "tp4_mesh_ops", "ranks": mops})
+        want_m = _only(mops[0]["launches"], full_mesh_all_gather=1,
+                       pallas_ag_gemm_bidir=1, pallas_gemm_rs_bidir=1)
+        if any(x["launches"] != want_m or not all(x["ok"].values())
+               for x in mops):
+            fail(f"TP=4 mesh-level ops: {mops}; want {want_m}")
+        launches_by_path["tp4_mesh_ops"] = mops[0]["launches"]
         wants = {"mega_default": {"pallas_gemm_ar": 2 * L,
                                   "fused_add_rms": L},
                  "ar_one_shot": {"one_shot_all_reduce": 2 * L},
@@ -3466,7 +3872,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                          f"version at {shp}: {rws}")
                 timed[shp] = {key: max(x[key] for x in rws)
                               for key in ("ms", "plain_ms", "bound_ms",
-                                          "max_abs_err")}
+                                          "max_abs_err", "alt_ms")
+                              if key in rws[0]}
                 lib = [libs.get(r, {}).get(shp, {}) for r in range(TP)]
                 timed[shp]["library_ms"] = (
                     max(x["library_ms"] for x in lib)
@@ -3485,6 +3892,17 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
             row["launches"] = sum(row["launches_by_path"].values())
             row["library_ms_call"] = lib_call
             rows[name] = row
+        # B11 against B10 at the prefill-sized shape, where the rings have
+        # bytes to carry
+        pre = {}
+        for shp in ("qkv_m2048_bidir", "qkv_m2048"):
+            rws = [k[shp] for k in per_rank]
+            if not all(x["ok"] for x in rws):
+                fail(f"{shp} on four cards disagrees with its plain "
+                     f"version (or B11 with B10): {rws}")
+            pre[shp] = {key: max(x[key] for x in rws) for key in
+                        ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+        rows["pallas_ag_gemm_bidir"]["prefill_shape"] = pre
     if "tp4_continuous" in phases:
         per = [results[r]["continuous"] for r in range(TP)]
         L = models.QWEN3_ARCHS[TP_MODEL].num_layers
@@ -3555,7 +3973,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
     if "tp4_serve" in phases:
         saved = torch.load(os.path.join(tmp, "tp4_bf16.pt"))
         ref = w1["bf16"]
-        paths = ["td", "xla", *(label for label, _, _ in _TP4_REPLICATED)]
+        paths = ["td", "td_bidir", "xla",
+                 *(label for label, _, _ in _TP4_REPLICATED)]
         emit({"phase": "tp4_logits_bf16", "layers": 64,
               "rel_rms_vs_world1": {p: _rel_rms(torch, saved[p], ref)
                                     for p in paths},
@@ -3807,6 +4226,14 @@ def main() -> None:
         for rec in phase_b14_b15_tp(torch, symm, agg, mrs, mu, plain):
             tp_rows[rec["name"]] = rec
         torch.cuda.empty_cache()
+    if "b8_full_mesh_ag" in phases:
+        tp_rows["full_mesh_all_gather"] = phase_b8(torch, symm, kern,
+                                                   ring_ag)
+    if "b11_ag_gemm_bidir" in phases:
+        tp_rows["pallas_ag_gemm_bidir"] = phase_b11(torch, symm, agm)
+        torch.cuda.empty_cache()
+    if "b13b_gemm_rs_bidir" in phases:
+        tp_rows["pallas_gemm_rs_bidir"] = phase_b13b(torch, symm, grs)
     four = [p for p in phases if p in FOUR_CARD_PHASES]
     n_cards = torch.cuda.device_count()
     if four and n_cards < TP:
@@ -3819,12 +4246,18 @@ def main() -> None:
         by_path.update(extra)
         for name, row in rows.items():
             if name in tp_rows:
+                one = tp_rows[name]
                 row["one_card_world"] = {
-                    k: tp_rows[name][k] for k in
+                    k: one[k] for k in
                     ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")}
+                # a path the one-card world drove (all_gather_op for B8)
+                for path, n in (one.get("launches_by_path") or {}).items():
+                    row.setdefault("launches_by_path", {})[path] = n
+                    row["launches"] = sum(row["launches_by_path"].values())
             tp_rows[name] = row
     for row in tp_rows.values():
-        if row["measured_on"].startswith("one card"):
+        if row["measured_on"].startswith("one card") and \
+                not row.get("launches"):
             row["launches_note"] = (
                 "the TP=4 serve needs four cards "
                 f"(torch.cuda.device_count() = {n_cards}); it did not run")

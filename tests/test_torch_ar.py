@@ -302,7 +302,9 @@ def test_world4_schedule_matches_jax(policy):
 
 
 def test_what_waits_raises(ar):
-    """gemm_ar XLA_RING names A9, the int8 wires A13; the MoE mega task
+    """gemm_ar XLA_RING refuses an M the world does not divide (the
+    reference's ValueError; its values are held in
+    tests/test_torch_bidir.py), the int8 wires name A13; the MoE mega task
     builds at n > 1 (one per layer); RHD refuses an M the world does not
     divide and a world that is no power of two; AUTO is resolved above
     the per-device level;

@@ -22,7 +22,12 @@ import triton_dist_tpu_torch.layers.tp_attn
 import triton_dist_tpu_torch.layers.tp_mlp
 import triton_dist_tpu_torch.layers.tp_moe
 import triton_dist_tpu_torch.models.qwen_moe
+import triton_dist_tpu_torch.kernels
+import triton_dist_tpu_torch.kernels.allgather
 import triton_dist_tpu_torch.kernels.allgather_gemm
+import triton_dist_tpu_torch.kernels.allreduce
+import triton_dist_tpu_torch.kernels.reduce_scatter
+import triton_dist_tpu_torch.runtime.native
 import triton_dist_tpu_torch.kernels.allgather_group_gemm
 import triton_dist_tpu_torch.kernels.gemm_reduce_scatter
 import triton_dist_tpu_torch.kernels.moe_reduce_rs
@@ -61,7 +66,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_sources_never_name_jax_or_the_jax_package():
     pat = re.compile(r"\bjax\b|\bjaxlib\b|triton_dist_tpu(?!_torch)")
     files = sorted(p for p in PORT.rglob("*")
-                   if p.suffix in (".py", ".cu", ".cuh")
+                   if p.suffix in (".py", ".cu", ".cuh", ".cc")
                    and "build" not in p.relative_to(PORT).parts)
     assert len(files) >= 20
     hits = [f"{p.relative_to(REPO)}:{i}: {line.strip()}"
@@ -87,3 +92,23 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     bad = [n for n in names if n.split(".")[0] in
            ("jax", "jaxlib", "triton_dist_tpu")]
     assert not bad, bad
+
+
+def test_port_host_sources_are_its_own():
+    """The native schedule provider builds the port's own copies of the
+    host C++ (triton_dist_tpu_torch/csrc/host/) into the port's build
+    directory, and no source of the port points at the repository's root
+    csrc/ (the JAX package's native sources)."""
+    from triton_dist_tpu_torch.runtime import native
+    assert native.sources(), "no host sources"
+    for src in native.sources():
+        assert src.resolve().is_relative_to(PORT / "csrc" / "host"), src
+    assert native.library_path().resolve().is_relative_to(
+        PORT / "csrc" / "build")
+    root_csrc = re.compile(r"parent\.parent\.parent|\.\./csrc|"
+                           r"REPO\s*/\s*[\"']csrc|libtriton_dist_tpu")
+    hits = [f"{p.relative_to(REPO)}:{i}"
+            for p in sorted(PORT.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if root_csrc.search(line)]
+    assert not hits, hits

@@ -242,8 +242,10 @@ def test_runtime_methods_dispatch_and_unported_paths():
     a, w = torch.ones((2, 8)), torch.ones((8, 4))
     with pytest.raises(ValueError, match="needs the mesh"):
         gemm_ar_per_device(2, GemmArMethod.XLA, a, w)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        gemm_ar_per_device(1, GemmArMethod.XLA_RING, a, w)
+    # XLA_RING (ring GEMM + RS, then the RING_1D gather) is the product at
+    # world 1, as the reference's
+    assert torch.equal(gemm_ar_per_device(1, GemmArMethod.XLA_RING, a, w),
+                       torch.full((2, 4), 8.0))
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         gemm_ar_per_device(1, GemmArMethod.XLA_QINT8, a, w)
     assert get_auto_gemm_ar_method(1, cuda=True) == \

@@ -420,8 +420,9 @@ def test_mlp_hook_leaves_dense_tokens_unchanged():
 
 def test_auto_rules_and_unported_options_raise(monkeypatch):
     """The port's MoE AUTO rule (kernels on CUDA, plain on the CPU, B15
-    only up to 1024 tokens a chunk), what waits for ROADMAP A9 / A10's EP
-    half, and what world n > 1 needs (its mesh)."""
+    only up to 1024 tokens a chunk), the native schedule provider, what
+    waits for ROADMAP A10's EP half, and what world n > 1 needs (its
+    mesh)."""
     assert resolve_ag_group_gemm_method(AgGroupGemmMethod.AUTO, 4, 8,
                                         cuda=True) == AgGroupGemmMethod.PALLAS
     assert resolve_ag_group_gemm_method(AgGroupGemmMethod.AUTO, 4, 8) == \
@@ -434,14 +435,22 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
     assert r(MoeReduceRsMethod.AUTO, 4, 1) == MoeReduceRsMethod.XLA
     assert r(MoeReduceRsMethod.XLA_RING, 4, 1) == MoeReduceRsMethod.XLA_RING
     ids = torch.zeros((4, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        moe_utils.make_chunk_schedule(ids, 1, 4, 8, provider="native")
     sched = moe_utils.make_chunk_schedule(ids, 1, 4, 8)
+    # the native provider (the host C++ schedulers) builds the in-graph
+    # schedule's live fields (tests/test_torch_native_sched.py holds it
+    # to the JAX native provider)
+    host = moe_utils.make_chunk_schedule(ids, 1, 4, 8, provider="native")
+    assert all(torch.equal(h, g) for name, h, g in zip(
+        sched._fields, host, sched) if name != "tile_expert")
+    used = int(sched.used_tiles[0])
+    assert torch.equal(host.tile_expert[:, :used],
+                       sched.tile_expert[:, :used])
     assert moe_utils.make_chunk_schedule(ids, 1, 4, 8, sched) is sched
     a = torch.ones((2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # the bidirectional rings run at n > 1 (B11 / B13b), given the mesh
+    with pytest.raises(ValueError, match="needs the mesh"):
         ag_gemm_per_device(2, AgGemmMethod.XLA_BIDIR, a, a.T)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         gemm_rs_per_device(2, GemmRsMethod.PALLAS_BIDIR, a, a.T)
     with pytest.raises(ValueError, match="unresolved"):
         ag_gemm_per_device(1, AgGemmMethod.AUTO, a, a.T)

@@ -221,8 +221,8 @@ def test_what_stays_refused(tp):
     a chunk, a world > 1 without its mesh, an expert width the world does
     not divide and a triton_dist batch the world does not divide raise;
     the expert-parallel
-    layout waits for A10's EP half and the native schedule provider for
-    A9. AUTO: PALLAS on CUDA up to 1024 tokens a chunk, then XLA_RING at
+    layout waits for A10's EP half; the native schedule provider builds
+    the in-graph schedule at world 4 (its live tiles). AUTO: PALLAS on CUDA up to 1024 tokens a chunk, then XLA_RING at
     world n (XLA at world 1); XLA on the CPU."""
     for r, c in enumerate(tp["checks"]):
         assert c["mega_moe_tasks_at_world_n"] == LAYERS, r
@@ -234,9 +234,16 @@ def test_what_stays_refused(tp):
         Qwen3MoE(Qwen3MoEArch(moe_parallel="ep"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         TPContext(ep_max_m=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        moe_utils.make_chunk_schedule(torch.zeros((8, 2), dtype=torch.int32),
-                                      WORLD, 4, 8, provider="native")
+    ids = torch.tensor([[0, 3], [1, 2]] * 4, dtype=torch.int32)
+    host = moe_utils.make_chunk_schedule(ids, WORLD, 4, 8,
+                                         provider="native")
+    graph = moe_utils.make_chunk_schedule(ids, WORLD, 4, 8)
+    assert all(torch.equal(h, g) for name, h, g in zip(
+        graph._fields, host, graph) if name != "tile_expert")
+    for c in range(WORLD):
+        used = int(graph.used_tiles[c])
+        assert torch.equal(host.tile_expert[c, :used],
+                           graph.tile_expert[c, :used])
     r = resolve_moe_reduce_rs_method
     assert r(MoeReduceRsMethod.AUTO, WORLD * 1024, WORLD, cuda=True) == \
         MoeReduceRsMethod.PALLAS

@@ -287,13 +287,15 @@ def test_rank_init_is_the_world1_draw_cut(tp):
 
 
 def test_tp_refusals_and_cpu_runtime(tp):
-    """The bidirectional rings raise naming A9, n > 1 without the mesh is
+    """The bidirectional rings run and equal the XLA tiers (the port of
+    B11 / B13b; their parity with the JAX tiers is held in
+    tests/test_torch_bidir.py), n > 1 without the mesh is
     refused, the default Engine builds the mega step at n > 1 (a MoE
     graph's moe task too), the paged Engine builds at n > 1, a batch the
     world does not divide is refused; on the CPU a symmetric buffer is a
     plain tensor and notify_wait is a broadcast from rank 0."""
     for r, c in enumerate(tp["checks"]):
-        for key in ("bidir_raises", "no_mesh_raises",
+        for key in ("bidir_equals_xla", "no_mesh_raises",
                     "mega_builds_at_world_n",
                     "paged_builds_at_world_n", "odd_batch_raises",
                     "cpu_symm_is_plain", "notify_wait_is_rank0"):

@@ -104,9 +104,9 @@ def _ops(inp: dict, mesh, out: dict, checks: dict) -> None:
                                               mesh=mesh),
                 ValueError, "power-of-two")])
     checks["waits_raise"] = all([
-        _raises(lambda: gemm_ar_per_device(n, GemmArMethod.XLA_RING, a,
-                                           a.T, mesh=mesh),
-                NotImplementedError, "ROADMAP A9"),
+        _raises(lambda: gemm_ar_per_device(n, GemmArMethod.XLA_RING, x6,
+                                           torch.ones((8, 4)), mesh=mesh),
+                ValueError, "divisible by the axis size"),
         _raises(lambda: gemm_ar_per_device(n, GemmArMethod.XLA_QINT8, a,
                                            a.T, mesh=mesh),
                 NotImplementedError, "ROADMAP A13"),

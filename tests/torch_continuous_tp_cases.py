@@ -245,7 +245,8 @@ def test_process_group_tiers_and_refusals(tp):
     """The NCCL-role tiers (AUTO on the CPU: the process group's
     reduce-scatter; XLA all-gather) equal the sums and the rows; rows the
     world does not divide raise a ValueError in the port, and the JAX
-    per-device body fails on the same input; FULL_MESH names A9."""
+    per-device body fails on the same input; FULL_MESH (B8's plain
+    version) gathers the XLA rows."""
     world, inp = tp["world"], tp["inp"]
     total = inp["rs_x"].sum(0)
     for r in range(world):
@@ -256,7 +257,7 @@ def test_process_group_tiers_and_refusals(tp):
         np.testing.assert_array_equal(got["ag/xla"],
                                       inp["ag_x"].reshape(-1, 128))
         assert tp["checks"][r]["n_not_dividing_rows_raises"] is True
-        assert tp["checks"][r]["full_mesh_raises_a9"] is True
+        assert tp["checks"][r]["full_mesh_equals_xla"] is True
     assert tp["jax"]["bad_fails"]
 
 

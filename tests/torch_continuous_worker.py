@@ -137,10 +137,10 @@ def _ops(inp, mesh, out: dict, checks: dict) -> None:
         _raises(lambda: reduce_scatter_per_device(
             n, ReduceScatterMethod.RING_1D, bad, mesh=mesh),
             ValueError, "divisible by the world")])
-    checks["full_mesh_raises_a9"] = _raises(
-        lambda: all_gather_per_device(n, AllGatherMethod.FULL_MESH, y,
-                                      mesh=mesh),
-        NotImplementedError, "ROADMAP A9")
+    # FULL_MESH (B8's plain version on the CPU) gathers the XLA rows
+    checks["full_mesh_equals_xla"] = bool(torch.equal(
+        all_gather_per_device(n, AllGatherMethod.FULL_MESH, y, mesh=mesh),
+        all_gather_per_device(n, AllGatherMethod.XLA, y, mesh=mesh)))
 
 
 def _serves(inp, mesh, out: dict, checks: dict) -> None:

@@ -158,17 +158,23 @@ def _model(inp: dict, mesh, out: dict, checks: dict) -> None:
         torch.equal(auto["layers"][k], seed0["layers"][k])
         for k in seed0["layers"]) and torch.equal(auto["lm_head"],
                                                   seed0["lm_head"])
-    # what waits, and what is refused
-    a = torch.ones((2, 8))
-    checks["bidir_raises"] = all([
-        _raises(lambda: ag_gemm_per_device(mesh.world,
-                                           AgGemmMethod.XLA_BIDIR, a, a.T,
-                                           mesh=mesh),
-                NotImplementedError, "ROADMAP A9"),
-        _raises(lambda: gemm_rs_per_device(mesh.world,
-                                           GemmRsMethod.PALLAS_BIDIR,
-                                           a.repeat(2, 1), a.T, mesh=mesh),
-                NotImplementedError, "ROADMAP A9")])
+    # the bidirectional rings run (B11's and B13b's plain versions for
+    # PALLAS_BIDIR) and equal the XLA tiers; what is refused
+    a = torch.arange(16.0).reshape(2, 8) + mesh.rank
+    rs_a = torch.arange(8.0 * mesh.world).reshape(2 * mesh.world, 4) + \
+        mesh.rank
+    checks["bidir_equals_xla"] = all(
+        torch.equal(ag_gemm_per_device(mesh.world, meth, a, a.T,
+                                       mesh=mesh)[0],
+                    ag_gemm_per_device(mesh.world, AgGemmMethod.XLA, a, a.T,
+                                       mesh=mesh)[0])
+        for meth in (AgGemmMethod.XLA_BIDIR, AgGemmMethod.PALLAS_BIDIR)
+    ) and all(
+        torch.equal(gemm_rs_per_device(mesh.world, meth, rs_a, rs_a.T,
+                                       mesh=mesh),
+                    gemm_rs_per_device(mesh.world, GemmRsMethod.XLA, rs_a,
+                                       rs_a.T, mesh=mesh))
+        for meth in (GemmRsMethod.XLA_BIDIR, GemmRsMethod.PALLAS_BIDIR))
     checks["no_mesh_raises"] = _raises(
         lambda: ag_gemm_per_device(mesh.world, AgGemmMethod.XLA, a, a.T),
         ValueError, "needs the mesh")

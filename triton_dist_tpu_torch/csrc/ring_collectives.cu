@@ -1,10 +1,11 @@
-// B9 (ring reduce-scatter) and B7 (ring all-gather) across ranks,
-// hand-written for Hopper (sm_90a).
+// B9 (ring reduce-scatter), B7 (ring all-gather) and B8 (full-mesh
+// all-gather) across ranks, hand-written for Hopper (sm_90a).
 //
-// Replace the TPU kernels kernels/reduce_scatter.py::_ring_rs_kernel and
-// kernels/allgather.py::_ring_ag_kernel of the JAX package (methods
-// RING_1D of reduce_scatter_per_device / all_gather_per_device; together
-// they are all_reduce_per_device's TWO_SHOT).
+// Replace the TPU kernels kernels/reduce_scatter.py::_ring_rs_kernel,
+// kernels/allgather.py::_ring_ag_kernel and ::_full_mesh_ag_kernel of the
+// JAX package (methods RING_1D of reduce_scatter_per_device /
+// all_gather_per_device, together all_reduce_per_device's TWO_SHOT; and
+// all_gather_per_device's FULL_MESH).
 //  * B9: every rank holds x (n*m, K); rank r returns row chunk r of the
 //    sum over ranks, (m, K). At step 0 rank r sends its raw chunk r-1 to
 //    its right neighbour; at step s >= 1 it receives the partial of chunk
@@ -18,13 +19,19 @@
 //    (mod n) to its right neighbour (its own rows at step 0, after that
 //    the chunk that landed from its left at step s-1, which it waits
 //    for first).
+//  * B8: every rank holds x (m, K); every rank returns the (n*m, K) rows
+//    of all ranks in rank order, each rank's shard pushed straight into
+//    slot `rank` of every rank's buffer (one hop on NVSwitch).
 //
 // What bounds them on this card. On the TWO_SHOT prefill path (Qwen3-32B
 // at TP=4, one 512-token chunk) x is (512, 5120) bf16, 5.2 MB: B9 sends
 // 3 x 1.3 MB per rank and reads/writes ~2.6 MB of HBM per step, B7 the
 // same; ~9 us of NVLink time at 450 GB/s each way. At the decode shape
 // (16, 5120) the kernels are bound by latency: n - 1 flag hops in
-// sequence, each after the previous one landed.
+// sequence, each after the previous one landed. B8 moves the same bytes
+// in one hop: every rank stores its shard into n - 1 peers at once, so at
+// (128, 5120) bf16 a rank sends 3 x 1.3 MB (~9 us at 450 GB/s) and at the
+// decode shape it is bound by one flag round trip.
 //
 // Design:
 //  * the grid is G blocks (the wrapper's choice, the same on every rank),
@@ -48,6 +55,15 @@
 //  * B7's gathered rows are written by the left neighbour, so they live
 //    in the symmetric buffer and are copied out to the caller's fresh
 //    tensor at the end (the own rows straight from x);
+//  * B8 shares B10's gather leg (td_dist.cuh push_all): the grid splits
+//    the shard's bytes, each block stores its share into slot `rank` of
+//    every rank's gathered rows, and the last block of the grid to finish
+//    raises this rank's data flag (epoch-valued) on every rank; every
+//    block waits for the n flags and copies its share of the gathered rows
+//    out. The gathered rows are double-buffered by the epoch's parity,
+//    with no opening barrier: rank r writes a peer's rows of call e + 2
+//    only after call e + 1, which waited for every peer's flag of call
+//    e + 1, raised only after that peer's call e kernel had ended;
 //  * the grid is small enough that every block of every rank that shares
 //    the card is resident at once (G <= occupancy x SMs / ranks per card).
 
@@ -205,6 +221,30 @@ __global__ void __launch_bounds__(NT)
   td::dist::end_call(ctl, e);
 }
 
+// B8. Symmetric buffer: the gathered rows (2, n, shard bytes) from byte
+// 0, halves by the epoch's parity; the data flags in the signal pad.
+__global__ void __launch_bounds__(NT)
+    full_mesh_ag_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                        Team team, u64* ctl, long shard) {
+  const int n = team.world;
+  const u64 e = td::dist::begin_call(ctl);
+  const long half = n * shard;
+  const long par = static_cast<long>(e & 1) * half;
+  td::dist::push_all(team, par + team.rank * shard, x, shard);
+  td::dist::publish(team, ctl, e, gridDim.x);
+  if (threadIdx.x == 0)
+    for (int p = 0; p < n; ++p)
+      td::dist::wait(team.pad(team.rank) + td::dist::kData + p, e,
+                     "B8 full-mesh shard", p);
+  __syncthreads();
+  const uint4* rows = buf(team, team.rank, par);
+  const long vecs = half / 16;
+  for (long i = static_cast<long>(blockIdx.x) * NT + threadIdx.x; i < vecs;
+       i += static_cast<long>(gridDim.x) * NT)
+    out[i] = __ldcg(rows + i);
+  td::dist::end_call(ctl, e);
+}
+
 // Checks that `grid` blocks of kernel fn fit on the card at once with the
 // other ranks that share it (queried once per kernel: never under a CUDA
 // graph capture, callers warm up first; the query also loads the kernel
@@ -269,6 +309,18 @@ cudaError_t launch_ag(const void* x, void* out, const Team& team, u64* ctl,
   return cudaGetLastError();
 }
 
+cudaError_t launch_full_mesh(const void* x, void* out, const Team& team,
+                             u64* ctl, long shard, int grid, int rpd,
+                             cudaStream_t st) {
+  static int occ = 0;
+  cudaError_t err = check_resident(full_mesh_ag_kernel, &occ, grid, rpd);
+  if (err != cudaSuccess) return err;
+  full_mesh_ag_kernel<<<grid, NT, 0, st>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), team, ctl,
+      shard);
+  return cudaGetLastError();
+}
+
 bool valid(int rank, int world, int m, int kv, int grid, int rpd) {
   return world >= 2 && world <= td::dist::kMaxWorld && rank >= 0 &&
          rank < world && m > 0 && kv > 0 && grid >= 1 && grid <= kv &&
@@ -327,6 +379,24 @@ int td_ring_ag(const void* x, void* out, int rank, int world,
         x, out, team, c, m, kv, rows_off, flag_off, grid, ranks_per_device,
         st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B8. x: (m, K), out: (world * m, K), any dtype, contiguous, 16-byte
+// aligned, kv = K * itemsize / 16 vectors per row; base: device table of
+// every rank's symmetric buffer (the gathered rows (2, world * m, K) from
+// byte 0, the signal pad at sig_off, zeroed once); ctl: this rank's
+// control block (4 u64, zeroed once); grid: blocks, the same on every
+// rank; ranks_per_device: ranks that share this card. Returns a
+// cudaError_t.
+int td_full_mesh_ag(const void* x, void* out, int rank, int world,
+                    const void* base, long long sig_off, void* ctl, int m,
+                    int kv, int grid, int ranks_per_device, void* stream) {
+  if (!valid(rank, world, m, kv, grid, ranks_per_device))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Team team{rank, world, static_cast<const long long*>(base), sig_off};
+  return static_cast<int>(launch_full_mesh(
+      x, out, team, static_cast<u64*>(ctl), static_cast<long>(m) * kv * 16,
+      grid, ranks_per_device, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

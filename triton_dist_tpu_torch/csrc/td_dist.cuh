@@ -121,6 +121,21 @@ __device__ __forceinline__ void put(void* dst, const void* src, long bytes) {
     d[i] = __ldcg(s + i);
 }
 
+// push_all: this block's share of `bytes` of src (the grid splits them in
+// 16-byte units), stored at byte `off` of every rank's allocation, the
+// next rank first and this rank's own last: the full-mesh gather leg of
+// B8 and B10. Call from all threads of the block.
+__device__ __forceinline__ void push_all(const Team& t, long off,
+                                         const void* src, long bytes) {
+  const long per = ((bytes / 16 + gridDim.x - 1) / gridDim.x) * 16;
+  const long lo = per * blockIdx.x < bytes ? per * blockIdx.x : bytes;
+  const long hi = lo + per < bytes ? lo + per : bytes;
+  for (int i = 1; i <= t.world; ++i) {
+    const int p = (t.rank + i) % t.world;
+    put(t.peer(p) + off + lo, static_cast<const char*>(src) + lo, hi - lo);
+  }
+}
+
 // The epoch of this call (every block of the grid reads the same one).
 __device__ __forceinline__ u64 begin_call(const u64* ctl) {
   __shared__ u64 epoch;

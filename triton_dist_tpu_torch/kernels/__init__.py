@@ -18,16 +18,62 @@ down projections across ranks), B14 ``allgather_group_gemm.group_gemm``
 combine) at world 1, and across ranks B14
 ``allgather_group_gemm.pallas_ag_group_gemm`` and B15
 ``moe_reduce_rs.pallas_moe_reduce_rs``;
-``flash_decode`` holds the LSE merge B2 feeds. Each wrapper counts its
-kernel launches in a ``launches`` attribute."""
+``flash_decode`` holds the LSE merge B2 feeds. Across ranks also B8
+``allgather.full_mesh_all_gather`` (the full-mesh all-gather), B11
+``allgather_gemm.pallas_ag_gemm_bidir`` and B13b
+``gemm_reduce_scatter.pallas_gemm_rs_bidir`` (the bidirectional-ring
+AllGather + GEMM and GEMM + ReduceScatter, the PALLAS_BIDIR tiers). Each
+wrapper counts its kernel launches in a ``launches`` attribute.
+
+The mesh-level ops and their contexts are exported here, as the
+reference's package exports them: ``all_gather_op``, ``ag_gemm``,
+``gemm_rs``, ``ag_group_gemm`` with their contexts; the MoE
+ReduceScatter op is ``moe_reduce_rs.moe_reduce_rs`` (its name is the
+module's).
+"""
+
+from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
+    AllGatherMethod,
+    all_gather_op,
+    get_auto_all_gather_method,
+)
+from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: F401
+    AgGemmContext,
+    AgGemmMethod,
+    ag_gemm,
+    create_ag_gemm_context,
+)
+from triton_dist_tpu_torch.kernels.allgather_group_gemm import (  # noqa: F401
+    AgGroupGemmContext,
+    AgGroupGemmMethod,
+    ag_group_gemm,
+    create_ag_group_gemm_context,
+)
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
+    GemmRsContext,
+    GemmRsMethod,
+    create_gemm_rs_context,
+    gemm_rs,
+)
+from triton_dist_tpu_torch.kernels.moe_reduce_rs import (  # noqa: F401
+    MoeReduceRsContext,
+    MoeReduceRsMethod,
+    create_moe_reduce_rs_context,
+)
+from triton_dist_tpu_torch.kernels.moe_utils import (  # noqa: F401
+    make_chunk_schedule,
+    native_chunk_schedule,
+)
 
 
 def launch_wrappers() -> dict:
     """{kernel name: its wrapper}; each wrapper's ``launches`` counts the
     kernel launches it made (or recorded into a CUDA graph)."""
-    from triton_dist_tpu_torch.kernels.allgather import ring_all_gather
+    from triton_dist_tpu_torch.kernels.allgather import (
+        full_mesh_all_gather, ring_all_gather,
+    )
     from triton_dist_tpu_torch.kernels.allgather_gemm import (
-        pallas_ag_gemm, pallas_matmul,
+        pallas_ag_gemm, pallas_ag_gemm_bidir, pallas_matmul,
     )
     from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
         group_gemm, pallas_ag_group_gemm,
@@ -41,7 +87,7 @@ def launch_wrappers() -> dict:
         gemm_ar, pallas_gemm_ar,
     )
     from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
-        pallas_gemm_rs,
+        pallas_gemm_rs, pallas_gemm_rs_bidir,
     )
     from triton_dist_tpu_torch.kernels.moe_reduce_rs import (
         moe_rs, pallas_moe_reduce_rs,
@@ -64,7 +110,10 @@ def launch_wrappers() -> dict:
             "ring_reduce_scatter": ring_reduce_scatter,
             "ring_all_gather": ring_all_gather,
             "pallas_ag_group_gemm": pallas_ag_group_gemm,
-            "pallas_moe_reduce_rs": pallas_moe_reduce_rs}
+            "pallas_moe_reduce_rs": pallas_moe_reduce_rs,
+            "full_mesh_all_gather": full_mesh_all_gather,
+            "pallas_ag_gemm_bidir": pallas_ag_gemm_bidir,
+            "pallas_gemm_rs_bidir": pallas_gemm_rs_bidir}
 
 
 def launch_counts() -> dict[str, int]:

@@ -25,11 +25,20 @@ At world 1 the gather is the identity: XLA and XLA_RING are the one
 shard's grouped GEMM, PALLAS is B14's world-1 body, ``group_gemm`` (the
 kernel for CUDA tensors, ``group_gemm_ref`` for CPU tensors). No
 fallback: a CUDA tensor the kernel does not take raises.
+
+The mesh-level ``ag_group_gemm(ctx, tokens, topk_ids, experts_w)``
+resolves the method from an ``AgGroupGemmContext``
+(``create_ag_group_gemm_context``); under PALLAS it builds the n-chunk
+schedule once per call through ``ctx.schedule`` ("auto": in the graph;
+"native": the host C++ schedulers; or a precomputed AlignedSchedule) and
+runs B14 across ranks, as the reference does. No fault preamble and no
+fallback (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import enum
 
 import torch
@@ -39,6 +48,7 @@ from triton_dist_tpu_torch.kernels import moe_utils
 from triton_dist_tpu_torch.kernels.allgather_gemm import _peer, check_mesh
 from triton_dist_tpu_torch.kernels.plain import dot_f32
 from triton_dist_tpu_torch.runtime import build
+from triton_dist_tpu_torch.runtime.mesh import comm_axis_size
 from triton_dist_tpu_torch.runtime.symm import op_workspace
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,6 +73,33 @@ def resolve_ag_group_gemm_method(method: AgGroupGemmMethod, m_local: int,
     if method != AgGroupGemmMethod.AUTO:
         return method
     return AgGroupGemmMethod.PALLAS if cuda else AgGroupGemmMethod.XLA
+
+
+@dataclasses.dataclass
+class AgGroupGemmContext:
+    """The reference's AgGroupGemmContext: the ranks' Mesh, its axis, the
+    routing's experts and top-k, the method, the aligned tile rows of
+    PALLAS (bm), the row blocks a shard travels in (comm_blocks) and the
+    tile-schedule provider (``moe_utils.make_chunk_schedule``)."""
+    mesh: object
+    axis: str
+    num_experts: int
+    topk: int
+    method: AgGroupGemmMethod = AgGroupGemmMethod.AUTO
+    bm: int = 128
+    comm_blocks: int = 4
+    schedule: object = "auto"
+
+    def resolve(self, m_local: int) -> AgGroupGemmMethod:
+        return resolve_ag_group_gemm_method(
+            self.method, m_local, self.topk,
+            cuda=self.mesh.device.type == "cuda")
+
+
+def create_ag_group_gemm_context(mesh, num_experts: int, topk: int,
+                                 axis: str = "tp",
+                                 **kw) -> AgGroupGemmContext:
+    return AgGroupGemmContext(mesh, axis, num_experts, topk, **kw)
 
 
 def _shard_group_gemm(tokens, topk_ids, experts_w, num_experts):
@@ -262,6 +299,27 @@ def ag_group_gemm_per_device(n: int, num_experts: int,
                                  num_experts), ag
     return _ring_per_device(mesh, num_experts, tokens, topk_ids_full,
                             experts_w)
+
+
+def ag_group_gemm(ctx: AgGroupGemmContext, tokens: torch.Tensor,
+                  topk_ids: torch.Tensor, experts_w: torch.Tensor):
+    """The mesh-level AllGather + grouped GEMM (the reference's
+    ``ag_group_gemm``), called by every rank: tokens (m, K) its shard,
+    topk_ids (n*m, topk) the whole routing, experts_w (E, K, N_loc) its
+    column shard -> (out_flat (n*m*topk, N_loc), ag_tokens (n*m, K))."""
+    n = comm_axis_size(ctx.mesh, ctx.axis)
+    m_loc = tokens.shape[0]
+    method = ctx.resolve(m_loc)
+    if method == AgGroupGemmMethod.PALLAS:
+        bm = min(ctx.bm, max(8, m_loc * ctx.topk))
+        sched = moe_utils.make_chunk_schedule(topk_ids, n, ctx.num_experts,
+                                              bm, provider=ctx.schedule)
+        return ag_group_gemm_per_device(
+            n, ctx.num_experts, method, tokens, topk_ids, experts_w, bm=bm,
+            comm_blocks=ctx.comm_blocks, sched=sched, mesh=ctx.mesh)
+    return ag_group_gemm_per_device(
+        n, ctx.num_experts, method, tokens, topk_ids, experts_w, bm=ctx.bm,
+        comm_blocks=ctx.comm_blocks, mesh=ctx.mesh)
 
 
 def check_schedule(sched: moe_utils.AlignedSchedule, dev: torch.device,

@@ -18,14 +18,15 @@ in x's dtype. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     then the ring all-gather B7 (kernels/allgather.py), composed as the
     reference composes them. n must divide M: anything else raises (the
     reference's per-device body fails there; its mesh-level demotion to
-    ONE_SHOT comes with ``all_reduce_op``). Every rank ends with the same
-    bytes;
+    ONE_SHOT comes with ``all_reduce_op``, A9 (tail)). Every rank ends
+    with the same bytes;
   * the QINT8 tiers wait for ROADMAP A13; AUTO is resolved above the
     per-device level ("unresolved method"), as in the reference.
 
 At world 1 the all-reduce is the identity: every method returns x. No
 fallback: a CUDA call a kernel does not take raises. The mesh-level
-``all_reduce_op`` (with the reference's fault preamble) waits for A8.
+``all_reduce_op`` (with its TWO_SHOT demotion and an AUTO rule measured
+on the card) waits for ROADMAP A9 (tail), its fault preamble for A8.
 """
 
 from __future__ import annotations

@@ -18,9 +18,14 @@ slot and folds slot 0 + ... + slot n-1 (the reference's order, the same on
 every rank), and ``gemm_ar_ref_tp`` for CPU tensors, which folds the
 ranks' partials in that order.
 
+XLA_RING is the reference's two-shot with GEMM overlap: the XLA_RING
+GEMM + ReduceScatter (kernels/gemm_reduce_scatter.py), then the RING_1D
+all-gather of the reduced rows (B7 on the card); M must be a multiple of
+the world (a ValueError otherwise, the reference's).
+
 There is no fallback between a kernel and its plain version: a CUDA
-tensor a kernel does not take raises. XLA_RING waits for ROADMAP A9 (it
-needs B7), the int8 wire XLA_QINT8 for A13; each raises naming its item.
+tensor a kernel does not take raises. The int8 wire XLA_QINT8 waits for
+ROADMAP A13 and raises naming it.
 """
 
 from __future__ import annotations
@@ -131,9 +136,20 @@ def gemm_ar_per_device(n: int, method: GemmArMethod, a: torch.Tensor,
     if method == GemmArMethod.AUTO:
         method = get_auto_gemm_ar_method(n, a.device.type == "cuda")
     if method == GemmArMethod.XLA_RING:
-        raise NotImplementedError(
-            "GemmArMethod.XLA_RING (ring GEMM+RS then AG) waits for "
-            "ROADMAP A9")
+        if a.shape[0] % n:
+            raise ValueError(
+                f"GemmArMethod.XLA_RING requires M ({a.shape[0]}) divisible "
+                f"by the axis size ({n}); use PALLAS or XLA")
+        from triton_dist_tpu_torch.kernels.allgather import (
+            AllGatherMethod, all_gather_per_device,
+        )
+        from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+            GemmRsMethod, gemm_rs_per_device,
+        )
+        scattered = gemm_rs_per_device(n, GemmRsMethod.XLA_RING, a, b,
+                                       mesh=mesh)
+        return all_gather_per_device(n, AllGatherMethod.RING_1D, scattered,
+                                     mesh=mesh)
     if method == GemmArMethod.XLA_QINT8:
         raise NotImplementedError(
             "GemmArMethod.XLA_QINT8 (int8 wire) waits for ROADMAP A13")

@@ -29,11 +29,19 @@ At world 1 the reduce-scatter is the identity: XLA and XLA_RING compute the
 one chunk's partial, PALLAS is B15's world-1 body, ``moe_rs`` (the kernel
 for CUDA tensors, ``moe_rs_ref`` for CPU tensors). No fallback: a CUDA
 tensor the kernel does not take raises.
+
+The mesh-level ``moe_reduce_rs(ctx, inter, topk_ids, topk_weights,
+experts_w)`` resolves the method from a ``MoeReduceRsContext``
+(``create_moe_reduce_rs_context``); M must be a multiple of the world.
+Under PALLAS it builds the n-chunk schedule once per call through
+``ctx.schedule`` and runs B15 across ranks, as the reference does. No
+fault preamble and no fallback (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import enum
 
 import torch
@@ -46,6 +54,7 @@ from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
 )
 from triton_dist_tpu_torch.kernels.plain import dot_f32, slot_fold
 from triton_dist_tpu_torch.runtime import build
+from triton_dist_tpu_torch.runtime.mesh import comm_axis_size
 from triton_dist_tpu_torch.runtime.symm import op_workspace
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,6 +81,34 @@ def resolve_moe_reduce_rs_method(method: MoeReduceRsMethod, m: int, n: int,
     if m // n <= PALLAS_MAX_CHUNK:
         return MoeReduceRsMethod.PALLAS
     return MoeReduceRsMethod.XLA_RING if n > 1 else MoeReduceRsMethod.XLA
+
+
+@dataclasses.dataclass
+class MoeReduceRsContext:
+    """The reference's MoeReduceRsContext: the ranks' Mesh, its axis, the
+    routing's experts and top-k, the method, PALLAS's aligned tile rows
+    (bm), the reference ring's row blocks (comm_blocks; B15 ships whole
+    column tiles and takes none) and the tile-schedule provider
+    (``moe_utils.make_chunk_schedule``)."""
+    mesh: object
+    axis: str
+    num_experts: int
+    topk: int
+    method: MoeReduceRsMethod = MoeReduceRsMethod.AUTO
+    bm: int = 128
+    comm_blocks: int = 4
+    schedule: object = "auto"
+
+    def resolve(self, m: int) -> MoeReduceRsMethod:
+        return resolve_moe_reduce_rs_method(
+            self.method, m, comm_axis_size(self.mesh, self.axis),
+            cuda=self.mesh.device.type == "cuda")
+
+
+def create_moe_reduce_rs_context(mesh, num_experts: int, topk: int,
+                                 axis: str = "tp",
+                                 **kw) -> MoeReduceRsContext:
+    return MoeReduceRsContext(mesh, axis, num_experts, topk, **kw)
 
 
 def _chunk_moe_partial(inter_c, ids_c, w_c, experts_w, num_experts):
@@ -285,6 +322,31 @@ def moe_reduce_rs_per_device(n: int, num_experts: int, topk: int,
         return out.to(out_dtype)
     return _ring_per_device(mesh, num_experts, inter, topk_ids,
                             topk_weights, experts_w, out_dtype)
+
+
+def moe_reduce_rs(ctx: MoeReduceRsContext, inter: torch.Tensor,
+                  topk_ids: torch.Tensor, topk_weights: torch.Tensor,
+                  experts_w: torch.Tensor) -> torch.Tensor:
+    """The mesh-level MoE down projection + top-k reduce + ReduceScatter
+    (the reference's ``moe_reduce_rs``), called by every rank: inter
+    (M*topk, I_loc) its columns, the whole (M, topk) routing, experts_w
+    (E, I_loc, d) its row shard -> its (M/n, d) rows."""
+    n = comm_axis_size(ctx.mesh, ctx.axis)
+    m = topk_ids.shape[0]
+    if m % n:
+        raise ValueError(f"M={m} not divisible by world={n}")
+    method = ctx.resolve(m)
+    if method == MoeReduceRsMethod.PALLAS:
+        bm = min(ctx.bm, max(8, (m // n) * ctx.topk))
+        sched = moe_utils.make_chunk_schedule(topk_ids, n, ctx.num_experts,
+                                              bm, provider=ctx.schedule)
+        return moe_reduce_rs_per_device(
+            n, ctx.num_experts, ctx.topk, method, inter, topk_ids,
+            topk_weights, experts_w, bm=bm, sched=sched,
+            comm_blocks=ctx.comm_blocks, mesh=ctx.mesh)
+    return moe_reduce_rs_per_device(
+        n, ctx.num_experts, ctx.topk, method, inter, topk_ids, topk_weights,
+        experts_w, bm=ctx.bm, comm_blocks=ctx.comm_blocks, mesh=ctx.mesh)
 
 
 def check_routing(topk_ids, topk_weights, dev, what: str) -> None:

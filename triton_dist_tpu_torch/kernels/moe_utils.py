@@ -12,12 +12,14 @@ f belonging to token f // topk, choice f % topk (token-major). Sorted
 tensors are flat tensors permuted by ``sort_idx``; ``inv_idx`` undoes it.
 
 ``AlignedSchedule`` is the block-aligned tile schedule the grouped-GEMM
-kernels (B14, B15) consume: every bm-row tile touches one expert. The
-in-graph builder ``aligned_chunk_schedule`` is ported; the reference's
-host-side native schedulers (its C++ tile swizzle and block align) are
-not, and ``make_chunk_schedule(provider="native")`` raises naming ROADMAP
-A9: only the reference's mesh-level ops use them, and the model path
-builds its schedule in the graph.
+kernels (B14, B15) consume: every bm-row tile touches one expert. Two
+providers build it: ``aligned_chunk_schedule`` in the graph (the model
+path's, and "auto"), and ``native_chunk_schedule`` on the host from the
+port's C++ tile swizzle and block-aligned sort (runtime/native.py,
+``make_chunk_schedule(provider="native")``), which the mesh-level
+``ag_group_gemm`` / ``moe_reduce_rs`` take through their context's
+``schedule``. It reads the routing on the host, so a captured decode step
+never uses it.
 """
 
 from __future__ import annotations
@@ -179,21 +181,69 @@ def aligned_chunk_schedule(topk_ids: torch.Tensor, n_chunks: int,
     return AlignedSchedule(*(torch.stack(f) for f in zip(*fields)))
 
 
+def native_chunk_schedule(topk_ids: torch.Tensor, n_chunks: int,
+                          num_experts: int, bm: int) -> AlignedSchedule:
+    """The AlignedSchedule from the host C++ schedulers (runtime/native.py):
+    the tile order from the rank-rotated tile swizzle of rank 0 (its stage
+    s delivers chunk -s mod n, so each chunk's tiles are read back in
+    expert-major order) and the rows from the block-aligned stable sort.
+    Equal to ``aligned_chunk_schedule`` on every field the kernels read;
+    tile_expert past used_tiles (dead tiles, never read) is 0 here. Reads
+    the routing on the host; returns int32 tensors on its device."""
+    import numpy as np
+    from triton_dist_tpu_torch.runtime import native
+
+    ids = np.ascontiguousarray(topk_ids.detach().cpu().numpy(), np.int32)
+    m, topk = ids.shape
+    mc = m // n_chunks
+    nf = mc * topk
+    t_tiles = aligned_tiles(mc, topk, num_experts, bm)
+    r = t_tiles * bm
+    flat_all = ids.reshape(n_chunks, nf)
+    row_token = np.full((n_chunks, r), mc, np.int32)
+    row_flat = np.full((n_chunks, r), nf, np.int32)
+    tile_e = np.zeros((n_chunks, t_tiles), np.int32)
+    used = np.zeros((n_chunks,), np.int32)
+    aligned_pos = np.zeros((n_chunks, nf), np.int32)
+    counts = np.stack([native.expert_histogram(flat_all[c], num_experts)
+                       for c in range(n_chunks)])
+    stage, expert, _ = native.ag_moe_tile_schedule(
+        counts.reshape(-1), n_chunks, num_experts, bm, 0)
+    chunk = (n_chunks - stage) % n_chunks
+    for c in range(n_chunks):
+        te = expert[chunk == c]
+        tile_e[c, :te.size] = te
+        used[c] = te.size
+        sorted_ids, block_e, total = native.moe_align_block_size(
+            flat_all[c], num_experts, bm)
+        if total // bm != used[c] or not np.array_equal(
+                block_e, tile_e[c, :used[c]]):
+            raise AssertionError("the native tile swizzle and block-aligned "
+                                 f"sort disagree on chunk {c}")
+        row_flat[c, :total] = sorted_ids
+        row_token[c, :total] = np.where(sorted_ids < nf, sorted_ids // topk,
+                                        mc)
+        slots = np.nonzero(sorted_ids < nf)[0]
+        aligned_pos[c, sorted_ids[slots]] = slots.astype(np.int32)
+    return AlignedSchedule(*(torch.from_numpy(f).to(topk_ids.device)
+                             for f in (row_token, row_flat, tile_e, used,
+                                       aligned_pos)))
+
+
 def make_chunk_schedule(topk_ids: torch.Tensor, n_chunks: int,
                         num_experts: int, bm: int,
                         provider="auto") -> AlignedSchedule:
     """Chunk/tile schedule of the grouped-GEMM kernels, by provider: an
     AlignedSchedule passes through untouched (a precomputed plan);
-    "auto" and "device" build it in-graph (aligned_chunk_schedule). The
-    reference's "native" provider (its C++ schedulers on the host) raises:
-    it waits for ROADMAP A9, with the mesh-level ops that use it."""
+    "auto" and "device" build it in-graph (aligned_chunk_schedule), with
+    no host read, so a captured step can call it; "native" on the host
+    from the C++ schedulers (native_chunk_schedule)."""
     if isinstance(provider, AlignedSchedule):
         return provider
     if provider in ("auto", "device"):
         return aligned_chunk_schedule(topk_ids, n_chunks, num_experts, bm)
     if provider == "native":
-        raise NotImplementedError(
-            "the native (host C++) schedule provider waits for ROADMAP A9")
+        return native_chunk_schedule(topk_ids, n_chunks, num_experts, bm)
     raise ValueError(f"unknown schedule provider {provider!r}")
 
 

@@ -1,6 +1,6 @@
 """Plain products and folds shared by the kernels' plain versions and the
 layers: the reference's ``preferred_element_type=f32`` products, and the
-cross-rank folds of B4, B5, B6 and B9 in each kernel's own order. A leaf
+cross-rank folds of B4, B5, B6, B9 and B13b in each kernel's own order. A leaf
 module: the kernel modules import it, and ``layers/common.py`` (which
 imports the kernel modules' method enums) re-exports ``dot_f32``."""
 
@@ -83,3 +83,28 @@ def ring_rs_fold(xs, me: int) -> torch.Tensor:
     for j in range(2, n + 1):
         acc = acc + xs[(me + j) % n][rows]
     return acc
+
+
+def bidir_rs_fold(parts, me: int) -> torch.Tensor:
+    """B13b's fold of rank ``me``'s row chunk of the ranks' f32 partials
+    (each (n*m, N)): the reference's arcs (kr = n // 2, kl = (n - 1) //
+    2). The right chain starts raw at rank me - kr and each hop adds its
+    own partial to the arrival (own + arrival) up to rank me - 1; the left
+    chain the same from rank me + kl down to me + 1; the owner adds own +
+    right + left, in that order."""
+    n = len(parts)
+    m = parts[0].shape[0] // n
+    rows = slice(me * m, (me + 1) * m)
+    kr, kl = n // 2, (n - 1) // 2
+
+    def chain(ranks):
+        acc = None
+        for r in ranks:
+            own = parts[r % n][rows]
+            acc = own if acc is None else own + acc
+        return acc
+
+    out = parts[me][rows] + chain(range(me - kr, me))
+    if kl > 0:
+        out = out + chain(range(me + kl, me, -1))
+    return out

@@ -29,7 +29,8 @@ class TPContext:
 
     ag_method / rs_method: the triton_dist mode's QKV and o (and dense
     MLP) projections (PALLAS = B10 and B13a at world n > 1, B12 at world
-    1); ar_method: the triton_dist_AR mode's sum after the o and down
+    1; PALLAS_BIDIR = B11 and B13b, the bidirectional rings, at n >= 3,
+    B10 and B13a at n = 2; XLA_BIDIR their plain rings); ar_method: the triton_dist_AR mode's sum after the o and down
     products (XLA = the process group's all-reduce, ONE_SHOT = B5, RHD =
     B6); gemm_ar_method, when set, replaces that product and sum with the
     fused GEMM + all-reduce (PALLAS = B4); moe_ag_method / moe_rs_method:

@@ -31,7 +31,8 @@ process): every rank is given the whole batch and returns the whole
 batch's tokens. Prefill runs in "xla" on the whole batch. With
 ``backend="triton_dist"`` each rank decodes its B/n rows (B10 for the QKV
 and gate/up projections, B13a for o and down, with ``ag_method`` /
-``rs_method`` PALLAS; for Qwen3MoE B14 and B15 across ranks for the
+``rs_method`` PALLAS; B11 and B13b, the bidirectional rings, with
+PALLAS_BIDIR at n >= 3; for Qwen3MoE B14 and B15 across ranks for the
 experts) in the captured step, samples them, and the ranks all-gather the
 sampled tokens outside the graph. The replicated backends
 ("xla": the mega step at its defaults, B4 across ranks on the card; and
