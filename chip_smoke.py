@@ -36,7 +36,15 @@ TP=4 in triton_dist (48 B14 and 48 B15 across ranks per replay) and at
 the Engine's defaults (the mega step, its moe task with NCCL's f32
 all-reduce), B14 / B15 timed on each card, and its f32 4-layer gate
 (tokens identical across both TP=4 paths, the eager xla step and world
-1). With fewer than four cards those phases print that they did not
+1). Then expert parallelism: B17 (the low-latency all-to-all), B18 (its
+fp8 form) and B16 (the EP dispatch fused with the gate/up grouped GEMM)
+against their plain versions in the one-card world, and with four cards
+Qwen3-30B-A3B at EP=4 (each rank 32 experts at full width) in
+triton_dist over PALLAS, PALLAS_FUSED and PALLAS under TD_QUANT=always and
+at the Engine's defaults (also with the mega step on PALLAS_FUSED), the
+kernels timed on each card against NCCL, and the f32 4-layer gate (every
+lossless EP path's tokens identical to the eager xla step's and world
+1's). With fewer than four cards those phases print that they did not
 run. Named phases run alone (see ``main``). One JSON line per phase; the line before the last lists
 every kernel with its times and bound; the last line is the device
 record. Any failed check exits non-zero. Imports nothing of JAX. Needs
@@ -1727,12 +1735,13 @@ SLEEP_CYCLES = 300_000_000  # ~0.15 s at the H100's clock: holds the stream
 TP_MODEL = "Qwen/Qwen3-32B"
 FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
                     "tp4_continuous_consistency", "tp4_moe",
-                    "tp4_moe_consistency")
+                    "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
                       "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp",
                       "b8_full_mesh_ag", "b11_ag_gemm_bidir",
-                      "b13b_gemm_rs_bidir")
+                      "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
+                      "b16_ep_dispatch_gg")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -2405,6 +2414,342 @@ def phase_b13b(torch, symm, grs, calls: int = 20):
         "pallas_gemm_rs_bidir", "gemm_rs.cu",
         "triton_dist_tpu/kernels/gemm_reduce_scatter.py:432", timed,
         "one card, 4 logical ranks")
+
+
+# -- expert parallelism in the one-card world: B17, B18, B16 -----------------
+
+# Qwen3-30B-A3B at EP=4: hidden, experts a rank, gate/up width, experts,
+# top-k
+EP_DIMS = (2048, 128 // TP, 2 * 768, 128, 8)
+# the dispatch slots a (src, dst) pair holds: a decode step's 4 tokens a
+# rank x top-8, and a 512-token prefill chunk's
+_EP_SLOTS = (("decode_m32", 4), ("prefill_m4096", 512))
+_EP_ONE_CARD_LIB = ("none on one card: NCCL needs a process per card "
+                    "(tp4_ep times NCCL all_to_all_single)")
+
+
+def _slot_rows(name, outs, refs):
+    """One case per rank: the kernel's slots bitwise the plain version's."""
+    rows = []
+    for r, (o, ref) in enumerate(zip(outs, refs)):
+        rows.append({"case": f"{name}/rank{r}",
+                     "max_abs_err": (o.float() - ref.float()).abs().max()
+                     .item(), "ok": bool(_bitwise(o, ref))})
+    return rows
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+    if a.element_size() == 1:
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return torch.equal(a, b)
+
+
+def phase_b17(torch, symm, kern, ll, plain, calls: int = 5):
+    """B17 (the low-latency all-to-all of padded slots) against its plain
+    version (slot r of every rank, stacked) in the one-card world, at
+    Qwen3-30B-A3B's EP=4 dispatch slots (4, max_m, 2048): decode (max_m
+    32: 4 tokens a rank x top-8) in bf16 and f32, a 512-token chunk
+    (max_m 4,096) in bf16; every rank's slots the plain version's bytes,
+    then `calls` successive calls with fresh slots. Timed: the four ranks'
+    calls together (queued_ms) against the plain version; the bound reads
+    and writes every rank's slots once at HBM speed. Then the mesh-level
+    ``fast_all_to_all`` on every rank at the decode shape, counted."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(81)
+    d = EP_DIMS[0]
+
+    def draw(dt, mm):
+        return [torch.randn((TP, mm, d), generator=g, device=DEV).to(dt)
+                for _ in range(TP)]
+
+    def run_check(name, xs):
+        outs = world.run(lambda r: ll.fast_all_to_all_per_device(
+            world.mesh(r), xs[r]))
+        torch.cuda.synchronize()
+        return _slot_rows(name, outs, plain.all_to_all_slots_shards(xs))
+
+    rows, timed, seq_ok = [], {}, []
+    for shp, m_loc in _EP_SLOTS:
+        mm = m_loc * EP_DIMS[4]
+        for dt in ((torch.bfloat16, torch.float32) if m_loc == 4
+                   else (torch.bfloat16,)):
+            name = shp if dt == torch.bfloat16 else f"{shp}_f32"
+            xs = draw(dt, mm)
+            rows += run_check(name, xs)
+            if dt != torch.bfloat16:
+                continue
+            nbytes = TP * 2 * TP * mm * d * xs[0].element_size()
+            timed[name] = _one_card_kernel_row(
+                torch, world, name,
+                lambda r: ll.fast_all_to_all_per_device(world.mesh(r), xs[r]),
+                lambda: plain.all_to_all_slots_shards(xs), nbytes, 0.0)
+            timed[name]["max_abs_err"] = max(
+                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+        seq_ok += [all(x["ok"] for x in run_check(
+            f"seq_{shp}", draw(torch.bfloat16, mm))) for _ in range(calls)]
+    xs = draw(torch.bfloat16, 32)
+    kern.reset_launch_counts()
+    outs = world.run(lambda r: ll.fast_all_to_all(world.mesh(r), "tp",
+                                                  xs[r]))
+    torch.cuda.synchronize()
+    path = kern.launch_counts()
+    op_ok = all(_bitwise(o, ref) for o, ref in zip(
+        outs, plain.all_to_all_slots_shards(xs))) and \
+        path == _only(path, fast_all_to_all_per_device=TP)
+    emit({"phase": "b17_ll_a2a", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed,
+          "fast_all_to_all": {"launches": path, "ok": op_ok}})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or not op_ok:
+        fail(f"B17 disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"fast_all_to_all {path}")
+    rec = _tp_kernel_record(
+        "fast_all_to_all_per_device", "ep_a2a.cu",
+        "triton_dist_tpu/kernels/low_latency_all_to_all.py:38",
+        {"decode_m32": timed["decode_m32"]}, "one card, 4 logical ranks")
+    rec["prefill_shape"] = timed["prefill_m4096"]
+    rec["library_ms_call"] = _EP_ONE_CARD_LIB
+    rec["launches_by_path"] = {"fast_all_to_all_one_card": path[
+        "fast_all_to_all_per_device"]}
+    rec["launches"] = path["fast_all_to_all_per_device"]
+    return rec
+
+
+def phase_b18(torch, symm, kern, ll, plain, calls: int = 5):
+    """B18 (B17 over the fp8 rows and their packed f32 scales in one
+    launch) against its plain version (each payload's slot r of every
+    rank, stacked) in the one-card world, at the B17 shapes: the rows of
+    random bf16 slots quantized per row to fp8 e4m3 (quantize_rows, as the
+    dispatch does), the scales packed (n, ceil(max_m / 128), 128); both
+    payloads bitwise, `calls` successive calls with fresh slots. Timed as
+    B17. Then the mesh-level ``fast_all_to_all_quantized`` on every rank
+    at the decode shape, counted, its rows the plain exchange's
+    dequantized."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(83)
+    d, f8 = EP_DIMS[0], torch.float8_e4m3fn
+
+    def draw(mm):
+        qs, ss = [], []
+        for _ in range(TP):
+            q, s = ll.quantize_rows(torch.randn(
+                (TP, mm, d), generator=g, device=DEV).to(torch.bfloat16), f8)
+            qs.append(q)
+            ss.append(ll.pack_scales(s))
+        return qs, ss
+
+    def run_check(name, qs, ss):
+        outs = world.run(lambda r: ll.fast_all_to_all_q_per_device(
+            world.mesh(r), qs[r], ss[r]))
+        torch.cuda.synchronize()
+        return (_slot_rows(f"{name}/rows", [o[0] for o in outs],
+                           plain.all_to_all_slots_shards(qs))
+                + _slot_rows(f"{name}/scales", [o[1] for o in outs],
+                             plain.all_to_all_slots_shards(ss)))
+
+    rows, timed, seq_ok = [], {}, []
+    for shp, m_loc in _EP_SLOTS:
+        mm = m_loc * EP_DIMS[4]
+        qs, ss = draw(mm)
+        rows += run_check(shp, qs, ss)
+        nbytes = TP * 2 * TP * (mm * d + ss[0][0].numel() * 4)
+        timed[shp] = _one_card_kernel_row(
+            torch, world, shp,
+            lambda r: ll.fast_all_to_all_q_per_device(world.mesh(r), qs[r],
+                                                      ss[r]),
+            lambda: (plain.all_to_all_slots_shards(qs),
+                     plain.all_to_all_slots_shards(ss)), nbytes, 0.0)
+        timed[shp]["max_abs_err"] = max(
+            x["max_abs_err"] for x in rows if x["case"].startswith(shp))
+        seq_ok += [all(x["ok"] for x in run_check(f"seq_{shp}", *draw(mm)))
+                   for _ in range(calls)]
+    xs = [torch.randn((TP, 32, d), generator=g, device=DEV).to(
+        torch.bfloat16) for _ in range(TP)]
+    # the reference first: it also loads the dequantize kernels, which the
+    # op launches behind its spinning B18 (a lazy load there would wait
+    # for the ranks not yet launched)
+    qd = [ll.quantize_rows(x, f8) for x in xs]
+    rq = plain.all_to_all_slots_shards([q for q, _ in qd])
+    rs = plain.all_to_all_slots_shards([s for _, s in qd])
+    want = [ll.dequantize_rows(q, s, torch.bfloat16) for q, s in zip(rq, rs)]
+    torch.cuda.synchronize()
+    kern.reset_launch_counts()
+    outs = world.run(lambda r: ll.fast_all_to_all_quantized(
+        world.mesh(r), "tp", xs[r]))
+    torch.cuda.synchronize()
+    path = kern.launch_counts()
+    op_ok = all(torch.equal(o, w) for o, w in zip(outs, want)) and \
+        path == _only(path, fast_all_to_all_q_per_device=TP)
+    emit({"phase": "b18_ll_a2a_q", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed,
+          "fast_all_to_all_quantized": {"launches": path, "ok": op_ok}})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or not op_ok:
+        fail(f"B18 disagrees with its plain version: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"fast_all_to_all_quantized {path}")
+    rec = _tp_kernel_record(
+        "fast_all_to_all_q_per_device", "ep_a2a.cu",
+        "triton_dist_tpu/kernels/low_latency_all_to_all.py:96",
+        {"decode_m32": timed["decode_m32"]}, "one card, 4 logical ranks")
+    rec["prefill_shape"] = timed["prefill_m4096"]
+    rec["library_ms_call"] = _EP_ONE_CARD_LIB
+    rec["launches_by_path"] = {"fast_all_to_all_quantized_one_card": path[
+        "fast_all_to_all_q_per_device"]}
+    rec["launches"] = path["fast_all_to_all_q_per_device"]
+    return rec
+
+
+def _ep_case(torch, ep, mu, plain, meshes, g, m_loc, dt, ws, integer=False):
+    """One EP=4 routing: every rank's m_loc tokens through one random
+    router of Qwen3-30B-A3B's widths, packed into its send slots
+    (``dispatch_layout`` and the dispatch's packing), the splits (ids,
+    counts) exchanged by the plain all-to-all. integer: tokens drawn in
+    [-3, 3] (every product and sum of the f32 case exact)."""
+    d, _, _, e, topk = EP_DIMS
+    x, ids, _ = _moe_routing(torch, mu, plain, g, TP * m_loc, d, e, topk)
+    if integer:
+        x = torch.randint(-3, 4, x.shape, generator=g, device=DEV)
+    x = x.to(dt)
+    max_m = m_loc * topk
+    sends, sids, sent = [], [], []
+    for r in range(TP):
+        ctx = ep.EpA2AContext(meshes[r], "tp", e, topk, max_m)
+        lay = ep.dispatch_layout(ids[r * m_loc:(r + 1) * m_loc], TP,
+                                 e // TP)
+        sx, si = ep._pack(ctx, x[r * m_loc:(r + 1) * m_loc],
+                          ids[r * m_loc:(r + 1) * m_loc], lay)
+        sends.append(sx.contiguous())
+        sids.append(si)
+        sent.append(torch.clamp(lay.send_counts, max=max_m))
+    rids = plain.all_to_all_slots_shards(sids)
+    rcounts = plain.all_to_all_slots_shards(sent)
+    recv = plain.all_to_all_slots_shards(sends)
+    live = []
+    for r in range(TP):
+        mask = (torch.arange(max_m, device=DEV)[None, :]
+                < rcounts[r][:, None]).reshape(-1)
+        live.append(int(torch.unique(rids[r].reshape(-1)[mask]).numel()))
+    return {"sends": sends, "rids": rids, "rcounts": rcounts, "recv": recv,
+            "max_m": max_m, "m_loc": m_loc, "w": ws, "live": live,
+            "rows_live": [int(c.sum()) for c in rcounts]}
+
+
+def phase_b16(torch, symm, ep, mu, plain, calls: int = 3):
+    """B16 (the EP dispatch fused with the gate/up grouped GEMM) against
+    its plain version (the slots exchanged, then each live slot's row
+    times its expert's weight, pads 0) in the one-card world, at
+    Qwen3-30B-A3B's EP=4 shapes: each rank's 32 experts' random gate/up
+    slabs (32, 2048, 1536), a decode routing from a random router (4
+    tokens a rank, max_m 32) in bf16, f32 and integer-valued f32, and a
+    512-token chunk (max_m 4,096) in bf16, comm_blocks 4. The received
+    rows bitwise; inter within 1e-2 x max|ref| in bf16 (one rounding,
+    another f32 summation order), 1e-4 in f32, exactly on integer-valued
+    f32; `calls` repeats the same bits. Timed at both bf16 shapes: the
+    four ranks' launches together (queued_ms, on plans built beforehand:
+    the serve's captured step replays the schedule building) against the
+    plain version and four torch._grouped_mm over the live received rows
+    (the yardstick); the bound reads each rank's live experts' slabs
+    once."""
+    world = symm.OneCardWorld(TP)
+    meshes = [world.mesh(r) for r in range(TP)]
+    d, e_loc, ni, _, _ = EP_DIMS
+    g = torch.Generator(device=DEV).manual_seed(87)
+    w_bf = [_randn_bf16(torch, g, (e_loc, d, ni), d ** -0.5)
+            for _ in range(TP)]
+    rows, timed = [], {}
+
+    def run(c):
+        return world.run(lambda r: ep.pallas_dispatch_gg(
+            meshes[r], c["sends"][r], c["rids"][r], c["rcounts"][r],
+            c["w"][r], comm_blocks=4))
+
+    def plain_fn(c):
+        return [plain.slot_expert_product(c["recv"][r], c["rids"][r],
+                                          c["rcounts"][r], c["w"][r])
+                for r in range(TP)]
+
+    cases = [("decode_m32", 4, torch.bfloat16, False),
+             ("decode_m32_f32", 4, torch.float32, False),
+             ("decode_m32_int", 4, torch.float32, True),
+             ("prefill_m4096", 512, torch.bfloat16, False)]
+    for name, m_loc, dt, integer in cases:
+        if dt == torch.bfloat16:
+            ws = w_bf
+        elif integer:
+            ws = [torch.randint(-2, 3, (e_loc, d, ni), generator=g,
+                                device=DEV).float() for _ in range(TP)]
+        else:
+            ws = [w.float() for w in w_bf]
+        c = _ep_case(torch, ep, mu, plain, meshes, g, m_loc, dt, ws,
+                     integer)
+        outs = run(c)
+        torch.cuda.synchronize()
+        ref = plain_fn(c)
+        tol = 0.0 if integer else _tp_tol(torch, dt)
+        for r in range(TP):
+            row = _held(torch, f"{name}/rank{r}", outs[r][1], ref[r], tol)
+            if integer:
+                row["ok"] = bool(torch.equal(outs[r][1], ref[r]))
+            row["recv_bitwise"] = bool(torch.equal(
+                outs[r][0], c["recv"][r].reshape(outs[r][0].shape)))
+            row["ok"] = row["ok"] and row["recv_bitwise"]
+            rows.append(row)
+        same = []
+        for _ in range(calls):
+            again = run(c)
+            torch.cuda.synchronize()
+            same.append(all(torch.equal(a[1], o[1]) and torch.equal(a[0], o[0])
+                            for a, o in zip(again, outs)))
+        rows[-1]["repeats_bitwise"] = same
+        rows[-1]["ok"] = rows[-1]["ok"] and all(same)
+        if dt != torch.bfloat16:
+            continue
+        es = 2
+        hbm = sum(c["live"][r] * d * ni + c["rows_live"][r] * (d + ni)
+                  for r in range(TP)) * es
+        flops = sum(2.0 * c["rows_live"][r] * d * ni for r in range(TP))
+        lib_fns = []
+        for r in range(TP):
+            flat_ids = c["rids"][r].reshape(-1)
+            mask = (torch.arange(c["max_m"], device=DEV)[None, :]
+                    < c["rcounts"][r][:, None]).reshape(-1)
+            sel = torch.nonzero(mask)[:, 0]
+            lib_fns.append(_grouped_mm_fn(
+                torch, mu, c["recv"][r].reshape(-1, d)[sel],
+                flat_ids[sel][:, None], c["w"][r], e_loc))
+        # timed on plans built beforehand: the kernel, not the host's
+        # schedule building (which the serve's captured step replays)
+        plans = [ep.dispatch_gg_plan(c["rids"][r], c["rcounts"][r], e_loc,
+                                     comm_blocks=4) for r in range(TP)]
+        timed[name] = _one_card_kernel_row(
+            torch, world, name,
+            lambda r: ep.launch_dispatch_gg(meshes[r], c["sends"][r],
+                                            plans[r], c["w"][r]),
+            lambda: plain_fn(c), hbm, flops)
+        timed[name]["plain_ms"] = time_ms(lambda: plain_fn(c), iters=3,
+                                          warmup=1)
+        if all(f is not None for f, _ in lib_fns):
+            timed[name]["library_ms"] = graph_time_ms(
+                lambda: [f() for f, _ in lib_fns])
+        timed[name].update(
+            library_how=lib_fns[0][1], live_experts=c["live"],
+            live_rows=c["rows_live"], max_m=c["max_m"],
+            max_abs_err=max(x["max_abs_err"] for x in rows
+                            if x["case"].startswith(name)))
+    emit({"phase": "b16_ep_dispatch_gg", "world": "one card, 4 logical ranks",
+          "cases": rows, "timed": timed})
+    bad = [x for x in rows if not x["ok"]]
+    if bad:
+        fail(f"B16 disagrees with its plain version or its repeats: {bad}")
+    rec = _tp_kernel_record("pallas_dispatch_gg", "ep_a2a.cu",
+                            "triton_dist_tpu/kernels/ep_a2a.py:272",
+                            {"decode_m32": timed["decode_m32"]},
+                            "one card, 4 logical ranks")
+    rec["prefill_shape"] = timed["prefill_m4096"]
+    rec["library_ms_call"] = ("4 x torch._grouped_mm over the live "
+                              "received rows (no exchange: one card)")
+    return rec
 
 
 MOE_TP_DIMS = (2048, 128, 768 // 4, 8)   # d, experts, I/n, top-k at TP=4
@@ -3465,6 +3810,389 @@ def _tp4_moe_consistency(torch, dist, mesh, models, tmp, gen: int = 8):
                                 for k, v in toks.items()}}
 
 
+# -- expert parallelism on four cards: Qwen3-30B-A3B at EP=4 -----------------
+
+# the EP serves: (label, TPContext fields, Engine kwargs, TD_QUANT,
+# the mega runtime's transport); "mega_*" are Engine(model, params) at its
+# defaults (the mega step)
+_TP4_EP_PATHS = (
+    ("td_pallas", {"ep_a2a_method": "pallas"}, {"backend": "triton_dist"},
+     None, None),
+    ("td_pallas_fused", {"ep_a2a_method": "pallas_fused"},
+     {"backend": "triton_dist"}, None, None),
+    ("td_pallas_fp8", {"ep_a2a_method": "pallas"},
+     {"backend": "triton_dist"}, "always", None),
+    ("mega_default", {}, {}, None, None),
+    ("mega_pallas_fused", {}, {}, None, "pallas_fused"))
+
+
+def _ep_ctx(mesh, ep_a2a_method=None):
+    """TPContext on ``mesh``: B10 / B13a on the triton_dist attention
+    projections, the EP transport named by value (None: XLA)."""
+    import dataclasses
+    from triton_dist_tpu_torch.kernels.ep_a2a import EpA2AMethod
+    ctx = _tp_ctx(mesh, **_TD_PALLAS)
+    if ep_a2a_method is None:
+        return ctx
+    return dataclasses.replace(ctx, ep_a2a_method=EpA2AMethod(ep_a2a_method))
+
+
+def _ep_engine(models, mesh, arch, params, ctx_kw, engine_kw, mega_ep,
+               max_length):
+    """The Engine of one EP path: triton_dist with B10 / B13a on the
+    attention projections and the path's transport, or Engine(model,
+    params) at its defaults, its mega runtime on ``mega_ep``'s transport
+    when given."""
+    from triton_dist_tpu_torch.kernels.ep_a2a import EpA2AMethod
+    from triton_dist_tpu_torch.mega.runtime import MegaDecodeRuntime
+    model = models.Qwen3MoE(arch, _ep_ctx(mesh, **ctx_kw),
+                            max_length=max_length, dtype=params[
+                                "embed"].dtype)
+    engine = models.Engine(model, params, **engine_kw)
+    if mega_ep is not None:
+        engine._mega_rt = MegaDecodeRuntime(
+            model, ep_a2a_method=EpA2AMethod(mega_ep))
+    return engine
+
+
+def _ep_arch(models, layers=None):
+    import dataclasses
+    arch = dataclasses.replace(models.QWEN3_ARCHS[MOE_MODEL],
+                               moe_parallel="ep")
+    return arch if layers is None else dataclasses.replace(
+        arch, num_layers=layers)
+
+
+def _tp4_ep_kernels(torch, dist, mesh, calls: int = 3):
+    """On each of the four cards: B17, B18 and B16 at Qwen3-30B-A3B's EP=4
+    shapes, each rank its own slots and the same random routing: B17 on
+    (4, max_m, 2048) bf16 slots at decode (max_m 32) and a 512-token chunk
+    (max_m 4,096), B18 on their fp8 rows and packed scales, B16 at the
+    decode routing (4 tokens a rank, 32 experts' random gate/up slabs a
+    rank). Against their plain versions (NCCL all_to_all_single of each
+    payload; B16: then each live slot's row times its expert), bitwise
+    (B17, B18, B16's received rows) and within 1e-2 x max|ref| (B16's
+    inter); `calls` repeats the same bits. Timed (queued_ms, the plain
+    versions eagerly) beside the library yardstick: NCCL
+    all_to_all_single (B17, B18: of the rows, then of the scales; B16:
+    then torch._grouped_mm over the live received rows)."""
+    from triton_dist_tpu_torch.kernels import ep_a2a as ep
+    from triton_dist_tpu_torch.kernels import low_latency_all_to_all as ll
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+    from triton_dist_tpu_torch.kernels import plain
+    d, e_loc, ni, e, topk = EP_DIMS
+    dev, me = mesh.device, mesh.rank
+    g = torch.Generator(device=dev).manual_seed(91 + me)
+    out = {}
+
+    def nccl(x):
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=mesh.group)
+        return y
+
+    def timed(key, run, ref, lib, hbm, link, flops, held):
+        dist.barrier()
+        ms, host_s, ahead = queued_ms(torch, run)
+        dist.barrier()
+        plain_ms = time_ms(ref, iters=5, warmup=1)
+        dist.barrier()
+        lib_ms, note = None, None
+        try:
+            lib()
+            torch.cuda.synchronize()
+            dist.barrier()
+            lib_ms = queued_ms(torch, lib)[0]
+        except Exception as exc:     # the yardstick only; not the port
+            note = f"{type(exc).__name__}: {str(exc)[:200]}"
+        dist.barrier()
+        bms, by = tp_bound_ms(hbm, link, flops)
+        out[key] = {**held, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library_note": note,
+                    "bound_ms": bms, "bound_by": by, "hbm_bytes": hbm,
+                    "nvlink_bytes": link, "host_enqueue_s": host_s,
+                    "queued_ahead": ahead}
+
+    for shp, m_loc in _EP_SLOTS:
+        mm = m_loc * topk
+        x = torch.randn((TP, mm, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        y = ll.fast_all_to_all_per_device(mesh, x)
+        same = []
+        for _ in range(calls):
+            same.append(bool(torch.equal(ll.fast_all_to_all_per_device(
+                mesh, x), y)))
+        held = {"case": f"b17_{shp}", "max_abs_err": 0.0,
+                "ok": bool(torch.equal(y, plain.all_to_all_slots(mesh, x)))
+                and all(same), "repeats_bitwise": same}
+        slot = mm * d * 2
+        timed(f"b17_{shp}", lambda: ll.fast_all_to_all_per_device(mesh, x),
+              lambda: plain.all_to_all_slots(mesh, x), lambda: nccl(x),
+              2 * TP * slot, (TP - 1) * slot, 0.0, held)
+        q, s = ll.quantize_rows(x, torch.float8_e4m3fn)
+        s = ll.pack_scales(s)
+        rq, rs = ll.fast_all_to_all_q_per_device(mesh, q, s)
+        same = []
+        for _ in range(calls):
+            a, b = ll.fast_all_to_all_q_per_device(mesh, q, s)
+            same.append(_bitwise(a, rq) and _bitwise(b, rs))
+        held = {"case": f"b18_{shp}", "max_abs_err": 0.0,
+                "ok": _bitwise(rq, plain.all_to_all_slots(mesh, q))
+                and _bitwise(rs, plain.all_to_all_slots(mesh, s))
+                and all(same), "repeats_bitwise": same}
+        qb = q.view(torch.uint8)
+        slot = mm * d + s[0].numel() * 4
+        timed(f"b18_{shp}",
+              lambda: ll.fast_all_to_all_q_per_device(mesh, q, s),
+              lambda: (plain.all_to_all_slots(mesh, q),
+                       plain.all_to_all_slots(mesh, s)),
+              lambda: (nccl(qb), nccl(s)), 2 * TP * slot, (TP - 1) * slot,
+              0.0, held)
+    # B16: one routing of the whole batch (the same on every rank)
+    gr = torch.Generator(device=dev).manual_seed(97)
+    m_loc = 4
+    max_m = m_loc * topk
+    xr = torch.randn((TP * m_loc, d), generator=gr, device=dev)
+    wr = torch.randn((d, e), generator=gr, device=dev) * d ** -0.5
+    _, ids = mu.route_topk(plain.dot_f32(xr, wr), topk)
+    tok = torch.randn((m_loc, d), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((e_loc, d, ni), generator=g, device=dev)
+         * d ** -0.5).to(torch.bfloat16)
+    ctx = ep.EpA2AContext(mesh, "tp", e, topk, max_m)
+    lay = ep.dispatch_layout(ids[me * m_loc:(me + 1) * m_loc], TP, e_loc)
+    send, sid = ep._pack(ctx, tok, ids[me * m_loc:(me + 1) * m_loc], lay)
+    send = send.contiguous()
+    rids = plain.all_to_all_slots(mesh, sid)
+    rcounts = plain.all_to_all_slots(
+        mesh, torch.clamp(lay.send_counts, max=max_m))
+    recv, inter = ep.pallas_dispatch_gg(mesh, send, rids, rcounts, w)
+    ref_recv, ref_inter = plain.dispatch_gg_ref(mesh, send, rids, rcounts, w)
+    same = []
+    for _ in range(calls):
+        a, b = ep.pallas_dispatch_gg(mesh, send, rids, rcounts, w)
+        same.append(bool(torch.equal(a, recv) and torch.equal(b, inter)))
+    held = _held(torch, "b16_decode_m32", inter, ref_inter, 1e-2)
+    held["recv_bitwise"] = bool(torch.equal(recv, ref_recv))
+    held["repeats_bitwise"] = same
+    held["ok"] = held["ok"] and held["recv_bitwise"] and all(same)
+    mask = (torch.arange(max_m, device=dev)[None, :]
+            < rcounts[:, None]).reshape(-1)
+    sel = torch.nonzero(mask)[:, 0]
+    flat_ids = rids.reshape(-1)[sel]
+    live = int(torch.unique(flat_ids).numel())
+    lib_fn, how = _grouped_mm_fn(torch, mu, ref_recv[sel], flat_ids[:, None],
+                                 w, e_loc)
+
+    def lib16():
+        if lib_fn is None:
+            raise RuntimeError(how)
+        return nccl(send), lib_fn()
+
+    n_live = int(sel.numel())
+    plan = ep.dispatch_gg_plan(rids, rcounts, e_loc)
+    timed("b16_decode_m32",
+          lambda: ep.launch_dispatch_gg(mesh, send, plan, w),
+          lambda: plain.dispatch_gg_ref(mesh, send, rids, rcounts, w), lib16,
+          (live * d * ni + TP * max_m * d * 2 + n_live * ni) * 2,
+          (TP - 1) * max_m * d * 2, 2.0 * n_live * d * ni,
+          {**held, "live_experts": live, "live_rows": n_live,
+           "library_how": how})
+    return out
+
+
+def _tp4_ep(torch, dist, mesh, models, kern, gen: int = 32):
+    """Qwen3-30B-A3B at its published widths (hidden 2048, 48 layers, 32 q
+    / 4 kv heads, 128 experts, top-8, expert width 768) expert-parallel at
+    EP=4: each rank 32 experts at full width, bf16, random weights from
+    seed 0 (this rank's shard of the world-1 draw, ~15.3 GB), max_length
+    1024, served on B=16 prompts of 512 tokens, 32 tokens each, prefill in
+    xla (the expert slabs all-gathered a layer), each decode step one
+    CUDA-graph replay, through every EP path of _TP4_EP_PATHS: triton_dist
+    (B10 / B13a on the attention projections, B1; each rank its 4 rows)
+    over PALLAS (B17 out and back), PALLAS_FUSED (B16, then B17) and
+    PALLAS under TD_QUANT=always (B18, then B17), and Engine(model,
+    params) at its defaults (the mega step: B1, B4, B3, the moe task's
+    fused tier over NCCL's all-to-all) and with the mega runtime on
+    PALLAS_FUSED. Each measured by _tp4_measure (the first two
+    profiled); then the kernels timed on the card (_tp4_ep_kernels)."""
+    arch = _ep_arch(models)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(0), arch,
+        mesh.device, torch.bfloat16, rank=mesh.rank, world=mesh.world)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      [*(v for k, v in params.items() if k != "layers"),
+                       *params["layers"].values()])
+    ids = _tp_prompt(torch, arch.vocab_size, 16, 512, 4).to(mesh.device)
+    rec = {"model": MOE_MODEL, "moe_parallel": "ep", "layers":
+           arch.num_layers, "ep": mesh.world, "batch": 16, "prompt": 512,
+           "gen_len": gen, "dtype": "bf16",
+           "param_bytes_per_card": param_bytes, "init_s": init_s,
+           "init_peak_bytes": init_peak, "paths": {}}
+    toks = {}
+    for i, (label, ctx_kw, engine_kw, quant, mega_ep) in enumerate(
+            _TP4_EP_PATHS):
+        torch.cuda.empty_cache()
+        if quant:
+            os.environ["TD_QUANT"] = quant
+        try:
+            engine = _ep_engine(models, mesh, arch, params, ctx_kw,
+                                engine_kw, mega_ep, 1024)
+            r, toks[label] = _tp4_measure(torch, dist, kern, engine, ids,
+                                          gen, i < 2)
+        finally:
+            os.environ.pop("TD_QUANT", None)
+        r["mega_tier"] = engine.mega_tier
+        rec["paths"][label] = r
+        del engine
+    rec["tokens_agree_vs_td_pallas"] = {
+        k: (v == toks["td_pallas"]).float().mean().item()
+        for k, v in toks.items()}
+    del params
+    torch.cuda.empty_cache()
+    rec["kernels"] = _tp4_ep_kernels(torch, dist, mesh)
+    return rec
+
+
+def _tp4_ep_consistency(torch, dist, mesh, models, tmp, gen: int = 8):
+    """The f32 gate of tp4_ep: Qwen3-30B-A3B's widths cut to 4 layers,
+    expert-parallel, f32 weights from seed 7 (this rank's shard of the
+    world-1 draw, the tp4_moe_consistency weights); B=16 prompts of 64
+    tokens, 8 greedy tokens through every EP path of _TP4_EP_PATHS and the
+    eager xla step (the experts all-gathered): rank 0 keeps them for the
+    parent. The fp8 path is lossy by design: its agreement is reported,
+    not gated."""
+    arch = _ep_arch(models, layers=4)
+    params = models.init_random_params(
+        torch.Generator(device=mesh.device).manual_seed(7), arch,
+        mesh.device, torch.float32, rank=mesh.rank, world=mesh.world)
+    ids = _tp_prompt(torch, arch.vocab_size, 16, 64, 5)[:, :64].to(
+        mesh.device)
+    toks, ran = {}, {}
+    for label, ctx_kw, engine_kw, quant, mega_ep in _TP4_EP_PATHS:
+        if quant:
+            os.environ["TD_QUANT"] = quant
+        try:
+            engine = _ep_engine(models, mesh, arch, params, ctx_kw,
+                                engine_kw, mega_ep, 128)
+            toks[label] = engine.serve(ids, gen).cpu()
+        finally:
+            os.environ.pop("TD_QUANT", None)
+        ran[label] = {k: v for k, v in engine.graph_launches.items() if v}
+        del engine
+        torch.cuda.empty_cache()
+    toks["eager_xla"] = _eager_greedy(torch, models.Qwen3MoE(
+        arch, _ep_ctx(mesh), max_length=128, dtype=torch.float32), params,
+        ids, gen).cpu()
+    if mesh.rank == 0:
+        torch.save(toks, os.path.join(tmp, "tp4_ep_f32.pt"))
+    del params
+    torch.cuda.empty_cache()
+    return {"launches_per_replay": ran}
+
+
+def _tp4_ep_rows(torch, models, results, extra):
+    """The parent's side of tp4_ep: each path's record (launches per
+    replay, replays and tokens checked on every rank), and the kernel rows
+    of B16, B17 and B18 from the four cards' timings (slowest rank), their
+    launches those of the EP serves."""
+    ep = [results[r]["ep"] for r in range(TP)]
+    L = models.QWEN3_ARCHS[MOE_MODEL].num_layers
+    attn = {"pallas_ag_gemm": L, "pallas_gemm_rs": L}
+    mega = {"pallas_gemm_ar": L, "fused_add_rms": L}
+    wants = {
+        "td_pallas": {**attn, "fast_all_to_all_per_device": 2 * L,
+                      "group_gemm": 2 * L},
+        "td_pallas_fused": {**attn, "pallas_dispatch_gg": L,
+                            "fast_all_to_all_per_device": L,
+                            "group_gemm": L},
+        "td_pallas_fp8": {**attn, "fast_all_to_all_q_per_device": L,
+                          "fast_all_to_all_per_device": L,
+                          "group_gemm": 2 * L},
+        "mega_default": {**mega, "group_gemm": 2 * L},
+        "mega_pallas_fused": {**mega, "pallas_dispatch_gg": L,
+                              "fast_all_to_all_per_device": L,
+                              "group_gemm": L}}
+    head = {k: v for k, v in ep[0].items() if k not in ("paths", "kernels")}
+    for label, want_kw in wants.items():
+        per = [x["paths"][label] for x in ep]
+        r = {**head, **per[0], "phase": f"tp4_ep_{label}"}
+        r["peak_gb_per_card"] = [x["peak_bytes"] / 1e9 for x in per]
+        r["init_peak_gb_per_card"] = [x["init_peak_bytes"] / 1e9 for x in ep]
+        r["decode_ms_per_step_per_rank"] = [x["decode_ms_per_step"]
+                                            for x in per]
+        differs = [x["own_token_differs"] for x in per]
+        r.pop("own_token_differs")
+        r["own_token_differs_per_rank"] = (
+            None if differs[0] is None else [sum(d) for d in differs])
+        want = _only(r["launches_per_replay"], flash_prefill=L, **want_kw)
+        emit(r)
+        bad = []
+        if any(x["launches_per_replay"] != want for x in per):
+            bad.append(f"{r['launches_per_replay']} per replay, want {want}")
+        if any(x["graph_replays"] != r["gen_len"] - 1 for x in per):
+            bad.append(f"{r['graph_replays']} replays")
+        if any(x["eager_launches"] != _only(x["eager_launches"],
+                                            flash_prefill=L) for x in per):
+            bad.append(f"eager launches {r['eager_launches']}")
+        if not all(x["tokens_same_on_every_rank"] for x in per) or \
+                r["tokens_shape"] != [16, r["gen_len"]]:
+            bad.append("ranks returned different tokens")
+        if label.startswith("mega") and r["mega_tier"] != "pallas_chain":
+            bad.append(f"mega tier {r['mega_tier']}")
+        if bad:
+            fail(f"EP=4 {label}: " + "; ".join(bad))
+        extra[f"tp4_ep_{label}"] = r["launches"]
+    rows = {}
+    for name, keys, rep, call in (
+            ("fast_all_to_all_per_device",
+             ("b17_decode_m32", "b17_prefill_m4096"),
+             "triton_dist_tpu/kernels/low_latency_all_to_all.py:38",
+             "torch.distributed.all_to_all_single (NCCL)"),
+            ("fast_all_to_all_q_per_device",
+             ("b18_decode_m32", "b18_prefill_m4096"),
+             "triton_dist_tpu/kernels/low_latency_all_to_all.py:96",
+             "NCCL all_to_all_single of the fp8 rows (as bytes), then of "
+             "the scales"),
+            ("pallas_dispatch_gg", ("b16_decode_m32",),
+             "triton_dist_tpu/kernels/ep_a2a.py:272",
+             "NCCL all_to_all_single of the payload + torch._grouped_mm "
+             "over the live received rows")):
+        timed = {}
+        for key in keys:
+            rws = [x["kernels"][key] for x in ep]
+            if not all(x["ok"] for x in rws):
+                fail(f"{name} on four cards disagrees with its plain "
+                     f"version or its repeats at {key}: {rws}")
+            t = {k: max(x[k] for x in rws)
+                 for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+            t["library_ms"] = (max(x["library_ms"] for x in rws)
+                               if x_all_num(rws, "library_ms") else None)
+            t["library_note"] = next((x["library_note"] for x in rws
+                                      if x["library_note"]), None)
+            t["bound_by"] = rws[0]["bound_by"]
+            t["per_rank_ms"] = [x["ms"] for x in rws]
+            timed[key] = t
+        emit({"phase": f"tp4_ep_{name}", "per_rank": [
+            {k: x["kernels"][k] for k in keys} for x in ep]})
+        dec = {k: v for k, v in timed.items() if "decode" in k}
+        row = _tp_kernel_record(name, "ep_a2a.cu", rep, dec,
+                                "4 cards, EP=4")
+        pre = [k for k in timed if "prefill" in k]
+        if pre:
+            row["prefill_shape"] = timed[pre[0]]
+        row["launches_by_path"] = {
+            f"tp4_ep_{label}": ep[0]["paths"][label]["launches"][name]
+            for label in wants if ep[0]["paths"][label]["launches"][name]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        row["library_ms_call"] = call
+        rows[name] = row
+    return rows
+
+
 def _tp4_rank(rank, port, phases, tmp, queue):
     """One rank process of the four-card phases (rank r on cuda:r)."""
     import traceback
@@ -3525,6 +4253,13 @@ def _tp4_rank(rank, port, phases, tmp, queue):
             res["moe_consistency"] = _tp4_moe_consistency(
                 torch, dist, mesh, models, tmp)
             lap("tp4_moe_consistency")
+        if "tp4_ep" in phases:
+            res["ep"] = _tp4_ep(torch, dist, mesh, models, kern)
+            lap("tp4_ep")
+        if "tp4_ep_consistency" in phases:
+            res["ep_consistency"] = _tp4_ep_consistency(
+                torch, dist, mesh, models, tmp)
+            lap("tp4_ep_consistency")
         dist.barrier()
         queue.put((rank, "ok", res))
         if "tp4_serve" in phases:
@@ -3648,7 +4383,8 @@ def _world1_logits_and_tokens(torch, models, tmp):
             ids, 16).cpu()
         del params, model
         torch.cuda.empty_cache()
-    if os.path.exists(os.path.join(tmp, "tp4_moe_f32.pt")):
+    if any(os.path.exists(os.path.join(tmp, f)) for f in (
+            "tp4_moe_f32.pt", "tp4_ep_f32.pt")):
         arch = _tp4_moe_gate_arch(models)
         model = models.Qwen3MoE(arch, max_length=128, dtype=torch.float32,
                                 device=DEV)
@@ -3956,6 +4692,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                  f"launch: {two}")
     if "tp4_moe" in phases:
         rows.update(_tp4_moe_rows(torch, models, results, extra))
+    if "tp4_ep" in phases:
+        rows.update(_tp4_ep_rows(torch, models, results, extra))
     t_w1 = time.time()
     w1 = _world1_logits_and_tokens(torch, models, tmp)
     rank0 = dict(results[0]["seconds"])
@@ -4013,6 +4751,31 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         if not all(same.values()) or not kernels_ran:
             fail(f"TP=4 MoE f32 gate: greedy tokens differ ({same}) or "
                  f"B14/B15 did not run in the triton_dist step ({ran})")
+    if "tp4_ep_consistency" in phases:
+        saved = torch.load(os.path.join(tmp, "tp4_ep_f32.pt"))
+        ran = [results[r]["ep_consistency"]["launches_per_replay"]
+               for r in range(TP)]
+        ref = saved["eager_xla"]
+        same = {f"{k}_vs_eager_xla": bool(torch.equal(v, ref))
+                for k, v in saved.items() if k != "td_pallas_fp8"}
+        same["eager_xla_vs_world1"] = bool(torch.equal(ref, w1["moe_f32"]))
+        kernels_ran = all(
+            x["td_pallas"].get("fast_all_to_all_per_device") == 8
+            and x["td_pallas_fused"].get("pallas_dispatch_gg") == 4
+            and x["td_pallas_fp8"].get("fast_all_to_all_q_per_device") == 4
+            and x["mega_pallas_fused"].get("pallas_dispatch_gg") == 4
+            for x in ran)
+        emit({"phase": "tp4_ep_consistency", "model": MOE_MODEL,
+              "moe_parallel": "ep", "layers": 4, "dtype": "f32",
+              "batch": 16, "prompt": 64, "gen_len": 8, "identical": same,
+              "fp8_tokens_agree_vs_eager_xla": (
+                  saved["td_pallas_fp8"] == ref).float().mean().item(),
+              "launches_per_replay": ran[0],
+              "tokens": {k: v.tolist() for k, v in saved.items()},
+              "ok": all(same.values()) and kernels_ran})
+        if not all(same.values()) or not kernels_ran:
+            fail(f"EP=4 f32 gate: greedy tokens differ ({same}) or the EP "
+                 f"kernels did not run in the captured steps ({ran[0]})")
     if "tp4_consistency" in phases:
         saved = torch.load(os.path.join(tmp, "tp4_f32.pt"))
         same = {f"{label}_vs_world1": bool(torch.equal(saved[label],
@@ -4129,9 +4892,12 @@ def main() -> None:
     card, Qwen3-8B), "earlier" (the earlier slices' phases),
     "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs", "b4_gemm_ar_tp",
     "b5_one_shot", "b6_rhd", "b9_ring_rs", "b7_ring_ag", "two_shot",
-    "b14_b15_tp" (the one-card world), "tp4_serve", "tp4_consistency",
-    "tp4_continuous", "tp4_continuous_consistency", "tp4_moe",
-    "tp4_moe_consistency" (four cards)."""
+    "b14_b15_tp", "b8_full_mesh_ag", "b11_ag_gemm_bidir",
+    "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
+    "b16_ep_dispatch_gg" (the one-card world), "tp4_serve",
+    "tp4_consistency", "tp4_continuous", "tp4_continuous_consistency",
+    "tp4_moe", "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency"
+    (four cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -4234,6 +5000,19 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "b13b_gemm_rs_bidir" in phases:
         tp_rows["pallas_gemm_rs_bidir"] = phase_b13b(torch, symm, grs)
+    from triton_dist_tpu_torch.kernels import ep_a2a as ep
+    from triton_dist_tpu_torch.kernels import low_latency_all_to_all as ll
+    if "b17_ll_a2a" in phases:
+        tp_rows["fast_all_to_all_per_device"] = phase_b17(
+            torch, symm, kern, ll, plain)
+        torch.cuda.empty_cache()
+    if "b18_ll_a2a_q" in phases:
+        tp_rows["fast_all_to_all_q_per_device"] = phase_b18(
+            torch, symm, kern, ll, plain)
+        torch.cuda.empty_cache()
+    if "b16_ep_dispatch_gg" in phases:
+        tp_rows["pallas_dispatch_gg"] = phase_b16(torch, symm, ep, mu, plain)
+        torch.cuda.empty_cache()
     four = [p for p in phases if p in FOUR_CARD_PHASES]
     n_cards = torch.cuda.device_count()
     if four and n_cards < TP:

@@ -420,9 +420,9 @@ def test_mlp_hook_leaves_dense_tokens_unchanged():
 
 def test_auto_rules_and_unported_options_raise(monkeypatch):
     """The port's MoE AUTO rule (kernels on CUDA, plain on the CPU, B15
-    only up to 1024 tokens a chunk), the native schedule provider, what
-    waits for ROADMAP A10's EP half, and what world n > 1 needs (its
-    mesh)."""
+    only up to 1024 tokens a chunk), the native schedule provider, the
+    expert-parallel layout now taken (A10's EP half) and what of it stays
+    refused, and what world n > 1 needs (its mesh)."""
     assert resolve_ag_group_gemm_method(AgGroupGemmMethod.AUTO, 4, 8,
                                         cuda=True) == AgGroupGemmMethod.PALLAS
     assert resolve_ag_group_gemm_method(AgGroupGemmMethod.AUTO, 4, 8) == \
@@ -465,10 +465,29 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
         moe_reduce_rs_per_device(1, 4, 1, MoeReduceRsMethod.PALLAS,
                                  torch.ones((1025, 8)), big,
                                  torch.ones((1025, 1)), torch.ones((4, 8, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        TPContext(ep_max_m=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Qwen3MoE(Qwen3MoEArch(moe_parallel="ep"), device="cpu")
+    # the expert-parallel layout is taken: the context's transport and
+    # capacity, the model at world 1; a dcn_axis names A9 (tail), the
+    # error-budget policy on the EP payload A13, a capacity below 1 raises
+    from triton_dist_tpu_torch.kernels.ep_a2a import (
+        EpA2AMethod, create_ep_a2a_context,
+    )
+    from triton_dist_tpu_torch.quant.policy import (
+        PolicyState, QuantPolicy, resolve_ep_payload_dtype,
+    )
+    ctx = TPContext(ep_max_m=64)
+    assert (ctx.ep_max_m, ctx.ep_a2a_method) == (64, EpA2AMethod.XLA)
+    ep_model = Qwen3MoE(Qwen3MoEArch(moe_parallel="ep"), device="cpu")
+    assert ep_model.arch.moe_parallel == "ep"
+    with pytest.raises(ValueError, match="ep_max_m"):
+        TPContext(ep_max_m=0)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(tail\)"):
+        create_ep_a2a_context(None, 8, 2, 4, dcn_axis="dcn")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        resolve_ep_payload_dtype(None, PolicyState(QuantPolicy.ERROR_BUDGET,
+                                                   0.5))
+    assert resolve_ep_payload_dtype(None, PolicyState(
+        QuantPolicy.ALWAYS)) == torch.float8_e4m3fn
+    assert resolve_ep_payload_dtype(None, PolicyState()) is None
     graph = build_qwen3_decode(_ARCHS["moe"], 2).graph
     assert sum(t.task_type == "moe" for t in graph.tasks) == \
         _ARCHS["moe"].num_layers

@@ -48,6 +48,7 @@ from triton_dist_tpu_torch.layers import TPContext
 from triton_dist_tpu_torch.models import (
     Qwen3MoE, Qwen3MoEArch, tiny_qwen3_moe,
 )
+from triton_dist_tpu_torch.runtime.mesh import Mesh
 
 LAYERS, MAX_LEN, GEN = 2, 32, 4       # as tests/torch_moe_tp_worker.py
 FWD_MODES = ("xla", "triton_dist_AR", "triton_dist")
@@ -220,8 +221,9 @@ def test_what_stays_refused(tp):
     rank's shard of the seed-0 weights; B15's PALLAS tier over 1024 tokens
     a chunk, a world > 1 without its mesh, an expert width the world does
     not divide and a triton_dist batch the world does not divide raise;
-    the expert-parallel
-    layout waits for A10's EP half; the native schedule provider builds
+    the expert-parallel layout (A10's EP half) is taken, and an expert
+    count the EP world does not divide raises; the native schedule
+    provider builds
     the in-graph schedule at world 4 (its live tiles). AUTO: PALLAS on CUDA up to 1024 tokens a chunk, then XLA_RING at
     world n (XLA at world 1); XLA on the CPU."""
     for r, c in enumerate(tp["checks"]):
@@ -230,10 +232,13 @@ def test_what_stays_refused(tp):
                     "odd_width_raises", "odd_batch_raises",
                     "autollm_moe_rank_shard"):
             assert c[key] is True, (r, key)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Qwen3MoE(Qwen3MoEArch(moe_parallel="ep"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        TPContext(ep_max_m=64)
+    ep_model = Qwen3MoE(Qwen3MoEArch(moe_parallel="ep"), device="cpu")
+    assert ep_model.arch.moe_parallel == "ep"
+    assert TPContext(ep_max_m=64).ep_max_m == 64
+    world4 = Mesh(None, "tp", 0, WORLD, torch.device("cpu"))
+    with pytest.raises(ValueError, match="not divisible by ep world"):
+        Qwen3MoE(Qwen3MoEArch(moe_parallel="ep", num_experts=6),
+                 TPContext(world4), device="cpu")
     ids = torch.tensor([[0, 3], [1, 2]] * 4, dtype=torch.int32)
     host = moe_utils.make_chunk_schedule(ids, WORLD, 4, 8,
                                          provider="native")

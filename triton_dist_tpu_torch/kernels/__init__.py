@@ -22,12 +22,20 @@ combine) at world 1, and across ranks B14
 ``allgather.full_mesh_all_gather`` (the full-mesh all-gather), B11
 ``allgather_gemm.pallas_ag_gemm_bidir`` and B13b
 ``gemm_reduce_scatter.pallas_gemm_rs_bidir`` (the bidirectional-ring
-AllGather + GEMM and GEMM + ReduceScatter, the PALLAS_BIDIR tiers). Each
-wrapper counts its kernel launches in a ``launches`` attribute.
+AllGather + GEMM and GEMM + ReduceScatter, the PALLAS_BIDIR tiers). The
+expert-parallel MoE layer's: B17
+``low_latency_all_to_all.fast_all_to_all_per_device`` (the padded-slot
+all-to-all of dispatch and combine), B18
+``low_latency_all_to_all.fast_all_to_all_q_per_device`` (its fp8 form)
+and B16 ``ep_a2a.pallas_dispatch_gg`` (the dispatch fused with the gate/up
+grouped GEMM). Each wrapper counts its kernel launches in a ``launches``
+attribute.
 
 The mesh-level ops and their contexts are exported here, as the
 reference's package exports them: ``all_gather_op``, ``ag_gemm``,
-``gemm_rs``, ``ag_group_gemm`` with their contexts; the MoE
+``gemm_rs``, ``ag_group_gemm`` with their contexts, the expert-parallel
+``dispatch``, ``dispatch_gg`` and ``combine`` with ``EpA2AContext``, and
+``fast_all_to_all`` / ``fast_all_to_all_quantized``; the MoE
 ReduceScatter op is ``moe_reduce_rs.moe_reduce_rs`` (its name is the
 module's).
 """
@@ -49,6 +57,14 @@ from triton_dist_tpu_torch.kernels.allgather_group_gemm import (  # noqa: F401
     ag_group_gemm,
     create_ag_group_gemm_context,
 )
+from triton_dist_tpu_torch.kernels.ep_a2a import (  # noqa: F401
+    EpA2AContext,
+    EpA2AMethod,
+    combine,
+    create_ep_a2a_context,
+    dispatch,
+    dispatch_gg,
+)
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
     GemmRsContext,
     GemmRsMethod,
@@ -59,6 +75,10 @@ from triton_dist_tpu_torch.kernels.moe_reduce_rs import (  # noqa: F401
     MoeReduceRsContext,
     MoeReduceRsMethod,
     create_moe_reduce_rs_context,
+)
+from triton_dist_tpu_torch.kernels.low_latency_all_to_all import (  # noqa: F401,E501
+    fast_all_to_all,
+    fast_all_to_all_quantized,
 )
 from triton_dist_tpu_torch.kernels.moe_utils import (  # noqa: F401
     make_chunk_schedule,
@@ -81,6 +101,7 @@ def launch_wrappers() -> dict:
     from triton_dist_tpu_torch.kernels.allreduce import (
         one_shot_all_reduce, rhd_all_reduce,
     )
+    from triton_dist_tpu_torch.kernels.ep_a2a import pallas_dispatch_gg
     from triton_dist_tpu_torch.kernels.flash_attention import flash_prefill
     from triton_dist_tpu_torch.kernels.fused_chain import fused_add_rms
     from triton_dist_tpu_torch.kernels.gemm_allreduce import (
@@ -88,6 +109,9 @@ def launch_wrappers() -> dict:
     )
     from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
         pallas_gemm_rs, pallas_gemm_rs_bidir,
+    )
+    from triton_dist_tpu_torch.kernels.low_latency_all_to_all import (
+        fast_all_to_all_per_device, fast_all_to_all_q_per_device,
     )
     from triton_dist_tpu_torch.kernels.moe_reduce_rs import (
         moe_rs, pallas_moe_reduce_rs,
@@ -113,7 +137,10 @@ def launch_wrappers() -> dict:
             "pallas_moe_reduce_rs": pallas_moe_reduce_rs,
             "full_mesh_all_gather": full_mesh_all_gather,
             "pallas_ag_gemm_bidir": pallas_ag_gemm_bidir,
-            "pallas_gemm_rs_bidir": pallas_gemm_rs_bidir}
+            "pallas_gemm_rs_bidir": pallas_gemm_rs_bidir,
+            "fast_all_to_all_per_device": fast_all_to_all_per_device,
+            "fast_all_to_all_q_per_device": fast_all_to_all_q_per_device,
+            "pallas_dispatch_gg": pallas_dispatch_gg}
 
 
 def launch_counts() -> dict[str, int]:

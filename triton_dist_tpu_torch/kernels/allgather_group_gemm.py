@@ -123,17 +123,18 @@ def k_split(live_tiles: int, col_tiles: int, k: int,
 
 
 def group_gemm_ref(tokens: torch.Tensor, experts_w: torch.Tensor,
-                   sched: moe_utils.AlignedSchedule,
-                   topk: int) -> torch.Tensor:
+                   sched: moe_utils.AlignedSchedule, topk: int,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of B14 at one chunk: tile by tile, the tile's rows
     (row_token, the sentinel clamped to the last token) times its
-    expert's weight with f32 accumulation, cast, written to the live
-    slots' flat rows. Reads used_tiles on the host."""
+    expert's weight with f32 accumulation, cast (to ``out_dtype``, default
+    the inputs' dtype), written to the live slots' flat rows; rows no live
+    slot writes are 0. Reads used_tiles on the host."""
     m = tokens.shape[0]
     nf = m * topk
     t_tiles = sched.tile_expert.shape[1]
     bm = sched.row_token.shape[1] // t_tiles
-    dtype = torch.result_type(tokens, experts_w)
+    dtype = out_dtype or torch.result_type(tokens, experts_w)
     out = torch.zeros((nf, experts_w.shape[-1]), dtype=dtype,
                       device=tokens.device)
     for t in range(int(sched.used_tiles[0])):
@@ -147,16 +148,24 @@ def group_gemm_ref(tokens: torch.Tensor, experts_w: torch.Tensor,
 
 
 def group_gemm(tokens: torch.Tensor, experts_w: torch.Tensor,
-               sched: moe_utils.AlignedSchedule, topk: int) -> torch.Tensor:
+               sched: moe_utils.AlignedSchedule, topk: int,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """B14 at one chunk: (M*topk, N) token-major rows, row f =
     cast(tokens[f // topk] @ experts_w[expert of f]) with f32
-    accumulation. CUDA tensors launch the kernel (counted in
+    accumulation; ``out_dtype`` torch.float32 keeps the f32 sums (the
+    expert-parallel layer's down product), the default casts to the
+    inputs' dtype. A row that no live tile holds (an expert-parallel pad
+    slot) is 0. CUDA tensors launch the kernel (counted in
     ``group_gemm.launches``); CPU tensors run ``group_gemm_ref``."""
+    if out_dtype not in (None, torch.float32, tokens.dtype):
+        raise ValueError(f"group_gemm: out_dtype {out_dtype} is neither "
+                         f"f32 nor the inputs' {tokens.dtype}")
     if tokens.device.type == "cpu":
-        return group_gemm_ref(tokens, experts_w, sched, topk)
+        return group_gemm_ref(tokens, experts_w, sched, topk, out_dtype)
     if tokens.device.type != "cuda":
         raise ValueError(f"group_gemm: unsupported device {tokens.device}")
-    return _launch(tokens.contiguous(), experts_w, sched, topk)
+    return _launch(tokens.contiguous(), experts_w, sched, topk,
+                   out_dtype == torch.float32)
 
 
 group_gemm.launches = 0
@@ -363,7 +372,7 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _launch(tokens, experts_w, sched, topk):
+def _launch(tokens, experts_w, sched, topk, out_f32=False):
     dev = tokens.device
     if tokens.ndim != 2 or experts_w.ndim != 3 or \
             experts_w.shape[1] != tokens.shape[1]:
@@ -376,18 +385,20 @@ def _launch(tokens, experts_w, sched, topk):
     nf = m * topk
     k_chunk, splits = k_split(min(t_tiles, nf), -(-nn // (32 * vec)), k,
                               _sms(dev))
-    part = torch.empty((splits, nf, nn), dtype=torch.float32, device=dev)
-    out = torch.empty((nf, nn), dtype=tokens.dtype, device=dev)
+    # zeroed: a row no live slot writes (a pad slot) sums to 0
+    part = torch.zeros((splits, nf, nn), dtype=torch.float32, device=dev)
+    out = torch.empty((nf, nn), dtype=torch.float32 if out_f32
+                      else tokens.dtype, device=dev)
     fn = build.function("moe_group_gemm", "td_group_gemm", (
         ctypes.c_void_p, ctypes.c_int, *(ctypes.c_void_p,) * 7,
-        *(ctypes.c_int,) * 9, ctypes.c_void_p))
+        *(ctypes.c_int,) * 10, ctypes.c_void_p))
     with torch.cuda.device(dev):
         err = fn(tokens.data_ptr(), m, sched.row_token.data_ptr(),
                  sched.row_flat.data_ptr(), sched.tile_expert.data_ptr(),
                  sched.used_tiles.data_ptr(), experts_w.data_ptr(),
                  part.data_ptr(), out.data_ptr(), t_tiles, bm, k, nn,
                  k_chunk, splits, nf, min(bm, m), _DTYPE_CODE[tokens.dtype],
-                 build.stream_of(tokens))
+                 int(out_f32), build.stream_of(tokens))
     build.check(err, "group_gemm")
     group_gemm.launches += 1
     return out

@@ -181,6 +181,20 @@ def aligned_chunk_schedule(topk_ids: torch.Tensor, n_chunks: int,
     return AlignedSchedule(*(torch.stack(f) for f in zip(*fields)))
 
 
+def live_tile_schedule(ids: torch.Tensor, n_chunks: int, num_live: int,
+                       bm: int) -> AlignedSchedule:
+    """The aligned schedule of an expert-parallel rank's slots: ids (R, 1)
+    local expert per slot, the pad sentinel ``num_live`` (E_loc) binned
+    last in each chunk, and used_tiles cut to the tiles of real experts,
+    so a pad slot is in no live tile and costs no work. In the graph."""
+    sched = aligned_chunk_schedule(ids, n_chunks, num_live + 1, bm)
+    t_tiles = sched.tile_expert.shape[1]
+    t_idx = torch.arange(t_tiles, device=ids.device)[None, :]
+    live = (t_idx < sched.used_tiles[:, None]) & (sched.tile_expert
+                                                  < num_live)
+    return sched._replace(used_tiles=live.sum(dim=1, dtype=_I32))
+
+
 def native_chunk_schedule(topk_ids: torch.Tensor, n_chunks: int,
                           num_experts: int, bm: int) -> AlignedSchedule:
     """The AlignedSchedule from the host C++ schedulers (runtime/native.py):

@@ -1,8 +1,11 @@
 """Plain products and folds shared by the kernels' plain versions and the
-layers: the reference's ``preferred_element_type=f32`` products, and the
-cross-rank folds of B4, B5, B6, B9 and B13b in each kernel's own order. A leaf
-module: the kernel modules import it, and ``layers/common.py`` (which
-imports the kernel modules' method enums) re-exports ``dot_f32``."""
+layers: the reference's ``preferred_element_type=f32`` products, the
+cross-rank folds of B4, B5, B6, B9 and B13b in each kernel's own order, and
+the plain versions of the expert-parallel kernels: B17's and B18's slot
+exchange (``all_to_all_slots``) and B16's dispatch + gate/up product
+(``dispatch_gg_ref``). A leaf module: the kernel modules import it, and
+``layers/common.py`` (which imports the kernel modules' method enums)
+re-exports ``dot_f32``."""
 
 from __future__ import annotations
 
@@ -108,3 +111,61 @@ def bidir_rs_fold(parts, me: int) -> torch.Tensor:
     if kl > 0:
         out = out + chain(range(me + kl, me, -1))
     return out
+
+
+def all_to_all_slots(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of B17 (and of B18, payload by payload) over the
+    process group: slot p of this rank's x (n, ...) goes to rank p, and
+    slot s of the result is what rank s sent here (NCCL's
+    ``all_to_all_single``). Bytes are moved, not values: a one-byte dtype
+    (fp8) travels as uint8. The identity at world 1."""
+    if mesh is None or mesh.world == 1:
+        return x
+    src = x.contiguous()
+    if src.element_size() == 1 and src.dtype not in (torch.uint8,
+                                                     torch.int8):
+        src = src.view(torch.uint8)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group)
+    return out.view(x.dtype)
+
+
+def all_to_all_slots_shards(xs) -> list[torch.Tensor]:
+    """Plain version of B17 over every rank's x in one process (the
+    one-card world): rank r's result stacks slot r of every rank's x."""
+    n = len(xs)
+    return [torch.stack([xs[p][r] for p in range(n)]) for r in range(n)]
+
+
+def slot_expert_product(recv: torch.Tensor, ids: torch.Tensor,
+                        counts: torch.Tensor,
+                        experts_w: torch.Tensor) -> torch.Tensor:
+    """B16's product on the received slots: recv (n, max_m, K), ids (n,
+    max_m) local expert per slot, counts (n,) live slots per sender,
+    experts_w (E_loc, K, N) -> (n * max_m, N) in slot order, row s * max_m
+    + j = cast(recv[s, j] @ experts_w[ids[s, j]]) with f32 accumulation
+    for the live slots (j < counts[s]), 0 for the pad slots. Reads the
+    routing on the host, expert by expert."""
+    n, max_m, k = recv.shape
+    rows = recv.reshape(n * max_m, k)
+    flat = ids.reshape(-1).long()
+    live = (torch.arange(max_m, device=recv.device)[None, :]
+            < counts.to(recv.device)[:, None]).reshape(-1)
+    out = torch.zeros((n * max_m, experts_w.shape[-1]),
+                      dtype=torch.result_type(recv, experts_w),
+                      device=recv.device)
+    for e in torch.unique(flat[live]).tolist():
+        sel = torch.nonzero(live & (flat == e))[:, 0]
+        out[sel] = dot_f32(rows[sel], experts_w[e]).to(out.dtype)
+    return out
+
+
+def dispatch_gg_ref(mesh, send_x: torch.Tensor, ids: torch.Tensor,
+                    counts: torch.Tensor, experts_w: torch.Tensor):
+    """Plain version of B16 over the process group: this rank's payload
+    send_x (n, max_m, K) exchanged by ``all_to_all_slots``, then
+    ``slot_expert_product`` over the received ids (n, max_m) and counts
+    (n,). Returns (received rows (n * max_m, K), inter (n * max_m, N))."""
+    recv = all_to_all_slots(mesh, send_x)
+    return (recv.reshape(-1, recv.shape[-1]),
+            slot_expert_product(recv, ids, counts, experts_w))

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -13,6 +14,7 @@ from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
     AgGroupGemmMethod,
 )
 from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod
+from triton_dist_tpu_torch.kernels.ep_a2a import EpA2AMethod
 from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmArMethod
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import GemmRsMethod
 from triton_dist_tpu_torch.kernels.moe_reduce_rs import MoeReduceRsMethod
@@ -36,11 +38,17 @@ class TPContext:
     fused GEMM + all-reduce (PALLAS = B4); moe_ag_method / moe_rs_method:
     the triton_dist mode's MoE gate/up (PALLAS = B14) and down + top-k
     combine (PALLAS = B15), at world 1 and across ranks; AUTO picks the
-    kernels on CUDA and the plain products on the CPU. tile_bm / tile_bn /
-    tile_bk are the TPU kernels' tiles and comm_blocks their ring blocks:
+    kernels on CUDA and the plain products on the CPU. ep_a2a_method: the
+    triton_dist mode's transport of the expert-parallel MoE layer
+    (``moe_parallel="ep"``; layers/ep_a2a_layer.py): XLA = the process
+    group's all-to-all, PALLAS = B17 (B18 for the fp8 payload under
+    TD_QUANT=always), PALLAS_FUSED = B16 (dispatch fused with the gate/up
+    grouped GEMM), then B17 for the combine; ep_max_m caps the slots of a
+    (src, dst) pair (None: the routing's worst case, which never drops).
+    comm_blocks: the row blocks B14 pushes a shard in and B16 a payload
+    slot in. tile_bm / tile_bn / tile_bk are the TPU kernels' tiles:
     carried for the reference's signatures, nothing on the card reads
-    them. ep_a2a_method and ep_max_m (expert parallelism) raise when set:
-    ROADMAP A10 (EP half).
+    them.
 
     attn_method: "auto" (flash kernel when head_dim % 128 == 0 and the
     chunk has at least 128 keys), "pallas" (always the flash kernel —
@@ -53,7 +61,7 @@ class TPContext:
     gemm_ar_method: GemmArMethod | None = None
     moe_ag_method: AgGroupGemmMethod = AgGroupGemmMethod.AUTO
     moe_rs_method: MoeReduceRsMethod = MoeReduceRsMethod.AUTO
-    ep_a2a_method: object = None
+    ep_a2a_method: EpA2AMethod = EpA2AMethod.XLA
     attn_method: str = "auto"
     ep_max_m: int | None = None
     tile_bm: int = 256
@@ -62,10 +70,8 @@ class TPContext:
     comm_blocks: int = 4
 
     def __post_init__(self):
-        if self.ep_a2a_method is not None or self.ep_max_m is not None:
-            raise NotImplementedError(
-                "expert parallelism (ep_a2a_method, ep_max_m) waits for "
-                "ROADMAP A10 (EP half)")
+        if self.ep_max_m is not None and self.ep_max_m < 1:
+            raise ValueError(f"ep_max_m {self.ep_max_m} < 1")
         if self.mesh is not None and self.mesh.axis != self.axis:
             raise ValueError(f"mesh axis {self.mesh.axis!r} is not the TP "
                              f"axis {self.axis!r}")
@@ -121,14 +127,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def make_cos_sin_cache(head_dim: int, max_length: int, theta: float,
                        device: torch.device | str = "cpu") -> torch.Tensor:
-    """(max_length, 2, head_dim) f32 cos/sin table."""
+    """(max_length, 2, head_dim) f32 cos/sin table. The angles are the
+    reference's f32 products; their cos and sin are taken in float64 on
+    the host and rounded to f32 (within 2 ulp of the reference's f32
+    table). torch's f32 cos on the CPU gave, on the first call of a loaded
+    process, values 1.5e-4 off at angles near 160 rad."""
     inv_freq = 1.0 / (theta ** (
-        torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-        / head_dim))
-    t = torch.arange(max_length, dtype=torch.float32, device=device)
+        torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
+    t = torch.arange(max_length, dtype=torch.float32)
     freqs = torch.outer(t, inv_freq)                    # (S, D/2)
-    emb = torch.cat([freqs, freqs], dim=-1)             # (S, D)
-    return torch.stack([torch.cos(emb), torch.sin(emb)], dim=1)
+    emb = torch.cat([freqs, freqs], dim=-1).numpy().astype(np.float64)
+    table = np.stack([np.cos(emb), np.sin(emb)], axis=1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -279,10 +279,12 @@ class ModelBuilder:
                          n_out=2, tier_fns={"pallas_chain": pallas_fn})
 
     def make_custom(self, kind: str, ins: Sequence[str], fn: Callable,
-                    n_out: int = 1, *, layer_id: int, is_comm: bool = False):
-        """Escape hatch for ops without a dedicated task kind."""
+                    n_out: int = 1, *, layer_id: int, is_comm: bool = False,
+                    tier_fns: dict | None = None):
+        """Escape hatch for ops without a dedicated task kind; ``tier_fns``
+        maps a tier to the task's function there (the base fn elsewhere)."""
         return self._add(kind, layer_id, ins, fn, n_out=n_out,
-                         is_comm=is_comm)
+                         tier_fns=tier_fns, is_comm=is_comm)
 
     # -- compile ----------------------------------------------------------
 

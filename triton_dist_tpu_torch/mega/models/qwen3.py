@@ -12,7 +12,13 @@ tasks (B4 in the pallas_chain tier, the process group's all-reduce in the
 xla tier), the boundary a ``fused_chain`` task (B3). For the MoE family
 the MLP half is one ``moe`` task: the layer library's xla-mode math
 (router, ``dense_grouped_moe``, the process group's f32 all-reduce at
-n_tp > 1, the cast), with no fused tier, as in the reference.
+n_tp > 1, the cast; for expert-parallel archs the expert slabs
+all-gathered instead), with no fused tier for tensor-parallel experts, as
+in the reference. Expert-parallel archs at n_tp > 1 get a fused tier: the
+replicated token rows cut over the ranks, dispatched over the transport
+``ep_a2a_method`` names (None: the process group's all-to-all; PALLAS:
+B17; PALLAS_FUSED: B16 + B17) to the experts' owners, combined back, and
+all-gathered.
 ``build_qwen3_paged_decode`` records the paged-cache T = 1 step with the
 continuous-batching ``active`` mask (``paged_kv_write`` and
 ``paged_attend``, B2, in place of the dense cache's write and
@@ -31,40 +37,93 @@ from triton_dist_tpu_torch.models.config import Qwen3Arch, Qwen3MoEArch
 
 
 def _moe_task(b: ModelBuilder, arch, n_tp: int, hn: str, wr: str, wgu: str,
-              wd: str, *, layer_id: int) -> str:
-    """One MoE expert block as a task: the layer library's xla-mode math
-    (layers/tp_moe.moe_fwd "xla", op for op, so the tier is bit-identical
-    to the layer-by-layer path): router, ``dense_grouped_moe`` over this
-    rank's expert shards, the f32 partial all-reduced over the builder's
-    mesh (the identity at world 1), the cast. No fused tier, as in the
-    reference's tensor-parallel branch."""
+              wd: str, *, layer_id: int, ep_a2a_method=None,
+              ep_max_m: int | None = None, comm_blocks: int = 4) -> str:
+    """One MoE expert block as a task. The xla tier is the layer
+    library's xla-mode math (layers/tp_moe.moe_fwd "xla" /
+    layers/ep_a2a_layer.ep_moe_layer_fwd "xla", op for op, so the tier is
+    bit-identical to the layer-by-layer path): router, for
+    expert-parallel archs the expert slabs all-gathered over the builder's
+    mesh, ``dense_grouped_moe``, for tensor-parallel ones the f32 partial
+    all-reduced (the identity at world 1), the cast. Expert-parallel archs
+    on a mesh get a pallas_chain tier: this rank's 1/n of the replicated
+    rows routed and dispatched through ``ep_moe_fwd`` over
+    ``ep_a2a_method`` (None: XLA), combined, all-gathered back. Rows that
+    n_tp does not divide take the xla tier (a shape rule, as in the
+    reference)."""
     from triton_dist_tpu_torch.kernels import moe_utils
-    from triton_dist_tpu_torch.layers.tp_moe import dense_grouped_moe
+    from triton_dist_tpu_torch.layers.tp_moe import (
+        _all_gather_rows, dense_grouped_moe,
+    )
 
     topk, num_experts = arch.num_experts_per_tok, arch.num_experts
+    ep = arch.moe_parallel == "ep"
+
+    def _route(tokens, wr_):
+        return moe_utils.route_topk(dot_f32(tokens, wr_), topk,
+                                    norm_topk_prob=arch.norm_topk_prob)
 
     def xla_fn(x_, wr_, wgu_, wd_):
         tokens = x_.reshape(-1, x_.shape[-1])
-        topk_w, topk_ids = moe_utils.route_topk(
-            dot_f32(tokens, wr_), topk, norm_topk_prob=arch.norm_topk_prob)
+        topk_w, topk_ids = _route(tokens, wr_)
+        if ep:
+            ctx = TPContext(b.mesh_of(n_tp))
+            y = dense_grouped_moe(tokens, topk_ids, topk_w,
+                                  _all_gather_rows(ctx, wgu_),
+                                  _all_gather_rows(ctx, wd_), num_experts)
+            return y.to(x_.dtype).reshape(x_.shape)
         y = dense_grouped_moe(tokens, topk_ids, topk_w, wgu_, wd_,
                               num_experts)
         y = b.psum(y, n_tp)                    # I is TP-sharded
         return y.to(x_.dtype).reshape(x_.shape)
 
+    tier_fns = None
+    if ep and n_tp > 1 and b.mesh is not None:
+        from triton_dist_tpu_torch.kernels.ep_a2a import (
+            EpA2AContext, EpA2AMethod,
+        )
+        from triton_dist_tpu_torch.layers.ep_a2a_layer import ep_moe_fwd
+
+        def fused_fn(x_, wr_, wgu_, wd_):
+            tokens = x_.reshape(-1, x_.shape[-1])
+            m = tokens.shape[0]
+            if m % n_tp:
+                # replicated rows that do not split over the ranks stay on
+                # the xla tier rather than dispatch ragged shards
+                return xla_fn(x_, wr_, wgu_, wd_)
+            mesh = b.mesh_of(n_tp)
+            m_loc = m // n_tp
+            tok_l = tokens[mesh.rank * m_loc:(mesh.rank + 1) * m_loc]
+            topk_w, topk_ids = _route(tok_l, wr_)
+            worst = m_loc * topk
+            max_m = worst if ep_max_m is None else min(ep_max_m, worst)
+            ctx = EpA2AContext(mesh, mesh.axis, num_experts, topk,
+                               max_m=max_m,
+                               method=ep_a2a_method or EpA2AMethod.XLA,
+                               comm_blocks=comm_blocks)
+            y_l = ep_moe_fwd(ctx, {"w_gate_up": wgu_, "w_down": wd_},
+                             tok_l, topk_ids, topk_w)
+            y = _all_gather_rows(TPContext(mesh), y_l.to(x_.dtype))
+            return y.reshape(x_.shape)
+
+        tier_fns = {"pallas_chain": fused_fn}
+
     return b.make_custom("moe", (hn, wr, wgu, wd), xla_fn, layer_id=layer_id,
-                         is_comm=True)
+                         tier_fns=tier_fns, is_comm=True)
 
 
 def _layer_tail_tasks(b: ModelBuilder, arch, n_tp: int, h: str, a: str,
                       i: int, postn: str, mlp_inputs, *,
-                      gemm_ar_method=None) -> str:
+                      gemm_ar_method=None, ep_a2a_method=None,
+                      ep_max_m=None, comm_blocks=4) -> str:
     """Attention→MLP boundary + the MLP/MoE half of layer i. Returns the
     layer's output h name."""
     h, hn = b.make_fused_chain(h, a, postn, arch.rms_eps, layer_id=i)
     if isinstance(arch, Qwen3MoEArch):
         wr, wgu, wd = mlp_inputs
-        dn = _moe_task(b, arch, n_tp, hn, wr, wgu, wd, layer_id=i)
+        dn = _moe_task(b, arch, n_tp, hn, wr, wgu, wd, layer_id=i,
+                       ep_a2a_method=ep_a2a_method, ep_max_m=ep_max_m,
+                       comm_blocks=comm_blocks)
     else:
         wgu, wd = mlp_inputs
         gu = b.make_linear(hn, wgu, layer_id=i)
@@ -99,10 +158,13 @@ def _logits_tail_tasks(b: ModelBuilder, n_tp: int, h: str,
 
 def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
                        dtype: torch.dtype = torch.bfloat16, *, mesh=None,
-                       gemm_ar_method=None) -> ModelBuilder:
+                       gemm_ar_method=None, ep_a2a_method=None,
+                       ep_max_m: int | None = None,
+                       comm_blocks: int = 4) -> ModelBuilder:
     """Record one rank's dense-cache decode step of an n_tp-way
     tensor-parallel Qwen3 dense or MoE model (``mesh``: the ranks' Mesh,
-    needed to run the step at n_tp > 1).
+    needed to run the step at n_tp > 1; ep_a2a_method, ep_max_m and
+    comm_blocks: the expert-parallel moe task's fused tier).
 
     Step inputs (env keys): input_ids (B, T), positions (T,), offset ()
     on the device, cos_sin, embed, lm_head (d, V/n), final_norm, and per
@@ -151,7 +213,9 @@ def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
         a = b.make_linear_allreduce(a, wo, layer_id=i, world=n_tp,
                                     gemm_ar_method=gemm_ar_method)
         h = _layer_tail_tasks(b, arch, n_tp, h, a, i, postn, mlp_inputs,
-                              gemm_ar_method=gemm_ar_method)
+                              gemm_ar_method=gemm_ar_method,
+                              ep_a2a_method=ep_a2a_method,
+                              ep_max_m=ep_max_m, comm_blocks=comm_blocks)
         b.mark_output(nk, nv)
         b.kv_outputs.append((nk, nv))
 
@@ -165,7 +229,9 @@ def build_qwen3_decode(arch: Qwen3Arch, n_tp: int = 1,
 def build_qwen3_paged_decode(arch: Qwen3Arch, n_tp: int, page_size: int,
                              dtype: torch.dtype = torch.bfloat16, *,
                              mesh=None, gemm_ar_method=None,
-                             resident: bool = False) -> ModelBuilder:
+                             resident: bool = False, ep_a2a_method=None,
+                             ep_max_m: int | None = None,
+                             comm_blocks: int = 4) -> ModelBuilder:
     """Record one rank's T = 1 paged-cache decode step with the
     continuous-batching ``active`` mask: the task mirror of the layer
     path's paged decode (Qwen3._forward_paged at T == 1), so the xla tier
@@ -239,7 +305,9 @@ def build_qwen3_paged_decode(arch: Qwen3Arch, n_tp: int, page_size: int,
         a = b.make_linear_allreduce(a, wo, layer_id=i, world=n_tp,
                                     gemm_ar_method=gemm_ar_method)
         h = _layer_tail_tasks(b, arch, n_tp, h, a, i, postn, mlp_inputs,
-                              gemm_ar_method=gemm_ar_method)
+                              gemm_ar_method=gemm_ar_method,
+                              ep_a2a_method=ep_a2a_method,
+                              ep_max_m=ep_max_m, comm_blocks=comm_blocks)
         b.mark_output(nk, nv)
         b.paged_kv_outputs.append((nk, nv))
         if resident:

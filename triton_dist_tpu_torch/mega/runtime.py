@@ -11,7 +11,10 @@ method tier (the reference's mega/runtime.py).
 At world n (``model.ctx.world``, one runtime per rank) the graph is one
 rank's step over its shard of the weights and cache, on the model's mesh:
 the xla tier sums the o/down products with the process group's
-all-reduce, both tiers gather the logits along the vocabulary.
+all-reduce, both tiers gather the logits along the vocabulary. For an
+expert-parallel MoE model the pallas_chain tier's moe task dispatches
+its rows over ``ep_a2a_method`` (None: the process group's all-to-all;
+PALLAS: B17; PALLAS_FUSED: B16 + B17).
 
 AUTO resolves to PALLAS_CHAIN on CUDA and to XLA on the CPU, the same
 platform choice the reference makes. ``dense_step_fn(tier)`` returns the
@@ -63,7 +66,7 @@ class MegaDecodeRuntime:
 
     def __init__(self, model, mode: str = "xla",
                  method: MegaMethod | str = MegaMethod.AUTO,
-                 gemm_ar_method=None):
+                 gemm_ar_method=None, ep_a2a_method=None):
         self.model = model
         self.mode = mode
         self.method = resolve_mega_method(method, model.device)
@@ -76,6 +79,9 @@ class MegaDecodeRuntime:
             )
             gemm_ar_method = serving_gemm_ar_method(model.ctx.world)
         self.gemm_ar_method = gemm_ar_method
+        # the expert-parallel moe task's transport in the pallas_chain
+        # tier (None: the process group's all-to-all), as in the reference
+        self.ep_a2a_method = ep_a2a_method
         self.launches = 0
         self._dense: ModelBuilder | None = None
         self._paged: dict[tuple[int, bool], ModelBuilder] = {}
@@ -95,7 +101,8 @@ class MegaDecodeRuntime:
             model = self.model
             self._dense = build_qwen3_decode(
                 model.arch, model.ctx.world, dtype=model.dtype,
-                mesh=model.ctx.mesh, gemm_ar_method=self.gemm_ar_method)
+                mesh=model.ctx.mesh, gemm_ar_method=self.gemm_ar_method,
+                **self._ep_kw())
         return self._dense
 
     def paged_builder(self, page_size: int,
@@ -109,9 +116,14 @@ class MegaDecodeRuntime:
             b = build_qwen3_paged_decode(
                 model.arch, model.ctx.world, page_size, dtype=model.dtype,
                 mesh=model.ctx.mesh, gemm_ar_method=self.gemm_ar_method,
-                resident=resident)
+                resident=resident, **self._ep_kw())
             self._paged[(page_size, resident)] = b
         return b
+
+    def _ep_kw(self) -> dict:
+        ctx = self.model.ctx
+        return {"ep_a2a_method": self.ep_a2a_method,
+                "ep_max_m": ctx.ep_max_m, "comm_blocks": ctx.comm_blocks}
 
     def graph_tasks(self) -> int:
         for b in (*self._paged.values(), self._dense):

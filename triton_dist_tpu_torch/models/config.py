@@ -1,7 +1,8 @@
 """Model configuration: the port's copy of the reference's models/config.py.
 
-The dense Qwen3 family and the Qwen3 MoE family (``Qwen3MoEArch``); the
-expert-parallel layout (``moe_parallel="ep"``) waits for ROADMAP A10.
+The dense Qwen3 family and the Qwen3 MoE family (``Qwen3MoEArch``), whose
+experts are tensor-parallel (``moe_parallel="tp"``) or expert-parallel
+(``"ep"``).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ class Qwen3MoEArch(Qwen3Arch):
     norm_topk_prob: bool = True
     # "tp": experts sharded on the intermediate width (AG + grouped GEMM,
     # grouped GEMM + top-k reduce + RS); "ep": each device owns
-    # E / world experts at full width (ROADMAP A10)
+    # E / world experts at full width (dispatch, expert MLP, combine)
     moe_parallel: str = "tp"
 
 

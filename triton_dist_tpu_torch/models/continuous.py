@@ -36,10 +36,16 @@ takes rank 0's tokens (an NCCL broadcast captured in the graph; eager on
 the CPU), and counts the steps on which its own sample differed
 (``own_token_differs``), as the static Engine does.
 
+An expert-parallel MoE model (``moe_parallel="ep"``) serves in mode "xla":
+the paged mega graph's moe task (its pallas_chain tier dispatches each
+rank's share of the rows to the experts' owners). The pairs its captured
+steps drop for capacity are read with each harvest and warned about
+(layers/ep_a2a_layer.py).
+
 Waiting, each raising with its ROADMAP item: temperature / top-p sampling
 with per-request threefry streams (A2); the request journal and
 ``recover`` (A7's rest, with A8's fault and observability hooks);
-speculative decode (A12); expert-parallel MoE (A10).
+speculative decode (A12).
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ import torch.distributed as dist
 
 from triton_dist_tpu_torch.kernels import launch_counts
 from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod
+from triton_dist_tpu_torch.layers.ep_a2a_layer import (
+    pending_overflow, report_overflow,
+)
 from triton_dist_tpu_torch.models.engine import (
     cache_state, restore_cache_state,
 )
@@ -724,9 +733,14 @@ class ContinuousEngine:
         """Commit one program's (K, B) tokens and emit masks to the host
         requests: ONE device read per harvest."""
         k, b = self._toks.shape
+        # an expert-parallel model's dropped-pair counter rides along
+        ep = pending_overflow(self.model.device)
         host = torch.cat([self._toks.reshape(-1),
                           self._emit.reshape(-1).to(_I32),
-                          self.cache.overflow.reshape(1)]).tolist()
+                          self.cache.overflow.reshape(1).to(_I32),
+                          *(() if ep is None else (ep.to(_I32),))]).tolist()
+        if ep is not None:
+            report_overflow(self.model.device, host.pop())
         toks, emit, overflow = host[:k * b], host[k * b:2 * k * b], host[-1]
         self._stats["decode_batches"] += 1
         newly_done = []

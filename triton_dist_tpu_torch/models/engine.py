@@ -33,8 +33,10 @@ batch's tokens. Prefill runs in "xla" on the whole batch. With
 and gate/up projections, B13a for o and down, with ``ag_method`` /
 ``rs_method`` PALLAS; B11 and B13b, the bidirectional rings, with
 PALLAS_BIDIR at n >= 3; for Qwen3MoE B14 and B15 across ranks for the
-experts) in the captured step, samples them, and the ranks all-gather the
-sampled tokens outside the graph. The replicated backends
+experts, or, expert-parallel (``moe_parallel="ep"``), the dispatch and
+combine over ``ctx.ep_a2a_method``: B17, B18 under TD_QUANT=always, or
+B16 + B17) in the captured step, samples them, and the ranks all-gather
+the sampled tokens outside the graph. The replicated backends
 ("xla": the mega step at its defaults, B4 across ranks on the card; and
 "triton_dist_AR") decode the whole batch on every rank; B5 leaves the
 ranks' sums different in the last bit, so every rank takes rank 0's
@@ -52,6 +54,7 @@ import torch.distributed as dist
 
 from triton_dist_tpu_torch.kernels import launch_counts
 from triton_dist_tpu_torch.layers.common import check_mode
+from triton_dist_tpu_torch.layers.ep_a2a_layer import check_overflow
 from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedKVCache
 from triton_dist_tpu_torch.models.utils import logger, sample_token
 
@@ -285,6 +288,7 @@ class Engine:
         out = torch.stack(outputs, dim=1)
         self._sync()
         dt = time.perf_counter() - t0
+        check_overflow(self.model.device)     # EP pairs dropped in replays
         self.last_decode_s = dt
         self.last_decode_steps = gen_len - 1
         if self.verbose and gen_len > 1:

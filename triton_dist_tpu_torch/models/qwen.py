@@ -44,7 +44,11 @@ def param_specs(arch: Qwen3Arch) -> dict:
     the place of the reference's PartitionSpecs (``None``: replicated along
     that dimension). models/weights.py slices by it."""
     tp = "tp"
-    if isinstance(arch, Qwen3MoEArch):
+    if isinstance(arch, Qwen3MoEArch) and arch.moe_parallel == "ep":
+        # expert-parallel: the experts sharded on E at full width
+        mlp = {"w_router": (), "w_gate_up": (None, tp, None, None),
+               "w_down": (None, tp, None, None)}
+    elif isinstance(arch, Qwen3MoEArch):
         mlp = {"w_router": (), "w_gate_up": (None, None, None, tp),
                "w_down": (None, None, tp, None)}
     else:

@@ -5,7 +5,9 @@ The dict layout is the reference's parameter pytree: x @ W everywhere,
 layer weights stacked on a leading num_layers axis. At world 1 wqkv's
 columns are [q | k | v] and w_gate_up's [gate | up]. For the MoE family
 the MLP weights are w_router (L, d, E), w_gate_up (L, E, d, 2I) with the
-columns [gate | up] per expert, and w_down (L, E, I, d).
+columns [gate | up] per expert, and w_down (L, E, I, d); expert-parallel
+(``moe_parallel="ep"``) they are cut on E, rank r holding experts
+[r E / n, (r + 1) E / n) at full width, the world-1 weights' own.
 
 Tensor parallelism: each rank holds its shard of every parameter, cut by
 ``models/qwen.py::param_specs`` into contiguous equal blocks along the
@@ -135,7 +137,8 @@ def init_random_params(generator: torch.Generator, arch: Qwen3Arch,
         full = rnd(shape)
         if world == 1 or "tp" not in spec:
             return full
-        groups = _split_cols(name, arch)
+        # a fused weight cut along its columns goes group by group
+        groups = _split_cols(name, arch) if spec[-1] == "tp" else None
         if groups is None:
             return _shard(full, spec, rank, world).clone()
         return torch.cat([_shard(g, spec, rank, world)

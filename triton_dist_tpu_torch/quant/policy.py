@@ -1,11 +1,13 @@
-"""QuantPolicy: the ``TD_QUANT`` parse, the resident-KV decision and the
-mega graph's GEMM+AR wire choice (the reference's quant/policy.py, the
-parts the serving paths read).
+"""QuantPolicy: the ``TD_QUANT`` parse, the resident-KV decision, the
+mega graph's GEMM+AR wire choice and the expert-parallel dispatch's wire
+dtype (the reference's quant/policy.py, the parts the serving paths read).
 
 ``TD_QUANT`` is ``off`` (the default) | ``always`` | ``error_budget[:x]``.
 The pools stay full width unless the caller passes ``kv_resident="int8"``
-or the policy admits the int8 row codec. The other wire-tier gates wait
-for the quantized-wire slice (ROADMAP A13).
+or the policy admits the int8 row codec. The EP dispatch payload goes fp8
+under ``always``; ``error_budget`` there needs the error contracts
+(quant/contract.py) and raises. The other wire-tier gates wait for the
+quantized-wire slice (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -98,3 +100,26 @@ def serving_gemm_ar_method(world: int = 2,
             return None
     from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmArMethod
     return GemmArMethod.XLA_QINT8
+
+
+def resolve_ep_payload_dtype(requested, state: PolicyState | None = None):
+    """The expert-parallel dispatch payload's wire dtype: an explicit
+    ``requested`` (EpA2AContext.payload_dtype) always wins; with none set,
+    OFF keeps the full width (None) and ALWAYS takes fp8 e4m3
+    (torch.float8_e4m3fn: the rows per-row quantized, their f32 scales
+    beside them). ERROR_BUDGET judges the ep_dispatch contract of
+    quant/contract.py, which waits for ROADMAP A13: it raises. ``state``
+    defaults to TD_QUANT."""
+    if requested is not None:
+        return requested
+    if state is None:
+        state = parse_td_quant(os.environ.get("TD_QUANT", ""))
+    if state.policy == QuantPolicy.OFF:
+        return None
+    if state.policy == QuantPolicy.ERROR_BUDGET:
+        raise NotImplementedError(
+            "TD_QUANT=error_budget on the expert-parallel dispatch needs the "
+            "ep_dispatch error contract (quant/contract.py), which waits for "
+            "ROADMAP A13; use TD_QUANT=always or off")
+    import torch
+    return torch.float8_e4m3fn
