@@ -44,8 +44,21 @@ triton_dist over PALLAS, PALLAS_FUSED and PALLAS under TD_QUANT=always and
 at the Engine's defaults (also with the mega step on PALLAS_FUSED), the
 kernels timed on each card against NCCL, and the f32 4-layer gate (every
 lossless EP path's tokens identical to the eager xla step's and world
-1's). With fewer than four cards those phases print that they did not
-run. Named phases run alone (see ``main``). One JSON line per phase; the line before the last lists
+1's). Then sequence parallelism at Qwen3-32B's attention widths: B1's
+fold and varlen forms and B19 (the split-KV decode partial) against
+their plain versions, B20 (the cross-rank LSE combine) and B21 (the
+fused ring attention) in the one-card world, and the layer
+SpGQAFlashDecodeAttention's main path on one card (world-1 prefill under
+FLASH_RING and varlen XLA, decode captured in one CUDA graph, the
+one-card world's PALLAS prefill, decode and paged decode, every kernel
+counted); with four cards its prefill of 32,768 tokens under every tier,
+its decode over a 131,072-token cache (one graph replay a step, combine
+XLA and PALLAS, dense and paged), every kernel of those paths (B1's
+prefill and fold forms, B2, B19, B20, B21) held on each card against its
+plain version at the shapes the paths give it and timed against NCCL +
+lse_merge or NCCL all-gather + SDPA, and the f32 gate of every
+tier and combine against one card's dense attention. With fewer than
+four cards those phases print that they did not run. Named phases run alone (see ``main``). One JSON line per phase; the line before the last lists
 every kernel with its times and bound; the last line is the device
 record. Any failed check exits non-zero. Imports nothing of JAX. Needs
 one card; without one it exits non-zero and prints no result.
@@ -53,6 +66,7 @@ one card; without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -1735,13 +1749,16 @@ SLEEP_CYCLES = 300_000_000  # ~0.15 s at the H100's clock: holds the stream
 TP_MODEL = "Qwen/Qwen3-32B"
 FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
                     "tp4_continuous_consistency", "tp4_moe",
-                    "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency")
+                    "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency",
+                    "tp4_sp", "tp4_sp_consistency")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
                       "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp",
                       "b8_full_mesh_ag", "b11_ag_gemm_bidir",
                       "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
-                      "b16_ep_dispatch_gg")
+                      "b16_ep_dispatch_gg", "b1_fold",
+                      "b19_flash_decode_partial", "b20_decode_combine",
+                      "b21_ring_attn", "sp_layer")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -4193,6 +4210,1089 @@ def _tp4_ep_rows(torch, models, results, extra):
     return rows
 
 
+# -- the sequence-parallel slice: B1's fold and varlen forms, B19, B20, B21 --
+
+SP_HEADS = (64, 8, 128)       # Qwen3-32B's attention: Hq, Hkv, D
+SP_TOL_BF16 = 2e-2            # x max|ref|: bf16 outputs, bf16-rounded P
+SP_TOL_F32 = 1e-4             # x max|ref|: f32, summation order only
+# four cards: prefill B=1 at Qwen3-32B's native 32,768 tokens (8,192 a
+# rank); decode B=4 over the YaRN-extended 131,072-token cache (32,768 a
+# rank), 32 steps, page 128; the f32 gate at 4,096 tokens and 16,384 keys
+SP_TP4 = {"b": 1, "t": 32768, "dec_b": 4, "cache": 131072, "steps": 32,
+          "page": 128, "gate_t": 4096, "gate_cache": 16384, "timed": 2}
+SP_GATE_TOL = 1e-4            # x max(1, max|ref|): the f32 four-card gate
+_SRC = "triton_dist_tpu_torch/csrc/"
+SP_PREFILL_TIERS = (("xla", "contiguous"), ("xla_ring", "contiguous"),
+                    ("flash_ring", "contiguous"), ("flash_ring", "zigzag"),
+                    ("xla_ring", "zigzag"), ("xla_block", "contiguous"),
+                    ("pallas", "contiguous"))
+
+
+def _sp_rand(torch, g, shape, dt, device=DEV):
+    return torch.randn(shape, generator=g, device=device).to(dt)
+
+
+def _held_triple(torch, name, got, ref, tol):
+    """An unnormalized (acc, m, l) against the plain version's: the rows
+    acc / l within tol x max|ref| (as _held), log l + m within 1e-3 on
+    the rows with a live key, and the rows without one (0, -1e30, 0) on
+    both sides."""
+    acc, m, l = (x.float() for x in got)
+    racc, rm, rl = (x.float() for x in ref)
+    row = _held(torch, name, acc / torch.clamp_min(l, 1e-30)[..., None],
+                racc / torch.clamp_min(rl, 1e-30)[..., None], tol)
+    live = rl > 0
+    lse = (m + torch.log(torch.clamp_min(l, 1e-30))
+           - rm - torch.log(torch.clamp_min(rl, 1e-30)))
+    lse_err = lse[live].abs().max().item() if bool(live.any()) else 0.0
+    dead = ~live
+    dead_ok = bool((l[dead] == 0).all() and (acc[dead] == 0).all()
+                   and (m[dead] <= -1e29).all())
+    row.update(lse_err=lse_err, dead_rows=int(dead.sum()),
+               ok=row["ok"] and lse_err <= 1e-3 and dead_ok)
+    return row
+
+
+def _sp_row(name, source, replaces, rows, timed, measured_on, **extra):
+    """A kernels-line row of the slice (one card): timed = {case: {ms,
+    plain_ms, library_ms, bound_ms, bound_by, ...}}, the first case the
+    row's numbers."""
+    main = next(iter(timed.values()))
+    return {"name": name, "route": "cuda", "source": _SRC + source,
+            "replaces": replaces,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "launches": None,
+            "measured_on": measured_on, "shapes": timed, **extra}
+
+
+def _sdpa(torch, q, k, v, mask=None):
+    """One scaled_dot_product_attention of (B, T, H, D) tensors: GQA
+    through enable_gqa without a mask; with a bool mask the kv heads are
+    repeated and the memory-efficient backend is asked for, which takes a
+    mask without materializing the scores."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    if mask is None:
+        return sdpa(qh, kh, vh, enable_gqa=True)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = qh.shape[1] // kh.shape[1]
+    kh, vh = kh.repeat_interleave(g, 1), vh.repeat_interleave(g, 1)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
+        return sdpa(qh, kh, vh, attn_mask=mask)
+
+
+def _library(torch, fn, **kw):
+    """(ms of fn, None), or (None, the error) where the card's backends
+    refuse the call."""
+    try:
+        return time_ms(fn, **kw), None
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        return None, str(exc).splitlines()[0][:200]
+
+
+def phase_b1_fold(torch, fa):
+    """B1's fold form (flash_fold_partial: the unnormalized (acc, m, l)
+    of q against one key chunk whose origin is k_start) and its varlen
+    form (flash_prefill with cu_seqlens), against their plain versions,
+    at Qwen3-32B's heads (Hq 64, Hkv 8, D 128) and bf16: 2,048 queries
+    against a 2,048-key chunk at k_start 0 (the diagonal chunk of a ring)
+    and at k_start 2,048 with q_start 4,096 (a whole chunk), the starts
+    also as device tensors; the varlen form over 2,048 rows in 3 segments;
+    f32 cases with segments and a chunk wholly in the future. Tolerances:
+    SP_TOL_BF16 / SP_TOL_F32 x max|ref| on acc / l, 1e-3 on log l + m.
+    Timed: the whole chunk (fold) and the 3 segments (varlen) against the
+    plain versions and SDPA (the fold: SDPA over the chunk, which returns
+    the normalized rows; the varlen form: SDPA with the block-causal
+    mask)."""
+    hq, hkv, d = SP_HEADS
+    g = torch.Generator(device=DEV).manual_seed(101)
+    t = 2048
+    q = _sp_rand(torch, g, (1, t, hq, d), torch.bfloat16)
+    k = _sp_rand(torch, g, (1, t, hkv, d), torch.bfloat16)
+    v = _sp_rand(torch, g, (1, t, hkv, d), torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=DEV)
+    rows = []
+    for name, qs, ks in (("fold_k0", 0, 0), ("fold_k2048", 4096, 2048),
+                         ("fold_k2048_device_starts",
+                          torch.tensor(4096, **i32),
+                          torch.tensor(2048, **i32))):
+        got = fa.flash_fold_partial(q, k, v, qs, ks)
+        ref = fa.flash_fold_partial_ref(q, k, v, qs, ks)
+        rows.append(_held_triple(torch, name, got, ref, SP_TOL_BF16))
+    cu = torch.tensor([0, 700, 1500, t], **i32)
+    rows.append(_held(torch, "varlen_3seg",
+                      fa.flash_prefill(q, k, v, 0, cu_seqlens=cu),
+                      fa.flash_prefill_ref(q, k, v, 0, cu), SP_TOL_BF16))
+    qf = _sp_rand(torch, g, (2, 200, 8, d), torch.float32)
+    kf = _sp_rand(torch, g, (2, 300, 2, d), torch.float32)
+    vf = _sp_rand(torch, g, (2, 300, 2, d), torch.float32)
+    cuf = torch.tensor([0, 90, 260, 500], **i32)
+    for name, qs, ks, c in (("f32_fold_segments", 300, 0, cuf),
+                            ("f32_fold_future", 100, 400, None),
+                            ("f32_fold_ragged", 250, 100, None)):
+        rows.append(_held_triple(
+            torch, name, fa.flash_fold_partial(qf, kf, vf, qs, ks,
+                                               cu_seqlens=c),
+            fa.flash_fold_partial_ref(qf, kf, vf, qs, ks, c), SP_TOL_F32))
+    rows.append(_held(torch, "f32_varlen_offset",
+                      fa.flash_prefill(qf, kf, vf, 100, cu_seqlens=cuf),
+                      fa.flash_prefill_ref(qf, kf, vf, 100, cuf),
+                      SP_TOL_F32))
+    torch.cuda.synchronize()
+    emit({"phase": "b1_fold", "cases": rows})
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"B1's fold / varlen forms disagree with their plain "
+             f"versions: {bad}")
+
+    io = (q.numel() + k.numel() + v.numel()) * 2
+    stats = t * hq * (d + 2) * 4
+    fold = {"ms": time_ms(lambda: fa.flash_fold_partial(q, k, v, 4096, 2048),
+                          iters=10),
+            "plain_ms": time_ms(lambda: fa.flash_fold_partial_ref(
+                q, k, v, 4096, 2048), iters=2, warmup=1)}
+    fold["library_ms"], fold["library_note"] = _library(
+        torch, lambda: _sdpa(torch, q, k, v), iters=5, warmup=1)
+    fold["bound_ms"], fold["bound_by"] = bound_ms(io + stats,
+                                                  4.0 * t * t * hq * d)
+    seg = [700, 800, t - 1500]
+    mask = torch.zeros((t, t), dtype=torch.bool, device=DEV)
+    lo = 0
+    for n_ in seg:
+        mask[lo:lo + n_, lo:lo + n_] = torch.ones(
+            (n_, n_), dtype=torch.bool, device=DEV).tril()
+        lo += n_
+    var = {"ms": time_ms(lambda: fa.flash_prefill(q, k, v, 0,
+                                                  cu_seqlens=cu), iters=10),
+           "plain_ms": time_ms(lambda: fa.flash_prefill_ref(q, k, v, 0, cu),
+                               iters=2, warmup=1)}
+    var["library_ms"], var["library_note"] = _library(
+        torch, lambda: _sdpa(torch, q, k, v, mask), iters=5, warmup=1)
+    pairs = sum(n_ * (n_ + 1) // 2 for n_ in seg)
+    var["bound_ms"], var["bound_by"] = bound_ms(io + q.numel() * 2,
+                                                4.0 * pairs * hq * d)
+    shape = {"q": [1, t, hq, d], "chunk": [1, t, hkv, d], "dtype": "bf16"}
+    fold_row = _sp_row(
+        "flash_fold_partial", "flash_prefill.cu",
+        "triton_dist_tpu/kernels/flash_attention.py:63",
+        [r for r in rows if "fold" in r["case"]],
+        {"chunk_k2048_q4096": {**fold, **shape}}, "one card",
+        library_ms_call="scaled_dot_product_attention over the chunk "
+                        "(normalized rows, enable_gqa)")
+    var_row = _sp_row(
+        "flash_prefill_varlen", "flash_prefill.cu",
+        "triton_dist_tpu/kernels/flash_attention.py:63",
+        [r for r in rows if "varlen" in r["case"]],
+        {"segments_700_800_548": {**var, **shape}}, "one card",
+        library_ms_call="scaled_dot_product_attention with the "
+                        "block-causal bool mask (enable_gqa)")
+    return fold_row, var_row
+
+
+def phase_b19(torch, fa):
+    """B19 (flash_decode_partial: the split-KV partial of one decode step
+    over a dense shard) against its plain version at the sequence-parallel
+    decode shape: B=4, S_loc = 32,768 (rank 3 of the 131,072-token cache),
+    Qwen3-32B's heads, bf16, the positions device tensors: the whole shard
+    live, a partly live shard, an empty shard (start past q_pos: (0,
+    -1e30, 0)); the head-major layout; f32 at S_loc 1,000 (1,000 % 128 !=
+    0). The split-KV merge differs from the sequential fold by rounding:
+    SP_TOL_BF16 / SP_TOL_F32 x max|ref| on acc / l, 1e-3 on log l + m.
+    Timed at the whole live shard against the plain version and SDPA at
+    T=1 over the same keys (head-major, enable_gqa)."""
+    hq, hkv, d = SP_HEADS
+    b, s_loc = 4, 32768
+    g = torch.Generator(device=DEV).manual_seed(102)
+    q = _sp_rand(torch, g, (b, hq, d), torch.bfloat16)
+    k = _sp_rand(torch, g, (b, s_loc, hkv, d), torch.bfloat16)
+    v = _sp_rand(torch, g, (b, s_loc, hkv, d), torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=DEV)
+    start = torch.tensor(3 * s_loc, **i32)
+    rows = []
+    for name, qp in (("whole_shard", 4 * s_loc - 1),
+                     ("partial_shard", 3 * s_loc + 10000),
+                     ("empty_shard", 3 * s_loc - 1)):
+        qp = torch.tensor(qp, **i32)
+        rows.append(_held_triple(
+            torch, name, fa.flash_decode_partial(q, k, v, start, qp),
+            fa.flash_decode_partial_ref(q, k, v, start, qp), SP_TOL_BF16))
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    qp = torch.tensor(3 * s_loc + 20000, **i32)
+    rows.append(_held_triple(
+        torch, "head_major",
+        fa.flash_decode_partial(q, kh, vh, start, qp, head_major=True),
+        fa.flash_decode_partial_ref(q, k, v, start, qp), SP_TOL_BF16))
+    qf = _sp_rand(torch, g, (2, 16, d), torch.float32)
+    kf = _sp_rand(torch, g, (2, 1000, 4, d), torch.float32)
+    vf = _sp_rand(torch, g, (2, 1000, 4, d), torch.float32)
+    rows.append(_held_triple(
+        torch, "f32_ragged", fa.flash_decode_partial(qf, kf, vf, 500, 1300),
+        fa.flash_decode_partial_ref(qf, kf, vf, 500, 1300), SP_TOL_F32))
+    torch.cuda.synchronize()
+    emit({"phase": "b19_flash_decode_partial", "cases": rows})
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"B19 disagrees with its plain version: {bad}")
+    qp = torch.tensor(4 * s_loc - 1, **i32)
+    timed = {"ms": time_ms(lambda: fa.flash_decode_partial(q, k, v, start,
+                                                           qp)),
+             "plain_ms": time_ms(lambda: fa.flash_decode_partial_ref(
+                 q, k, v, start, qp), iters=2, warmup=1)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q[:, :, None]
+    timed["library_ms"] = time_ms(lambda: sdpa(q4, kh, vh, enable_gqa=True))
+    nbytes = (k.numel() + v.numel() + q.numel()) * 2 + b * hq * (d + 2) * 4
+    timed["bound_ms"], timed["bound_by"] = bound_ms(
+        nbytes, 4.0 * b * hq * s_loc * d)
+    timed.update(shape=[b, s_loc, hq, hkv, d], dtype="bf16",
+                 kv_bytes=(k.numel() + v.numel()) * 2)
+    return _sp_row("flash_decode_partial", "flash_decode.cu",
+                   "triton_dist_tpu/kernels/flash_attention.py:269", rows,
+                   {"s_loc32768_b4": timed}, "one card",
+                   library_ms_call="scaled_dot_product_attention at T=1 "
+                                   "over the head-major keys (enable_gqa)")
+
+
+def phase_b20(torch, symm, fd, calls: int = 5):
+    """B20 (pallas_combine_per_device: the cross-rank LSE merge of every
+    rank's (acc, m, l)) against its plain version (lse_merge /
+    lse_partial_merge over the ranks' triples stacked in rank order) in
+    the one-card world: B.Hq = 256 rows (B=4, Hq 64), D 128, f32, at
+    comm_blocks 1 and 4, normalized and partial, one rank empty (m =
+    -1e30, l = 0) in half the cases; then `calls` successive calls with
+    fresh triples. Every rank's output within 1e-5 x max|ref| (the merge
+    is the same f32 arithmetic in slot order). Timed: the four ranks'
+    calls together against the plain version and 4 x (stack + merge)."""
+    world = symm.OneCardWorld(TP)
+    b, hq, d = 4, SP_HEADS[0], SP_HEADS[2]
+    g = torch.Generator(device=DEV).manual_seed(103)
+
+    def draw(empty=None):
+        accs, ms, ls = [], [], []
+        for r in range(TP):
+            acc = torch.randn((b, hq, d), generator=g, device=DEV)
+            m = torch.randn((b, hq), generator=g, device=DEV) * 3
+            l = torch.rand((b, hq), generator=g, device=DEV) + 0.5
+            if r == empty:
+                acc, m, l = acc * 0, torch.full_like(m, -1e30), l * 0
+            accs.append(acc)
+            ms.append(m)
+            ls.append(l)
+        return accs, ms, ls
+
+    def run(tri, cb, partial):
+        return world.run(lambda r: fd.pallas_combine_per_device(
+            world.mesh(r), tri[0][r], tri[1][r], tri[2][r],
+            partial=partial, comm_blocks=cb))
+
+    def check(name, tri, cb, partial):
+        stacked = [torch.stack(x) for x in tri]
+        ref = fd.lse_partial_merge(*stacked) if partial else \
+            fd.lse_merge(*stacked)
+        outs = run(tri, cb, partial)
+        torch.cuda.synchronize()
+        res = []
+        for r, o in enumerate(outs):
+            if partial:
+                row = _held(torch, f"{name}/rank{r}", o[0], ref[0], 1e-5)
+                row["ok"] = row["ok"] and bool(
+                    torch.allclose(o[1], ref[1], rtol=0, atol=1e-6)
+                    and torch.allclose(o[2], ref[2], rtol=1e-5, atol=1e-6))
+            else:
+                row = _held(torch, f"{name}/rank{r}", o, ref, 1e-5)
+            res.append(row)
+        return res
+
+    fd.lse_merge(*(torch.stack(x) for x in draw()))   # load the torch ops
+    rows = []
+    for cb in (1, 4):
+        for partial in (False, True):
+            for empty in (None, 2):
+                rows += check(f"cb{cb}/{'partial' if partial else 'out'}"
+                              f"/{'empty2' if empty is not None else 'all'}",
+                              draw(empty), cb, partial)
+    seq_ok = [all(x["ok"] for x in check("seq", draw(), 4, False))
+              for _ in range(calls)]
+    emit({"phase": "b20_decode_combine", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"B20 disagrees with its plain version: "
+             f"{[x['case'] for x in rows if not x['ok']]}; successive "
+             f"{seq_ok}")
+    tri = draw()
+    stacked = [torch.stack(x) for x in tri]
+    timed = {}
+    for cb in (4, 1):
+        ms, host_s, covered = queued_ms(torch, lambda: run(tri, cb, False))
+        plain_ms, _, _ = queued_ms(torch, lambda: fd.lse_merge(
+            *(torch.stack(x) for x in tri)))
+        lib_ms, _, _ = queued_ms(torch, lambda: [fd.lse_merge(*stacked)
+                                                 for _ in range(TP)])
+        nbytes = TP * (TP * b * hq * (d + 2) + b * hq * d) * 4
+        bms, by = bound_ms(nbytes, 0.0)
+        timed[f"cb{cb}"] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms, "bound_ms": bms,
+                            "bound_by": by, "bytes": nbytes,
+                            "host_enqueue_s": host_s,
+                            "queued_ahead": covered,
+                            "rows": b * hq, "d": d}
+    return _sp_row("pallas_combine_per_device", "flash_decode.cu",
+                   "triton_dist_tpu/kernels/flash_decode.py:207", rows,
+                   timed, "one card, 4 logical ranks",
+                   library_ms_call="4 x (torch.stack + lse_merge) of the "
+                                   "ranks' triples (the all-gather is "
+                                   "NCCL's on four cards: tp4_sp)")
+
+
+def phase_b21(torch, symm, sp, plain, calls: int = 2):
+    """B21 (pallas_ring_attn_per_device: the fused causal GQA ring
+    attention) against its plain version (XLA_BLOCK's fold over every
+    rank's shards, sp_ag_attention.ring_attn_shards_ref) in the one-card
+    world: 8,192 tokens (2,048 a rank), Qwen3-32B's heads, bf16, B=1, at
+    comm_blocks 1 and 4 (SP_TOL_BF16 x max|ref|); f32 at 256 rows a rank,
+    B=2, comm_blocks 4 (SP_TOL_F32), then `calls` successive f32 calls.
+    Timed at comm_blocks 4: the four ranks' calls together against the
+    plain version and the XLA tier's torch.cat of the shards + SDPA with
+    the causal mask at each rank's offset."""
+    world = symm.OneCardWorld(TP)
+    hq, hkv, d = SP_HEADS
+    g = torch.Generator(device=DEV).manual_seed(104)
+
+    def draw(b, t_loc, dt):
+        return ([_sp_rand(torch, g, (b, t_loc, hq, d), dt)
+                 for _ in range(TP)],
+                [_sp_rand(torch, g, (b, t_loc, hkv, d), dt)
+                 for _ in range(TP)],
+                [_sp_rand(torch, g, (b, t_loc, hkv, d), dt)
+                 for _ in range(TP)])
+
+    def run(qs, ks, vs, cb):
+        return world.run(lambda r: sp.pallas_ring_attn_per_device(
+            world.mesh(r), qs[r], ks[r], vs[r], cb))
+
+    def ref(qkv, r, cb):
+        return plain.ring_attn_shards_ref(
+            qkv[0][r], qkv[1], qkv[2], r,
+            sp.legal_attn_blocks(qkv[0][r].shape[1], cb, TP))
+
+    def check(name, qkv, cb, tol):
+        outs = run(*qkv, cb)
+        torch.cuda.synchronize()
+        return [_held(torch, f"{name}/rank{r}", o, ref(qkv, r, cb), tol)
+                for r, o in enumerate(outs)]
+
+    big = draw(1, 2048, torch.bfloat16)
+    rows = []
+    for cb in (1, 4):
+        rows += check(f"bf16_t8192_cb{cb}", big, cb, SP_TOL_BF16)
+    rows += check("f32_t1024_b2_cb4", draw(2, 256, torch.float32), 4,
+                  SP_TOL_F32)
+    seq_ok = [all(x["ok"] for x in check(
+        "seq", draw(2, 256, torch.float32), 4, SP_TOL_F32))
+        for _ in range(calls)]
+    emit({"phase": "b21_ring_attn", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok})
+    if not all(x["ok"] for x in rows) or not all(seq_ok):
+        fail(f"B21 disagrees with its plain version: "
+             f"{[x['case'] for x in rows if not x['ok']]}; successive "
+             f"{seq_ok}")
+    qs, ks, vs = big
+    t_loc, t = 2048, 2048 * TP
+    ms, host_s, covered = queued_ms(torch, lambda: run(qs, ks, vs, 4),
+                                    iters=3, warm=1)
+    plain_ms = time_ms(lambda: [ref(big, r, 4) for r in range(TP)],
+                       iters=1, warmup=1)
+    pos = torch.arange(t, device=DEV)
+    masks = [pos[None, :] <= (r * t_loc + torch.arange(t_loc, device=DEV))
+             [:, None] for r in range(TP)]
+    lib_ms, note = _library(torch, lambda: [
+        _sdpa(torch, qs[r], torch.cat(ks, dim=1), torch.cat(vs, dim=1),
+              masks[r]) for r in range(TP)], iters=3, warmup=1)
+    pairs = t * (t + 1) // 2
+    nbytes = 2 * (2 * t * hq * d + 2 * t * hkv * d)
+    bms, by = bound_ms(nbytes, 4.0 * pairs * hq * d)
+    timed = {"t8192_cb4": {"ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "library_note": note,
+                           "bound_ms": bms, "bound_by": by,
+                           "host_enqueue_s": host_s,
+                           "queued_ahead": covered,
+                           "shape": [1, t_loc, hq, hkv, d], "dtype": "bf16"}}
+    return _sp_row("pallas_ring_attn_per_device", "sp_attention.cu",
+                   "triton_dist_tpu/kernels/sp_ag_attention.py:614", rows,
+                   timed, "one card, 4 logical ranks",
+                   library_ms_call="torch.cat of the K/V shards + "
+                                   "scaled_dot_product_attention with the "
+                                   "causal mask at each rank's offset")
+
+
+def _dense_ref(torch, q, k, v, q_start=0):
+    """One card's dense causal GQA attention in f32: q (B, Tq, Hq, D) at
+    positions q_start + i over all keys (B, S, Hkv, D). Row chunks keep
+    the scores under 2 GiB."""
+    b, tq, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    outs = []
+    rows = max(1, (1 << 31) // (b * hq * s * 4))
+    for r0 in range(0, tq, rows):
+        qc = q[:, r0:r0 + rows].float().transpose(1, 2)
+        sc = torch.matmul(qc, kf.transpose(-1, -2)) * d ** -0.5
+        qpos = q_start + r0 + torch.arange(qc.shape[2], device=q.device)
+        mask = torch.arange(s, device=q.device)[None, :] <= qpos[:, None]
+        sc = sc.masked_fill(~mask, float("-inf"))
+        outs.append(torch.matmul(torch.softmax(sc, -1), vf).transpose(1, 2))
+        del sc
+    return torch.cat(outs, dim=1)
+
+
+def _paged_of(torch, k, page):
+    """A dense shard (B, S_loc, Hkv, D) as a page pool (Hkv, B S_loc /
+    page, page, D), sequence b's pages b * S_loc / page onwards, with its
+    block table (B, S_loc / page) int32."""
+    b, s_loc, hkv, d = k.shape
+    pool = k.permute(2, 0, 1, 3).reshape(hkv, b * s_loc // page, page,
+                                         d).contiguous()
+    table = torch.arange(b * s_loc // page, dtype=torch.int32,
+                         device=k.device).reshape(b, -1)
+    return pool, table
+
+
+def phase_sp_layer(torch, kern, symm):
+    """The slice's main path on one card, through SpGQAFlashDecodeAttention
+    at Qwen3-32B's heads, bf16, the counts zeroed just before each path and
+    read just after. World 1 (make_comm_mesh without a process group):
+    prefill of 4,096 tokens under FLASH_RING (B1's fold form) and under XLA
+    with 3 packed segments (B1's varlen form); then decode (B=4 over a
+    16,384-key cache, combine PALLAS) captured in ONE CUDA graph (B19 +
+    B20 at world 1, the offset advanced on the card) and replayed 8 times,
+    each replay equal to the eager step at its offset. The one-card world
+    (four logical ranks, 1,024 tokens and a 4,096-key shard each): prefill
+    under PALLAS (B21), decode under combine PALLAS (B19 + B20) and
+    decode_paged (page 128: B2 + B20). Every output against one card's
+    dense attention within SP_TOL_BF16 x max|ref|; every kernel of the
+    slice launched."""
+    from triton_dist_tpu_torch.kernels.flash_decode import FlashDecodeCombine
+    from triton_dist_tpu_torch.kernels.sp_ag_attention import SpAttnMethod
+    from triton_dist_tpu_torch.layers import SpGQAFlashDecodeAttention
+    from triton_dist_tpu_torch.runtime.mesh import make_comm_mesh
+    hq, hkv, d = SP_HEADS
+    t, b_dec, cache = 4096, 4, 16384
+    g = torch.Generator(device=DEV).manual_seed(105)
+    bf = torch.bfloat16
+    q = _sp_rand(torch, g, (1, t, hq, d), bf)
+    k = _sp_rand(torch, g, (1, t, hkv, d), bf)
+    v = _sp_rand(torch, g, (1, t, hkv, d), bf)
+    qd = _sp_rand(torch, g, (b_dec, hq, d), bf)
+    kc = _sp_rand(torch, g, (b_dec, cache, hkv, d), bf)
+    vc = _sp_rand(torch, g, (b_dec, cache, hkv, d), bf)
+    i32 = dict(dtype=torch.int32, device=DEV)
+    dense = _dense_ref(torch, q, k, v)
+    cu = torch.tensor([0, 1000, 2500, t], **i32)
+    rows, by_path = [], {}
+    mesh1 = make_comm_mesh()
+    create = SpGQAFlashDecodeAttention.create
+
+    kern.reset_launch_counts()
+    out = create(mesh1, axis="tp", prefill=SpAttnMethod.FLASH_RING).prefill(
+        q, k, v)
+    torch.cuda.synchronize()
+    by_path["sp_world1_flash_ring"] = kern.launch_counts()
+    rows.append(_held(torch, "world1_flash_ring", out, dense, SP_TOL_BF16))
+    ref_v = torch.cat([_dense_ref(torch, q[:, a:b_], k[:, a:b_], v[:, a:b_])
+                       for a, b_ in ((0, 1000), (1000, 2500), (2500, t))],
+                      dim=1)
+    kern.reset_launch_counts()
+    out = create(mesh1, axis="tp", prefill=SpAttnMethod.XLA).prefill(
+        q, k, v, cu_seqlens=cu)
+    torch.cuda.synchronize()
+    by_path["sp_world1_xla_varlen"] = kern.launch_counts()
+    rows.append(_held(torch, "world1_xla_varlen", out, ref_v, SP_TOL_BF16))
+    del dense, ref_v
+
+    # world-1 decode, one CUDA graph a step, the offset on the card
+    layer = create(mesh1, axis="tp", combine=FlashDecodeCombine.PALLAS)
+    off0, steps = cache - 16, 8
+    off = torch.full((), off0, **i32)
+    layer.decode(qd, kc, vc, off)                 # warm-up: workspaces
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    kern.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        out_g = layer.decode(qd, kc, vc, off)
+        off.add_(1)
+    per_replay = kern.launch_counts()
+    off.fill_(off0)
+    graph_ok = []
+    for i in range(steps):
+        graph.replay()
+        eager = layer.decode(qd, kc, vc, off0 + i)
+        torch.cuda.synchronize()
+        graph_ok.append(bool(torch.equal(out_g, eager)))
+    by_path["sp_world1_decode_graph"] = {
+        key: n * steps for key, n in per_replay.items()}
+    dec_ref = _dense_ref(torch, qd[:, None], kc[:, :off0 + steps],
+                         vc[:, :off0 + steps], off0 + steps - 1)[:, 0]
+    rows.append(_held(torch, "world1_decode_graph_last", out_g, dec_ref,
+                      SP_TOL_BF16))
+
+    # the one-card world: four logical ranks
+    world = symm.OneCardWorld(TP)
+    t_loc, s_loc = t // TP, cache // TP
+    dense = _dense_ref(torch, q, k, v)
+    layers = [create(world.mesh(r), axis="tp",
+                     combine=FlashDecodeCombine.PALLAS,
+                     prefill=SpAttnMethod.PALLAS) for r in range(TP)]
+    sh = [tuple(x[:, r * t_loc:(r + 1) * t_loc].contiguous()
+                for x in (q, k, v)) for r in range(TP)]
+    kcs = [kc[:, r * s_loc:(r + 1) * s_loc].contiguous() for r in range(TP)]
+    vcs = [vc[:, r * s_loc:(r + 1) * s_loc].contiguous() for r in range(TP)]
+    pools = [(_paged_of(torch, kcs[r], 128)[0], *_paged_of(torch, vcs[r],
+                                                          128))
+             for r in range(TP)]
+    q_pos = cache - 3000                 # rank 3's shard partly live
+    lengths = [torch.full((b_dec,), max(0, min(s_loc, q_pos + 1 - r * s_loc)),
+                          **i32) for r in range(TP)]
+    off = torch.full((), q_pos, **i32)
+    kern.reset_launch_counts()
+    pre = world.run(lambda r: layers[r].prefill(*sh[r]))
+    dec = world.run(lambda r: layers[r].decode(qd, kcs[r], vcs[r], off))
+    pag = world.run(lambda r: layers[r].decode_paged(
+        qd, pools[r][0], pools[r][1], pools[r][2], lengths[r]))
+    torch.cuda.synchronize()
+    by_path["sp_one_card_world"] = kern.launch_counts()
+    dec_ref = _dense_ref(torch, qd[:, None], kc[:, :q_pos + 1],
+                         vc[:, :q_pos + 1], q_pos)[:, 0]
+    for r in range(TP):
+        rows.append(_held(torch, f"world4_pallas_prefill/rank{r}", pre[r],
+                          dense[:, r * t_loc:(r + 1) * t_loc], SP_TOL_BF16))
+        rows.append(_held(torch, f"world4_decode/rank{r}", dec[r], dec_ref,
+                          SP_TOL_BF16))
+        rows.append(_held(torch, f"world4_decode_paged/rank{r}", pag[r],
+                          dec_ref, SP_TOL_BF16))
+    want = {"sp_world1_flash_ring": {"flash_fold_partial": 1},
+            "sp_world1_xla_varlen": {"flash_prefill_varlen": 1},
+            "sp_world1_decode_graph": {"flash_decode_partial": steps,
+                                       "pallas_combine_per_device": steps},
+            "sp_one_card_world": {"pallas_ring_attn_per_device": TP,
+                                  "flash_decode_partial": TP,
+                                  "paged_flash_decode_partial": TP,
+                                  "pallas_combine_per_device": 2 * TP}}
+    counts_ok = {p: by_path[p] == _only(by_path[p], **w)
+                 for p, w in want.items()}
+    emit({"phase": "sp_layer", "model_heads": TP_MODEL, "cases": rows,
+          "graph_replays": steps, "launches_per_replay": per_replay,
+          "graph_equals_eager": graph_ok, "launches_by_path": by_path,
+          "counts_ok": counts_ok})
+    if not all(x["ok"] for x in rows) or not all(graph_ok) or \
+            not all(counts_ok.values()):
+        fail(f"SP layer on one card: bad cases "
+             f"{[x['case'] for x in rows if not x['ok']]}, graph "
+             f"{graph_ok}, counts {by_path}")
+    return by_path
+
+
+# -- four cards ----------------------------------------------------------------
+
+def _sp_time(torch, dist, mesh, fn, iters, warm: int = 1):
+    """(ms per call on this card, the last output): `warm` calls, then
+    `iters` calls after a barrier, timed with CUDA events."""
+    for _ in range(warm):
+        fn()
+    dist.barrier()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(iters):
+        out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / iters, out
+
+
+def _sp_shards(torch, mesh, g, b, t, dt, hq, hkv, d):
+    """This rank's q/k/v of a global (B, T, H, D) sequence drawn from g
+    (every rank draws all of it: the same global arrays)."""
+    t_loc = t // mesh.world
+    rows = slice(mesh.rank * t_loc, (mesh.rank + 1) * t_loc)
+    out = []
+    for h in (hq, hkv, hkv):
+        x = torch.randn((b, t, h, d), generator=g, device=mesh.device)
+        out.append(x[:, rows].to(dt).contiguous())
+    return out
+
+
+def _tp4_sp(torch, dist, mesh, kern, dims=SP_TP4, heads=SP_HEADS):
+    """Qwen3-32B's attention widths on four cards through
+    SpGQAFlashDecodeAttention, bf16. Prefill: B=1 over dims["t"] tokens
+    under every tier (ms per call on this card, the launches of one call).
+    Decode: B=4 over a dims["cache"]-token cache, each step ONE CUDA-graph
+    replay of decode (the offset advanced on the card inside the graph)
+    under combine XLA (B19 + NCCL) and PALLAS (B19 + B20), and of
+    decode_paged (page dims["page"], the lengths computed on the card from
+    the offset; B2 + B20): ms per step, launches per replay, the last
+    replay equal to the eager step. Then each kernel on this card against
+    its plain version and NCCL + lse_partial_merge or NCCL all-gather +
+    SDPA."""
+    from triton_dist_tpu_torch.kernels.flash_decode import FlashDecodeCombine
+    from triton_dist_tpu_torch.kernels.sp_ag_attention import SpAttnMethod
+    from triton_dist_tpu_torch.layers import SpGQAFlashDecodeAttention
+    hq, hkv, d = heads
+    n, me, dev = mesh.world, mesh.rank, mesh.device
+    bf = torch.bfloat16
+    res = {"heads": list(heads), "dims": dict(dims), "prefill": {},
+           "decode": {}}
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(201)
+    q, k, v = _sp_shards(torch, mesh, g, dims["b"], dims["t"], bf, hq, hkv,
+                         d)
+    t_loc = q.shape[1]
+    for method, layout in SP_PREFILL_TIERS:
+        layer = SpGQAFlashDecodeAttention.create(
+            mesh, axis=mesh.axis, prefill=SpAttnMethod(method),
+            layout=layout, comm_blocks=4)
+        layer.prefill(q, k, v)                              # warm-up
+        kern.reset_launch_counts()
+        ms, out = _sp_time(torch, dist, mesh, lambda: layer.prefill(q, k, v),
+                           dims["timed"], warm=0)
+        counts = {key: c for key, c in kern.launch_counts().items() if c}
+        res["prefill"][f"{method}/{layout}"] = {
+            "ms": ms, "calls": dims["timed"], "launches": counts,
+            "finite": bool(torch.isfinite(out).all())}
+        del out
+    # decode: rank r's shard of the cache
+    b, cache = dims["dec_b"], dims["cache"]
+    s_loc = cache // n
+    gq = torch.Generator(device=dev).manual_seed(202)
+    qd = torch.randn((b, hq, d), generator=gq, device=dev).to(bf)
+    gk = torch.Generator(device=dev).manual_seed(203 + me)
+    kc = torch.randn((b, s_loc, hkv, d), generator=gk, device=dev).to(bf)
+    vc = torch.randn((b, s_loc, hkv, d), generator=gk, device=dev).to(bf)
+    pool_k, table = _paged_of(torch, kc, dims["page"])
+    pool_v, _ = _paged_of(torch, vc, dims["page"])
+    off0 = cache - dims["steps"] - 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    for label, combine, paged in (("xla", "xla", False),
+                                  ("pallas", "pallas", False),
+                                  ("paged_pallas", "pallas", True),
+                                  ("paged_xla", "xla", True)):
+        layer = SpGQAFlashDecodeAttention.create(
+            mesh, axis=mesh.axis, combine=FlashDecodeCombine(combine))
+        off = torch.full((), off0, **i32)
+
+        def step(off=off, layer=layer, paged=paged):
+            if paged:
+                lengths = (off + 1 - me * s_loc).clamp(0, s_loc).to(
+                    torch.int32).expand(b).contiguous()
+                out = layer.decode_paged(qd, pool_k, pool_v, table, lengths)
+            else:
+                out = layer.decode(qd, kc, vc, off)
+            off.add_(1)
+            return out
+
+        step()                                             # warm-up
+        off.fill_(off0)
+        kern.reset_launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        dist.barrier()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            out_g = step()
+        per_replay = {key: c for key, c in kern.launch_counts().items() if c}
+        off.fill_(off0)
+        dist.barrier()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        replays = 0
+        for _ in range(dims["steps"]):
+            graph.replay()
+            replays += 1
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / dims["steps"]
+        off.fill_(off0 + dims["steps"] - 1)
+        eager = step()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out_g, eager))
+        del graph
+        res["decode"][label] = {
+            "ms_per_step": ms, "replays": replays,
+            "replays_per_step": replays / dims["steps"],
+            "launches_per_replay": per_replay, "graph_equals_eager": same,
+            "finite": bool(torch.isfinite(out_g).all())}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["kernels"] = _tp4_sp_kernels(torch, dist, mesh, q, k, v, qd, kc,
+                                     vc, s_loc, pool_k, pool_v, table,
+                                     off0 + dims["steps"] - 1)
+    return res
+
+
+def _tp4_sp_kernels(torch, dist, mesh, q, k, v, qd, kc, vc, s_loc, pool_k,
+                    pool_v, table, last_off):
+    """Each kernel on this card at the shapes the paths gave it: B19 at
+    this rank's decode shard, B2 over its page pool at the last decode
+    step's lengths, B20 at B.Hq = 256 rows, B21, B1's fold form and B1's
+    prefill form (the XLA tier: this rank's queries against the gathered
+    keys at offset rank x T_loc) at this rank's prefill shard, each held
+    against its plain version, and against the library calls: SDPA for
+    B19 / B1, NCCL all-gather + lse_merge for B20, NCCL all-gather + SDPA
+    with the causal mask for B21."""
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    pfd = importlib.import_module(
+        "triton_dist_tpu_torch.kernels.paged_flash_decode")
+    from triton_dist_tpu_torch.kernels.flash_decode import (
+        lse_merge, pallas_combine_per_device as combine,
+    )
+    from triton_dist_tpu_torch.kernels.plain import all_gather_list
+    from triton_dist_tpu_torch.kernels.plain import ring_attn_ref as ring_ref
+    from triton_dist_tpu_torch.kernels.sp_ag_attention import (
+        legal_attn_blocks, pallas_ring_attn_per_device as ring,
+    )
+    n, me = mesh.world, mesh.rank
+    b, t_loc, hq, d = q.shape
+    hkv = k.shape[2]
+    i32 = dict(dtype=torch.int32, device=mesh.device)
+    start = torch.tensor(me * s_loc, **i32)
+    qpos = torch.tensor(n * s_loc - 1, **i32)
+    out = {}
+    ms, part = _sp_time(torch, dist, mesh, lambda: fa.flash_decode_partial(
+        qd, kc, vc, start, qpos), 10)
+    plain_ms, ref = _sp_time(torch, dist, mesh,
+                             lambda: fa.flash_decode_partial_ref(
+                                 qd, kc, vc, start, qpos), 1)
+    row = _held_triple(torch, "b19", part, ref, SP_TOL_BF16)
+    nbytes = (kc.numel() + vc.numel() + qd.numel()) * 2 + \
+        b * hq * (d + 2) * 4
+    bms, by = bound_ms(nbytes, 4.0 * qd.shape[0] * hq * s_loc * d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kh, vh = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    lib_ms, _ = _sp_time(torch, dist, mesh, lambda: sdpa(
+        qd[:, :, None], kh, vh, enable_gqa=True), 10)
+    del kh, vh
+    out["b19"] = {**row, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "bound_ms": bms, "bound_by": by}
+    lengths = (last_off + 1 - me * s_loc + torch.zeros(
+        qd.shape[0], **i32)).clamp(0, s_loc).to(torch.int32)
+    ms, part_p = _sp_time(torch, dist, mesh,
+                          lambda: pfd.paged_flash_decode_partial(
+                              qd, pool_k, pool_v, table, lengths), 10)
+    plain_ms, ref = _sp_time(torch, dist, mesh,
+                             lambda: pfd.paged_flash_decode_partial_ref(
+                                 qd, pool_k, pool_v, table, lengths), 1)
+    row = _held_triple(torch, "b2", part_p, ref, SP_TOL_BF16)
+    out["b2"] = {**row, "ms": ms, "plain_ms": plain_ms,
+                 "lengths": lengths.tolist()}
+    del part_p, ref
+    acc, m, l = part
+
+    def xla_combine():
+        return lse_merge(*(torch.stack(all_gather_list(mesh, x))
+                           for x in (acc, m, l)))
+
+    ref = xla_combine()
+    ms, got = _sp_time(torch, dist, mesh, lambda: combine(mesh, acc, m, l),
+                       20)
+    lib_ms, _ = _sp_time(torch, dist, mesh, xla_combine, 20)
+    row = _held(torch, "b20", got, ref, 1e-5)
+    nbytes = (n * acc.numel() + n * 2 * m.numel() + acc.numel()) * 4
+    bms, by = tp_bound_ms(nbytes, (n - 1) * (acc.numel() + 2 * m.numel()) * 4,
+                          0.0)
+    out["b20"] = {**row, "ms": ms, "plain_ms": lib_ms, "library_ms": lib_ms,
+                  "bound_ms": bms, "bound_by": by}
+    ms, got = _sp_time(torch, dist, mesh, lambda: ring(mesh, q, k, v, 4), 2)
+    t = n * t_loc
+    pairs = sum(me * t_loc + i + 1 for i in range(t_loc))
+    flops = 4.0 * pairs * hq * d
+    nbytes = 2 * (2 * q.numel() + k.numel() * n + v.numel() * n)
+    bms, by = tp_bound_ms(nbytes, 2 * (n - 1) * k.numel() * 2, flops)
+
+    pos = torch.arange(t, device=q.device)
+    mask = pos[None, :] <= (me * t_loc + torch.arange(
+        t_loc, device=q.device))[:, None]
+
+    k_all = torch.cat(all_gather_list(mesh, k), dim=1)
+    v_all = torch.cat(all_gather_list(mesh, v), dim=1)
+
+    def ag_sdpa():
+        return _sdpa(torch, q, torch.cat(all_gather_list(mesh, k), dim=1),
+                     torch.cat(all_gather_list(mesh, v), dim=1), mask)
+
+    try:
+        lib_ms, _ = _sp_time(torch, dist, mesh, ag_sdpa, 2)
+        note = None
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        lib_ms, note = None, str(exc).splitlines()[0][:200]
+    plain_ms, ref = _sp_time(torch, dist, mesh, lambda: ring_ref(
+        mesh, q, k, v, legal_attn_blocks(t_loc, 4, n)), 1)
+    row = _held(torch, "b21", got, ref, SP_TOL_BF16)
+    out["b21"] = {**row, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "library_note": note, "bound_ms": bms, "bound_by": by,
+                  "flops": flops}
+    ms, got = _sp_time(torch, dist, mesh, lambda: fa.flash_prefill(
+        q, k_all, v_all, me * t_loc), 2)
+    plain_ms, ref = _sp_time(torch, dist, mesh, lambda: fa.flash_prefill_ref(
+        q, k_all, v_all, me * t_loc), 1)
+    row = _held(torch, "prefill", got, ref, SP_TOL_BF16)
+    out["prefill"] = {**row, "ms": ms, "plain_ms": plain_ms,
+                      "offset": me * t_loc, "keys": k_all.shape[1]}
+    del got, ref
+    k0 = ((me - 1) % n) * t_loc
+    k_src = k_all[:, k0:k0 + t_loc].contiguous()
+    v_src = v_all[:, k0:k0 + t_loc].contiguous()
+    del k_all, v_all
+    ms, got = _sp_time(torch, dist, mesh, lambda: fa.flash_fold_partial(
+        q, k_src, v_src, me * t_loc, k0), 2)
+    plain_ms, ref = _sp_time(torch, dist, mesh,
+                             lambda: fa.flash_fold_partial_ref(
+                                 q, k_src, v_src, me * t_loc, k0), 1)
+    row = _held_triple(torch, "fold", got, ref, SP_TOL_BF16)
+    lib_ms, note = _library(torch, lambda: _sdpa(torch, q, k_src, v_src),
+                            iters=2, warmup=1)
+    live = me > 0
+    fold_pairs = t_loc * t_loc if live else 0
+    fbytes = 2 * (q.numel() + 2 * k.numel()) + q.numel() * 4
+    bms, by = bound_ms(fbytes, 4.0 * fold_pairs * hq * d)
+    out["fold"] = {**row, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms,
+                   "library_note": note, "bound_ms": bms, "bound_by": by,
+                   "chunk": "the left neighbour's shard (a whole chunk on "
+                            "ranks 1-3, wholly in the future on rank 0)"}
+    return out
+
+
+def _tp4_sp_consistency(torch, dist, mesh, kern, dims=SP_TP4,
+                        heads=SP_HEADS):
+    """The f32 gate on four cards: every prefill tier over dims["gate_t"]
+    tokens (PALLAS and XLA_BLOCK at comm_blocks 1 and 4) and every decode
+    combine over a dims["gate_cache"]-key cache (dense, local B19 and the
+    masked einsum; paged), each against one card's dense attention over
+    the whole sequence (each rank gathers it), and PALLAS against
+    XLA_BLOCK. Returns each case's max abs error and max|ref|."""
+    from triton_dist_tpu_torch.kernels.flash_decode import FlashDecodeCombine
+    from triton_dist_tpu_torch.kernels.plain import all_gather_list
+    from triton_dist_tpu_torch.kernels.sp_ag_attention import (
+        SpAttnMethod, zigzag_shard, zigzag_unshard,
+    )
+    from triton_dist_tpu_torch.layers import SpGQAFlashDecodeAttention
+    hq, hkv, d = heads
+    n, me, dev = mesh.world, mesh.rank, mesh.device
+    create = SpGQAFlashDecodeAttention.create
+    g = torch.Generator(device=dev).manual_seed(301)
+    t = dims["gate_t"]
+    full = [torch.randn((1, t, h, d), generator=g, device=dev)
+            for h in (hq, hkv, hkv)]
+    t_loc = t // n
+    rows = slice(me * t_loc, (me + 1) * t_loc)
+    q, k, v = (x[:, rows].contiguous() for x in full)
+    dense = _dense_ref(torch, *full)
+    want = dense[:, rows]
+    errs = {}
+
+    def err(name, got, ref):
+        errs[name] = {"max_abs_err": (got.float() - ref.float()).abs().max()
+                      .item(), "ref_absmax": ref.abs().max().item(),
+                      "finite": bool(torch.isfinite(got).all())}
+
+    outs = {}
+    for method, layout, cb in [(m_, l_, 4) for m_, l_ in SP_PREFILL_TIERS] \
+            + [("xla_block", "contiguous", 1), ("pallas", "contiguous", 1)]:
+        key = f"{method}/{layout}/cb{cb}"
+        layer = create(mesh, axis=mesh.axis, prefill=SpAttnMethod(method),
+                       layout=layout, comm_blocks=cb)
+        if layout == "zigzag":
+            zq, zk, zv = (zigzag_shard(x, n)[:, rows].contiguous()
+                          for x in full)
+            got = layer.prefill(zq, zk, zv)
+            got = zigzag_unshard(torch.cat(all_gather_list(mesh, got),
+                                           dim=1), n)[:, rows]
+        else:
+            got = layer.prefill(q, k, v)
+        outs[key] = got
+        err(f"prefill/{key}", got, want)
+    err("prefill/pallas_vs_xla_block/cb4", outs["pallas/contiguous/cb4"],
+        outs["xla_block/contiguous/cb4"])
+    err("prefill/pallas_vs_xla_block/cb1", outs["pallas/contiguous/cb1"],
+        outs["xla_block/contiguous/cb1"])
+    del dense, outs
+    # decode over dims["gate_cache"] keys
+    b, cache = 4, dims["gate_cache"]
+    s_loc = cache // n
+    gd = torch.Generator(device=dev).manual_seed(302)
+    qd = torch.randn((b, hq, d), generator=gd, device=dev)
+    kf = torch.randn((b, cache, hkv, d), generator=gd, device=dev)
+    vf = torch.randn((b, cache, hkv, d), generator=gd, device=dev)
+    kc, vc = (x[:, me * s_loc:(me + 1) * s_loc].contiguous()
+              for x in (kf, vf))
+    pos = cache - cache // 3 - 1         # one rank partly live, one empty
+    ref = _dense_ref(torch, qd[:, None], kf[:, :pos + 1], vf[:, :pos + 1],
+                     pos)[:, 0]
+    pool_k, table = _paged_of(torch, kc, 128)
+    pool_v, _ = _paged_of(torch, vc, 128)
+    lengths = torch.full((b,), max(0, min(s_loc, pos + 1 - me * s_loc)),
+                         dtype=torch.int32, device=dev)
+    off = torch.full((), pos, dtype=torch.int32, device=dev)
+    for combine in ("xla", "pallas"):
+        for local in ("pallas", "xla"):
+            layer = create(mesh, axis=mesh.axis,
+                           combine=FlashDecodeCombine(combine),
+                           local_method=local)
+            err(f"decode/{combine}/{local}",
+                layer.decode(qd, kc, vc, off), ref)
+        layer = create(mesh, axis=mesh.axis,
+                       combine=FlashDecodeCombine(combine), kv_splits=2)
+        err(f"decode/{combine}/kv_splits2", layer.decode(qd, kc, vc, off),
+            ref)
+        err(f"decode_paged/{combine}", layer.decode_paged(
+            qd, pool_k, pool_v, table, lengths), ref)
+    return errs
+
+
+_SP_PREFILL_WANT = {"xla/contiguous": {"flash_prefill": 1},
+                    "flash_ring/contiguous": {"flash_fold_partial": TP},
+                    "flash_ring/zigzag": {"flash_fold_partial": 3 * TP},
+                    "pallas/contiguous": {"pallas_ring_attn_per_device": 1}}
+_SP_DECODE_WANT = {
+    "xla": {"flash_decode_partial": 1},
+    "pallas": {"flash_decode_partial": 1, "pallas_combine_per_device": 1},
+    "paged_pallas": {"paged_flash_decode_partial": 1,
+                     "pallas_combine_per_device": 1},
+    "paged_xla": {"paged_flash_decode_partial": 1}}
+
+
+def _sp_path(tier: str) -> str:
+    """The launches_by_path name of a prefill tier "method/layout"."""
+    method, layout = tier.split("/")
+    return f"tp4_sp_prefill_{method}" + ("_zigzag" if layout == "zigzag"
+                                         else "")
+
+
+def _tp4_sp_rows(results, extra):
+    """The parent's side of tp4_sp: the prefill tiers' ms per card and the
+    slowest, their launches over the timed calls (gated: each kernel of a
+    tier launched exactly its count a call times the calls), the decode
+    paths' ms per step, replays per step and launches per replay (gated),
+    the kernel holds of every card (gated), and the kernel rows of B19,
+    B20, B21 and B1's fold form from the four cards (slowest rank). Every
+    path's launches (rank 0's: the gate holds them equal on every rank)
+    go to ``extra``, and each row's launches_by_path is taken from
+    them."""
+    sp = [results[r]["sp"] for r in range(TP)]
+    pre = {}
+    bad = []
+    for tier in sp[0]["prefill"]:
+        per = [x["prefill"][tier] for x in sp]
+        want = _SP_PREFILL_WANT.get(tier, {})
+        if any(p["launches"] != {key: w * p["calls"]
+                                 for key, w in want.items()}
+               or not p["finite"] for p in per):
+            bad.append(f"prefill {tier}: {[p['launches'] for p in per]} "
+                       f"over {per[0]['calls']} calls, want {want} a call")
+        pre[tier] = {"ms_per_rank": [p["ms"] for p in per],
+                     "slowest_ms": max(p["ms"] for p in per),
+                     "calls": per[0]["calls"],
+                     "launches": per[0]["launches"]}
+        if per[0]["launches"]:
+            extra[_sp_path(tier)] = dict(per[0]["launches"])
+    dec = {}
+    for label, want in _SP_DECODE_WANT.items():
+        per = [x["decode"][label] for x in sp]
+        if any(p["launches_per_replay"] != want or p["replays_per_step"] != 1
+               or not p["graph_equals_eager"] or not p["finite"]
+               for p in per):
+            bad.append(f"decode {label}: {per}")
+        dec[label] = {"ms_per_step_per_rank": [p["ms_per_step"] for p in per],
+                      "slowest_ms_per_step": max(p["ms_per_step"]
+                                                 for p in per),
+                      "replays": per[0]["replays"],
+                      "replays_per_step": per[0]["replays_per_step"],
+                      "launches_per_replay": per[0]["launches_per_replay"],
+                      "graph_equals_eager": [p["graph_equals_eager"]
+                                             for p in per]}
+        extra[f"tp4_sp_decode_{label}"] = {
+            key: c * per[0]["replays"]
+            for key, c in per[0]["launches_per_replay"].items()}
+    d = SP_TP4
+    emit({"phase": "tp4_sp", "model_heads": TP_MODEL,
+          "heads": sp[0]["heads"], "dtype": "bf16",
+          "prefill": {"batch": d["b"], "tokens": d["t"],
+                      "tokens_per_rank": d["t"] // TP, "tiers": pre},
+          "decode": {"batch": d["dec_b"], "cache": d["cache"],
+                     "keys_per_rank": d["cache"] // TP, "steps": d["steps"],
+                     "page": d["page"], "paths": dec},
+          "peak_gb_per_card": [x["peak_bytes"] / 1e9 for x in sp],
+          "kernels_per_rank": [x["kernels"] for x in sp],
+          "ok": not bad})
+    if bad:
+        fail("tp4_sp: " + "; ".join(bad))
+    kn = [x["kernels"] for x in sp]
+    for key in ("b19", "b2", "b20", "b21", "fold", "prefill"):
+        if not all(k[key]["ok"] for k in kn):
+            fail(f"tp4_sp: {key} disagrees with its plain version on a "
+                 f"card: {[k[key] for k in kn]}")
+    sp_paths = {path: counts for path, counts in extra.items()
+                if path.startswith("tp4_sp_")}
+    rows = {}
+    for name, key, source, rep, call in (
+            ("flash_decode_partial", "b19", "flash_decode.cu",
+             "triton_dist_tpu/kernels/flash_attention.py:269",
+             "scaled_dot_product_attention at T=1 over the rank's keys "
+             "(head-major, enable_gqa)"),
+            ("pallas_combine_per_device", "b20", "flash_decode.cu",
+             "triton_dist_tpu/kernels/flash_decode.py:207",
+             "NCCL all_gather of the (acc, m, l) triple + lse_merge"),
+            ("pallas_ring_attn_per_device", "b21", "sp_attention.cu",
+             "triton_dist_tpu/kernels/sp_ag_attention.py:614",
+             "NCCL all_gather of K and V + scaled_dot_product_attention "
+             "with the causal mask at the rank's offset"),
+            ("flash_fold_partial", "fold", "flash_prefill.cu",
+             "triton_dist_tpu/kernels/flash_attention.py:63",
+             "scaled_dot_product_attention over the chunk (normalized "
+             "rows, enable_gqa)")):
+        per = [k[key] for k in kn]
+        slow = max(per, key=lambda x: x["ms"])
+        libs = [x.get("library_ms") for x in per]
+        by_path = {path: counts[name] for path, counts in sp_paths.items()
+                   if counts.get(name)}
+        rows[name] = {
+            "name": name, "route": "cuda", "source": _SRC + source,
+            "replaces": rep,
+            "max_abs_err": max(x["max_abs_err"] for x in per),
+            "ms": slow["ms"], "plain_ms": slow.get("plain_ms"),
+            "bound_ms": slow["bound_ms"], "bound_by": slow["bound_by"],
+            "library_ms": (max(libs) if all(x is not None for x in libs)
+                           else None),
+            "library_ms_call": call, "per_rank_ms": [x["ms"] for x in per],
+            "launches_by_path": by_path,
+            "launches": sum(by_path.values()),
+            "measured_on": "4 cards, SP=4, the slowest rank",
+            "shapes": {"tp4_sp": {k_: slow[k_] for k_ in slow
+                                  if k_ not in ("case",)}}}
+    return rows
+
+
+def _tp4_sp_gate(results):
+    """The parent's side of tp4_sp_consistency: every case on every rank
+    within SP_GATE_TOL x max(1, max|ref|), finite."""
+    errs = [results[r]["sp_consistency"] for r in range(TP)]
+    worst = {case: max(e[case]["max_abs_err"] for e in errs)
+             for case in errs[0]}
+    bad = [f"rank {r} {case}: {e[case]}" for r, e in enumerate(errs)
+           for case in e
+           if not e[case]["finite"] or e[case]["max_abs_err"] >
+           SP_GATE_TOL * max(1.0, e[case]["ref_absmax"])]
+    emit({"phase": "tp4_sp_consistency", "model_heads": TP_MODEL,
+          "dtype": "f32", "tokens": SP_TP4["gate_t"],
+          "cache": SP_TP4["gate_cache"], "tol": SP_GATE_TOL,
+          "max_abs_err": worst, "ok": not bad})
+    if bad:
+        fail("tp4_sp_consistency: " + "; ".join(bad))
+
+
 def _tp4_rank(rank, port, phases, tmp, queue):
     """One rank process of the four-card phases (rank r on cuda:r)."""
     import traceback
@@ -4260,6 +5360,15 @@ def _tp4_rank(rank, port, phases, tmp, queue):
             res["ep_consistency"] = _tp4_ep_consistency(
                 torch, dist, mesh, models, tmp)
             lap("tp4_ep_consistency")
+        if "tp4_sp" in phases:
+            torch.cuda.empty_cache()
+            res["sp"] = _tp4_sp(torch, dist, mesh, kern)
+            lap("tp4_sp")
+        if "tp4_sp_consistency" in phases:
+            torch.cuda.empty_cache()
+            res["sp_consistency"] = _tp4_sp_consistency(torch, dist, mesh,
+                                                        kern)
+            lap("tp4_sp_consistency")
         dist.barrier()
         queue.put((rank, "ok", res))
         if "tp4_serve" in phases:
@@ -4694,6 +5803,10 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         rows.update(_tp4_moe_rows(torch, models, results, extra))
     if "tp4_ep" in phases:
         rows.update(_tp4_ep_rows(torch, models, results, extra))
+    if "tp4_sp" in phases:
+        rows.update(_tp4_sp_rows(results, extra))
+    if "tp4_sp_consistency" in phases:
+        _tp4_sp_gate(results)
     t_w1 = time.time()
     w1 = _world1_logits_and_tokens(torch, models, tmp)
     rank0 = dict(results[0]["seconds"])
@@ -4894,10 +6007,12 @@ def main() -> None:
     "b5_one_shot", "b6_rhd", "b9_ring_rs", "b7_ring_ag", "two_shot",
     "b14_b15_tp", "b8_full_mesh_ag", "b11_ag_gemm_bidir",
     "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
-    "b16_ep_dispatch_gg" (the one-card world), "tp4_serve",
+    "b16_ep_dispatch_gg" (the one-card world), "b1_fold",
+    "b19_flash_decode_partial", "b20_decode_combine", "b21_ring_attn",
+    "sp_layer" (sequence parallelism on one card), "tp4_serve",
     "tp4_consistency", "tp4_continuous", "tp4_continuous_consistency",
-    "tp4_moe", "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency"
-    (four cards)."""
+    "tp4_moe", "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency",
+    "tp4_sp", "tp4_sp_consistency" (four cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -5013,6 +6128,25 @@ def main() -> None:
     if "b16_ep_dispatch_gg" in phases:
         tp_rows["pallas_dispatch_gg"] = phase_b16(torch, symm, ep, mu, plain)
         torch.cuda.empty_cache()
+    # the package exports a function of the module's name
+    fdm = importlib.import_module("triton_dist_tpu_torch.kernels.flash_decode")
+    spm = importlib.import_module(
+        "triton_dist_tpu_torch.kernels.sp_ag_attention")
+    if "b1_fold" in phases:
+        for rec in phase_b1_fold(torch, fa):
+            tp_rows[rec["name"]] = rec
+    if "b19_flash_decode_partial" in phases:
+        tp_rows["flash_decode_partial"] = phase_b19(torch, fa)
+        torch.cuda.empty_cache()
+    if "b20_decode_combine" in phases:
+        tp_rows["pallas_combine_per_device"] = phase_b20(torch, symm, fdm)
+    if "b21_ring_attn" in phases:
+        tp_rows["pallas_ring_attn_per_device"] = phase_b21(torch, symm, spm,
+                                                           plain)
+        torch.cuda.empty_cache()
+    if "sp_layer" in phases:
+        by_path.update(phase_sp_layer(torch, kern, symm))
+        torch.cuda.empty_cache()
     four = [p for p in phases if p in FOUR_CARD_PHASES]
     n_cards = torch.cuda.device_count()
     if four and n_cards < TP:
@@ -5034,14 +6168,14 @@ def main() -> None:
                     row.setdefault("launches_by_path", {})[path] = n
                     row["launches"] = sum(row["launches_by_path"].values())
             tp_rows[name] = row
+    kernels += list(tp_rows.values())
+    merge_launches(kernels, by_path)
     for row in tp_rows.values():
         if row["measured_on"].startswith("one card") and \
                 not row.get("launches"):
             row["launches_note"] = (
                 "the TP=4 serve needs four cards "
                 f"(torch.cuda.device_count() = {n_cards}); it did not run")
-    kernels += list(tp_rows.values())
-    merge_launches(kernels, by_path)
     for row in kernels:
         if row["name"] == "flash_prefill" and b1_cont is not None:
             row["continuation_form"] = b1_cont

@@ -1,39 +1,53 @@
-// B1: causal GQA flash prefill, hand-written for Hopper (sm_90a).
+// B1: causal GQA flash attention, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel kernels/flash_attention.py::_prefill_kernel of the
-// JAX package (launched by flash_prefill through _flash_launch), in its
-// prefill form: no emit_stats output, no cu_seqlens segments (both serve
-// sequence parallelism and are still to port).
+// JAX package (launched by flash_prefill and flash_fold_partial through
+// _flash_launch) in all three of its forms:
+//  * prefill: the normalized output over a cache, queries at offset + i;
+//  * varlen (cu_seqlens): the causal mask further confined to each
+//    position's segment of a packed batch, the segment of a position being
+//    the count of boundaries cu_seqlens[1..n_seq] at or below it;
+//  * fold (emit_stats): the unnormalized f32 (acc, m, l) of q against one
+//    key chunk whose global origin is k_start, for the sequence-parallel
+//    ring's cross-chunk LSE merge.
 //
-// What bounds it on this card. At the main-path shape (B=4, T=S=512, Hq=32,
-// Hkv=8, D=128, bf16) the function must move ~42 MB (q, k, v read once, o
-// written once): 12.5 us at 3.35 TB/s. Its causal QK^T and PV take ~8.6
-// GFLOP: 8.7 us at the 989 TFLOP/s bf16 tensor-core peak. So the card's
-// bound is bytes. This kernel computes with FP32 FMAs out of shared
-// memory and uses no tensor cores, so it is bound by FMA issue and shared-
-// memory reads well above that bound; mma/wgmma tiles and TMA loads are the
-// later step.
+// What bounds it on this card. At the main-path prefill shape (B=4,
+// T=S=512, Hq=32, Hkv=8, D=128, bf16) the function must move ~42 MB (q, k,
+// v read once, o written once): 12.5 us at 3.35 TB/s; its causal QK^T and
+// PV take ~8.6 GFLOP: 8.7 us at the 989 TFLOP/s bf16 tensor-core peak, so
+// the bound is bytes. At the sequence-parallel fold (2,048 queries against
+// a 2,048-key chunk at Qwen3-32B's 64 heads) it is operations: ~137 GFLOP
+// for the full chunk, ~0.14 ms. This kernel computes with FP32 FMAs out of
+// shared memory and uses no tensor cores, so it is bound by FMA issue and
+// shared-memory reads well above either bound; mma/wgmma tiles and TMA
+// loads are the later step.
 //
 // Design:
-//  * the query offset is read from device memory when the caller passes a
-//    pointer (the dense cache's on-device offset), so the launch needs no
-//    host read and a CUDA graph that captures it stays right as the offset
-//    advances between replays; the grid depends only on T;
+//  * the query start, the key start and the segment boundaries are read
+//    from device memory when the caller passes pointers (the dense cache's
+//    on-device offset, a ring step's chunk origin), so the launch needs no
+//    host read and a CUDA graph that captures it stays right as they
+//    advance; the grid depends only on T;
 //  * one block = (64-query tile, one q head, one batch row). The TPU grid's
 //    sequential key-block axis (a sum carried in VMEM scratch across grid
 //    steps) becomes a loop inside the block, bounded by the causal diagonal
-//    exactly like the reference's block_live test, so key blocks above the
+//    exactly like the reference's block_live test (with the key start:
+//    k_start + kb * BK <= the tile's last query), so key blocks above the
 //    diagonal are never loaded;
 //  * q head h reads kv head h / (Hq/Hkv) (GQA) straight from the
 //    (B, S, Hkv, D) layout through strides: no head-major copies in HBM;
 //  * tiles are staged through 16-byte loads, several in flight per
 //    thread; loads past T and S are masked (zero-filled) and stores past
 //    T are skipped, so nothing is read or written out of bounds (the TPU
-//    kernel reads padded tails and zeroes V's tail rows instead);
+//    kernel reads padded tails and zeroes V's tail rows instead; the
+//    in-chunk mask k < k_start + S of its fold form is this bound);
 //  * online softmax with the running (m, l) of each row in shared memory,
 //    the reference's numerics kept: finite NEG_INF, probabilities rounded
 //    to bf16 before P.V when V is bf16, the sum l taken before that
-//    rounding, the final division by max(l, 1e-30);
+//    rounding, and for the normalized form the final division by
+//    max(l, 1e-30); the fold form stores acc, m and l as they stand;
+//  * segment ids of the tile's queries are computed once, those of each
+//    key step beside its tile, from the boundaries in device memory;
 //  * each thread holds a 4 x (D/16) register tile of scores and outputs
 //    (rows rg + 16i, columns cg + 16j), so shared-memory reads stay
 //    conflict-free (rows padded to D+1 floats).
@@ -46,19 +60,46 @@ constexpr int BQ = 64;   // queries per block
 constexpr int BK = 64;   // keys per loop step
 constexpr int NT = 256;  // 16 row groups x 16 column groups
 
-template <int D>
+template <int D, bool VARLEN>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 3 * BQ);
+             (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 3 * BQ) +
+         (VARLEN ? sizeof(int) * (BQ + BK) : 0);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o, int t_len,
-                   int s_len, int hq, int hkv,
-                   const int* __restrict__ offset_ptr, int offset_arg,
-                   float scale) {
+// The arguments of one launch (one struct keeps the three forms' launches
+// in one signature).
+template <typename T>
+struct Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;          // normalized output (B, T, Hq, D), or null
+  float* acc;    // fold form: (B, T, Hq, D) f32, or null
+  float* m_out;  //            (B, T, Hq) f32
+  float* l_out;  //            (B, T, Hq) f32
+  int t_len, s_len, hq, hkv;
+  const int* q_start_ptr;
+  int q_start;
+  const int* k_start_ptr;
+  int k_start;
+  const int* cu;  // (n_seq + 1,) segment boundaries, or null
+  int n_seq;
+  float scale;
+};
+
+// The segment of a position: boundaries cu[1..n_seq] at or below it.
+__device__ __forceinline__ int segment(const int* __restrict__ cu, int n_seq,
+                                       int pos) {
+  int s = 0;
+  for (int j = 1; j <= n_seq; ++j) s += pos >= __ldg(cu + j);
+  return s;
+}
+
+// VARLEN: the segment mask (cu_seqlens) is compiled in; the prefill and
+// fold forms without segments run the kernel without it.
+template <typename T, int D, bool VARLEN>
+__global__ void __launch_bounds__(NT) prefill_kernel(const Args<T> a) {
   constexpr int LD = D + 1;
   constexpr int LP = BK + 1;
   constexpr int CPT = D / 16;  // output columns per thread
@@ -70,27 +111,31 @@ __global__ void __launch_bounds__(NT)
   float* m_s = ps + BQ * LP;   // [BQ] running max
   float* l_s = m_s + BQ;       // [BQ] running sum
   float* a_s = l_s + BQ;       // [BQ] rescale factor of this key step
+  int* qseg = reinterpret_cast<int*>(a_s + BQ);  // [BQ] query segments
+  int* kseg = qseg + BQ;                         // [BK] key segments
 
-  const int offset = offset_ptr != nullptr ? *offset_ptr : offset_arg;
+  const int offset = a.q_start_ptr != nullptr ? *a.q_start_ptr : a.q_start;
+  const int k_base = a.k_start_ptr != nullptr ? *a.k_start_ptr : a.k_start;
   const int tid = threadIdx.x;
   const int rg = tid >> 4;
   const int cg = tid & 15;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const long q_stride = (long)hq * D;  // between consecutive tokens
-  const long kv_stride = (long)hkv * D;
-  const T* qp = q + ((long)b * t_len * hq + h) * D;
-  const T* kp = k + ((long)b * s_len * hkv + hk) * D;
-  const T* vp = v + ((long)b * s_len * hkv + hk) * D;
-  T* op = o + ((long)b * t_len * hq + h) * D;
+  const int hk = h / (a.hq / a.hkv);
+  const int t_len = a.t_len, s_len = a.s_len;
+  const long q_stride = (long)a.hq * D;  // between consecutive tokens
+  const long kv_stride = (long)a.hkv * D;
+  const T* qp = a.q + ((long)b * t_len * a.hq + h) * D;
+  const T* kp = a.k + ((long)b * s_len * a.hkv + hk) * D;
+  const T* vp = a.v + ((long)b * s_len * a.hkv + hk) * D;
 
   td::load_rows<T, D, NT, 4>(qp + q0 * q_stride, q_stride, BQ, t_len - q0,
                              qs, LD);
   for (int r = tid; r < BQ; r += NT) {
     m_s[r] = td::NEG_INF;
     l_s[r] = 0.f;
+    if (VARLEN) qseg[r] = segment(a.cu, a.n_seq, offset + q0 + r);
   }
 
   float acc[4][CPT];
@@ -102,7 +147,9 @@ __global__ void __launch_bounds__(NT)
   // causal bound: key step kb is live iff its first key sits at or before
   // the tile's last query position (the reference's block_live)
   const int last_q = offset + q0 + BQ - 1;
-  const int nk = min((s_len + BK - 1) / BK, last_q / BK + 1);
+  const int nk = last_q < k_base
+                     ? 0
+                     : min((s_len + BK - 1) / BK, (last_q - k_base) / BK + 1);
 
   for (int kb = 0; kb < nk; ++kb) {
     const int k0 = kb * BK;
@@ -111,6 +158,9 @@ __global__ void __launch_bounds__(NT)
                                s_len - k0, ks, LD);
     td::load_rows<T, D, NT, 4>(vp + k0 * kv_stride, kv_stride, BK,
                                s_len - k0, vs, LD);
+    if (VARLEN)
+      for (int c = tid; c < BK; c += NT)
+        kseg[c] = segment(a.cu, a.n_seq, k_base + k0 + c);
     __syncthreads();
 
     float sc[4][4];
@@ -135,9 +185,10 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = rg + 16 * i, c = cg + 16 * j;
-        const int kpos = k0 + c;
-        const bool valid = kpos <= offset + q0 + r && kpos < s_len;
-        ps[r * LP + c] = valid ? sc[i][j] * scale : td::NEG_INF;
+        const int kpos = k_base + k0 + c;
+        const bool valid = kpos <= offset + q0 + r && k0 + c < s_len &&
+                           (!VARLEN || kseg[c] == qseg[r]);
+        ps[r * LP + c] = valid ? sc[i][j] * a.scale : td::NEG_INF;
       }
     __syncthreads();
 
@@ -151,12 +202,16 @@ __global__ void __launch_bounds__(NT)
         const float s1 = ps[r * LP + lane + 32];
         const float m_prev = m_s[r];
         const float m_new = fmaxf(m_prev, td::warp_max(fmaxf(s0, s1)));
-        const int c0 = k0 + lane, c1 = k0 + lane + 32;
-        const float p0 = (c0 <= qpos && c0 < s_len) ? expf(s0 - m_new) : 0.f;
-        const float p1 = (c1 <= qpos && c1 < s_len) ? expf(s1 - m_new) : 0.f;
+        const int c0 = lane, c1 = lane + 32;
+        const bool v0 = k_base + k0 + c0 <= qpos && k0 + c0 < s_len &&
+                        (!VARLEN || kseg[c0] == qseg[r]);
+        const bool v1 = k_base + k0 + c1 <= qpos && k0 + c1 < s_len &&
+                        (!VARLEN || kseg[c1] == qseg[r]);
+        const float p0 = v0 ? expf(s0 - m_new) : 0.f;
+        const float p1 = v1 ? expf(s1 - m_new) : 0.f;
         const float psum = td::warp_sum(p0 + p1);
-        ps[r * LP + lane] = td::p_cast<T>(p0);
-        ps[r * LP + lane + 32] = td::p_cast<T>(p1);
+        ps[r * LP + c0] = td::p_cast<T>(p0);
+        ps[r * LP + c1] = td::p_cast<T>(p1);
         if (lane == 0) {
           const float alpha = expf(m_prev - m_new);
           l_s[r] = l_s[r] * alpha + psum;
@@ -194,51 +249,80 @@ __global__ void __launch_bounds__(NT)
     const int r = rg + 16 * i;
     const int t = q0 + r;
     if (t >= t_len) continue;
-    const float den = fmaxf(l_s[r], 1e-30f);
+    const long row = ((long)b * t_len + t) * a.hq + h;  // (b, t, h)
+    if (a.acc != nullptr) {
 #pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      op[t * q_stride + cg + 16 * j] = td::from_f<T>(acc[i][j] / den);
+      for (int j = 0; j < CPT; ++j) a.acc[row * D + cg + 16 * j] = acc[i][j];
+      if (cg == 0) {
+        a.m_out[row] = m_s[r];
+        a.l_out[row] = l_s[r];
+      }
+    } else {
+      const float den = fmaxf(l_s[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        a.o[row * D + cg + 16 * j] = td::from_f<T>(acc[i][j] / den);
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int t_len, int s_len, int hq, int hkv,
-                   const int* offset_ptr, int offset, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+template <typename T, int D, bool VARLEN>
+cudaError_t launch_form(const Args<T>& a, int b, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D, VARLEN>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      prefill_kernel<T, D, VARLEN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((t_len + BQ - 1) / BQ, hq, b);
-  prefill_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), t_len, s_len, hq, hkv,
-      offset_ptr, offset, scale);
+  const dim3 grid((a.t_len + BQ - 1) / BQ, a.hq, b);
+  prefill_kernel<T, D, VARLEN><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const Args<T>& a, int b, cudaStream_t stream) {
+  return a.cu != nullptr ? launch_form<T, D, true>(a, b, stream)
+                         : launch_form<T, D, false>(a, b, stream);
 }
 
 }  // namespace
 
-// q, o: (B, T, Hq, D); k, v: (B, S, Hkv, D); all contiguous, one dtype
+// q: (B, T, Hq, D); k, v: (B, S, Hkv, D); all contiguous, one dtype
 // (td::F32 or td::BF16), D in {64, 128}. Query i sits at position
-// offset + i and attends keys [0, offset + i], where offset is *offset_ptr
-// (one int32 in device memory) when offset_ptr is not null, else the value
-// passed. Returns a cudaError_t.
-extern "C" int td_flash_prefill(const void* q, const void* k, const void* v,
-                                void* o, int b, int t_len, int s_len, int hq,
-                                int hkv, int d, const void* offset_ptr,
-                                int offset, float scale, int dtype,
-                                void* stream) {
-  if (b <= 0 || t_len <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0)
+// q_start + i and attends the keys j (at position k_start + j) at or before
+// it, of its own segment when cu (n_seq + 1 int32 boundaries in device
+// memory) is not null. q_start / k_start are read from device memory (one
+// int32 each) when their pointers are not null, else the values passed.
+// Exactly one output form: o (B, T, Hq, D) of the dtype, normalized; or
+// acc (B, T, Hq, D), m, l (B, T, Hq) f32, unnormalized. Returns a
+// cudaError_t.
+extern "C" int td_flash_attn(const void* q, const void* k, const void* v,
+                             void* o, void* acc, void* m_out, void* l_out,
+                             int b, int t_len, int s_len, int hq, int hkv,
+                             int d, const void* q_start_ptr, int q_start,
+                             const void* k_start_ptr, int k_start,
+                             const void* cu, int n_seq, float scale,
+                             int dtype, void* stream) {
+  if (b <= 0 || t_len <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      (o == nullptr) == (acc == nullptr) ||
+      (acc != nullptr && (m_out == nullptr || l_out == nullptr)) ||
+      (cu != nullptr && n_seq <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TD_CASE(CODE, TYPE, DIM)                                           \
-  if (dtype == CODE && d == DIM)                                           \
-    return static_cast<int>(launch<TYPE, DIM>(                             \
-        q, k, v, o, b, t_len, s_len, hq, hkv,                              \
-        static_cast<const int*>(offset_ptr), offset, scale, st));
+#define TD_CASE(CODE, TYPE, DIM)                                             \
+  if (dtype == CODE && d == DIM) {                                           \
+    const Args<TYPE> a{static_cast<const TYPE*>(q),                          \
+                       static_cast<const TYPE*>(k),                          \
+                       static_cast<const TYPE*>(v),                          \
+                       static_cast<TYPE*>(o),                                \
+                       static_cast<float*>(acc),                             \
+                       static_cast<float*>(m_out),                           \
+                       static_cast<float*>(l_out),                           \
+                       t_len, s_len, hq, hkv,                                \
+                       static_cast<const int*>(q_start_ptr), q_start,        \
+                       static_cast<const int*>(k_start_ptr), k_start,        \
+                       static_cast<const int*>(cu), n_seq, scale};           \
+    return static_cast<int>(launch<TYPE, DIM>(a, b, st));                    \
+  }
   TD_CASE(td::F32, float, 64)
   TD_CASE(td::F32, float, 128)
   TD_CASE(td::BF16, __nv_bfloat16, 64)

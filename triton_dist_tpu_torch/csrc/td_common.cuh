@@ -79,7 +79,9 @@ __device__ __forceinline__ void unpack(const uint4& u, float* out,
 // issues U independent 16-byte loads before it converts and stores any,
 // so loads overlap instead of waiting one by one. base and row_stride
 // must keep every row 16-byte aligned (the wrappers check the pointers).
-template <typename T, int D, int NT, int U>
+// CG: read through L2 only (__ldcg), for rows another rank stored during
+// the kernel; else through the read-only cache (__ldg).
+template <typename T, int D, int NT, int U, bool CG = false>
 __device__ __forceinline__ void load_rows(const T* __restrict__ base,
                                           long row_stride, int nrows,
                                           int nvalid, float* dst, int ld) {
@@ -94,9 +96,11 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ base,
       const int v = v0 + u * NT;
       const int r = v / VPR;
       raw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (v < total && r < nvalid)
-        raw[u] = __ldg(reinterpret_cast<const uint4*>(
-            base + r * row_stride + (v % VPR) * VEC));
+      if (v < total && r < nvalid) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            base + r * row_stride + (v % VPR) * VEC);
+        raw[u] = CG ? __ldcg(src) : __ldg(src);
+      }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {

@@ -28,14 +28,21 @@ expert-parallel MoE layer's: B17
 all-to-all of dispatch and combine), B18
 ``low_latency_all_to_all.fast_all_to_all_q_per_device`` (its fp8 form)
 and B16 ``ep_a2a.pallas_dispatch_gg`` (the dispatch fused with the gate/up
-grouped GEMM). Each wrapper counts its kernel launches in a ``launches``
-attribute.
+grouped GEMM). The sequence-parallel slice's: B1's varlen and fold forms
+``flash_attention.flash_prefill_varlen`` / ``flash_fold_partial``, B19
+``flash_attention.flash_decode_partial`` (the split-KV decode partial),
+B20 ``flash_decode.pallas_combine_per_device`` (the cross-rank LSE
+combine) and B21 ``sp_ag_attention.pallas_ring_attn_per_device`` (the
+fused ring attention). Each wrapper counts its kernel launches in a
+``launches`` attribute.
 
 The mesh-level ops and their contexts are exported here, as the
 reference's package exports them: ``all_gather_op``, ``ag_gemm``,
 ``gemm_rs``, ``ag_group_gemm`` with their contexts, the expert-parallel
 ``dispatch``, ``dispatch_gg`` and ``combine`` with ``EpA2AContext``, and
-``fast_all_to_all`` / ``fast_all_to_all_quantized``; the MoE
+``fast_all_to_all`` / ``fast_all_to_all_quantized``, ``sp_attention``,
+``flash_decode`` and ``paged_flash_decode_dist`` with their contexts; the
+MoE
 ReduceScatter op is ``moe_reduce_rs.moe_reduce_rs`` (its name is the
 module's).
 """
@@ -84,6 +91,19 @@ from triton_dist_tpu_torch.kernels.moe_utils import (  # noqa: F401
     make_chunk_schedule,
     native_chunk_schedule,
 )
+from triton_dist_tpu_torch.kernels.sp_ag_attention import (  # noqa: F401
+    SpAttnContext,
+    SpAttnMethod,
+    create_sp_attn_context,
+    sp_attention,
+)
+from triton_dist_tpu_torch.kernels.flash_decode import (  # noqa: F401
+    FlashDecodeCombine,
+    FlashDecodeContext,
+    create_flash_decode_context,
+    flash_decode,
+    paged_flash_decode_dist,
+)
 
 
 def launch_wrappers() -> dict:
@@ -102,7 +122,16 @@ def launch_wrappers() -> dict:
         one_shot_all_reduce, rhd_all_reduce,
     )
     from triton_dist_tpu_torch.kernels.ep_a2a import pallas_dispatch_gg
-    from triton_dist_tpu_torch.kernels.flash_attention import flash_prefill
+    from triton_dist_tpu_torch.kernels.flash_attention import (
+        flash_decode_partial, flash_fold_partial, flash_prefill,
+        flash_prefill_varlen,
+    )
+    from triton_dist_tpu_torch.kernels.flash_decode import (
+        pallas_combine_per_device,
+    )
+    from triton_dist_tpu_torch.kernels.sp_ag_attention import (
+        pallas_ring_attn_per_device,
+    )
     from triton_dist_tpu_torch.kernels.fused_chain import fused_add_rms
     from triton_dist_tpu_torch.kernels.gemm_allreduce import (
         gemm_ar, pallas_gemm_ar,
@@ -140,7 +169,12 @@ def launch_wrappers() -> dict:
             "pallas_gemm_rs_bidir": pallas_gemm_rs_bidir,
             "fast_all_to_all_per_device": fast_all_to_all_per_device,
             "fast_all_to_all_q_per_device": fast_all_to_all_q_per_device,
-            "pallas_dispatch_gg": pallas_dispatch_gg}
+            "pallas_dispatch_gg": pallas_dispatch_gg,
+            "flash_prefill_varlen": flash_prefill_varlen,
+            "flash_fold_partial": flash_fold_partial,
+            "flash_decode_partial": flash_decode_partial,
+            "pallas_combine_per_device": pallas_combine_per_device,
+            "pallas_ring_attn_per_device": pallas_ring_attn_per_device}
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,14 +3,21 @@ layers: the reference's ``preferred_element_type=f32`` products, the
 cross-rank folds of B4, B5, B6, B9 and B13b in each kernel's own order, and
 the plain versions of the expert-parallel kernels: B17's and B18's slot
 exchange (``all_to_all_slots``) and B16's dispatch + gate/up product
-(``dispatch_gg_ref``). A leaf module: the kernel modules import it, and
-``layers/common.py`` (which imports the kernel modules' method enums)
-re-exports ``dot_f32``."""
+(``dispatch_gg_ref``), and of the sequence-parallel ones: the LSE merge
+of split-KV partials and B20's cross-rank combine (``combine_ref``), and
+B21's fold order (``ring_block_fold``: the reference's XLA_BLOCK tier)
+with its plain versions ``ring_attn_ref`` / ``ring_attn_shards_ref``. A
+leaf module: the kernel modules import it, and ``layers/common.py``
+(which imports the kernel modules' method enums) re-exports
+``dot_f32``."""
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+NEG_INF = -1e30   # finite: keeps exp/max NaN-free in fully masked rows
+SCORE_BYTES = 1 << 30   # f32 scores a torch attention fold makes at once
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -169,3 +176,106 @@ def dispatch_gg_ref(mesh, send_x: torch.Tensor, ids: torch.Tensor,
     recv = all_to_all_slots(mesh, send_x)
     return (recv.reshape(-1, recv.shape[-1]),
             slot_expert_product(recv, ids, counts, experts_w))
+
+
+def lse_partial_merge(accs: torch.Tensor, ms: torch.Tensor,
+                      ls: torch.Tensor):
+    """Merge split-KV partials stacked on axis 0 — accs (n, B, Hq, D),
+    ms/ls (n, B, Hq) — WITHOUT normalizing: returns the (acc, m, l) triple
+    of one partial over the union of the inputs' key ranges."""
+    m = ms.amax(dim=0)                                  # (B, Hq)
+    scale = torch.exp(ms - m[None])                     # (n, B, Hq)
+    acc = (accs * scale[..., None]).sum(dim=0)          # (B, Hq, D)
+    l = (ls * scale).sum(dim=0)                         # (B, Hq)
+    return acc, m, l
+
+
+def lse_merge(accs: torch.Tensor, ms: torch.Tensor,
+              ls: torch.Tensor) -> torch.Tensor:
+    """Merge partials stacked on axis 0 and normalize: (B, Hq, D) f32."""
+    acc, _, l = lse_partial_merge(accs, ms, ls)
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def gather_triple(mesh, acc, m, l):
+    """Every rank's (acc, m, l), each stacked in rank order."""
+    if mesh is None or mesh.world == 1:
+        return acc[None], m[None], l[None]
+    return tuple(torch.stack(all_gather_list(mesh, x)) for x in (acc, m, l))
+
+
+def combine_ref(mesh, acc, m, l, partial: bool = False):
+    """Plain version of B20 over the process group: the all-gather of the
+    triple, then ``lse_partial_merge`` over the stack in rank order; the
+    merged triple when partial, else normalized (B, Hq, D) f32."""
+    a, mm, ll = lse_partial_merge(*gather_triple(mesh, acc, m, l))
+    if partial:
+        return a, mm, ll
+    return a / torch.clamp_min(ll, 1e-30)[..., None]
+
+
+def ring_block_fold(q, shards, me: int, n: int, nblk: int):
+    """B21's fold order, the reference's XLA_BLOCK tier: q (B, T_loc, Hq,
+    D) of rank ``me`` over ``shards``, an iterable of (src, (k, v)) in
+    ring order (src = (me - s) mod n), each shard's nblk row blocks in
+    ascending order, one online-softmax rescale per block, q pre-scaled in
+    f32, P.V in f32; rows folded in chunks of at most SCORE_BYTES of
+    scores. Returns (B, T_loc, Hq, D) in q.dtype."""
+    b, t_loc, hq, d = q.shape
+    bb = t_loc // nblk
+    q2 = m = l = acc = q_pos = None
+    hkv = rows = bh = gt = None
+    for src, (k_cur, v_cur) in shards:
+        if q2 is None:
+            hkv = k_cur.shape[2]
+            g = hq // hkv
+            bh, gt = b * hkv, g * t_loc
+            q2 = q.reshape(b, t_loc, hkv, g, d).permute(0, 2, 3, 1, 4) \
+                .reshape(bh, gt, d).float() * (d ** -0.5)
+            # (gt,) global query positions, g-major like the kernel layout
+            q_pos = me * t_loc + torch.arange(t_loc, device=q.device) \
+                .repeat(g)
+            m = torch.full((bh, gt, 1), NEG_INF, device=q.device)
+            l = torch.zeros((bh, gt, 1), device=q.device)
+            acc = torch.zeros((bh, gt, d), device=q.device)
+            rows = max(1, SCORE_BYTES // (bh * bb * 4))
+        kw = k_cur.permute(0, 2, 1, 3).reshape(bh, t_loc, d)
+        vw = v_cur.permute(0, 2, 1, 3).reshape(bh, t_loc, d)
+        for blk in range(nblk):
+            kb = kw[:, blk * bb:(blk + 1) * bb].float()
+            vb = vw[:, blk * bb:(blk + 1) * bb].float()
+            k_pos = src * t_loc + blk * bb + torch.arange(bb,
+                                                          device=q.device)
+            for r0 in range(0, gt, rows):
+                sl = slice(r0, r0 + rows)
+                valid = k_pos[None, None, :] <= q_pos[None, sl, None]
+                s_mat = torch.bmm(q2[:, sl], kb.transpose(1, 2))
+                s_mat = torch.where(valid, s_mat, NEG_INF)
+                m_new = torch.maximum(m[:, sl], s_mat.amax(dim=-1,
+                                                           keepdim=True))
+                p = torch.where(valid, torch.exp(s_mat - m_new), 0.0)
+                corr = torch.exp(m[:, sl] - m_new)
+                l[:, sl] = l[:, sl] * corr + p.sum(dim=-1, keepdim=True)
+                m[:, sl] = m_new
+                acc[:, sl] = acc[:, sl] * corr + torch.bmm(p, vb)
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, hkv, hq // hkv, t_loc, d).permute(0, 3, 1, 2, 4) \
+        .reshape(b, t_loc, hq, d).to(q.dtype)
+
+
+def ring_attn_shards_ref(q, ks, vs, me: int, nblk: int):
+    """Plain version of B21 over every rank's K and V shards in one
+    process (lists in rank order): rank ``me``'s output."""
+    n = len(ks)
+    return ring_block_fold(q, (((me - s) % n, (ks[(me - s) % n],
+                                               vs[(me - s) % n]))
+                               for s in range(n)), me, n, nblk)
+
+
+def ring_attn_ref(mesh, q, k, v, nblk: int):
+    """Plain version of B21 over the process group: the all-gather of the
+    K and V shards, then ``ring_attn_shards_ref``."""
+    n = mesh.world
+    ks = [k] if n == 1 else all_gather_list(mesh, k.contiguous())
+    vs = [v] if n == 1 else all_gather_list(mesh, v.contiguous())
+    return ring_attn_shards_ref(q, ks, vs, mesh.rank, nblk)
