@@ -57,8 +57,18 @@ XLA and PALLAS, dense and paged), every kernel of those paths (B1's
 prefill and fold forms, B2, B19, B20, B21) held on each card against its
 plain version at the shapes the paths give it and timed against NCCL +
 lse_merge or NCCL all-gather + SDPA, and the f32 gate of every
-tier and combine against one card's dense attention. With fewer than
-four cards those phases print that they did not run. Named phases run alone (see ``main``). One JSON line per phase; the line before the last lists
+tier and combine against one card's dense attention. Then the small
+collectives and pipeline point-to-point at Qwen3-32B's hidden (5,120
+bf16): B22 (the bidirectional-ring all-gather) and B23 (the 2-D ring)
+at 1-2,048 rows a rank, B24 (the point-to-point put) for every (src,
+dst) pair, B25 (the device barrier) and B26 (the ring shift) in the
+one-card world, each bitwise its plain version and timed, the mesh-level
+ops counted; with four cards (phase tp4_comm, no model) every entry
+point under every method on every card, bitwise its plain version and
+counted, B22-B26 timed against NCCL, and the sweep that sets the LL
+all-gather's AUTO rule. With fewer than four cards those phases print
+that they did not run. Named phases run alone (see ``main``). One JSON
+line per phase; the line before the last lists
 every kernel with its times and bound; the last line is the device
 record. Any failed check exits non-zero. Imports nothing of JAX. Needs
 one card; without one it exits non-zero and prints no result.
@@ -1750,7 +1760,7 @@ TP_MODEL = "Qwen/Qwen3-32B"
 FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
                     "tp4_continuous_consistency", "tp4_moe",
                     "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency",
-                    "tp4_sp", "tp4_sp_consistency")
+                    "tp4_sp", "tp4_sp_consistency", "tp4_comm")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
                       "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp",
@@ -1758,7 +1768,8 @@ ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
                       "b16_ep_dispatch_gg", "b1_fold",
                       "b19_flash_decode_partial", "b20_decode_combine",
-                      "b21_ring_attn", "sp_layer")
+                      "b21_ring_attn", "sp_layer", "b22_b23_ll_ag",
+                      "b24_b25_b26_p2p")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -5293,6 +5304,485 @@ def _tp4_sp_gate(results):
         fail("tp4_sp_consistency: " + "; ".join(bad))
 
 
+# -- slice 11: the small collectives and pipeline point-to-point (B22-B26) --
+
+LL_HIDDEN = 5120             # Qwen3-32B's hidden: the rows these ops move
+LL_AG_ROWS = (1, 4, 16, 64, 256, 2048)   # rows a rank: decode to a chunk
+LL_P2P_ROWS = (16, 2048)
+LL_ODD = (3, 5)              # a bf16 shard of 30 bytes: no 16-byte rows
+LL_HEADLINE = 16             # the kernels line's shape: a decode step's rows
+_LL_REPLACES = {
+    "bidir_ring_ag_per_device":
+        "triton_dist_tpu/kernels/low_latency_allgather.py:97",
+    "ring2d_ag_per_device":
+        "triton_dist_tpu/kernels/low_latency_allgather.py:178",
+    "p2p_put_per_device": "triton_dist_tpu/kernels/p2p.py:25",
+    "barrier_all_per_device": "triton_dist_tpu/kernels/common_ops.py:22",
+    "ring_shift_per_device": "triton_dist_tpu/kernels/common_ops.py:62"}
+_LL_FLAG_NOTE = ("a flag round trip has no data-sheet figure; B17's "
+                 "measured round trip (0.015 ms) is the port's yardstick")
+
+
+def _ll_draw(torch, g, rows, k=LL_HIDDEN, dt=None, device=DEV):
+    dt = dt or torch.bfloat16
+    return torch.randn((rows, k), generator=g, device=device).to(dt)
+
+
+def _ll_row(name, rows, timed, measured_on, **extra):
+    """A kernels-line row of B22-B26: the numbers of the headline shape."""
+    return _sp_row(name, "ll_collectives.cu", _LL_REPLACES[name], rows,
+                   timed, measured_on, **extra)
+
+
+def phase_b22_b23(torch, symm, kern, agk, llm, calls: int = 5):
+    """B22 (the bidirectional-ring all-gather) and B23 (the 2-D ring,
+    nx = 2) in the one-card world: four logical ranks, shards of 1-2,048
+    rows of 5,120 bf16 and an odd (3, 5) bf16 shard; every rank's rows
+    must be the plain version's (the concatenation in rank order) and
+    B8's bytes, then `calls` successive calls with fresh shards. Timed at
+    each size (queued_ms, the four ranks together): B22, B23, B8, B7 and
+    torch.cat. Then the mesh-level path: the counts zeroed,
+    ``fast_allgather`` under BIDIR_RING and RING_2D and the layer (AUTO:
+    FULL_MESH on the card) on every rank at 16 rows, and the layer on the
+    odd shard (AUTO: B22, as B8 takes 16-byte rows only), the counts
+    read."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(111)
+    fns = {"bidir_ring_ag_per_device":
+           lambda r, x: llm.bidir_ring_ag_per_device(world.mesh(r), x),
+           "ring2d_ag_per_device":
+           lambda r, x: llm.ring2d_ag_per_device(world.mesh(r), x, 2)}
+
+    def check(name, xs, with_b8=True):
+        ref, rows = torch.cat(xs), []
+        b8 = world.run(lambda r: agk.full_mesh_all_gather(
+            world.mesh(r), xs[r])) if with_b8 else None
+        for kname, fn in fns.items():
+            outs = world.run(lambda r: fn(r, xs[r]))
+            torch.cuda.synchronize()
+            rows += _slot_rows(f"{kname}/{name}", outs, [ref] * TP)
+            if b8 is not None:
+                rows += _slot_rows(f"{kname}/{name}_vs_b8", outs, b8)
+        return rows
+
+    rows, seq_ok, timed = [], [], {k: {} for k in fns}
+    rows += check("odd_3x5", [_ll_draw(torch, g, *LL_ODD)
+                              for _ in range(TP)], with_b8=False)
+    sweep = []
+    for m in LL_AG_ROWS:
+        xs = [_ll_draw(torch, g, m) for _ in range(TP)]
+        rows += check(f"m{m}", xs)
+        shard = m * LL_HIDDEN * 2
+        nbytes = TP * (shard + TP * shard)
+        bms, by = bound_ms(nbytes, 0.0)
+        cat_ms = queued_ms(torch, lambda: torch.cat(xs))[0]
+        plain_ms = queued_ms(torch, lambda: [torch.cat(xs)] * TP)[0]
+        rec = {"rows_per_rank": m, "shard_bytes": shard,
+               "b8_ms": queued_ms(torch, lambda: world.run(
+                   lambda r: agk.full_mesh_all_gather(world.mesh(r),
+                                                      xs[r])))[0],
+               "b7_ms": queued_ms(torch, lambda: world.run(
+                   lambda r: agk.ring_all_gather(world.mesh(r), xs[r])))[0],
+               "cat_ms": cat_ms}
+        for kname, fn in fns.items():
+            ms, host_s, ahead = queued_ms(torch, lambda: world.run(
+                lambda r: fn(r, xs[r])))
+            rec[kname] = ms
+            timed[kname][f"m{m}"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": cat_ms,
+                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                "host_enqueue_s": host_s, "queued_ahead": ahead}
+        sweep.append(rec)
+    for _ in range(calls):
+        seq_ok.append(all(x["ok"] for x in check(
+            "seq_m16", [_ll_draw(torch, g, 16) for _ in range(TP)],
+            with_b8=False)))
+    xs = [_ll_draw(torch, g, LL_HEADLINE) for _ in range(TP)]
+    odd = [_ll_draw(torch, g, *LL_ODD) for _ in range(TP)]
+    ctxs = [llm.create_fast_allgather_context(
+        world.mesh(r), "tp", method=method, nx=2) for r in range(TP)
+        for method in (llm.LLAllGatherMethod.BIDIR_RING,
+                       llm.LLAllGatherMethod.RING_2D)]
+    from triton_dist_tpu_torch.layers import LowLatencyAllGatherLayer
+    kern.reset_launch_counts()
+    outs = world.run(lambda r: [llm.fast_allgather(c, xs[r])
+                                for c in ctxs[2 * r:2 * r + 2]] +
+                     [LowLatencyAllGatherLayer.create(world.mesh(r))(y)
+                      for y in (xs[r], odd[r])])
+    torch.cuda.synchronize()
+    path = kern.launch_counts()
+    refs = [torch.cat(xs)] * 3 + [torch.cat(odd)]
+    op_ok = all(torch.equal(o, ref) for per in outs
+                for o, ref in zip(per, refs)) and \
+        path == _only(path, bidir_ring_ag_per_device=2 * TP,
+                      ring2d_ag_per_device=TP, full_mesh_all_gather=TP)
+    emit({"phase": "b22_b23_ll_ag", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "sweep": sweep,
+          "fast_allgather": {"launches": path, "ok": op_ok}})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or not op_ok:
+        fail(f"B22/B23 disagree with their plain version or B8, or "
+             f"fast_allgather did not take them: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"fast_allgather {path}")
+    recs = []
+    for kname in fns:
+        t = timed[kname]
+        head = f"m{LL_HEADLINE}"
+        recs.append(_ll_row(
+            kname, [x for x in rows if x["case"].startswith(kname)],
+            {head: t[head], **{k: v for k, v in t.items() if k != head}},
+            "one card, 4 logical ranks",
+            library_ms_call="torch.cat(xs) (one card: the gather is a "
+                            "concatenation)",
+            launches_by_path={"fast_allgather_one_card": path[kname]},
+            launches=path[kname]))
+    return recs
+
+
+def phase_b24_b26(torch, symm, kern, cops, p2pm, calls: int = 5):
+    """B24 (the point-to-point put) for every (src, dst) pair, src == dst
+    included, B25 (the device barrier) and B26 (the ring shift) for shifts
+    0-3, in the one-card world at (16, 5120) and (2,048, 5120) bf16 and
+    the odd (3, 5) bf16 shard: every rank's output bitwise the plain
+    version's (dst: src's shard; the shard of rank (r - shift) mod 4; x),
+    then `calls` successive calls. Timed (queued_ms, the four ranks
+    together) at both sizes: B24 on the pair (0, 1), B25, B26 at shift 1,
+    each beside its plain version (copies of the right shards) and one
+    torch.stack of them. Then the mesh-level path, counted:
+    ``p2p_put_op``, ``CommOp.send_recv``, ``barrier_all_op`` and
+    ``ring_shift_op`` on every rank."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(112)
+    n = TP
+
+    def b24(src, dst):
+        return (lambda r, x: p2pm.p2p_put_per_device(world.mesh(r), x, src,
+                                                     dst),
+                lambda xs: [xs[src] if r == dst else xs[r]
+                            for r in range(n)])
+
+    def b26(s):
+        return (lambda r, x: cops.ring_shift_per_device(world.mesh(r), x, s),
+                lambda xs: [xs[(r - s) % n] for r in range(n)])
+
+    b25 = (lambda r, x: cops.barrier_all_per_device(world.mesh(r), x),
+           lambda xs: list(xs))
+    cases = {**{f"b24_{s}_{d}": ("p2p_put_per_device", *b24(s, d))
+                for s in range(n) for d in range(n)},
+             "b25": ("barrier_all_per_device", *b25),
+             **{f"b26_shift{s}": ("ring_shift_per_device", *b26(s))
+                for s in range(n)}}
+
+    def check(tag, xs):
+        rows = []
+        for cname, (kname, fn, want) in cases.items():
+            outs = world.run(lambda r: fn(r, xs[r]))
+            torch.cuda.synchronize()
+            rows += [dict(x, kernel=kname) for x in _slot_rows(
+                f"{cname}/{tag}", outs, want(xs))]
+        return rows
+
+    rows = check("odd_3x5", [_ll_draw(torch, g, *LL_ODD) for _ in range(n)])
+    timed = {"p2p_put_per_device": {}, "barrier_all_per_device": {},
+             "ring_shift_per_device": {}}
+    for m in LL_P2P_ROWS:
+        xs = [_ll_draw(torch, g, m) for _ in range(n)]
+        rows += check(f"m{m}", xs)
+        nbytes = n * 2 * m * LL_HIDDEN * 2
+        bms, by = bound_ms(nbytes, 0.0)
+        for cname in ("b24_0_1", "b25", "b26_shift1"):
+            kname, fn, want = cases[cname]
+            ms, host_s, ahead = queued_ms(torch, lambda: world.run(
+                lambda r: fn(r, xs[r])))
+            timed[kname][f"m{m}"] = {
+                "ms": ms, "case": cname,
+                "plain_ms": queued_ms(torch, lambda: [
+                    y.clone() for y in want(xs)])[0],
+                "library_ms": queued_ms(torch, lambda: torch.stack(
+                    want(xs)))[0],
+                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                "host_enqueue_s": host_s, "queued_ahead": ahead}
+    seq_ok = [all(x["ok"] for x in check(
+        "seq_m16", [_ll_draw(torch, g, 16) for _ in range(n)]))
+        for _ in range(calls)]
+    xs = [_ll_draw(torch, g, LL_HEADLINE) for _ in range(n)]
+    from triton_dist_tpu_torch.layers import CommOp
+    kern.reset_launch_counts()
+    outs = world.run(lambda r: (
+        p2pm.p2p_put_op(world.mesh(r), "tp", xs[r], 0, 2),
+        CommOp(world.mesh(r), axis="tp").send_recv(xs[r], 3, 1),
+        cops.barrier_all_op(world.mesh(r), "tp", xs[r]),
+        cops.ring_shift_op(world.mesh(r), "tp", xs[r], shift=1)))
+    torch.cuda.synchronize()
+    path = kern.launch_counts()
+    wants = list(zip(b24(0, 2)[1](xs), b24(3, 1)[1](xs), xs,
+                     b26(1)[1](xs)))
+    op_ok = all(torch.equal(o, w) for per, wp in zip(outs, wants)
+                for o, w in zip(per, wp)) and \
+        path == _only(path, p2p_put_per_device=2 * n,
+                      barrier_all_per_device=n, ring_shift_per_device=n)
+    emit({"phase": "b24_b25_b26_p2p", "world": "one card, 4 logical ranks",
+          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed,
+          "mesh_ops": {"launches": path, "ok": op_ok},
+          "bound_note": _LL_FLAG_NOTE})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or not op_ok:
+        fail(f"B24/B25/B26 disagree with their plain versions or the "
+             f"mesh-level ops did not take them: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"mesh ops {path}")
+    return [_ll_row(kname, [x for x in rows if x["kernel"] == kname],
+                    timed[kname], "one card, 4 logical ranks",
+                    library_ms_call="torch.stack of the output shards "
+                                    "(one card)",
+                    bound_note=_LL_FLAG_NOTE,
+                    launches_by_path={"mesh_ops_one_card": path[kname]},
+                    launches=path[kname])
+            for kname in timed]
+
+
+def _tp4_comm(torch, dist, mesh, kern):
+    """The slice's entry points on four cards, each rank on its shards: the
+    AUTO sweep (B8, B22, B23 and NCCL's all_gather_into_tensor at 1-2,048
+    rows of 5120 bf16 a rank, device ms per call by queued_ms, B22's and
+    B23's rows NCCL's bytes); B24 (pair (0, 1)), B25 and B26 (shift 1)
+    at (16, 5120) and (2,048, 5120) against their plain versions and
+    NCCL; then, the counts zeroed, every entry point under every method
+    (``fast_allgather``, the layer, ``p2p_put_op``, ``CommOp`` on a "pp"
+    mesh, ``barrier_all_op``, ``ring_shift_op``) at 16 rows, a 3-D f32
+    shard and the odd (3, 5) bf16 shard, each output bitwise its plain
+    version's, the counts read."""
+    from triton_dist_tpu_torch.kernels import common_ops as cops
+    from triton_dist_tpu_torch.kernels import allgather as agk
+    from triton_dist_tpu_torch.kernels import low_latency_allgather as llm
+    from triton_dist_tpu_torch.kernels import p2p as p2pm
+    from triton_dist_tpu_torch.kernels import plain
+    from triton_dist_tpu_torch.layers import (
+        CommOp,
+        LowLatencyAllGatherLayer,
+    )
+    from triton_dist_tpu_torch.runtime.mesh import make_comm_mesh
+    me, n = mesh.rank, mesh.world
+    g = torch.Generator(device=mesh.device).manual_seed(113 + me)
+
+    def timed_ms(fn):
+        dist.barrier()
+        return queued_ms(torch, fn)[0]
+
+    sweep = []
+    for m in LL_AG_ROWS:
+        x = _ll_draw(torch, g, m, device=mesh.device)
+
+        def nccl():
+            y = x.new_empty((n * m, LL_HIDDEN))
+            dist.all_gather_into_tensor(y, x, group=mesh.group)
+            return y
+        ref = nccl()
+        fns = {"b8": lambda: agk.full_mesh_all_gather(mesh, x),
+               "b22": lambda: llm.bidir_ring_ag_per_device(mesh, x),
+               "b23": lambda: llm.ring2d_ag_per_device(mesh, x, 2),
+               "nccl": nccl, "plain": lambda: plain.all_gather_cat(mesh, x)}
+        rec = {"rows_per_rank": m, "shard_bytes": m * LL_HIDDEN * 2,
+               "equal_nccl": {k: bool(torch.equal(f(), ref))
+                              for k, f in fns.items()}}
+        torch.cuda.synchronize()
+        rec.update({f"{k}_ms": timed_ms(f) for k, f in fns.items()})
+        sweep.append(rec)
+    small = {}
+    for m in LL_P2P_ROWS:
+        x = _ll_draw(torch, g, m, device=mesh.device)
+        peer = {0: 1, 1: 0}.get(me)
+
+        def nccl_p2p():
+            if peer is None:
+                return x
+            y = torch.empty_like(x)
+            for req in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, x, peer, mesh.group)] if me == 0
+                    else [dist.P2POp(dist.irecv, y, peer, mesh.group)]):
+                req.wait()
+            return y
+
+        def nccl_shift():
+            y = torch.empty_like(x)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (me + 1) % n, mesh.group),
+                    dist.P2POp(dist.irecv, y, (me - 1) % n, mesh.group)]):
+                req.wait()
+            return y
+
+        def nccl_barrier():
+            dist.barrier(group=mesh.group)
+            return x.clone()
+        kinds = {
+            "p2p_put_per_device": (
+                lambda: p2pm.p2p_put_per_device(mesh, x, 0, 1),
+                lambda: plain.p2p_ref(mesh, x, 0, 1), nccl_p2p,
+                "torch.distributed.batch_isend_irecv (NCCL)"),
+            "barrier_all_per_device": (
+                lambda: cops.barrier_all_per_device(mesh, x),
+                lambda: plain.barrier_ref(mesh, x), nccl_barrier,
+                "torch.distributed.barrier (NCCL) + copy"),
+            "ring_shift_per_device": (
+                lambda: cops.ring_shift_per_device(mesh, x, 1),
+                lambda: plain.ring_shift_ref(mesh, x, 1), nccl_shift,
+                "torch.distributed.batch_isend_irecv (NCCL)")}
+        for kname, (run, ref_fn, lib, lib_call) in kinds.items():
+            got, want = run(), ref_fn()
+            torch.cuda.synchronize()
+            small.setdefault(kname, {})[f"m{m}"] = {
+                "ok": bool(torch.equal(got, want)),
+                "ms": timed_ms(run), "plain_ms": timed_ms(ref_fn),
+                "library_ms": timed_ms(lib), "library_call": lib_call}
+    dist.barrier()
+    # the entry points, every method, counted
+    pp = make_comm_mesh(axes=[("pp", n)])
+    shards = {"m16": _ll_draw(torch, g, 16, device=mesh.device),
+              "f32_3d": torch.randn((4, 8, 16), generator=g,
+                                    device=mesh.device),
+              "odd_3x5": _ll_draw(torch, g, *LL_ODD, device=mesh.device)}
+    # the kernel each fast_allgather method takes on the card (AUTO:
+    # FULL_MESH at these sizes, B22 for rows B8 does not take)
+    ag_kernel = {"xla": None, "full_mesh": "full_mesh_all_gather",
+                 "bidir_ring": "bidir_ring_ag_per_device",
+                 "ring_2d": "ring2d_ag_per_device",
+                 "auto": "full_mesh_all_gather"}
+    pairs = ((0, 1), (2, 3), (3, 0), (1, 1))
+    # two passes, the first a warm-up (it makes the ops' symmetric
+    # buffers); the second counted
+    for _ in range(2):
+        kern.reset_launch_counts()
+        ok, want = {}, dict.fromkeys(kern.launch_counts(), 0)
+        for name, x in shards.items():
+            odd = name == "odd_3x5"
+            cat = plain.all_gather_cat(mesh, x)
+            for meth, kname in ag_kernel.items():
+                if odd and meth == "full_mesh":
+                    continue            # B8's contract: 16-byte rows
+                if odd and meth == "auto":
+                    kname = "bidir_ring_ag_per_device"
+                ctx = llm.create_fast_allgather_context(
+                    mesh, "tp", method=llm.LLAllGatherMethod(meth), nx=2)
+                ok[f"fast_allgather/{meth}/{name}"] = bool(
+                    torch.equal(llm.fast_allgather(ctx, x), cat))
+                if kname:
+                    want[kname] += 1
+            ok[f"layer/{name}"] = bool(torch.equal(
+                LowLatencyAllGatherLayer.create(mesh)(x), cat))
+            want["bidir_ring_ag_per_device" if odd
+                 else "full_mesh_all_gather"] += 1
+            for src, dst in pairs:
+                ok[f"p2p_put_op/{src}_{dst}/{name}"] = bool(torch.equal(
+                    p2pm.p2p_put_op(mesh, "tp", x, src, dst),
+                    plain.p2p_ref(mesh, x, src, dst)))
+            comm = CommOp(pp)
+            ok[f"comm_send_recv/{name}"] = bool(torch.equal(
+                comm.send_recv(x, 0, 2), plain.p2p_ref(mesh, x, 0, 2)))
+            want["p2p_put_per_device"] += len(pairs) + 1
+            for by in (1, 3):           # NCCL point-to-point, no kernel
+                ok[f"comm_shift{by}/{name}"] = bool(torch.equal(
+                    comm.shift(x, by=by), plain.ring_shift_ref(mesh, x, by)))
+            ok[f"barrier_all_op/{name}"] = bool(torch.equal(
+                cops.barrier_all_op(mesh, "tp", x), x))
+            want["barrier_all_per_device"] += 1
+            for s in range(n):
+                ok[f"ring_shift_op/{s}/{name}"] = bool(torch.equal(
+                    cops.ring_shift_op(mesh, "tp", x, shift=s),
+                    plain.ring_shift_ref(mesh, x, s)))
+            want["ring_shift_per_device"] += n
+        torch.cuda.synchronize()
+        counts = kern.launch_counts()
+        dist.barrier()
+    return {"sweep": sweep, "small": small, "entry_points": ok,
+            "launches": counts, "launches_want": want,
+            "auto": {name: llm.create_fast_allgather_context(mesh).resolve(
+                x.numel() * x.element_size()).value
+                for name, x in shards.items()}}
+
+
+def _tp4_comm_rows(results, extra):
+    """The parent's side of tp4_comm: the sweep's slowest rank, the AUTO
+    rule it sets, every entry point's check on every rank, the launch
+    gate, and the kernel rows of B22-B26 (slowest rank)."""
+    from triton_dist_tpu_torch.kernels import low_latency_allgather as llm
+    per = [results[r]["comm"] for r in range(TP)]
+    sweep = []
+    for i, first in enumerate(per[0]["sweep"]):
+        rws = [p["sweep"][i] for p in per]
+        sweep.append({
+            "rows_per_rank": first["rows_per_rank"],
+            "shard_bytes": first["shard_bytes"],
+            **{k: max(x[k] for x in rws) for k in first if k.endswith("_ms")},
+            "equal_nccl": all(all(x["equal_nccl"].values()) for x in rws)})
+    fastest = [min(("b8", "b22", "b23", "nccl"), key=lambda k: s[f"{k}_ms"])
+               for s in sweep]
+    emit({"phase": "ll_ag_auto_sweep", "tp": TP, "dtype": "bf16",
+          "hidden": LL_HIDDEN, "slowest_rank": sweep,
+          "fastest_by_size": fastest,
+          "auto_ll_full_mesh_max_shard_bytes":
+          llm.LL_FULL_MESH_MAX_SHARD_BYTES})
+    bad = [f"entry points on rank {r}: "
+           f"{[k for k, v in p['entry_points'].items() if not v]}"
+           for r, p in enumerate(per) if not all(p["entry_points"].values())]
+    if not all(s["equal_nccl"] for s in sweep):
+        bad.append(f"an all-gather's rows are not NCCL's bytes: {sweep}")
+    if any(p["launches"] != p["launches_want"] for p in per):
+        bad.append(f"launches {[p['launches'] for p in per]}, want "
+                   f"{per[0]['launches_want']}")
+    small = {}
+    for kname in per[0]["small"]:
+        small[kname] = {}
+        for shp in per[0]["small"][kname]:
+            rws = [p["small"][kname][shp] for p in per]
+            if not all(x["ok"] for x in rws):
+                bad.append(f"{kname} at {shp} disagrees with its plain "
+                           "version")
+            small[kname][shp] = {k: max(x[k] for x in rws) for k in
+                                 ("ms", "plain_ms", "library_ms")}
+            small[kname][shp]["per_rank_ms"] = [x["ms"] for x in rws]
+            small[kname][shp]["library_call"] = rws[0]["library_call"]
+    emit({"phase": "tp4_comm", "tp": TP, "small": small,
+          "auto_by_shard": per[0]["auto"], "launches": per[0]["launches"],
+          "entry_points_checked": len(per[0]["entry_points"]),
+          "ok": not bad})
+    if bad:
+        fail("tp4_comm: " + "; ".join(bad))
+    extra["tp4_comm"] = per[0]["launches"]
+    rows = {}
+    shard = LL_HEADLINE * LL_HIDDEN * 2
+    for kname, key in (("bidir_ring_ag_per_device", "b22"),
+                       ("ring2d_ag_per_device", "b23")):
+        timed = {}
+        for s in sweep:
+            sb = s["shard_bytes"]
+            bms, by = tp_bound_ms(sb + TP * sb, (TP - 1) * sb, 0.0)
+            timed[f"m{s['rows_per_rank']}"] = {
+                "ms": s[f"{key}_ms"], "plain_ms": s["plain_ms"],
+                "library_ms": s["nccl_ms"], "bound_ms": bms,
+                "bound_by": by, "b8_ms": s["b8_ms"]}
+        head = f"m{LL_HEADLINE}"
+        rows[kname] = _ll_row(
+            kname, [{"max_abs_err": 0.0}],
+            {head: timed[head], **{k: v for k, v in timed.items()
+                                   if k != head}}, "4 cards, TP=4",
+            library_ms_call="torch.distributed.all_gather_into_tensor "
+                            "(NCCL)")
+    for kname, shapes in small.items():
+        timed = {}
+        for shp, t in shapes.items():
+            sb = int(shp[1:]) * LL_HIDDEN * 2
+            link = 0 if kname == "barrier_all_per_device" else sb
+            bms, by = tp_bound_ms(2 * sb, link, 0.0)
+            timed[shp] = dict(t, bound_ms=bms, bound_by=by)
+        rows[kname] = _ll_row(
+            kname, [{"max_abs_err": 0.0}], timed, "4 cards, TP=4",
+            library_ms_call=next(iter(shapes.values()))["library_call"],
+            bound_note=_LL_FLAG_NOTE)
+    for kname, row in rows.items():
+        row["launches_by_path"] = {"tp4_comm": per[0]["launches"][kname]}
+        row["launches"] = per[0]["launches"][kname]
+    return rows
+
+
 def _tp4_rank(rank, port, phases, tmp, queue):
     """One rank process of the four-card phases (rank r on cuda:r)."""
     import traceback
@@ -5369,6 +5859,10 @@ def _tp4_rank(rank, port, phases, tmp, queue):
             res["sp_consistency"] = _tp4_sp_consistency(torch, dist, mesh,
                                                         kern)
             lap("tp4_sp_consistency")
+        if "tp4_comm" in phases:
+            torch.cuda.empty_cache()
+            res["comm"] = _tp4_comm(torch, dist, mesh, kern)
+            lap("tp4_comm")
         dist.barrier()
         queue.put((rank, "ok", res))
         if "tp4_serve" in phases:
@@ -5807,6 +6301,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         rows.update(_tp4_sp_rows(results, extra))
     if "tp4_sp_consistency" in phases:
         _tp4_sp_gate(results)
+    if "tp4_comm" in phases:
+        rows.update(_tp4_comm_rows(results, extra))
     t_w1 = time.time()
     w1 = _world1_logits_and_tokens(torch, models, tmp)
     rank0 = dict(results[0]["seconds"])
@@ -6009,10 +6505,12 @@ def main() -> None:
     "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
     "b16_ep_dispatch_gg" (the one-card world), "b1_fold",
     "b19_flash_decode_partial", "b20_decode_combine", "b21_ring_attn",
-    "sp_layer" (sequence parallelism on one card), "tp4_serve",
-    "tp4_consistency", "tp4_continuous", "tp4_continuous_consistency",
-    "tp4_moe", "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency",
-    "tp4_sp", "tp4_sp_consistency" (four cards)."""
+    "sp_layer" (sequence parallelism on one card), "b22_b23_ll_ag",
+    "b24_b25_b26_p2p" (the small collectives, the one-card world),
+    "tp4_serve", "tp4_consistency", "tp4_continuous",
+    "tp4_continuous_consistency", "tp4_moe", "tp4_moe_consistency",
+    "tp4_ep", "tp4_ep_consistency", "tp4_sp", "tp4_sp_consistency",
+    "tp4_comm" (four cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -6146,6 +6644,17 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "sp_layer" in phases:
         by_path.update(phase_sp_layer(torch, kern, symm))
+        torch.cuda.empty_cache()
+    from triton_dist_tpu_torch.kernels import common_ops as cops
+    from triton_dist_tpu_torch.kernels import low_latency_allgather as llm
+    from triton_dist_tpu_torch.kernels import p2p as p2pm
+    if "b22_b23_ll_ag" in phases:
+        for rec in phase_b22_b23(torch, symm, kern, ring_ag, llm):
+            tp_rows[rec["name"]] = rec
+        torch.cuda.empty_cache()
+    if "b24_b25_b26_p2p" in phases:
+        for rec in phase_b24_b26(torch, symm, kern, cops, p2pm):
+            tp_rows[rec["name"]] = rec
         torch.cuda.empty_cache()
     four = [p for p in phases if p in FOUR_CARD_PHASES]
     n_cards = torch.cuda.device_count()

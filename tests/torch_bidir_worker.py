@@ -21,7 +21,6 @@ per-device tiers. Imports torch and the port, never JAX.
 
 from __future__ import annotations
 
-import json
 import os
 import sys
 import traceback
@@ -34,6 +33,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from torch_world import finish  # noqa: E402
 from triton_dist_tpu_torch import kernels as kern  # noqa: E402
 from triton_dist_tpu_torch.kernels import allgather as agk  # noqa: E402
 from triton_dist_tpu_torch.kernels import allgather_gemm as agm  # noqa: E402
@@ -255,11 +255,7 @@ def main(rank: str, world: str, store: str, inputs: str, outdir: str,
         checks["error"] = None
     except BaseException:
         checks["error"] = traceback.format_exc()
-    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
-    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
-        json.dump(checks, f)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    finish(rank, outdir, out, checks)
 
 
 if __name__ == "__main__":

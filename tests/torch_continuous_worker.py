@@ -16,7 +16,6 @@ OUTDIR/rank<RANK>.json. Imports torch and the port, never JAX.
 
 from __future__ import annotations
 
-import json
 import os
 import sys
 import traceback
@@ -28,6 +27,7 @@ import torch.distributed as dist
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from torch_world import finish  # noqa: E402
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: E402
     AllGatherMethod, all_gather_per_device,
 )
@@ -203,11 +203,7 @@ def main(rank: str, world: str, store: str, inputs: str, outdir: str):
         checks["error"] = None
     except BaseException:
         checks["error"] = traceback.format_exc()
-    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
-    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
-        json.dump(checks, f)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    finish(rank, outdir, out, checks)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,6 @@ model. Imports torch and the port, never JAX.
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import sys
 import traceback
@@ -36,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_ep_cases import (  # noqa: E402
     E, EP_GEN, EP_LAYERS, EP_MAX_LEN, M_LOC, MAX_M, METHODS, SMALL_M, TOPK,
 )
+from torch_world import finish  # noqa: E402
 from triton_dist_tpu_torch.kernels.ep_a2a import (  # noqa: E402
     EpA2AMethod, combine, create_ep_a2a_context, dispatch, dispatch_gg,
 )
@@ -258,11 +258,7 @@ def main(rank: str, world: str, store: str, inputs: str, outdir: str,
         checks["error"] = None
     except BaseException:
         checks["error"] = traceback.format_exc()
-    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
-    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
-        json.dump(checks, f)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    finish(rank, outdir, out, checks)
 
 
 if __name__ == "__main__":

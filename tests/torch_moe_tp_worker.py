@@ -19,7 +19,6 @@ the port, never JAX.
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import sys
 import traceback
@@ -32,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from torch_world import finish  # noqa: E402
 from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: E402
     AgGemmMethod,
 )
@@ -250,11 +250,7 @@ def main(rank: str, world: str, store: str, inputs: str, outdir: str,
         checks["error"] = None
     except BaseException:
         checks["error"] = traceback.format_exc()
-    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
-    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
-        json.dump(checks, f)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    finish(rank, outdir, out, checks)
 
 
 if __name__ == "__main__":

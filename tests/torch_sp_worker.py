@@ -19,7 +19,6 @@ torch and the port, never JAX.
 
 from __future__ import annotations
 
-import json
 import os
 import sys
 import traceback
@@ -36,6 +35,7 @@ from torch_sp_cases import (  # noqa: E402
     BLOCKS, DEC_CASES, DEC_OFFSET, PRE_METHODS, VAR_CU, VAR_METHODS,
     ZIGZAG_METHODS,
 )
+from torch_world import finish  # noqa: E402
 from triton_dist_tpu_torch.kernels import launch_counts  # noqa: E402
 from triton_dist_tpu_torch.kernels.flash_decode import (  # noqa: E402
     FlashDecodeCombine, create_flash_decode_context, flash_decode,
@@ -266,11 +266,7 @@ def main(rank: str, world: str, store: str, inputs: str, outdir: str,
         checks["error"] = None
     except BaseException:
         checks["error"] = traceback.format_exc()
-    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
-    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
-        json.dump(checks, f)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    finish(rank, outdir, out, checks)
 
 
 if __name__ == "__main__":

@@ -58,7 +58,8 @@
 // forwards each on in the direction it travels while s < kr = n / 2 (or
 // s < kl = (n - 1) / 2). So a shard needs ceil((n - 1) / 2) forwarding
 // rounds instead of B10's single full-mesh hop: the point of the port is
-// to measure that schedule on NVSwitch. Design:
+// to measure that schedule on NVSwitch. Design (the forwarding leg is
+// td_ring.cuh's, shared with B22 and B23 in ll_collectives.cu):
 //  * a shard travels in row blocks of rb rows (the GEMM's row tile, or
 //    the shard when it is smaller), each with its own flag per rank
 //    (epoch-valued), raised by whoever stored it: this rank for its own
@@ -80,11 +81,13 @@
 
 #include "gemm_splitk.cuh"
 #include "td_dist.cuh"
+#include "td_ring.cuh"
 
 namespace {
 
 using td::dist::Team;
 using td::dist::u64;
+using td::ring::RowBlocks;
 using namespace td_gemm;
 
 // The GEMM items of B10 and B11 over the gathered rows ag (world * m, K):
@@ -174,49 +177,6 @@ __global__ void __launch_bounds__(NT)
   td::dist::end_call(ctl, e);
 }
 
-// B11's row blocks: row block j (rb rows; the last may be short) of chunk
-// c, at the same place in every rank's gathered rows (this call's parity
-// half), and its flag there.
-struct RowBlocks {
-  Team team;
-  long par, flag_off, row_bytes;
-  int m, rb, mb;
-  __device__ __forceinline__ char* at(int p, int c, int j) const {
-    return team.peer(p) + par +
-           (static_cast<long>(c) * m + static_cast<long>(j) * rb) * row_bytes;
-  }
-  __device__ __forceinline__ long bytes(int j) const {
-    return static_cast<long>(min(rb, m - j * rb)) * row_bytes;
-  }
-  __device__ __forceinline__ u64* flag(int p, int c, int j) const {
-    return reinterpret_cast<u64*>(team.peer(p) + flag_off) +
-           static_cast<long>(c) * mb + j;
-  }
-};
-
-// This block stores row block j of chunk c (from src) into the ranks
-// dst[0..nd), then raises its flag on each of them.
-__device__ __forceinline__ void store_row_block(const RowBlocks& rbk,
-                                                const char* src, int c, int j,
-                                                const int* dst, int nd,
-                                                u64 e) {
-  for (int d = 0; d < nd; ++d)
-    td::dist::put(rbk.at(dst[d], c, j), src, rbk.bytes(j));
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int d = 0; d < nd; ++d) td::dist::notify(rbk.flag(dst[d], c, j), e);
-}
-
-// Wait (thread 0) for row block j of chunk c on this rank, then let the
-// block on.
-__device__ __forceinline__ void wait_row_block(const RowBlocks& rbk, int c,
-                                               int j, u64 e, int from) {
-  if (threadIdx.x == 0)
-    td::dist::wait(rbk.flag(rbk.team.rank, c, j), e, "B11 row block", from);
-  __syncthreads();
-}
-
 template <typename T, int MT, int U>
 __global__ void __launch_bounds__(NT)
     ag_gemm_bidir_kernel(const T* __restrict__ a_loc,
@@ -226,31 +186,17 @@ __global__ void __launch_bounds__(NT)
                          int k_chunk, int splits, int rb, long flag_off) {
   const int me = team.rank, world = team.world;
   const int right = (me + 1) % world, left = (me + world - 1) % world;
-  const int kr = world / 2, kl = (world - 1) / 2;
   const u64 e = td::dist::begin_call(ctl);
   const int rows = world * m;
   const long row_bytes = static_cast<long>(k_dim) * sizeof(T);
   const RowBlocks rbk{team, static_cast<long>(e & 1) * rows * row_bytes,
                       flag_off, row_bytes, m, rb, (m + rb - 1) / rb};
 
-  // round 0: the own shard into this rank's rows and both neighbours'
-  const int round0[3] = {me, right, left};
-  for (int j = blockIdx.x; j < rbk.mb; j += gridDim.x)
-    store_row_block(rbk, reinterpret_cast<const char*>(a_loc) +
-                             static_cast<long>(j) * rb * row_bytes,
-                    me, j, round0, 3, e);
+  // round 0: the own shard into this rank's rows and both neighbours';
   // rounds 1 .. kr - 1: what landed travels on in its direction
-  for (int s = 1; s < kr; ++s) {
-    const int cr = (me - s + world) % world, cl = (me + s) % world;
-    for (int j = blockIdx.x; j < rbk.mb; j += gridDim.x) {
-      wait_row_block(rbk, cr, j, e, left);
-      store_row_block(rbk, rbk.at(me, cr, j), cr, j, &right, 1, e);
-      if (s < kl) {
-        wait_row_block(rbk, cl, j, e, right);
-        store_row_block(rbk, rbk.at(me, cl, j), cl, j, &left, 1, e);
-      }
-    }
-  }
+  const int round0[3] = {me, right, left};
+  td::ring::bidir_ring_forward(rbk, reinterpret_cast<const char*>(a_loc),
+                               round0, 3, e, "B11 row block");
 
   // the GEMM: the own shard's tiles first, then by the round they land in
   const int m_tiles = (rows + MT - 1) / MT;

@@ -33,20 +33,33 @@ grouped GEMM). The sequence-parallel slice's: B1's varlen and fold forms
 ``flash_attention.flash_decode_partial`` (the split-KV decode partial),
 B20 ``flash_decode.pallas_combine_per_device`` (the cross-rank LSE
 combine) and B21 ``sp_ag_attention.pallas_ring_attn_per_device`` (the
-fused ring attention). Each wrapper counts its kernel launches in a
-``launches`` attribute.
+fused ring attention). The small collectives and pipeline
+point-to-point: B22 ``low_latency_allgather.bidir_ring_ag_per_device``
+and B23 ``low_latency_allgather.ring2d_ag_per_device`` (the
+bidirectional-ring and 2-D ring all-gathers), B24
+``p2p.p2p_put_per_device`` (the point-to-point put), B25
+``common_ops.barrier_all_per_device`` (the device barrier) and B26
+``common_ops.ring_shift_per_device`` (the ring shift). Each wrapper counts
+its kernel launches in a ``launches`` attribute.
 
 The mesh-level ops and their contexts are exported here, as the
 reference's package exports them: ``all_gather_op``, ``ag_gemm``,
 ``gemm_rs``, ``ag_group_gemm`` with their contexts, the expert-parallel
 ``dispatch``, ``dispatch_gg`` and ``combine`` with ``EpA2AContext``, and
 ``fast_all_to_all`` / ``fast_all_to_all_quantized``, ``sp_attention``,
-``flash_decode`` and ``paged_flash_decode_dist`` with their contexts; the
+``flash_decode`` and ``paged_flash_decode_dist`` with their contexts,
+``barrier_all_op``, ``ring_shift_op``, ``p2p_put_op`` and
+``fast_allgather`` with its context; the
 MoE
 ReduceScatter op is ``moe_reduce_rs.moe_reduce_rs`` (its name is the
 module's).
 """
 
+from triton_dist_tpu_torch.kernels.common_ops import (  # noqa: F401
+    barrier_all_op,
+    ring_shift_op,
+)
+from triton_dist_tpu_torch.kernels.p2p import p2p_put_op  # noqa: F401
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     AllGatherMethod,
     all_gather_op,
@@ -87,6 +100,14 @@ from triton_dist_tpu_torch.kernels.low_latency_all_to_all import (  # noqa: F401
     fast_all_to_all,
     fast_all_to_all_quantized,
 )
+from triton_dist_tpu_torch.kernels.low_latency_allgather import (  # noqa: F401,E501
+    FastAllGatherContext,
+    LLAllGatherMethod,
+    create_fast_allgather_context,
+    fast_allgather,
+    get_auto_ll_allgather_method,
+    ll_allgather_per_device,
+)
 from triton_dist_tpu_torch.kernels.moe_utils import (  # noqa: F401
     make_chunk_schedule,
     native_chunk_schedule,
@@ -121,7 +142,14 @@ def launch_wrappers() -> dict:
     from triton_dist_tpu_torch.kernels.allreduce import (
         one_shot_all_reduce, rhd_all_reduce,
     )
+    from triton_dist_tpu_torch.kernels.common_ops import (
+        barrier_all_per_device, ring_shift_per_device,
+    )
     from triton_dist_tpu_torch.kernels.ep_a2a import pallas_dispatch_gg
+    from triton_dist_tpu_torch.kernels.low_latency_allgather import (
+        bidir_ring_ag_per_device, ring2d_ag_per_device,
+    )
+    from triton_dist_tpu_torch.kernels.p2p import p2p_put_per_device
     from triton_dist_tpu_torch.kernels.flash_attention import (
         flash_decode_partial, flash_fold_partial, flash_prefill,
         flash_prefill_varlen,
@@ -174,7 +202,12 @@ def launch_wrappers() -> dict:
             "flash_fold_partial": flash_fold_partial,
             "flash_decode_partial": flash_decode_partial,
             "pallas_combine_per_device": pallas_combine_per_device,
-            "pallas_ring_attn_per_device": pallas_ring_attn_per_device}
+            "pallas_ring_attn_per_device": pallas_ring_attn_per_device,
+            "bidir_ring_ag_per_device": bidir_ring_ag_per_device,
+            "ring2d_ag_per_device": ring2d_ag_per_device,
+            "p2p_put_per_device": p2p_put_per_device,
+            "barrier_all_per_device": barrier_all_per_device,
+            "ring_shift_per_device": ring_shift_per_device}
 
 
 def launch_counts() -> dict[str, int]:

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from triton_dist_tpu_torch.kernels.allreduce import grid_blocks
-from triton_dist_tpu_torch.kernels.plain import all_gather_list
+from triton_dist_tpu_torch.kernels.plain import all_gather_cat
 from triton_dist_tpu_torch.kernels.reduce_scatter import ring_launch
 from triton_dist_tpu_torch.runtime import build
 from triton_dist_tpu_torch.runtime.symm import op_workspace
@@ -69,7 +69,7 @@ def get_auto_all_gather_method(nbytes_per_shard: int, world: int,
 def ring_ag_ref(mesh, x: torch.Tensor) -> torch.Tensor:
     """Plain version of B7 and B8 over the process group: every rank's x,
     concatenated in rank order."""
-    return torch.cat(all_gather_list(mesh, x))
+    return all_gather_cat(mesh, x)
 
 
 def ring_all_gather(mesh, x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ exchange (``all_to_all_slots``) and B16's dispatch + gate/up product
 (``dispatch_gg_ref``), and of the sequence-parallel ones: the LSE merge
 of split-KV partials and B20's cross-rank combine (``combine_ref``), and
 B21's fold order (``ring_block_fold``: the reference's XLA_BLOCK tier)
-with its plain versions ``ring_attn_ref`` / ``ring_attn_shards_ref``. A
+with its plain versions ``ring_attn_ref`` / ``ring_attn_shards_ref``;
+the small collectives': the all-gather of B7, B8, B22 and B23
+(``all_gather_cat``), B24's send / recv (``p2p_ref``), B25's barrier
+(``barrier_ref``) and B26's ring shift (``ring_shift_ref``). A
 leaf module: the kernel modules import it, and ``layers/common.py``
 (which imports the kernel modules' method enums) re-exports
 ``dot_f32``."""
@@ -47,6 +50,58 @@ def all_gather_list(mesh, x: torch.Tensor) -> list[torch.Tensor]:
     xs = [torch.empty_like(x) for _ in range(mesh.world)]
     dist.all_gather(xs, x.contiguous(), group=mesh.group)
     return xs
+
+
+def all_gather_cat(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` concatenated in rank order: the plain version of
+    the all-gathers B7, B8, B22 and B23."""
+    return torch.cat(all_gather_list(mesh, x))
+
+
+def p2p_ref(mesh, x: torch.Tensor, src_rank: int,
+            dst_rank: int) -> torch.Tensor:
+    """B24's plain version on this rank: a send / recv pair from src_rank
+    to dst_rank (no broadcast); dst returns what src sent, every other
+    rank a copy of its own x."""
+    me = mesh.rank
+    if src_rank == dst_rank or me not in (src_rank, dst_rank):
+        return x.clone()
+    if me == src_rank:
+        dist.send(x.contiguous(), dist.get_global_rank(mesh.group, dst_rank),
+                  group=mesh.group)
+        return x.clone()
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.recv(out, dist.get_global_rank(mesh.group, src_rank),
+              group=mesh.group)
+    return out
+
+
+def barrier_ref(mesh, x: torch.Tensor) -> torch.Tensor:
+    """B25's plain version: the process group's barrier, then a copy."""
+    dist.barrier(group=mesh.group)
+    return x.clone()
+
+
+def ring_shift_ref(mesh, x: torch.Tensor, shift: int) -> torch.Tensor:
+    """B26's plain version on this rank: the shard of rank (me - shift)
+    mod n, by one send to (me + shift) and one receive from (me - shift)
+    (``dist.batch_isend_irecv``, both requests waited on); a copy of x
+    when shift is a multiple of n."""
+    n, me = mesh.world, mesh.rank
+    s = shift % n
+    if s == 0:
+        return x.clone()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x,
+                       dist.get_global_rank(mesh.group, (me + s) % n),
+                       mesh.group),
+            dist.P2POp(dist.irecv, out,
+                       dist.get_global_rank(mesh.group, (me - s) % n),
+                       mesh.group)]):
+        req.wait()
+    return out
 
 
 def slot_fold(parts) -> torch.Tensor:
