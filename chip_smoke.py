@@ -66,8 +66,18 @@ one-card world, each bitwise its plain version and timed, the mesh-level
 ops counted; with four cards (phase tp4_comm, no model) every entry
 point under every method on every card, bitwise its plain version and
 counted, B22-B26 timed against NCCL, and the sweep that sets the LL
-all-gather's AUTO rule. With fewer than four cards those phases print
-that they did not run. Named phases run alone (see ``main``). One JSON
+all-gather's AUTO rule. Then the quantized wire and the KV handoff: B27
+(the int8 staging encode) at the int8 ring's hop shapes and B28 (the
+int8 one-shot all-reduce) at 16 and 512 rows of 5,120 in the one-card
+world, B29 (the KV page handoff) for every pair and B30 (its fan-out) on
+128 KiB and 128 MiB of Qwen3-32B's pages, each bitwise its plain version,
+B28 and the int8 KV wire within their error contracts; with four cards
+Qwen3-32B at TP=4 served in triton_dist_AR under QINT8_OS (B28, 128 a
+replay) and QINT8 (the int8 ring, B27 at every hop) and at the defaults
+under TD_QUANT=always (the mega o/down through the ring), the
+ContinuousEngine under QINT8_OS, and phase tp4_quant (B28, the ring and
+the KV moves on every card against NCCL). With fewer than four cards
+those phases print that they did not run. Named phases run alone (see ``main``). One JSON
 line per phase; the line before the last lists
 every kernel with its times and bound; the last line is the device
 record. Any failed check exits non-zero. Imports nothing of JAX. Needs
@@ -1760,7 +1770,7 @@ TP_MODEL = "Qwen/Qwen3-32B"
 FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
                     "tp4_continuous_consistency", "tp4_moe",
                     "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency",
-                    "tp4_sp", "tp4_sp_consistency", "tp4_comm")
+                    "tp4_sp", "tp4_sp_consistency", "tp4_comm", "tp4_quant")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
                       "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp",
@@ -1769,7 +1779,8 @@ ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b16_ep_dispatch_gg", "b1_fold",
                       "b19_flash_decode_partial", "b20_decode_combine",
                       "b21_ring_attn", "sp_layer", "b22_b23_ll_ag",
-                      "b24_b25_b26_p2p")
+                      "b24_b25_b26_p2p", "b27_b28_qint8",
+                      "b29_b30_kv_handoff")
 
 
 def queued_ms(torch, fn, iters: int = 20, warm: int = 2):
@@ -3323,7 +3334,14 @@ _TP4_REPLICATED = (("mega_default", {}, "xla"),
                     "triton_dist_AR"),
                    ("ar_rhd", {"ar_method": "rhd"}, "triton_dist_AR"),
                    ("ar_two_shot", {"ar_method": "two_shot"},
-                    "triton_dist_AR"))
+                    "triton_dist_AR"),
+                   ("ar_qint8_os", {"ar_method": "qint8_os"},
+                    "triton_dist_AR"),
+                   ("ar_qint8", {"ar_method": "qint8"}, "triton_dist_AR"),
+                   ("mega_td_quant", {}, "xla"))
+# the serves on the int8 wire (PR 12); "mega_td_quant" is the defaults
+# built under TD_QUANT=always (the mega o/down through gemm_ar XLA_QINT8)
+_TP4_QUANT_LABELS = ("ar_qint8_os", "ar_qint8", "mega_td_quant")
 
 
 def _tp_ctx(mesh, **kw):
@@ -3441,10 +3459,18 @@ def _tp4_serve(torch, dist, mesh, models, kern, tmp, drawn, gen: int = 32):
     torch.cuda.empty_cache()
     rec["replicated"] = {}
     for label, kw, backend in _TP4_REPLICATED:
-        engine = models.Engine(model_of(**kw), params, backend=backend)
+        if label == "mega_td_quant":
+            os.environ["TD_QUANT"] = "always"
+        try:
+            engine = models.Engine(model_of(**kw), params, backend=backend)
+        finally:
+            os.environ.pop("TD_QUANT", None)
         r, _ = _tp4_measure(torch, dist, kern, engine, ids, gen,
                             label == "mega_default")
         r["mega_tier"] = engine.mega_tier
+        if engine._mega_rt is not None:
+            r["mega_gemm_ar_method"] = getattr(
+                engine._mega_rt.gemm_ar_method, "value", None)
         rec["replicated"][label] = r
         logits[label] = _rank_logits(torch, dist, engine, prompt,
                                      fixed).cpu()
@@ -3463,6 +3489,8 @@ def _tp4_serve(torch, dist, mesh, models, kern, tmp, drawn, gen: int = 32):
 # the continuous TP=4 paths: (label, TPContext fields, engine mode)
 _TP4_CONTINUOUS = (("xla", {}, "xla"),
                    ("ar_two_shot", {"ar_method": "two_shot"},
+                    "triton_dist_AR"),
+                   ("ar_qint8_os", {"ar_method": "qint8_os"},
                     "triton_dist_AR"))
 
 
@@ -5783,6 +5811,583 @@ def _tp4_comm_rows(results, extra):
     return rows
 
 
+# -- the quantized wire (PR 12): B27, B28, B29, B30 ---------------------------
+
+QW_HIDDEN = 5120            # Qwen3-32B's hidden: the rows the sums carry
+QW_ROWS = (16, 512)         # B28: a TP=4 decode step's rows, a 512-token
+#                             prefill chunk's
+# B27 at the int8 ring's hop shapes (a quarter of the rows, f32 partials:
+# 16 decode rows and a 512-row chunk) and a bf16 decode x
+QW_B27_SHAPES = (("hop_m4_f32", 4, "f32"), ("m16_bf16", 16, "bf16"),
+                 ("hop_m128_f32", 128, "f32"))
+# the KV payloads: one layer's four page planes (K / V x 2 kv heads of
+# Qwen3-32B at TP=4, 128-token pages of head_dim 128: the decode-size
+# move) and one 2,048-token request's pages held by one rank (64 layers x
+# K / V x 2 kv heads x 16 pages), bf16
+KV_PAGES = {"step_128KiB": (4, 128, 128), "request_128MiB": (4096, 128, 128)}
+KV_FANOUTS = ((0, (1, 2, 3)), (2, (0, 3)), (3, (1,)))
+_QW_SRC = {"quantize_stage_per_device": "quant_wire.cu",
+           "qint8_one_shot_per_device": "quant_wire.cu",
+           "kv_handoff_per_device": "kv_handoff.cu",
+           "kv_handoff_fanout_per_device": "kv_handoff.cu"}
+_QW_REPLACES = {
+    "quantize_stage_per_device": "triton_dist_tpu/kernels/quant_wire.py:59",
+    "qint8_one_shot_per_device": "triton_dist_tpu/kernels/quant_wire.py:101",
+    "kv_handoff_per_device": "triton_dist_tpu/kernels/kv_handoff.py:68",
+    "kv_handoff_fanout_per_device":
+        "triton_dist_tpu/kernels/kv_handoff.py:186"}
+
+
+def _qw_dtype(torch, name):
+    return torch.bfloat16 if name == "bf16" else torch.float32
+
+
+def _qw_row(name, rows, timed, measured_on, **extra):
+    """A kernels-line row of B27-B30: the first shape's numbers."""
+    return _sp_row(name, _QW_SRC[name], _QW_REPLACES[name], rows, timed,
+                   measured_on, **extra)
+
+
+def _qw_budget(torch, xs, method):
+    """(exact f32 sum of the ranks' xs, the allreduce/<method> contract's
+    budget, plus half a bf16 ulp of the sum for a bf16 output's own
+    rounding, plus 1e-7)."""
+    from triton_dist_tpu_torch.quant.contract import contract_for
+    exact = sum(x.float() for x in xs)
+    budget = contract_for("allreduce", method).budget(xs) + 1e-7
+    if xs[0].dtype == torch.bfloat16:
+        budget = budget + exact.abs() * 2.0 ** -8
+    return exact, budget
+
+
+def _kv_within(torch, src, got) -> bool:
+    """The int8 wire's pages within the kv_handoff/kv_int8_page contract
+    of src's pages, plus half a bf16 ulp of |src| (a bf16 decode's own
+    rounding), plus 1e-7."""
+    from triton_dist_tpu_torch.quant.contract import contract_for
+    budget = contract_for("kv_handoff", "kv_int8_page").budget([src])
+    if got.dtype == torch.bfloat16:
+        budget = budget + src.float().abs() * 2.0 ** -8
+    return bool(((got.float() - src.float()).abs() <= budget + 1e-7).all())
+
+
+def _ring_emulate(torch, xs, me):
+    """The int8 ring's definition on rank ``me`` from every rank's x, in
+    one process (plain encodes): the reduce-scatter's hops, then the
+    all-gather's; the product and the sum separate ops."""
+    from triton_dist_tpu_torch.kernels.plain import quantize_stage_ref
+    n = len(xs)
+    rows, d = xs[0].shape
+    chunks = [x.float().reshape(n, rows // n, d) for x in xs]
+    cur = [chunks[r][r] for r in range(n)]
+    for s in range(n - 1):
+        sent = [quantize_stage_ref(c) for c in cur]
+        cur = [sent[(r - 1) % n][0].float() * sent[(r - 1) % n][1]
+               + chunks[r][(r - s - 1) % n] for r in range(n)]
+    q = [quantize_stage_ref(c) for c in cur]
+    out = [None] * n
+    out[(me + 1) % n] = q[me][0].float() * q[me][1]
+    for s in range(n - 1):
+        q = [q[(r - 1) % n] for r in range(n)]
+        out[(me - s) % n] = q[me][0].float() * q[me][1]
+    return torch.cat(out).to(xs[0].dtype)
+
+
+def phase_b27_b28(torch, symm, kern, qw, arm, calls: int = 5):
+    """B27 (the int8 staging encode) at the int8 ring's hop shapes and a
+    bf16 decode x, each with an all-zero row, bitwise its plain version
+    (q and the scales) and timed in a CUDA graph of 20 calls; then B28
+    (the int8 one-shot all-reduce) in the one-card world at (16, 5120)
+    and (512, 5120), bf16 and f32: every rank's output bitwise the plain
+    twin's (every rank's encode, folded in rank order in f32, one cast),
+    the four ranks' outputs the same bytes, within the qint8_os contract's
+    budget of the exact f32 sum; `calls` successive calls; timed (the
+    four ranks together, queued_ms) beside its plain version and B5 on
+    the same inputs. Then the mesh-level path, counted:
+    ``all_reduce_per_device(QINT8_OS)`` on every rank."""
+    from triton_dist_tpu_torch.kernels.plain import quantize_stage_ref
+    g = torch.Generator(device=DEV).manual_seed(127)
+    rows27, t27 = [], {}
+    for name, m, dt in QW_B27_SHAPES:
+        x = torch.randn((m, QW_HIDDEN), generator=g, device=DEV).to(
+            _qw_dtype(torch, dt))
+        x[0] = 0
+        (q, s), (rq, rs) = qw.quantize_stage_per_device(x), \
+            quantize_stage_ref(x)
+        torch.cuda.synchronize()
+        err = (q.float() * s - rq.float() * rs).abs().max().item()
+        rows27.append({"case": name, "max_abs_err": err,
+                       "ok": bool(torch.equal(q, rq) and torch.equal(s, rs))})
+        nbytes = m * QW_HIDDEN * (x.element_size() + 1) + 4 * m
+        bms, by = bound_ms(nbytes, 0.0)
+        t27[name] = {
+            "ms": graph_time_ms(lambda: qw.quantize_stage_per_device(x)),
+            "plain_ms": graph_time_ms(lambda: quantize_stage_ref(x)),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "max_abs_err": err}
+    world = symm.OneCardWorld(TP)
+    rows28, t28 = [], {}
+
+    def b28(xs):
+        return world.run(lambda r: qw.qint8_one_shot_per_device(
+            world.mesh(r), xs[r]))
+
+    def check(tag, xs):
+        outs = b28(xs)
+        torch.cuda.synchronize()
+        ref = qw.qint8_one_shot_ref_shards(xs)[0]
+        exact, budget = _qw_budget(torch, xs, "qint8_os")
+        res = [{"case": f"{tag}/rank{r}",
+                "max_abs_err": (o.float() - ref.float()).abs().max().item(),
+                "max_err_vs_exact": (o.float() - exact).abs().max().item(),
+                "within_contract": bool(((o.float() - exact).abs()
+                                         <= budget).all()),
+                "ok": bool(torch.equal(o, ref))} for r, o in enumerate(outs)]
+        res[0]["ranks_same_bytes"] = _same_bytes(torch, outs)
+        for x in res:
+            x["ok"] = x["ok"] and x["within_contract"] and \
+                res[0]["ranks_same_bytes"]
+        return res
+
+    def draw(m, dt):
+        return [torch.randn((m, QW_HIDDEN), generator=g, device=DEV).to(
+            _qw_dtype(torch, dt)) for _ in range(TP)]
+
+    for m in QW_ROWS:
+        for dt in ("bf16", "f32"):
+            xs = draw(m, dt)
+            rows28 += check(f"m{m}_{dt}", xs)
+            if dt != "bf16":
+                continue
+            nbytes = TP * 2 * m * QW_HIDDEN * 2
+            bms, by = bound_ms(nbytes, 0.0)
+            ms, host_s, ahead = queued_ms(torch, lambda: b28(xs))
+            t28[f"m{m}"] = {
+                "ms": ms, "plain_ms": queued_ms(
+                    torch, lambda: qw.qint8_one_shot_ref_shards(xs))[0],
+                "library_ms": queued_ms(torch, lambda: world.run(
+                    lambda r: arm.one_shot_all_reduce(world.mesh(r),
+                                                      xs[r])))[0],
+                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                "host_enqueue_s": host_s, "queued_ahead": ahead,
+                "max_abs_err": max(x["max_abs_err"] for x in rows28[-TP:])}
+    seq_ok = [all(x["ok"] for x in check("seq_m16", draw(16, "bf16")))
+              for _ in range(calls)]
+    xs = draw(16, "bf16")
+    kern.reset_launch_counts()
+    outs = world.run(lambda r: arm.all_reduce_per_device(
+        TP, arm.AllReduceMethod.QINT8_OS, xs[r], mesh=world.mesh(r)))
+    torch.cuda.synchronize()
+    path = kern.launch_counts()
+    ref = qw.qint8_one_shot_ref_shards(xs)[0]
+    op_ok = all(torch.equal(o, ref) for o in outs) and \
+        path == _only(path, qint8_one_shot_per_device=TP)
+    emit({"phase": "b27_b28_qint8", "world": "one card, 4 logical ranks",
+          "b27_cases": rows27, "b28_cases": rows28,
+          "successive_calls_ok": seq_ok, "b27_timed": t27,
+          "b28_timed": t28, "mesh_op": {"launches": path, "ok": op_ok}})
+    if not all(x["ok"] for x in rows27 + rows28) or not all(seq_ok) or \
+            not op_ok:
+        fail(f"B27/B28 disagree with their plain versions, leave the "
+             f"contract or the mesh-level op did not take B28: "
+             f"{[x for x in rows27 + rows28 if not x['ok']]}; successive "
+             f"{seq_ok}; mesh op {path}")
+    lib = "B5 one_shot_all_reduce on the same inputs (one card: NCCL " \
+          "needs a process per card)"
+    return [_qw_row("quantize_stage_per_device", rows27, t27, "one card"),
+            _qw_row("qint8_one_shot_per_device", rows28, t28,
+                    "one card, 4 logical ranks", library_ms_call=lib,
+                    launches_by_path={"mesh_op_one_card":
+                                      path["qint8_one_shot_per_device"]},
+                    launches=path["qint8_one_shot_per_device"])]
+
+
+def phase_b29_b30(torch, symm, kern, kvm, codec, calls: int = 3):
+    """B29 (the KV page handoff) for every (src, dst) pair and B30 (its
+    fan-out) for three destination sets, at comm_blocks 1 and 4, in the
+    one-card world on one layer's four page planes (128 KiB) and one
+    request's pages (128 MiB) of Qwen3-32B at TP=4, bf16: every rank's
+    output bitwise the plain version's (dst: src's pages; everyone else
+    its own); `calls` successive calls; ``kv_handoff_quantized``
+    (kv_int8_page: B30 twice) bitwise its definition (the codec's decode
+    of src's encoded pages on the destinations) and within the
+    kv_handoff contract. Timed (queued_ms, the four ranks together) at
+    the pair (0, 3) and the fan-out 0 -> {1, 2, 3}, beside the plain
+    version (copies of the right shards) and one torch.stack of them.
+    Then the mesh-level ops, counted."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(129)
+    n = TP
+    c = codec.codec("kv_int8_page")
+    pairs = [(s, d) for s in range(n) for d in range(n) if s != d]
+    rows = []
+    timed = {"kv_handoff_per_device": {}, "kv_handoff_fanout_per_device": {}}
+
+    def b29(xs, s, d, cb):
+        return world.run(lambda r: kvm.kv_handoff_per_device(
+            world.mesh(r), xs[r], s, d, cb))
+
+    def b30(xs, s, ds, cb):
+        return world.run(lambda r: kvm.kv_handoff_fanout_per_device(
+            world.mesh(r), xs[r], s, ds, cb))
+
+    def check(tag, xs, cb):
+        res = []
+        for s, d in pairs:
+            outs = b29(xs, s, d, cb)
+            torch.cuda.synchronize()
+            res += [dict(x, kernel="kv_handoff_per_device") for x in
+                    _slot_rows(f"{tag}/b29_{s}_{d}", outs,
+                               [xs[s] if r == d else xs[r]
+                                for r in range(n)])]
+        for s, ds in KV_FANOUTS:
+            outs = b30(xs, s, ds, cb)
+            torch.cuda.synchronize()
+            res += [dict(x, kernel="kv_handoff_fanout_per_device") for x in
+                    _slot_rows(f"{tag}/b30_{s}_{''.join(map(str, ds))}",
+                               outs, [xs[s] if r in ds else xs[r]
+                                      for r in range(n)])]
+        return res
+
+    quant = []
+    for pname, shape in KV_PAGES.items():
+        xs = [torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+              for _ in range(n)]
+        enc = [c.encode(x) for x in xs]
+        dec0 = c.decode(*enc[0], torch.bfloat16)
+        for cb in (1, 4):
+            rows += check(f"{pname}/cb{cb}", xs, cb)
+            # the int8 wire: its two fan-outs' buffers made and its torch
+            # kernels loaded before any spinning launch
+            b30([q for q, _ in enc], 0, (1, 2, 3), cb)
+            b30([s for _, s in enc], 0, (1, 2, 3), cb)
+            outs = world.run(lambda r: kvm.kv_handoff_quantized(
+                world.mesh(r), "tp", xs[r], 0, (1, 2, 3), comm_blocks=cb))
+            torch.cuda.synchronize()
+            for r, o in enumerate(outs):
+                want = dec0 if r else xs[0]
+                quant.append({"case": f"{pname}/cb{cb}/rank{r}",
+                              "ok": bool(torch.equal(o, want))
+                              and _kv_within(torch, xs[0], o),
+                              "max_abs_err_vs_src": (o.float() - xs[0].float())
+                              .abs().max().item()})
+        shard = xs[0].numel() * xs[0].element_size()
+        for kname, run, want in (
+                ("kv_handoff_per_device", lambda: b29(xs, 0, 3, 4),
+                 [xs[0] if r == 3 else xs[r] for r in range(n)]),
+                ("kv_handoff_fanout_per_device",
+                 lambda: b30(xs, 0, (1, 2, 3), 4),
+                 [xs[0] if r else xs[r] for r in range(n)])):
+            nbytes = n * 2 * shard
+            bms, by = bound_ms(nbytes, 0.0)
+            ms, host_s, ahead = queued_ms(torch, run)
+            timed[kname][pname] = {
+                "ms": ms, "comm_blocks": 4,
+                "plain_ms": queued_ms(torch, lambda: [
+                    y.clone() for y in want])[0],
+                "library_ms": queued_ms(torch, lambda: torch.stack(
+                    want))[0],
+                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                "host_enqueue_s": host_s, "queued_ahead": ahead}
+    xs = [torch.randn(KV_PAGES["step_128KiB"], generator=g,
+                      device=DEV).to(torch.bfloat16) for _ in range(n)]
+    seq_ok = [all(x["ok"] for x in check("seq_step", xs, 4))
+              for _ in range(calls)]
+    kern.reset_launch_counts()
+    outs = world.run(lambda r: (
+        kvm.kv_handoff(world.mesh(r), "tp", xs[r], 0, 3),
+        kvm.kv_handoff_fanout(world.mesh(r), "tp", xs[r], 0, (1, 2, 3)),
+        kvm.kv_handoff_quantized(world.mesh(r), "tp", xs[r], 0,
+                                 (1, 2, 3))))
+    torch.cuda.synchronize()
+    path = kern.launch_counts()
+    dec0 = c.decode(*c.encode(xs[0]), torch.bfloat16)
+    op_ok = all(torch.equal(o[0], xs[0] if r == 3 else xs[r])
+                and torch.equal(o[1], xs[0] if r else xs[r])
+                and torch.equal(o[2], dec0 if r else xs[r])
+                for r, o in enumerate(outs)) and \
+        path == _only(path, kv_handoff_per_device=n,
+                      kv_handoff_fanout_per_device=3 * n)
+    emit({"phase": "b29_b30_kv_handoff", "world": "one card, 4 logical ranks",
+          "payloads": {k: list(v) for k, v in KV_PAGES.items()},
+          "cases": len(rows), "failed": [x for x in rows if not x["ok"]],
+          "quantized": quant, "successive_calls_ok": seq_ok,
+          "timed": timed, "mesh_ops": {"launches": path, "ok": op_ok}})
+    if not all(x["ok"] for x in rows + quant) or not all(seq_ok) or \
+            not op_ok:
+        fail(f"B29/B30 disagree with their plain versions, the int8 wire "
+             f"left its contract or the mesh-level ops did not take them: "
+             f"{[x for x in rows + quant if not x['ok']][:8]}; successive "
+             f"{seq_ok}; mesh ops {path}")
+    return [_qw_row(kname, [x for x in rows if x["kernel"] == kname],
+                    timed[kname], "one card, 4 logical ranks",
+                    library_ms_call="torch.stack of the output shards "
+                                    "(one card)",
+                    launches_by_path={"mesh_ops_one_card": path[kname]},
+                    launches=path[kname])
+            for kname in timed]
+
+
+def _tp4_quant(torch, dist, mesh, kern):
+    """The quantized wire on four cards, each rank on its own draws: B28
+    at (16, 5120) and (512, 5120) bf16 / f32 bitwise its plain twin (NCCL
+    all-gather of q and s, the fold), the four ranks' bytes the same,
+    within the qint8_os contract of the exact sum; the int8 ring (QINT8)
+    at (16, 5120) bf16 / f32 bitwise its definition run in one process on
+    the gathered x, within the qint8 contract, B27's launches per call;
+    B27 alone at its hop shapes; the KV moves (kv_handoff 0 -> 3,
+    kv_handoff_fanout 0 -> {1, 2, 3}, kv_handoff_quantized on the same
+    fan-out) at both payloads and comm_blocks 1 and 4, bitwise the XLA
+    twins (send / recv, all-gather + select); timed (queued_ms, after a
+    barrier) beside NCCL: all_reduce (and B5) for B28 and the ring, a
+    send / recv pair for B29, a broadcast for B30. Then, the counts
+    zeroed, the mesh-level entry points once each, counted."""
+    from triton_dist_tpu_torch.kernels import allreduce as arm
+    from triton_dist_tpu_torch.kernels import plain
+    from triton_dist_tpu_torch.kernels import quant_wire as qw
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import (
+        GemmArMethod, gemm_ar_per_device,
+    )
+    kvm = importlib.import_module("triton_dist_tpu_torch.kernels.kv_handoff")
+    me, n = mesh.rank, mesh.world
+    g = torch.Generator(device=mesh.device).manual_seed(131 + me)
+
+    def timed_ms(fn):
+        dist.barrier()
+        return queued_ms(torch, fn)[0]
+
+    def draw(shape, dt):
+        return torch.randn(shape, generator=g, device=mesh.device).to(
+            _qw_dtype(torch, dt))
+
+    def nccl_ar(x):
+        def run():
+            y = x.clone()
+            dist.all_reduce(y, group=mesh.group)
+            return y
+        return run
+
+    b27 = {}
+    for name, m, dt in QW_B27_SHAPES:
+        x = draw((m, QW_HIDDEN), dt)
+        b27[name] = {"ms": graph_time_ms(
+            lambda: qw.quantize_stage_per_device(x)), "plain_ms":
+            graph_time_ms(lambda: plain.quantize_stage_ref(x))}
+    b28 = {}
+    for m in QW_ROWS:
+        for dt in ("bf16", "f32"):
+            x = draw((m, QW_HIDDEN), dt)
+            got = qw.qint8_one_shot_per_device(mesh, x)
+            want = qw.qint8_one_shot_reference_per_device(mesh, x)
+            xs = plain.all_gather_list(mesh, x)
+            exact, budget = _qw_budget(torch, xs, "qint8_os")
+            err = (got.float() - exact).abs()
+            rec = {"ok": bool(torch.equal(got, want)),
+                   "ranks_same_bytes": _same_bytes(
+                       torch, plain.all_gather_list(mesh, got)),
+                   "within_contract": bool((err <= budget).all()),
+                   "max_err_vs_exact": err.max().item(),
+                   "budget_max": budget.max().item()}
+            if dt == "bf16":
+                rec.update(
+                    ms=timed_ms(lambda: qw.qint8_one_shot_per_device(mesh,
+                                                                     x)),
+                    plain_ms=timed_ms(
+                        lambda: qw.qint8_one_shot_reference_per_device(
+                            mesh, x)),
+                    b5_ms=timed_ms(lambda: arm.one_shot_all_reduce(mesh, x)),
+                    nccl_ms=timed_ms(nccl_ar(x)))
+            b28[f"m{m}_{dt}"] = rec
+    ring = {}
+    for dt in ("bf16", "f32"):
+        x = draw((16, QW_HIDDEN), dt)
+        before = kern.launch_counts()["quantize_stage_per_device"]
+        got = arm.all_reduce_per_device(n, arm.AllReduceMethod.QINT8, x,
+                                        mesh=mesh)
+        torch.cuda.synchronize()
+        per_call = kern.launch_counts()["quantize_stage_per_device"] - before
+        xs = plain.all_gather_list(mesh, x)
+        exact, budget = _qw_budget(torch, xs, "qint8")
+        err = (got.float() - exact).abs()
+        rec = {"ok": bool(torch.equal(got, _ring_emulate(torch, xs, me))),
+               "ranks_same_bytes": _same_bytes(
+                   torch, plain.all_gather_list(mesh, got)),
+               "within_contract": bool((err <= budget).all()),
+               "max_err_vs_exact": err.max().item(),
+               "b27_launches_per_call": per_call}
+        if dt == "bf16":
+            rec.update(ms=timed_ms(lambda: arm.all_reduce_per_device(
+                n, arm.AllReduceMethod.QINT8, x, mesh=mesh)),
+                nccl_ms=timed_ms(nccl_ar(x)))
+        ring[dt] = rec
+    kv = {}
+    for pname, shape in KV_PAGES.items():
+        x = draw(shape, "bf16")
+        y = torch.empty_like(x)
+
+        def p2p():
+            if me not in (0, 3):
+                return x
+            for req in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, x, 3, mesh.group)] if me == 0
+                    else [dist.P2POp(dist.irecv, y, 0, mesh.group)]):
+                req.wait()
+            return y
+
+        def bcast():
+            dist.broadcast(x if me == 0 else y, src=0, group=mesh.group)
+            return y
+
+        for cb in (1, 4):
+            ops = {
+                "kv_handoff_per_device": (
+                    lambda: kvm.kv_handoff(mesh, "tp", x, 0, 3,
+                                           comm_blocks=cb),
+                    lambda: kvm.kv_handoff(mesh, "tp", x, 0, 3,
+                                           method="xla"), p2p,
+                    x.numel() * 2, x.numel() * 2),
+                "kv_handoff_fanout_per_device": (
+                    lambda: kvm.kv_handoff_fanout(mesh, "tp", x, 0,
+                                                  (1, 2, 3), comm_blocks=cb),
+                    lambda: kvm.kv_handoff_fanout(mesh, "tp", x, 0,
+                                                  (1, 2, 3), method="xla"),
+                    bcast, x.numel() * 2, 3 * x.numel() * 2),
+                "quantized": (
+                    lambda: kvm.kv_handoff_quantized(mesh, "tp", x, 0,
+                                                     (1, 2, 3),
+                                                     comm_blocks=cb),
+                    lambda: kvm.kv_handoff_quantized(mesh, "tp", x, 0,
+                                                     (1, 2, 3),
+                                                     method="xla"),
+                    None, None, None)}
+            src_pages = ops["kv_handoff_fanout_per_device"][1]()
+            for name, (run, ref, lib, hbm, link) in ops.items():
+                got, want = run(), ref()
+                torch.cuda.synchronize()
+                rec = {"ok": bool(torch.equal(got, want))}
+                if name == "quantized":
+                    rec["within_contract"] = _kv_within(torch, src_pages,
+                                                        got)
+                    rec["max_abs_err_vs_src"] = (
+                        got.float() - src_pages.float()).abs().max().item()
+                rec.update(ms=timed_ms(run), plain_ms=timed_ms(ref))
+                if lib is not None:
+                    rec.update(library_ms=timed_ms(lib),
+                               bytes_hbm=2 * hbm, bytes_link=link)
+                kv[f"{name}/{pname}/cb{cb}"] = rec
+    # the entry points once each, the counts zeroed after the warm-ups
+    x16 = draw((16, QW_HIDDEN), "bf16")
+    a = draw((16, 256), "bf16")
+    b = draw((256, QW_HIDDEN), "bf16")
+    pages = draw(KV_PAGES["step_128KiB"], "bf16")
+    dist.barrier()
+    kern.reset_launch_counts()
+    arm.all_reduce_per_device(n, arm.AllReduceMethod.QINT8_OS, x16,
+                              mesh=mesh)
+    arm.all_reduce_per_device(n, arm.AllReduceMethod.QINT8, x16, mesh=mesh)
+    gemm_ar_per_device(n, GemmArMethod.XLA_QINT8, a, b, mesh=mesh)
+    kvm.kv_handoff(mesh, "tp", pages, 0, 3)
+    kvm.kv_handoff_fanout(mesh, "tp", pages, 0, (1, 2, 3))
+    kvm.kv_handoff_quantized(mesh, "tp", pages, 0, (1, 2, 3))
+    torch.cuda.synchronize()
+    counts = kern.launch_counts()
+    want = _only(counts, qint8_one_shot_per_device=1,
+                 quantize_stage_per_device=2 * n, kv_handoff_per_device=1,
+                 kv_handoff_fanout_per_device=3)
+    dist.barrier()
+    return {"b27": b27, "b28": b28, "ring": ring, "kv": kv,
+            "launches": counts, "launches_want": want}
+
+
+def _tp4_quant_rows(results, extra):
+    """The parent's side of tp4_quant: every check on every rank, the
+    launch gate, and the kernel rows of B27-B30 (slowest rank)."""
+    per = [results[r]["quant"] for r in range(TP)]
+    bad = []
+    for r, p in enumerate(per):
+        for sect in ("b28", "ring", "kv"):
+            for case, rec in p[sect].items():
+                if not rec["ok"] or not rec.get("ranks_same_bytes", True) \
+                        or not rec.get("within_contract", True):
+                    bad.append(f"rank {r} {sect}/{case}: {rec}")
+        if any(x["b27_launches_per_call"] != TP for x in p["ring"].values()):
+            bad.append(f"rank {r}: B27 launches per ring call "
+                       f"{[x['b27_launches_per_call'] for x in p['ring'].values()]}")
+        if p["launches"] != p["launches_want"]:
+            bad.append(f"rank {r}: launches {p['launches']}, want "
+                       f"{p['launches_want']}")
+
+    def slowest(sect, case, key):
+        vals = [p[sect][case].get(key) for p in per]
+        return None if any(v is None for v in vals) else max(vals)
+
+    summary = {sect: {case: {k: slowest(sect, case, k) for k in rec
+                             if isinstance(rec[k], float)}
+                      for case, rec in per[0][sect].items()}
+               for sect in ("b27", "b28", "ring", "kv")}
+    emit({"phase": "tp4_quant", "tp": TP, "slowest_rank": summary,
+          "ring_b27_launches_per_call": per[0]["ring"]["bf16"][
+              "b27_launches_per_call"],
+          "launches": per[0]["launches"], "ok": not bad})
+    if bad:
+        fail("tp4_quant: " + "; ".join(bad[:8]))
+    extra["tp4_quant"] = per[0]["launches"]
+    h = QW_HIDDEN
+    t27 = {}
+    for name, m, dt in QW_B27_SHAPES:
+        es = 2 if dt == "bf16" else 4
+        nbytes = m * h * (es + 1) + 4 * m
+        bms, by = bound_ms(nbytes, 0.0)
+        t27[name] = {"ms": summary["b27"][name]["ms"],
+                     "plain_ms": summary["b27"][name]["plain_ms"],
+                     "library_ms": None, "bound_ms": bms, "bound_by": by,
+                     "bytes": nbytes}
+    t28 = {}
+    for m in QW_ROWS:
+        s = summary["b28"][f"m{m}_bf16"]
+        bms, by = tp_bound_ms(2 * m * h * 2, (TP - 1) * (m * h + 4 * m), 0.0)
+        t28[f"m{m}"] = {"ms": s["ms"], "plain_ms": s["plain_ms"],
+                        "library_ms": s["nccl_ms"], "b5_ms": s["b5_ms"],
+                        "bound_ms": bms, "bound_by": by,
+                        "max_err_vs_exact": s["max_err_vs_exact"],
+                        "per_rank_ms": [p["b28"][f"m{m}_bf16"]["ms"]
+                                        for p in per]}
+    rows = {
+        "quantize_stage_per_device": _qw_row(
+            "quantize_stage_per_device", [{"max_abs_err": 0.0}], t27,
+            "4 cards, TP=4 (each card alone)",
+            ring_16x5120_bf16=summary["ring"]["bf16"]),
+        "qint8_one_shot_per_device": _qw_row(
+            "qint8_one_shot_per_device", [{"max_abs_err": 0.0}], t28,
+            "4 cards, TP=4",
+            library_ms_call="torch.distributed.all_reduce (NCCL)",
+            bound_note="NVLink bytes (n-1)(mK + 4m) a rank; a flag round "
+                       "trip has no data-sheet figure")}
+    for kname in ("kv_handoff_per_device", "kv_handoff_fanout_per_device"):
+        timed = {}
+        for pname in ("request_128MiB", "step_128KiB"):
+            for cb in (4, 1):
+                key = f"{kname}/{pname}/cb{cb}"
+                s = summary["kv"][key]
+                hbm, link = per[0]["kv"][key]["bytes_hbm"], \
+                    per[0]["kv"][key]["bytes_link"]
+                bms, by = tp_bound_ms(hbm, link, 0.0)
+                timed[f"{pname}/cb{cb}"] = {
+                    "ms": s["ms"], "plain_ms": s["plain_ms"],
+                    "library_ms": s["library_ms"], "bound_ms": bms,
+                    "bound_by": by, "bytes_link": link}
+        q = {k: v for k, v in summary["kv"].items()
+             if k.startswith("quantized/")}
+        rows[kname] = _qw_row(
+            kname, [{"max_abs_err": 0.0}], timed, "4 cards, TP=4",
+            library_ms_call=("torch.distributed.batch_isend_irecv (NCCL)"
+                             if kname == "kv_handoff_per_device" else
+                             "torch.distributed.broadcast (NCCL)"),
+            **({"quantized_kv_int8_page": q}
+               if kname == "kv_handoff_fanout_per_device" else {}))
+    return rows
+
+
 def _tp4_rank(rank, port, phases, tmp, queue):
     """One rank process of the four-card phases (rank r on cuda:r)."""
     import traceback
@@ -5863,6 +6468,10 @@ def _tp4_rank(rank, port, phases, tmp, queue):
             torch.cuda.empty_cache()
             res["comm"] = _tp4_comm(torch, dist, mesh, kern)
             lap("tp4_comm")
+        if "tp4_quant" in phases:
+            torch.cuda.empty_cache()
+            res["quant"] = _tp4_quant(torch, dist, mesh, kern)
+            lap("tp4_quant")
         dist.barrier()
         queue.put((rank, "ok", res))
         if "tp4_serve" in phases:
@@ -6169,7 +6778,11 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                  "ar_one_shot": {"one_shot_all_reduce": 2 * L},
                  "ar_rhd": {"rhd_all_reduce": 2 * L},
                  "ar_two_shot": {"ring_reduce_scatter": 2 * L,
-                                 "ring_all_gather": 2 * L}}
+                                 "ring_all_gather": 2 * L},
+                 "ar_qint8_os": {"qint8_one_shot_per_device": 2 * L},
+                 "ar_qint8": {"quantize_stage_per_device": 2 * L * TP},
+                 "mega_td_quant": {"quantize_stage_per_device": 2 * L * TP,
+                                   "fused_add_rms": L}}
         for label, _, backend in _TP4_REPLICATED:
             per = [s["replicated"][label] for s in serve]
             r = dict(replicated[label])
@@ -6196,8 +6809,20 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                 fail(f"TP=4 {label}: {r['launches_per_replay']} per replay "
                      f"x {r['graph_replays']} + {r['eager_launches']} "
                      f"eager; want {want} per replay")
-            if label == "mega_default" and r["mega_tier"] != "pallas_chain":
+            if label in ("mega_default", "mega_td_quant") and \
+                    r["mega_tier"] != "pallas_chain":
                 fail(f"TP=4 {label}: mega tier {r['mega_tier']}")
+            if label == "mega_td_quant" and \
+                    r.get("mega_gemm_ar_method") != "xla_qint8":
+                fail(f"TP=4 {label}: the mega step's GEMM+AR method is "
+                     f"{r.get('mega_gemm_ar_method')}, not xla_qint8")
+            # B28 folds the same terms on every rank: the same logits, so
+            # no rank's own token may ever differ from rank 0's
+            if label == "ar_qint8_os" and any(r["own_token_differs_per_rank"]):
+                fail(f"TP=4 {label}: own_token_differs "
+                     f"{r['own_token_differs_per_rank']}")
+            if label in _TP4_QUANT_LABELS:
+                extra[f"tp4_serve_{label}"] = r["launches"]
             if not all(x["tokens_same_on_every_rank"] for x in per):
                 fail(f"TP=4 {label}: ranks returned different tokens")
             launches_by_path[label] = r["launches"]
@@ -6251,7 +6876,10 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                          "pallas_gemm_ar": 2 * L * k_steps},
                  "ar_two_shot": {"paged_flash_decode_partial": L * k_steps,
                                  "ring_reduce_scatter": 2 * L * k_steps,
-                                 "ring_all_gather": 2 * L * k_steps}}
+                                 "ring_all_gather": 2 * L * k_steps},
+                 "ar_qint8_os": {"paged_flash_decode_partial": L * k_steps,
+                                 "qint8_one_shot_per_device":
+                                 2 * L * k_steps}}
         for label, _, mode in _TP4_CONTINUOUS:
             recs = [p[label] for p in per]
             r = {k: v for k, v in recs[0].items()
@@ -6284,6 +6912,10 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
             if any(x["launches_per_replay"] != want for x in recs):
                 bad.append(f"launches per replay "
                            f"{r['launches_per_replay']}, want {want}")
+            if label == "ar_qint8_os" and any(
+                    r["own_token_differs_per_rank"]):
+                bad.append("a rank's own token differed from rank 0's "
+                           "under B28")
             if bad:
                 fail(f"TP=4 continuous {label}: " + "; ".join(bad))
             extra[f"tp4_continuous_{label}"] = r["launches"]
@@ -6303,6 +6935,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         _tp4_sp_gate(results)
     if "tp4_comm" in phases:
         rows.update(_tp4_comm_rows(results, extra))
+    if "tp4_quant" in phases:
+        rows.update(_tp4_quant_rows(results, extra))
     t_w1 = time.time()
     w1 = _world1_logits_and_tokens(torch, models, tmp)
     rank0 = dict(results[0]["seconds"])
@@ -6507,10 +7141,11 @@ def main() -> None:
     "b19_flash_decode_partial", "b20_decode_combine", "b21_ring_attn",
     "sp_layer" (sequence parallelism on one card), "b22_b23_ll_ag",
     "b24_b25_b26_p2p" (the small collectives, the one-card world),
-    "tp4_serve", "tp4_consistency", "tp4_continuous",
-    "tp4_continuous_consistency", "tp4_moe", "tp4_moe_consistency",
-    "tp4_ep", "tp4_ep_consistency", "tp4_sp", "tp4_sp_consistency",
-    "tp4_comm" (four cards)."""
+    "b27_b28_qint8", "b29_b30_kv_handoff" (the quantized wire and the KV
+    handoff, the one-card world), "tp4_serve", "tp4_consistency",
+    "tp4_continuous", "tp4_continuous_consistency", "tp4_moe",
+    "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency", "tp4_sp",
+    "tp4_sp_consistency", "tp4_comm", "tp4_quant" (four cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -6654,6 +7289,16 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "b24_b25_b26_p2p" in phases:
         for rec in phase_b24_b26(torch, symm, kern, cops, p2pm):
+            tp_rows[rec["name"]] = rec
+        torch.cuda.empty_cache()
+    from triton_dist_tpu_torch.kernels import quant_wire as qw
+    kvm = importlib.import_module("triton_dist_tpu_torch.kernels.kv_handoff")
+    if "b27_b28_qint8" in phases:
+        for rec in phase_b27_b28(torch, symm, kern, qw, arm):
+            tp_rows[rec["name"]] = rec
+        torch.cuda.empty_cache()
+    if "b29_b30_kv_handoff" in phases:
+        for rec in phase_b29_b30(torch, symm, kern, kvm, codec):
             tp_rows[rec["name"]] = rec
         torch.cuda.empty_cache()
     four = [p for p in phases if p in FOUR_CARD_PHASES]

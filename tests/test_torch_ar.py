@@ -304,7 +304,10 @@ def test_world4_schedule_matches_jax(policy):
 def test_what_waits_raises(ar):
     """gemm_ar XLA_RING refuses an M the world does not divide (the
     reference's ValueError; its values are held in
-    tests/test_torch_bidir.py), the int8 wires name A13; the MoE mega task
+    tests/test_torch_bidir.py); the int8 wires (gemm_ar XLA_QINT8, the
+    QINT8 tiers) run within their contracts and QINT8 refuses an M the
+    world does not divide (their values are held in
+    tests/test_torch_quant_world.py); the MoE mega task
     builds at n > 1 (one per layer); RHD refuses an M the world does not
     divide and a world that is no power of two; AUTO is resolved above
     the per-device level;

@@ -40,7 +40,11 @@ import triton_dist_tpu_torch.kernels.gemm_allreduce
 import triton_dist_tpu_torch.mega.runtime
 import triton_dist_tpu_torch.mega.models.qwen3
 import triton_dist_tpu_torch.quant.codec
+import triton_dist_tpu_torch.quant.contract
 import triton_dist_tpu_torch.quant.policy
+import triton_dist_tpu_torch.runtime.prng
+import triton_dist_tpu_torch.kernels.quant_wire
+import triton_dist_tpu_torch.kernels.kv_handoff
 import triton_dist_tpu_torch.runtime.build
 import triton_dist_tpu_torch.runtime.mesh
 import triton_dist_tpu_torch.runtime.symm

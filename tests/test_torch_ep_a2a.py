@@ -218,11 +218,13 @@ def test_fp8_transport_equals_jax(ops):
 
 
 def test_refusals_and_no_launch_on_cpu(ops):
-    """TD_QUANT=error_budget on the EP payload names A13, a dcn_axis names
-    A9 (tail), an expert count the world does not divide raises; on CPU
-    tensors no kernel launched."""
+    """TD_QUANT=error_budget on the EP payload judges the ep_dispatch
+    contract (a budget of 0.5 takes the fp8 wire, bitwise TD_QUANT=always's
+    dispatch; 0.01 the full width, bitwise the lossless dispatch), a
+    dcn_axis names A9 (tail), an expert count the world does not divide
+    raises; on CPU tensors no kernel launched."""
     for r, c in enumerate(ops["checks"]):
-        for key in ("error_budget_raises_a13", "dcn_axis_raises_a9",
+        for key in ("error_budget_judges_contract", "dcn_axis_raises_a9",
                     "odd_experts_raise", "no_launch_on_cpu"):
             assert c[key] is True, (r, key)
 

@@ -247,8 +247,9 @@ def test_world1_is_identity(op):
     want = _bits(_world1(op, jmake_comm_mesh(axes=[("tp", 1)], devices=devs),
                          jmake_comm_mesh(axes=[("pp", 1)], devices=devs),
                          jnp.asarray(x)))
-    got = to_numpy(_world1(op, make_comm_mesh(),
-                           make_comm_mesh(axes=[("pp", 1)]), to_torch(x)))
+    got = to_numpy(_world1(op, make_comm_mesh(device="cpu"),
+                           make_comm_mesh(axes=[("pp", 1)], device="cpu"),
+                           to_torch(x)))
     assert _same_bytes(want, x)
     assert _same_bytes(got, want)
 
@@ -319,7 +320,7 @@ def test_auto_on_the_card_is_the_ports_rule():
 def test_bad_ranks_and_row_widths_raise():
     x = torch.zeros((8, 128))
     with pytest.raises(ValueError, match="ranks of a world of 1"):
-        p2p_put_per_device(make_comm_mesh(), x, 0, 1)
+        p2p_put_per_device(make_comm_mesh(device="cpu"), x, 0, 1)
     with pytest.raises(ValueError, match="must be > 1 and divide"):
         ll.ring2d_ag_per_device(_stub(4), x, 3)
     with pytest.raises(ValueError, match="unresolved method"):

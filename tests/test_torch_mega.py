@@ -246,8 +246,13 @@ def test_runtime_methods_dispatch_and_unported_paths():
     # world 1, as the reference's
     assert torch.equal(gemm_ar_per_device(1, GemmArMethod.XLA_RING, a, w),
                        torch.full((2, 4), 8.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        gemm_ar_per_device(1, GemmArMethod.XLA_QINT8, a, w)
+    # XLA_QINT8 at world 1 is the lossless product (the reference's rule:
+    # the int8 ring needs n > 1 and rows n divides), counted as such
+    before = dict(gemm_ar_per_device.qint8_branches)
+    assert torch.equal(gemm_ar_per_device(1, GemmArMethod.XLA_QINT8, a, w),
+                       torch.full((2, 4), 8.0))
+    assert gemm_ar_per_device.qint8_branches == dict(
+        before, lossless=before["lossless"] + 1)
     assert get_auto_gemm_ar_method(1, cuda=True) == \
         GemmArMethod.PALLAS
     assert get_auto_gemm_ar_method(1, cuda=False) == \

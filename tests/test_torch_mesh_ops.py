@@ -134,7 +134,7 @@ def test_contexts_resolve_as_the_reference(ops, mesh4, world):
     until ROADMAP A16)."""
     if world == 1:
         jmesh = make_comm_mesh(axes=[("tp", 1)], devices=jax.devices()[:1])
-        mesh = tp_mesh.make_comm_mesh()
+        mesh = tp_mesh.make_comm_mesh(device="cpu")
         assert mesh.world == 1
         got = [agm.create_ag_gemm_context(mesh).resolve().value,
                grs.create_gemm_rs_context(mesh).resolve().value]

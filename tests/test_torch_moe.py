@@ -467,7 +467,7 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
                                  torch.ones((1025, 1)), torch.ones((4, 8, 8)))
     # the expert-parallel layout is taken: the context's transport and
     # capacity, the model at world 1; a dcn_axis names A9 (tail), the
-    # error-budget policy on the EP payload A13, a capacity below 1 raises
+    # the error-budget policy on the EP payload, a capacity below 1 raises
     from triton_dist_tpu_torch.kernels.ep_a2a import (
         EpA2AMethod, create_ep_a2a_context,
     )
@@ -482,9 +482,11 @@ def test_auto_rules_and_unported_options_raise(monkeypatch):
         TPContext(ep_max_m=0)
     with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(tail\)"):
         create_ep_a2a_context(None, 8, 2, 4, dcn_axis="dcn")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        resolve_ep_payload_dtype(None, PolicyState(QuantPolicy.ERROR_BUDGET,
-                                                   0.5))
+    # error_budget judges the ep_dispatch contract (1/16 of the row amax)
+    assert resolve_ep_payload_dtype(None, PolicyState(
+        QuantPolicy.ERROR_BUDGET, 0.5)) == torch.float8_e4m3fn
+    assert resolve_ep_payload_dtype(None, PolicyState(
+        QuantPolicy.ERROR_BUDGET, 0.01)) is None
     assert resolve_ep_payload_dtype(None, PolicyState(
         QuantPolicy.ALWAYS)) == torch.float8_e4m3fn
     assert resolve_ep_payload_dtype(None, PolicyState()) is None

@@ -39,6 +39,7 @@ from triton_dist_tpu_torch.mega.models.qwen3 import (  # noqa: E402
 from triton_dist_tpu_torch.models import (  # noqa: E402
     Engine, Qwen3, params_from_numpy, tiny_qwen3, tiny_qwen3_moe,
 )
+from triton_dist_tpu_torch.quant.contract import contract_for  # noqa: E402
 from triton_dist_tpu_torch.runtime import mesh as tp_mesh  # noqa: E402
 
 LAYERS, MAX_LEN, GEN = 2, 32, 4
@@ -103,20 +104,33 @@ def _ops(inp: dict, mesh, out: dict, checks: dict) -> None:
         _raises(lambda: all_reduce_per_device(3, AllReduceMethod.RHD, a,
                                               mesh=mesh),
                 ValueError, "power-of-two")])
+    # the int8 wires run (their values are held in
+    # tests/test_torch_quant_world.py): here each within its contract of
+    # the exact sum of the ranks' all-ones terms, and QINT8 refuses rows
+    # the world does not divide, as TWO_SHOT
+    def within(op, meth, got, term):
+        try:
+            contract_for(op, meth).check(n * term, got, [term] * n)
+        except AssertionError:
+            return False
+        return True
+
     checks["waits_raise"] = all([
         _raises(lambda: gemm_ar_per_device(n, GemmArMethod.XLA_RING, x6,
                                            torch.ones((8, 4)), mesh=mesh),
                 ValueError, "divisible by the axis size"),
-        _raises(lambda: gemm_ar_per_device(n, GemmArMethod.XLA_QINT8, a,
-                                           a.T, mesh=mesh),
-                NotImplementedError, "ROADMAP A13"),
+        within("gemm_ar", "xla_qint8", gemm_ar_per_device(
+            n, GemmArMethod.XLA_QINT8, a, a.T, mesh=mesh), a @ a.T),
         _raises(lambda: all_reduce_per_device(n, AllReduceMethod.AUTO, a,
                                               mesh=mesh),
                 ValueError, "unresolved method"),
-        *(_raises(lambda m_=m_: all_reduce_per_device(n, m_, a, mesh=mesh),
-                  NotImplementedError, "ROADMAP A13")
+        *(within("allreduce", m_.value, all_reduce_per_device(
+            n, m_, a, mesh=mesh), a)
           for m_ in (AllReduceMethod.QINT8, AllReduceMethod.QINT8_OS,
-                     AllReduceMethod.QINT8_OS_STOCHASTIC))])
+                     AllReduceMethod.QINT8_OS_STOCHASTIC)),
+        _raises(lambda: all_reduce_per_device(n, AllReduceMethod.QINT8, x6,
+                                              mesh=mesh),
+                ValueError, "divisible by the world")])
 
 
 def _model(inp: dict, mesh, out: dict, checks: dict) -> None:

@@ -10,7 +10,8 @@ counterpart sits at the same path:
   mega/     the decode step as a task graph: tasks, scheduler, builder,
             the Qwen3 dense graph, the tiered runtime
   kernels/  the hand-written Hopper kernels and their plain versions
-  quant/    the int8 row codec and the TD_QUANT policy parse
+  quant/    the wire codecs, their error contracts and the TD_QUANT
+            policy
   language/ the distributed language: notify / wait / put / barriers
             (device side in csrc/td_dist.cuh)
   runtime/  device resolution, process groups (one process per card),

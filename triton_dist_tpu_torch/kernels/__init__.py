@@ -39,8 +39,13 @@ and B23 ``low_latency_allgather.ring2d_ag_per_device`` (the
 bidirectional-ring and 2-D ring all-gathers), B24
 ``p2p.p2p_put_per_device`` (the point-to-point put), B25
 ``common_ops.barrier_all_per_device`` (the device barrier) and B26
-``common_ops.ring_shift_per_device`` (the ring shift). Each wrapper counts
-its kernel launches in a ``launches`` attribute.
+``common_ops.ring_shift_per_device`` (the ring shift). The quantized
+wire: B27 ``quant_wire.quantize_stage_per_device`` (the int8 staging
+encode; each hop of the int8 ring), B28
+``quant_wire.qint8_one_shot_per_device`` (the int8 one-shot all-reduce),
+B29 ``kv_handoff.kv_handoff_per_device`` (the KV page handoff) and B30
+``kv_handoff.kv_handoff_fanout_per_device`` (its fan-out). Each wrapper
+counts its kernel launches in a ``launches`` attribute.
 
 The mesh-level ops and their contexts are exported here, as the
 reference's package exports them: ``all_gather_op``, ``ag_gemm``,
@@ -48,8 +53,9 @@ reference's package exports them: ``all_gather_op``, ``ag_gemm``,
 ``dispatch``, ``dispatch_gg`` and ``combine`` with ``EpA2AContext``, and
 ``fast_all_to_all`` / ``fast_all_to_all_quantized``, ``sp_attention``,
 ``flash_decode`` and ``paged_flash_decode_dist`` with their contexts,
-``barrier_all_op``, ``ring_shift_op``, ``p2p_put_op`` and
-``fast_allgather`` with its context; the
+``barrier_all_op``, ``ring_shift_op``, ``p2p_put_op``,
+``fast_allgather`` with its context, and ``kv_handoff``,
+``kv_handoff_fanout`` and ``kv_handoff_quantized``; the
 MoE
 ReduceScatter op is ``moe_reduce_rs.moe_reduce_rs`` (its name is the
 module's).
@@ -60,6 +66,12 @@ from triton_dist_tpu_torch.kernels.common_ops import (  # noqa: F401
     ring_shift_op,
 )
 from triton_dist_tpu_torch.kernels.p2p import p2p_put_op  # noqa: F401
+from triton_dist_tpu_torch.kernels.kv_handoff import (  # noqa: F401
+    KVHandoffMethod,
+    kv_handoff,
+    kv_handoff_fanout,
+    kv_handoff_quantized,
+)
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     AllGatherMethod,
     all_gather_op,
@@ -150,6 +162,12 @@ def launch_wrappers() -> dict:
         bidir_ring_ag_per_device, ring2d_ag_per_device,
     )
     from triton_dist_tpu_torch.kernels.p2p import p2p_put_per_device
+    from triton_dist_tpu_torch.kernels.kv_handoff import (
+        kv_handoff_fanout_per_device, kv_handoff_per_device,
+    )
+    from triton_dist_tpu_torch.kernels.quant_wire import (
+        qint8_one_shot_per_device, quantize_stage_per_device,
+    )
     from triton_dist_tpu_torch.kernels.flash_attention import (
         flash_decode_partial, flash_fold_partial, flash_prefill,
         flash_prefill_varlen,
@@ -207,7 +225,11 @@ def launch_wrappers() -> dict:
             "ring2d_ag_per_device": ring2d_ag_per_device,
             "p2p_put_per_device": p2p_put_per_device,
             "barrier_all_per_device": barrier_all_per_device,
-            "ring_shift_per_device": ring_shift_per_device}
+            "ring_shift_per_device": ring_shift_per_device,
+            "quantize_stage_per_device": quantize_stage_per_device,
+            "qint8_one_shot_per_device": qint8_one_shot_per_device,
+            "kv_handoff_per_device": kv_handoff_per_device,
+            "kv_handoff_fanout_per_device": kv_handoff_fanout_per_device}
 
 
 def launch_counts() -> dict[str, int]:

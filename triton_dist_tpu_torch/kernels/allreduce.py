@@ -20,8 +20,23 @@ in x's dtype. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     reference's per-device body fails there; its mesh-level demotion to
     ONE_SHOT comes with ``all_reduce_op``, A9 (tail)). Every rank ends
     with the same bytes;
-  * the QINT8 tiers wait for ROADMAP A13; AUTO is resolved above the
-    per-device level ("unresolved method"), as in the reference.
+  * QINT8_OS — B28, ``quant_wire.qint8_one_shot_per_device``: int8 on
+    the wire, every term quantized once at its sender, folded in f32 in
+    rank order: the same bytes on every rank (QuantContract "qint8_os");
+  * QINT8_OS_STOCHASTIC — B28's plain twin with the dithered codec
+    (``quant_wire.qint8_one_shot_reference_per_device``, "int8_stochastic":
+    encode, the process group's all-gather of q and s, the same fold), as
+    in the reference, whose kernel has no dither either;
+  * QINT8 — the int8 ring (``qint8_ring_per_device``, the reference's
+    ``_qint8_ring_per_device``, which has no Pallas kernel): a ring
+    reduce-scatter that requantizes the running f32 partial at every hop,
+    then a ring all-gather of each reduced chunk quantized once by its
+    reducer, every hop a ``batch_isend_irecv`` to the right neighbour
+    (NCCL on the card, gloo on the CPU) and every hop's encode B27 on CUDA
+    tensors (``quant_wire.quantize_stage_per_device``). The same bytes on
+    every rank. n must divide M: anything else raises, as TWO_SHOT;
+  * AUTO is resolved above the per-device level ("unresolved method"), as
+    in the reference.
 
 At world 1 the all-reduce is the identity: every method returns x. No
 fallback: a CUDA call a kernel does not take raises. The mesh-level
@@ -94,11 +109,60 @@ def check_rhd(n: int, x: torch.Tensor) -> None:
                          f"the world {n}")
 
 
-def check_two_shot(n: int, x: torch.Tensor) -> None:
+def check_two_shot(n: int, x: torch.Tensor, name: str = "TWO_SHOT") -> None:
+    """The rings' shape rule (TWO_SHOT, QINT8): 2-D x, M divisible by n."""
     if x.ndim != 2 or x.shape[0] % n:
-        raise ValueError(f"all_reduce TWO_SHOT needs 2-D x with M divisible "
+        raise ValueError(f"all_reduce {name} needs 2-D x with M divisible "
                          f"by the world {n} (the ring reduce-scatter hands "
                          f"each rank M/n rows); got {tuple(x.shape)}")
+
+
+def _ring_hop(mesh, q: torch.Tensor, s: torch.Tensor):
+    """One hop of the int8 ring: send (q, s) to the right neighbour and
+    receive the left neighbour's (one ``batch_isend_irecv``, every request
+    waited on)."""
+    n, me, grp = mesh.world, mesh.rank, mesh.group
+    right = dist.get_global_rank(grp, (me + 1) % n)
+    left = dist.get_global_rank(grp, (me - 1) % n)
+    rq, rs = torch.empty_like(q), torch.empty_like(s)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, q, right, grp),
+            dist.P2POp(dist.isend, s, right, grp),
+            dist.P2POp(dist.irecv, rq, left, grp),
+            dist.P2POp(dist.irecv, rs, left, grp)]):
+        req.wait()
+    return rq, rs
+
+
+def qint8_ring_per_device(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The int8 ring all-reduce on this rank (the reference's
+    ``_qint8_ring_per_device``): x (M, K) -> the sum over the ranks in x's
+    dtype, the same bytes on every rank. Rows cut into n chunks of f32;
+    reduce-scatter: the partial starts as chunk me and at hop s travels
+    right as (q, scale) and lands as q * scale + chunk (me - s - 1);
+    all-gather: the reduced chunk (me + 1) quantized once, then passed on
+    n - 1 hops, chunk (me - s) landing at hop s. Each encode is B27
+    (``quantize_stage_per_device``); the product and the sum are separate
+    ops, as in the reference."""
+    from triton_dist_tpu_torch.kernels.quant_wire import (
+        quantize_stage_per_device,
+    )
+    n, me = mesh.world, mesh.rank
+    check_two_shot(n, x, "QINT8")
+    rows, d = x.shape
+    chunks = x.float().reshape(n, rows // n, d)
+    cur = chunks[me]
+    for s in range(n - 1):
+        q, sc = _ring_hop(mesh, *quantize_stage_per_device(cur))
+        cur = q.float() * sc + chunks[(me - s - 1) % n]
+    q, sc = quantize_stage_per_device(cur)
+    out = torch.empty((n, rows // n, d), dtype=torch.float32,
+                      device=x.device)
+    out[(me + 1) % n] = q.float() * sc
+    for s in range(n - 1):
+        q, sc = _ring_hop(mesh, q, sc)
+        out[(me - s) % n] = q.float() * sc
+    return out.reshape(rows, d).to(x.dtype)
 
 
 def _round_up(x: int, a: int = _ALIGN) -> int:
@@ -210,19 +274,14 @@ def all_reduce_per_device(n: int, method: AllReduceMethod, x: torch.Tensor,
                           mesh=None) -> torch.Tensor:
     """The reference's per-device entry: this rank's x (M, K) -> the sum
     over the n ranks. ``mesh`` (the ranks' Mesh) is needed at n > 1."""
-    if method in (AllReduceMethod.QINT8, AllReduceMethod.QINT8_OS,
-                  AllReduceMethod.QINT8_OS_STOCHASTIC):
-        raise NotImplementedError(
-            f"AllReduceMethod.{method.name} (int8 wire) waits for ROADMAP "
-            "A13")
     if method == AllReduceMethod.AUTO:
         raise ValueError(f"unresolved method {method}")
     if n == 1:
         return x
     if method == AllReduceMethod.RHD:
         check_rhd(n, x)
-    if method == AllReduceMethod.TWO_SHOT:
-        check_two_shot(n, x)
+    if method in (AllReduceMethod.TWO_SHOT, AllReduceMethod.QINT8):
+        check_two_shot(n, x, method.name)
     if mesh is None or mesh.world != n:
         raise ValueError(f"all_reduce at world {n} needs the mesh of its {n} "
                          f"ranks; got {mesh}")
@@ -234,6 +293,19 @@ def all_reduce_per_device(n: int, method: AllReduceMethod, x: torch.Tensor,
         return one_shot_all_reduce(mesh, x)
     if method == AllReduceMethod.RHD:
         return rhd_all_reduce(mesh, x)
+    if method == AllReduceMethod.QINT8_OS:
+        from triton_dist_tpu_torch.kernels.quant_wire import (
+            qint8_one_shot_per_device,
+        )
+        return qint8_one_shot_per_device(mesh, x)
+    if method == AllReduceMethod.QINT8_OS_STOCHASTIC:
+        from triton_dist_tpu_torch.kernels.quant_wire import (
+            qint8_one_shot_reference_per_device,
+        )
+        return qint8_one_shot_reference_per_device(mesh, x,
+                                                   "int8_stochastic")
+    if method == AllReduceMethod.QINT8:
+        return qint8_ring_per_device(mesh, x)
     if method == AllReduceMethod.TWO_SHOT:
         from triton_dist_tpu_torch.kernels.allgather import ring_all_gather
         from triton_dist_tpu_torch.kernels.reduce_scatter import (

@@ -23,9 +23,16 @@ GEMM + ReduceScatter (kernels/gemm_reduce_scatter.py), then the RING_1D
 all-gather of the reduced rows (B7 on the card); M must be a multiple of
 the world (a ValueError otherwise, the reference's).
 
+XLA_QINT8 is the int8 wire: the f32 product, then the int8 ring
+all-reduce of kernels/allreduce.py (QINT8: B27 encodes every hop on the
+card) and one cast (QuantContract "gemm_ar"/"xla_qint8"). At an M the
+world does not divide, or at world 1, it computes the lossless XLA sum
+instead: the reference's own rule, not a device fallback.
+``gemm_ar_per_device.qint8_branches`` counts which of the two ran
+("ring", "lossless").
+
 There is no fallback between a kernel and its plain version: a CUDA
-tensor a kernel does not take raises. The int8 wire XLA_QINT8 waits for
-ROADMAP A13 and raises naming it.
+tensor a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -151,8 +158,20 @@ def gemm_ar_per_device(n: int, method: GemmArMethod, a: torch.Tensor,
         return all_gather_per_device(n, AllGatherMethod.RING_1D, scattered,
                                      mesh=mesh)
     if method == GemmArMethod.XLA_QINT8:
-        raise NotImplementedError(
-            "GemmArMethod.XLA_QINT8 (int8 wire) waits for ROADMAP A13")
+        if n > 1 and a.shape[0] % n == 0:
+            if mesh is None or mesh.world != n:
+                raise ValueError(f"gemm_ar at world {n} needs the mesh of "
+                                 f"its {n} ranks; got {mesh}")
+            from triton_dist_tpu_torch.kernels.allreduce import (
+                qint8_ring_per_device,
+            )
+            gemm_ar_per_device.qint8_branches["ring"] += 1
+            return qint8_ring_per_device(mesh, dot_f32(a, b)).to(
+                torch.result_type(a, b))
+        # the quantized ring needs rows the world divides: the lossless
+        # sum, as the reference does
+        gemm_ar_per_device.qint8_branches["lossless"] += 1
+        method = GemmArMethod.XLA
     if method not in (GemmArMethod.XLA, GemmArMethod.PALLAS):
         raise ValueError(f"unresolved method {method}")
     if n == 1:
@@ -166,6 +185,9 @@ def gemm_ar_per_device(n: int, method: GemmArMethod, a: torch.Tensor,
     part = dot_f32(a, b)
     dist.all_reduce(part, group=mesh.group)
     return part.to(torch.result_type(a, b))
+
+
+gemm_ar_per_device.qint8_branches = {"ring": 0, "lossless": 0}
 
 
 def split_plan(m: int, k: int, n: int, vec: int,

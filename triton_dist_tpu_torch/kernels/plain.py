@@ -9,15 +9,20 @@ B21's fold order (``ring_block_fold``: the reference's XLA_BLOCK tier)
 with its plain versions ``ring_attn_ref`` / ``ring_attn_shards_ref``;
 the small collectives': the all-gather of B7, B8, B22 and B23
 (``all_gather_cat``), B24's send / recv (``p2p_ref``), B25's barrier
-(``barrier_ref``) and B26's ring shift (``ring_shift_ref``). A
-leaf module: the kernel modules import it, and ``layers/common.py``
-(which imports the kernel modules' method enums) re-exports
-``dot_f32``."""
+(``barrier_ref``) and B26's ring shift (``ring_shift_ref``); the
+quantized wire's: B27's int8 row encode (``quantize_stage_ref``), B28's
+fold of the ranks' int8 terms (``qint8_fold``) and the KV handoff
+fan-out's gather + select (``fanout_ref``; B29's plain version is
+``p2p_ref``). A leaf module (it imports only the codec's encode): the
+kernel modules import it, and ``layers/common.py`` (which imports the
+kernel modules' method enums) re-exports ``dot_f32``."""
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from triton_dist_tpu_torch.quant.codec import encode_int8_nearest
 
 NEG_INF = -1e30   # finite: keeps exp/max NaN-free in fully masked rows
 SCORE_BYTES = 1 << 30   # f32 scores a torch attention fold makes at once
@@ -102,6 +107,33 @@ def ring_shift_ref(mesh, x: torch.Tensor, shift: int) -> torch.Tensor:
                        mesh.group)]):
         req.wait()
     return out
+
+
+def fanout_ref(mesh, x: torch.Tensor, src_rank: int,
+               dst_ranks) -> torch.Tensor:
+    """B30's plain version on this rank: every rank's x gathered, then
+    src_rank's on the ranks of ``dst_ranks`` and a copy of x elsewhere."""
+    xs = all_gather_list(mesh, x)
+    return (xs[src_rank] if mesh.rank in dst_ranks else x).clone()
+
+
+def quantize_stage_ref(x: torch.Tensor):
+    """B27's plain version: x (m, k) f32 / bf16 -> (q (m, k) int8, s (m, 1)
+    f32), s = amax / 127 per row (1 for an all-zero row), q =
+    clip(round(x / s), -127, 127)."""
+    if x.ndim != 2:
+        raise ValueError(f"quantize_stage: want 2-D x; got {tuple(x.shape)}")
+    return encode_int8_nearest(x)
+
+
+def qint8_fold(qs, ss, dtype: torch.dtype) -> torch.Tensor:
+    """B28's fold: acc = 0, then acc = acc + q_src * s_src for src = 0 ..
+    n-1 in f32 (a product, then a sum: no fused multiply-add), one cast to
+    ``dtype``. Every rank folds the same terms in this order."""
+    acc = torch.zeros(qs[0].shape, dtype=torch.float32, device=qs[0].device)
+    for q, s in zip(qs, ss):
+        acc = acc + q.float() * s
+    return acc.to(dtype)
 
 
 def slot_fold(parts) -> torch.Tensor:

@@ -34,8 +34,10 @@ class TPContext:
     1; PALLAS_BIDIR = B11 and B13b, the bidirectional rings, at n >= 3,
     B10 and B13a at n = 2; XLA_BIDIR their plain rings); ar_method: the triton_dist_AR mode's sum after the o and down
     products (XLA = the process group's all-reduce, ONE_SHOT = B5, RHD =
-    B6); gemm_ar_method, when set, replaces that product and sum with the
-    fused GEMM + all-reduce (PALLAS = B4); moe_ag_method / moe_rs_method:
+    B6, the int8 wire QINT8_OS = B28 and QINT8 = the int8 ring with B27);
+    gemm_ar_method, when set, replaces that product and sum with the
+    fused GEMM + all-reduce (PALLAS = B4; XLA_QINT8 the f32 product on
+    the int8 ring); moe_ag_method / moe_rs_method:
     the triton_dist mode's MoE gate/up (PALLAS = B14) and down + top-k
     combine (PALLAS = B15), at world 1 and across ranks; AUTO picks the
     kernels on CUDA and the plain products on the CPU. ep_a2a_method: the

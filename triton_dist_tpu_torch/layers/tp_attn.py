@@ -6,7 +6,7 @@ hkv/n kv heads (its columns of wqkv, its rows of wo).
 Mode "xla": x is the whole batch on every rank; local matmuls, and the o
 projection's f32-accumulated product, cast, is all-reduced (the
 reference's psum). Mode "triton_dist_AR": as xla, the sum through
-``ctx.ar_method`` (ONE_SHOT = B5, RHD = B6), or, with
+``ctx.ar_method`` (ONE_SHOT = B5, RHD = B6, QINT8_OS = B28), or, with
 ``ctx.gemm_ar_method`` set, the product and sum as one fused GEMM +
 all-reduce (PALLAS = B4). Mode "triton_dist": x is this rank's rows of
 the batch; AG + GEMM gathers the batch into the QKV projection and GEMM +

@@ -3,7 +3,7 @@ projection (each rank its columns [gate_r | up_r]), silu(gate) * up in f32,
 down projection (its rows). Mode "xla": local matmuls on the whole batch,
 the down projection all-reduced (the reference's psum); mode
 "triton_dist_AR": as xla, the sum through ``ctx.ar_method`` (ONE_SHOT =
-B5, RHD = B6) or, with ``ctx.gemm_ar_method`` set, the down product and
+B5, RHD = B6, QINT8_OS = B28) or, with ``ctx.gemm_ar_method`` set, the down product and
 sum as one fused GEMM + all-reduce (PALLAS = B4); mode "triton_dist":
 this rank's rows through AG + GEMM and GEMM + RS (``ctx.ag_method`` /
 ``ctx.rs_method``; PALLAS runs B10 / B13a at n > 1, B12 at world 1)."""

@@ -72,8 +72,8 @@ class MegaDecodeRuntime:
         self.method = resolve_mega_method(method, model.device)
         if gemm_ar_method is None:
             # the TD_QUANT policy may put the o/down projections on the
-            # int8 wire (which then raises until ROADMAP A13); OFF keeps
-            # AUTO
+            # int8 wire (XLA_QINT8: the f32 product, then the int8 ring
+            # with B27 at every hop); OFF keeps AUTO
             from triton_dist_tpu_torch.quant.policy import (
                 serving_gemm_ar_method,
             )

@@ -186,14 +186,16 @@ class ContinuousEngine:
             self._mega = MegaDecodeRuntime(model, mode=mode, method=mega)
         world = model.ctx.world
         self._mesh = model.ctx.mesh if world > 1 else None
-        # a row-split all-reduce (TWO_SHOT, RHD) hands each rank rows/n
-        # rows: prefill chunks are padded to a multiple of the world (the
-        # pad rows are masked), and the decode batch must be one
+        # a row-split all-reduce (TWO_SHOT, RHD, the int8 ring QINT8)
+        # hands each rank rows/n rows: prefill chunks are padded to a
+        # multiple of the world (the pad rows are masked), and the decode
+        # batch must be one
         self._rows_multiple = 1
         if (mode == "triton_dist_AR" and world > 1
                 and model.ctx.gemm_ar_method is None
                 and model.ctx.ar_method in (AllReduceMethod.TWO_SHOT,
-                                            AllReduceMethod.RHD)):
+                                            AllReduceMethod.RHD,
+                                            AllReduceMethod.QINT8)):
             self._rows_multiple = world
             if max_batch % world:
                 raise ValueError(

@@ -23,8 +23,11 @@ Speculative decode waits for ROADMAP A12.
 
 With ``backend="triton_dist_AR"`` the decode step is
 ``model.inference(mode="triton_dist_AR")`` (the sums after the o and down
-projections through ``ctx.ar_method``: B5 for ONE_SHOT, B6 for RHD; or
-the fused B4 with ``ctx.gemm_ar_method``), captured the same way.
+projections through ``ctx.ar_method``: B5 for ONE_SHOT, B6 for RHD, B28
+for QINT8_OS, B27 at every hop of the QINT8 ring; or the fused B4 with
+``ctx.gemm_ar_method``), captured the same way. B28 and the ring give
+every rank the same bytes, so the broadcast of rank 0's tokens below
+changes nothing there.
 
 Tensor parallelism (``model.ctx.world`` n > 1, one Engine per rank
 process): every rank is given the whole batch and returns the whole

@@ -97,11 +97,13 @@ def finalize_distributed() -> None:
 
 
 def make_comm_mesh(axes: Sequence[tuple[str, int]] | None = None,
-                   axis: str = TP_AXIS) -> Mesh:
+                   axis: str = TP_AXIS, device: str = "cuda") -> Mesh:
     """The mesh over the default process group, axis ``axis``; world 1 on
-    the current device when no group was joined. ``axes`` may name one axis of the whole world; meshes of
-    more axes (the reference's dp x tp layouts, split_axis) wait for
-    ROADMAP A1's remainder."""
+    ``device`` when no group was joined (the current card unless the
+    caller asks for the CPU; without a card that raises). ``axes`` may
+    name one axis of the whole world; meshes of more axes (the
+    reference's dp x tp layouts, split_axis) wait for ROADMAP A1's
+    remainder."""
     if axes is not None:
         if len(axes) != 1:
             raise NotImplementedError(
@@ -114,9 +116,7 @@ def make_comm_mesh(axes: Sequence[tuple[str, int]] | None = None,
         if size not in (None, 1):
             raise ValueError(f"mesh axis {axis}={size} but no process group "
                              "was joined (initialize_distributed)")
-        dev = (resolve_device("cuda") if torch.cuda.is_available()
-               else torch.device("cpu"))
-        return Mesh(None, axis, 0, 1, dev)
+        return Mesh(None, axis, 0, 1, resolve_device(device))
     group = dist.group.WORLD
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     if size not in (None, world):
