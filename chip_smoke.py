@@ -150,6 +150,19 @@ def graph_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_or_none(torch, fn, iters: int = 10):
+    """graph_time_ms of fn, or None where a library call refuses capture
+    (for the yardsticks only: a kernel of the port is timed by
+    graph_time_ms itself, so a capture that fails fails its phase).
+    Beside an eager time_ms it gives the device time without each call's
+    Python and launch cost, which a kernel of ~0.05 ms may approach."""
+    try:
+        return graph_time_ms(fn, iters)
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+
+
 def bound_ms(nbytes: float, flops: float,
              peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / MEM_BW, flops / peak
@@ -166,12 +179,24 @@ def bf16_ulp(x):
 
 # -- B1: flash prefill -------------------------------------------------------
 
+# what B1's bf16 forms run on (csrc/flash_prefill.cu, attn_tile_sm90.cuh)
+B1_INSTRUCTIONS = ("bf16: wgmma.mma_async bf16->f32, m64n128k16 for QK^T "
+                   "(Q, K from shared memory) and m64n64k16 for P.V (P "
+                   "from registers, V transposed); 128-key K/V tiles by "
+                   "TMA into a 2-stage ring (3 at T=1); f32: FMA")
+
 def phase_b1(torch, fa):
     """Kernel vs plain version on the main-path shape, a ragged T=200, an
-    offset > 0, and f32 at both head dims. Tolerances: bf16 2e-2 absolute
-    (outputs round to bf16, 2^-9 relative, and the kernel's 64-key steps
-    round P to bf16 against another running max than the plain version's
-    128-key blocks); f32 1e-4 (summation order only)."""
+    offset > 0, and f32 at both head dims; the bf16 kernel's packing at
+    its edges: D=64, GQA groups g = 1, 2, 8 and 16 (rows a tile 128 // g,
+    or 64 // g at T * g <= 64), ragged T = 7 and T = 200 at g = 8 over a
+    cache with an offset and room past it. Tolerances: bf16 2e-2
+    absolute (outputs round to bf16, 2^-9 relative, and the kernel's
+    128-key steps round P to bf16 against another running max than the
+    plain version's, which a (query, head) row of the packed tile shares
+    with the tile's other rows); f32 1e-4 (summation order only). B1 is
+    also timed inside a CUDA graph, and a capture that fails fails the
+    phase."""
     g = torch.Generator(device=DEV).manual_seed(1)
     cases = [  # (name, dtype, B, T, S, Hq, Hkv, D, offset, tol)
         ("main", torch.bfloat16, 4, 512, 512, 32, 8, 128, 0, 2e-2),
@@ -180,6 +205,18 @@ def phase_b1(torch, fa):
         ("moe_hkv4_g8", torch.bfloat16, 4, 512, 512, 32, 4, 128, 0, 2e-2),
         ("f32_offset70", torch.float32, 2, 130, 200, 4, 2, 128, 70, 1e-4),
         ("f32_d64", torch.float32, 1, 100, 100, 8, 8, 64, 0, 1e-4),
+        ("bf16_d64_g4", torch.bfloat16, 2, 300, 300, 32, 8, 64, 0, 2e-2),
+        ("bf16_d64_g8_offset100", torch.bfloat16, 2, 200, 400, 16, 2, 64,
+         100, 2e-2),
+        ("bf16_g1", torch.bfloat16, 2, 256, 256, 8, 8, 128, 0, 2e-2),
+        ("bf16_g2_offset60", torch.bfloat16, 2, 190, 300, 8, 4, 128, 60,
+         2e-2),
+        ("bf16_g8_t7_offset60", torch.bfloat16, 3, 7, 100, 16, 2, 128, 60,
+         2e-2),
+        ("bf16_g8_t200_offset640", torch.bfloat16, 2, 200, 900, 32, 4, 128,
+         640, 2e-2),
+        ("bf16_g16_t30_offset50", torch.bfloat16, 1, 30, 90, 32, 2, 128, 50,
+         2e-2),
     ]
     rows, main = [], None
     for name, dt, b, t, s, hq, hkv, d, off, tol in cases:
@@ -209,6 +246,9 @@ def phase_b1(torch, fa):
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
                                       enable_gqa=True))
+    graph_ms = graph_time_ms(lambda: fa.flash_prefill(q, k, v, off), 10)
+    library_graph_ms = graph_or_none(torch, lambda: sdpa(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     pairs = sum(min(off + i + 1, s) for i in range(t))   # causal (q, k)
     flops = 4.0 * b * hq * d * pairs
@@ -216,9 +256,12 @@ def phase_b1(torch, fa):
     return {"name": "flash_prefill", "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/flash_prefill.cu",
             "replaces": "triton_dist_tpu/kernels/flash_attention.py:63",
+            "instructions": B1_INSTRUCTIONS,
             "max_abs_err": rows[0]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "shape": [b, t, hq, int(k.shape[2]), d],
+            "library_ms": library_ms, "graph_ms": graph_ms,
+            "library_graph_ms": library_graph_ms,
+            "shape": [b, t, hq, int(k.shape[2]), d],
             "bytes": nbytes, "flops": flops}
 
 
@@ -335,8 +378,10 @@ def phase_b1_decode(torch, fa):
     B=4, Hq 32, Hkv 8, D 128, S=1024, offset 540 as a 0-d int32 tensor on
     the card. Checked against the plain version eagerly and inside a
     captured CUDA graph replayed after the offset moved to 777 (the graph
-    must read the offset on the device). Tolerance 2e-2 absolute (bf16, as
-    B1's prefill form)."""
+    must read the offset on the device); Hkv 4 (g = 8); one TP=4 rank's
+    heads of Qwen3-32B (Hq 16, Hkv 2, B=16) captured with the offset on
+    the device and replayed at 540 and 1,000; D=64. Tolerance 2e-2
+    absolute (bf16, as B1's prefill form)."""
     g = torch.Generator(device=DEV).manual_seed(11)
     b, hq, hkv, d, s, off = 4, 32, 8, 128, 1024, 540
     q = torch.randn((b, 1, hq, d), generator=g, device=DEV).to(torch.bfloat16)
@@ -367,6 +412,36 @@ def phase_b1_decode(torch, fa):
     rows.append({"case": "eager_hkv4_g8_offset540",
                  "max_abs_err": (out4.float() - ref4.float()).abs().max()
                  .item()})
+    # one TP=4 rank of Qwen3-32B's static decode step (Hq 16, Hkv 2, a
+    # group of 8, B=16), captured with its offset on the device and
+    # replayed after it moved
+    qr = torch.randn((16, 1, 16, d), generator=g, device=DEV).to(
+        torch.bfloat16)
+    kr = torch.randn((16, s, 2, d), generator=g, device=DEV).to(
+        torch.bfloat16)
+    vr = torch.randn((16, s, 2, d), generator=g, device=DEV).to(
+        torch.bfloat16)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rout = fa.flash_prefill(qr, kr, vr, off_t)
+    for moved in (540, 1000):
+        off_t.fill_(moved)
+        graph.replay()
+        rref = fa.flash_prefill_ref(qr, kr, vr, moved)
+        torch.cuda.synchronize()
+        rows.append({"case": f"graph_tp4_rank_b16_offset{moved}",
+                     "max_abs_err": (rout.float() - rref.float()).abs()
+                     .max().item()})
+    off_t.fill_(off)
+    del graph, kr, vr
+    # D = 64 (g = 4)
+    q64, k64, v64 = (x[..., :64].contiguous() for x in (q, k, v))
+    out64 = fa.flash_prefill(q64, k64, v64, off_t)
+    ref64 = fa.flash_prefill_ref(q64, k64, v64, off)
+    torch.cuda.synchronize()
+    rows.append({"case": "eager_d64_offset540",
+                 "max_abs_err": (out64.float() - ref64.float()).abs().max()
+                 .item()})
     for r in rows:
         r["tol"] = 2e-2
         r["ok"] = r["max_abs_err"] <= 2e-2
@@ -389,6 +464,7 @@ def phase_b1_decode(torch, fa):
     return {"name": "flash_prefill[decode]", "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/flash_prefill.cu",
             "replaces": "triton_dist_tpu/kernels/flash_attention.py:63",
+            "instructions": B1_INSTRUCTIONS,
             "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "shape": [b, 1, hq, hkv, d, s, off],
@@ -1333,8 +1409,19 @@ def _b1_continuation(torch, fa):
             <= off + torch.arange(t, device=DEV)[:, None])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
-                                      enable_gqa=True))
+    # the yardstick: SDPA over the off + t live keys, causal aligned to
+    # the last query (the flash backend); the dense mask over every key
+    # kept beside it as a note
+    library_ms = time_ms(lambda: _sdpa_causal_offset(torch, q, k, v,
+                                                     off + t))
+    library_err = (_sdpa_causal_offset(torch, q, k, v, off + t).transpose(
+        1, 2).float() - fa.flash_prefill_ref(q, k, v, off).float()
+    ).abs().max().item()
+    library_mask_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                           enable_gqa=True))
+    graph_ms = graph_time_ms(lambda: fa.flash_prefill(q, k, v, offset), 10)
+    library_graph_ms = graph_or_none(
+        torch, lambda: _sdpa_causal_offset(torch, q, k, v, off + t))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     pairs = sum(min(off + i + 1, s) for i in range(t))
     bms, by = bound_ms(nbytes, 4.0 * b * hq * d * pairs)
@@ -1343,6 +1430,12 @@ def _b1_continuation(torch, fa):
                                if "bfloat16" in c["case"]),
             "ok": all(c["ok"] for c in cases),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention over the "
+                            "offset + T live keys, causal_lower_right, "
+                            "enable_gqa",
+            "library_max_abs_err": library_err,
+            "library_mask_ms": library_mask_ms,
+            "graph_ms": graph_ms, "library_graph_ms": library_graph_ms,
             "bound_ms": bms, "bound_by": by}
 
 
@@ -4322,6 +4415,19 @@ def _sdpa(torch, q, k, v, mask=None):
         return sdpa(qh, kh, vh, attn_mask=mask)
 
 
+def _sdpa_causal_offset(torch, q, k, v, live: int):
+    """One scaled_dot_product_attention of (B, T, H, D) tensors, causal
+    with an offset: q's T queries sit at the last T positions of the
+    live keys k[:, :live], where causal_lower_right puts its diagonal
+    (the flash backend takes it; GQA through enable_gqa). As (B, H, T, D)."""
+    from torch.nn.attention.bias import causal_lower_right
+    qh = q.transpose(1, 2)
+    kh, vh = k[:, :live].transpose(1, 2), v[:, :live].transpose(1, 2)
+    return torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=causal_lower_right(qh.shape[2], kh.shape[2]),
+        enable_gqa=True)
+
+
 def _library(torch, fn, **kw):
     """(ms of fn, None), or (None, the error) where the card's backends
     refuse the call."""
@@ -4339,8 +4445,10 @@ def phase_b1_fold(torch, fa):
     at Qwen3-32B's heads (Hq 64, Hkv 8, D 128) and bf16: 2,048 queries
     against a 2,048-key chunk at k_start 0 (the diagonal chunk of a ring)
     and at k_start 2,048 with q_start 4,096 (a whole chunk), the starts
-    also as device tensors; the varlen form over 2,048 rows in 3 segments;
-    f32 cases with segments and a chunk wholly in the future. Tolerances:
+    also as device tensors, a chunk partly and one wholly in the future;
+    the varlen form over 2,048 rows in 3 segments; D=64 at g = 8 (a fold
+    with segments, a varlen with an offset); f32 cases with segments and
+    a chunk wholly in the future. Tolerances:
     SP_TOL_BF16 / SP_TOL_F32 x max|ref| on acc / l, 1e-3 on log l + m.
     Timed: the whole chunk (fold) and the 3 segments (varlen) against the
     plain versions and SDPA (the fold: SDPA over the chunk, which returns
@@ -4365,6 +4473,26 @@ def phase_b1_fold(torch, fa):
     rows.append(_held(torch, "varlen_3seg",
                       fa.flash_prefill(q, k, v, 0, cu_seqlens=cu),
                       fa.flash_prefill_ref(q, k, v, 0, cu), SP_TOL_BF16))
+    # bf16 chunks partly in the future (queries before k_start have no
+    # live key: (0, NEG_INF, 0) rows beside live ones) and wholly in it
+    for name, qs, ks in (("fold_partly_future", 0, 1000),
+                         ("fold_wholly_future", 0, 2048)):
+        rows.append(_held_triple(
+            torch, name, fa.flash_fold_partial(q, k, v, qs, ks),
+            fa.flash_fold_partial_ref(q, k, v, qs, ks), SP_TOL_BF16))
+    # D = 64, g = 8, ragged lengths: a fold with segments and a varlen
+    q64 = _sp_rand(torch, g, (2, 300, 16, 64), torch.bfloat16)
+    k64 = _sp_rand(torch, g, (2, 333, 2, 64), torch.bfloat16)
+    v64 = _sp_rand(torch, g, (2, 333, 2, 64), torch.bfloat16)
+    cu64 = torch.tensor([0, 90, 260, 633], **i32)
+    rows.append(_held_triple(
+        torch, "fold_d64_segments",
+        fa.flash_fold_partial(q64, k64, v64, 333, 0, cu_seqlens=cu64),
+        fa.flash_fold_partial_ref(q64, k64, v64, 333, 0, cu64), SP_TOL_BF16))
+    rows.append(_held(torch, "varlen_d64_offset33",
+                      fa.flash_prefill(q64, k64, v64, 33, cu_seqlens=cu64),
+                      fa.flash_prefill_ref(q64, k64, v64, 33, cu64),
+                      SP_TOL_BF16))
     qf = _sp_rand(torch, g, (2, 200, 8, d), torch.float32)
     kf = _sp_rand(torch, g, (2, 300, 2, d), torch.float32)
     vf = _sp_rand(torch, g, (2, 300, 2, d), torch.float32)
@@ -4395,6 +4523,10 @@ def phase_b1_fold(torch, fa):
                 q, k, v, 4096, 2048), iters=2, warmup=1)}
     fold["library_ms"], fold["library_note"] = _library(
         torch, lambda: _sdpa(torch, q, k, v), iters=5, warmup=1)
+    fold["graph_ms"] = graph_time_ms(
+        lambda: fa.flash_fold_partial(q, k, v, 4096, 2048), 10)
+    fold["library_graph_ms"] = graph_or_none(
+        torch, lambda: _sdpa(torch, q, k, v))
     fold["bound_ms"], fold["bound_by"] = bound_ms(io + stats,
                                                   4.0 * t * t * hq * d)
     seg = [700, 800, t - 1500]
@@ -4410,6 +4542,8 @@ def phase_b1_fold(torch, fa):
                                iters=2, warmup=1)}
     var["library_ms"], var["library_note"] = _library(
         torch, lambda: _sdpa(torch, q, k, v, mask), iters=5, warmup=1)
+    var["graph_ms"] = graph_time_ms(
+        lambda: fa.flash_prefill(q, k, v, 0, cu_seqlens=cu), 10)
     pairs = sum(n_ * (n_ + 1) // 2 for n_ in seg)
     var["bound_ms"], var["bound_by"] = bound_ms(io + q.numel() * 2,
                                                 4.0 * pairs * hq * d)
@@ -4420,14 +4554,16 @@ def phase_b1_fold(torch, fa):
         [r for r in rows if "fold" in r["case"]],
         {"chunk_k2048_q4096": {**fold, **shape}}, "one card",
         library_ms_call="scaled_dot_product_attention over the chunk "
-                        "(normalized rows, enable_gqa)")
+                        "(normalized rows, enable_gqa)",
+        instructions=B1_INSTRUCTIONS)
     var_row = _sp_row(
         "flash_prefill_varlen", "flash_prefill.cu",
         "triton_dist_tpu/kernels/flash_attention.py:63",
         [r for r in rows if "varlen" in r["case"]],
         {"segments_700_800_548": {**var, **shape}}, "one card",
         library_ms_call="scaled_dot_product_attention with the "
-                        "block-causal bool mask (enable_gqa)")
+                        "block-causal bool mask (enable_gqa)",
+        instructions=B1_INSTRUCTIONS)
     return fold_row, var_row
 
 
@@ -5077,9 +5213,38 @@ def _tp4_sp_kernels(torch, dist, mesh, q, k, v, qd, kc, vc, s_loc, pool_k,
     plain_ms, ref = _sp_time(torch, dist, mesh, lambda: fa.flash_prefill_ref(
         q, k_all, v_all, me * t_loc), 1)
     row = _held(torch, "prefill", got, ref, SP_TOL_BF16)
-    out["prefill"] = {**row, "ms": ms, "plain_ms": plain_ms,
-                      "offset": me * t_loc, "keys": k_all.shape[1]}
     del got, ref
+    # bound by operations over the causal (query, key) pairs at the
+    # rank's offset; SDPA over the rank's live keys, causal aligned to its
+    # last query (and, as a note, with the causal-with-offset mask over
+    # every gathered key)
+    pre_pairs = sum(min(me * t_loc + i + 1, k_all.shape[1])
+                    for i in range(t_loc))
+    pre_bytes = 2 * (2 * q.numel() + k_all.numel() + v_all.numel())
+    pbms, pby = bound_ms(pre_bytes, 4.0 * b * hq * d * pre_pairs)
+    live_keys = (me + 1) * t_loc
+    try:
+        lib_ms, _ = _sp_time(torch, dist, mesh, lambda: _sdpa_causal_offset(
+            torch, q, k_all, v_all, live_keys), 2)
+        note = None
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        lib_ms, note = None, str(exc).splitlines()[0][:200]
+    try:
+        mask_ms, _ = _sp_time(torch, dist, mesh,
+                              lambda: _sdpa(torch, q, k_all, v_all, mask), 2)
+    except RuntimeError:
+        torch.cuda.synchronize()
+        mask_ms = None
+    out["prefill"] = {**row, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_note": note,
+                      "library_call": "scaled_dot_product_attention over "
+                                      "the rank's live keys, "
+                                      "causal_lower_right, enable_gqa",
+                      "library_mask_ms": mask_ms,
+                      "bound_ms": pbms, "bound_by": pby,
+                      "flops": 4.0 * b * hq * d * pre_pairs,
+                      "offset": me * t_loc, "keys": k_all.shape[1]}
     k0 = ((me - 1) % n) * t_loc
     k_src = k_all[:, k0:k0 + t_loc].contiguous()
     v_src = v_all[:, k0:k0 + t_loc].contiguous()

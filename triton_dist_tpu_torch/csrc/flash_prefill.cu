@@ -3,7 +3,9 @@
 // Replaces the TPU kernel kernels/flash_attention.py::_prefill_kernel of the
 // JAX package (launched by flash_prefill and flash_fold_partial through
 // _flash_launch) in all three of its forms:
-//  * prefill: the normalized output over a cache, queries at offset + i;
+//  * prefill: the normalized output over a cache, queries at offset + i
+//    (the prefill, a prefill chunk's continuation, and the dense decode
+//    step at T = 1);
 //  * varlen (cu_seqlens): the causal mask further confined to each
 //    position's segment of a packed batch, the segment of a position being
 //    the count of boundaries cu_seqlens[1..n_seq] at or below it;
@@ -15,25 +17,65 @@
 // T=S=512, Hq=32, Hkv=8, D=128, bf16) the function must move ~42 MB (q, k,
 // v read once, o written once): 12.5 us at 3.35 TB/s; its causal QK^T and
 // PV take ~8.6 GFLOP: 8.7 us at the 989 TFLOP/s bf16 tensor-core peak, so
-// the bound is bytes. At the sequence-parallel fold (2,048 queries against
-// a 2,048-key chunk at Qwen3-32B's 64 heads) it is operations: ~137 GFLOP
-// for the full chunk, ~0.14 ms. This kernel computes with FP32 FMAs out of
-// shared memory and uses no tensor cores, so it is bound by FMA issue and
-// shared-memory reads well above either bound; mma/wgmma tiles and TMA
-// loads are the later step.
+// the bound is bytes. At the dense decode step (T = 1) it is bytes: each
+// (batch, kv head) streams its live keys and values once. At the
+// sequence-parallel fold (2,048 queries against a 2,048-key chunk at
+// Qwen3-32B's 64 heads) it is operations: ~137 GFLOP for the full chunk,
+// ~0.14 ms.
 //
-// Design:
-//  * the query start, the key start and the segment boundaries are read
-//    from device memory when the caller passes pointers (the dense cache's
-//    on-device offset, a ring step's chunk origin), so the launch needs no
-//    host read and a CUDA graph that captures it stays right as they
-//    advance; the grid depends only on T;
-//  * one block = (64-query tile, one q head, one batch row). The TPU grid's
-//    sequential key-block axis (a sum carried in VMEM scratch across grid
-//    steps) becomes a loop inside the block, bounded by the causal diagonal
-//    exactly like the reference's block_live test (with the key start:
-//    k_start + kb * BK <= the tile's last query), so key blocks above the
-//    diagonal are never loaded;
+// Two bodies, by dtype:
+//
+// bf16 (every serving path): the Hopper kernel in namespace hop, built
+// from attn_tile_sm90.cuh.
+//  * GQA-packed rows. A block's 64 or 128 rows are (query, head) pairs of
+//    ONE kv head: row r is query q0 + r / hpt and q head hk * g + h0 +
+//    r % hpt, hpt = g (or the rows, when g exceeds them). Each K/V tile is
+//    read once for all g heads that share it, and at T = 1 a block holds g
+//    live rows. The packing (queries a tile, heads a tile, the grid) is
+//    flash_attention.py's flash_plan, passed in by the launch; the grid is
+//    (query tiles x head tiles, Hkv, B) and depends only on T and g.
+//  * Tensor cores for both products, 128 keys a step: QK^T is wgmma
+//    m64n128k16 bf16 -> f32 with Q and K from shared memory (K-major);
+//    P.V is wgmma m64n64k16 per 64-column slab of V, with P from
+//    registers (the QK^T accumulator rounded to bf16 in place) and V read
+//    MN-major (transposed) from shared memory. Every form uses wgmma, the
+//    T = 1 form included: there one consumer warpgroup of 64 rows holds
+//    the g live rows, and the ring below keeps its bytes in flight.
+//    (128-key steps ran faster here than 64-key steps; a software
+//    pipeline of QK^T of step i + 1 beside P.V of step i, FA3's, ran
+//    slower with two warpgroups a block.)
+//  * Asynchronous K/V: one producer warp keeps 2 (3 at T = 1) stages of
+//    128-key K and V tiles in flight by TMA (a 4-D tensor map of the
+//    (B, S, Hkv, D) layout, 128-byte swizzle matching the descriptors;
+//    keys past S arrive as zeros), each stage guarded by full / empty
+//    mbarriers. Tiles stay bf16 in shared memory: at D = 128 a 128-row Q
+//    tile and two stages take 160 KB.
+//  * The softmax in registers: row max and row sum from the accumulator
+//    fragment by quad shuffles; masking only on the key steps that need
+//    it (the causal diagonal or a chunk partly in the future, the s_len
+//    tail, a segment boundary), as a compare against each row's window
+//    [segment start, min(position, S - 1)]; O's rescale skipped where
+//    the rows' maxima did not move.
+//  * Positions are read on the device (q_start_ptr, k_start_ptr, cu):
+//    a captured CUDA graph stays right as they advance. Key steps run
+//    [kb_lo, nk): nk is the reference's block_live bound with the key
+//    start at the tile's last query; in varlen, steps wholly before the
+//    tile's first segment are skipped (all masked, they change nothing).
+//  * The reference's numerics: a finite NEG_INF for m; probabilities
+//    exp(s - m) (as exp2 of the scaled log2 argument), 0 where masked;
+//    l summed from the f32 probabilities before P is rounded to bf16 for
+//    P.V; the normalized form divides by max(l, 1e-30); the fold form
+//    stores acc, m and l unnormalized in f32, (0, NEG_INF, 0) for a row
+//    with no live key.
+//
+// f32 (the gates that need f32 exactness: 1e-4 against the plain version
+// and the continuation's off-by-one check; TF32 would miss them, and no
+// serving path runs B1 in f32): the FMA body below, one block per
+// (64-query tile, q head, batch row):
+//  * the TPU grid's sequential key-block axis becomes a loop inside the
+//    block, bounded by the causal diagonal exactly like the reference's
+//    block_live test (with the key start: k_start + kb * BK <= the tile's
+//    last query), so key blocks above the diagonal are never loaded;
 //  * q head h reads kv head h / (Hq/Hkv) (GQA) straight from the
 //    (B, S, Hkv, D) layout through strides: no head-major copies in HBM;
 //  * tiles are staged through 16-byte loads, several in flight per
@@ -42,19 +84,20 @@
 //    kernel reads padded tails and zeroes V's tail rows instead; the
 //    in-chunk mask k < k_start + S of its fold form is this bound);
 //  * online softmax with the running (m, l) of each row in shared memory,
-//    the reference's numerics kept: finite NEG_INF, probabilities rounded
-//    to bf16 before P.V when V is bf16, the sum l taken before that
-//    rounding, and for the normalized form the final division by
-//    max(l, 1e-30); the fold form stores acc, m and l as they stand;
+//    the reference's numerics kept as above;
 //  * segment ids of the tile's queries are computed once, those of each
 //    key step beside its tile, from the boundaries in device memory;
 //  * each thread holds a 4 x (D/16) register tile of scores and outputs
 //    (rows rg + 16i, columns cg + 16j), so shared-memory reads stay
 //    conflict-free (rows padded to D+1 floats).
 
+#include <atomic>
+
+#include "attn_tile_sm90.cuh"
 #include "td_common.cuh"
 
 namespace {
+
 
 constexpr int BQ = 64;   // queries per block
 constexpr int BK = 64;   // keys per loop step
@@ -284,6 +327,389 @@ cudaError_t launch(const Args<T>& a, int b, cudaStream_t stream) {
                          : launch_form<T, D, false>(a, b, stream);
 }
 
+// -- bf16: the Hopper kernel -------------------------------------------------
+
+namespace hop {
+
+using bf16 = __nv_bfloat16;
+namespace s9 = td::sm90;
+
+constexpr int KEYS = 128;         // keys per step (one n128 QK^T product)
+constexpr int KSLAB = KEYS * 64;  // elements of a K or V slab
+constexpr int NO_SEG = -(1 << 30);
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Keys and values in flight: 3 stages for the one-warpgroup (T=1) form,
+// which is bound by the bytes it streams, 2 for the two-warpgroup form
+// (what fits in shared memory beside its 128-row Q tile).
+template <int NWG>
+__host__ __device__ constexpr int stages() {
+  return NWG == 1 ? 3 : 2;
+}
+
+template <int D, int NWG>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // 1 KB of slack to align the slabs to 1024 bytes, Q, the K and V ring,
+  // three barriers a stage
+  return 1024 + sizeof(bf16) * (size_t)(D / 64) *
+                    (NWG * 64 * 64 + 2 * stages<NWG>() * KSLAB) +
+         3 * stages<NWG>() * sizeof(uint64_t);
+}
+
+// One launch: the shapes, positions and outputs (as Args) and the packing
+// that flash_attention.py's flash_plan computed.
+struct Plan {
+  const bf16* q;
+  bf16* o;
+  float* acc;
+  float* m_out;
+  float* l_out;
+  int t_len, s_len, hq, hkv;
+  const int* q_start_ptr;
+  int q_start;
+  const int* k_start_ptr;
+  int k_start;
+  const int* cu;
+  int n_seq;
+  float scale;
+  int q_per_tile;  // queries of a tile
+  int h_per_tile;  // heads of the kv head's group in a tile
+  int h_tiles;     // tiles across the group (1 unless g > rows)
+};
+
+// The start of pos's segment: the largest boundary cu[1..n_seq] at or
+// below it, NO_SEG if none. A key at or before pos shares its segment iff
+// it is at or after this start.
+__device__ __forceinline__ int segment_start(const int* __restrict__ cu,
+                                             int n_seq, int pos) {
+  int lo = NO_SEG;
+  for (int j = 1; j <= n_seq; ++j) {
+    const int c = __ldg(cu + j);
+    if (c <= pos) lo = max(lo, c);
+  }
+  return lo;
+}
+
+// Block = (tile of packed rows, kv head, batch row). Warps 0 .. 4 NWG - 1
+// are NWG consumer warpgroups of 64 rows each; warp 4 NWG is the producer,
+// one thread of which streams K and V through the ring by TMA. The
+// producer is one warp, not a warpgroup: 160 or 288 threads leave each
+// consumer thread 255 or 224 registers without setmaxnreg.
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    attn_kernel(const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const Plan a) {
+  constexpr int M = NWG * 64;  // packed rows of the block
+  constexpr int NH = D / 64;   // 64-column slabs of a row
+  constexpr int ST = stages<NWG>();
+  constexpr uint32_t TILE_BYTES = NH * KSLAB * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const qs = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* const ks = qs + NH * M * 64;      // [ST][NH][KEYS][64]
+  bf16* const vs = ks + ST * NH * KSLAB;  // [ST][NH][KEYS][64]
+  uint64_t* const full_k = reinterpret_cast<uint64_t*>(vs + ST * NH * KSLAB);
+  uint64_t* const full_v = full_k + ST;
+  uint64_t* const empty = full_v + ST;
+
+  const int offset = a.q_start_ptr != nullptr ? *a.q_start_ptr : a.q_start;
+  const int k_base = a.k_start_ptr != nullptr ? *a.k_start_ptr : a.k_start;
+  const int t_len = a.t_len, s_len = a.s_len;
+  const int g = a.hq / a.hkv;
+  const int hpt = a.h_per_tile;
+  const int q0 = (blockIdx.x / a.h_tiles) * a.q_per_tile;
+  const int h0 = (blockIdx.x % a.h_tiles) * hpt;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+
+  // live key steps: [kb_lo, nk). The causal bound is the reference's
+  // block_live with the key start, taken at the tile's last real query;
+  // in varlen, steps wholly before the first query's segment are skipped
+  // (every row of the tile masks them).
+  const int q_last = min(q0 + a.q_per_tile - 1, t_len - 1);
+  const int last_pos = offset + q_last;
+  const int nk = last_pos < k_base
+                     ? 0
+                     : min((s_len + KEYS - 1) / KEYS,
+                           (last_pos - k_base) / KEYS + 1);
+  int kb_lo = 0, lo_last = NO_SEG;
+  if (a.cu != nullptr) {
+    const int lo_first = segment_start(a.cu, a.n_seq, offset + q0);
+    if (lo_first > k_base) kb_lo = min((lo_first - k_base) / KEYS, nk);
+    lo_last = segment_start(a.cu, a.n_seq, last_pos);
+  }
+
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      s9::mbar_init(full_k + s, 1);
+      s9::mbar_init(full_v + s, 1);
+      s9::mbar_init(empty + s, NWG * 128);
+    }
+    s9::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {
+    // producer: the ring's K and V tiles, slab by slab
+    if ((threadIdx.x & 31) == 0) {
+      for (int kb = kb_lo, i = 0; kb < nk; ++kb, ++i) {
+        const int st = i % ST;
+        if (i >= ST) s9::mbar_wait(empty + st, ((i / ST) & 1) ^ 1);
+        s9::mbar_expect_tx(full_k + st, TILE_BYTES);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          s9::tma_load_4d(ks + (st * NH + h) * KSLAB, &tm_k, full_k + st,
+                          64 * h, hk, kb * KEYS, b);
+        s9::mbar_expect_tx(full_v + st, TILE_BYTES);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          s9::tma_load_4d(vs + (st * NH + h) * KSLAB, &tm_v, full_v + st,
+                          64 * h, hk, kb * KEYS, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: packed rows [64 wg, 64 wg + 64)
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int rows_live = a.q_per_tile * hpt;
+
+  // row R of the tile is (query q0 + R / hpt, head h0 + R % hpt); rows
+  // past the tile's pairs, past T or past the group are zeros and never
+  // stored
+  auto row_pair = [&](int r, int& q, int& h) {
+    q = q0 + r / hpt;
+    h = h0 + r % hpt;
+    return r < rows_live && q < t_len && h < g;
+  };
+
+  // Q: this warpgroup's 64 rows into the swizzled slabs, every load
+  // issued before the first store (a store between them would wait out
+  // each load's latency in turn)
+  constexpr int QV = 64 * D / 8 / 128;  // 16-byte chunks a thread moves
+  uint4 qv[QV];
+#pragma unroll
+  for (int u = 0; u < QV; ++u) {
+    const int idx = tid + 128 * u;
+    int q, h;
+    qv[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (row_pair(wg * 64 + idx / (D / 8), q, h))
+      qv[u] = __ldg(reinterpret_cast<const uint4*>(
+                        a.q + (((long)b * t_len + q) * a.hq + hk * g + h) *
+                                  D) +
+                    idx % (D / 8));
+  }
+#pragma unroll
+  for (int u = 0; u < QV; ++u) {
+    const int idx = tid + 128 * u;
+    const int r = wg * 64 + idx / (D / 8);
+    const int c = idx % (D / 8);  // 16-byte chunk of the row
+    *reinterpret_cast<uint4*>(qs + (c >> 3) * M * 64 + r * 64 +
+                              (((c & 7) ^ (r & 7)) << 3)) = qv[u];
+  }
+  s9::fence_proxy_async();
+  s9::named_sync(1 + wg, 128);
+
+  // this thread's two rows: ra and ra + 8 of the warpgroup
+  const int ra = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  int qa, ha, qb, hb;
+  const bool live_a = row_pair(ra, qa, ha);
+  const bool live_b = row_pair(ra + 8, qb, hb);
+  const int pos_a = offset + qa, pos_b = offset + qb;
+  const int lo_a = a.cu != nullptr ? segment_start(a.cu, a.n_seq, pos_a)
+                                   : NO_SEG;
+  const int lo_b = a.cu != nullptr ? segment_start(a.cu, a.n_seq, pos_b)
+                                   : NO_SEG;
+
+  const float sl2 = a.scale * LOG2E;
+  float m_a = td::NEG_INF, m_b = td::NEG_INF, l_a = 0.f, l_b = 0.f;
+  float o[NH][32];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+
+  const uint32_t q_addr = s9::smem_addr(qs) + wg * 64 * 128;
+  const uint32_t k_addr = s9::smem_addr(ks);
+  const uint32_t v_addr = s9::smem_addr(vs);
+  const int col0 = 2 * (lane & 3);
+
+  for (int kb = kb_lo, i = 0; kb < nk; ++kb, ++i) {
+    const int st = i % ST;
+    const uint32_t par = (i / ST) & 1;
+    const int k0 = kb * KEYS;
+    const int kp0 = k_base + k0;
+
+    // S = Q K^T on the tensor cores
+    float s[KEYS / 2];
+    s9::mbar_wait(full_k + st, par);
+    s9::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      s9::wgmma_ss(
+          s,
+          s9::desc_sw128(q_addr + (kk >> 2) * M * 128 + (kk & 3) * 32, 16,
+                         1024),
+          s9::desc_sw128(k_addr + (st * NH + (kk >> 2)) * KSLAB * 2 +
+                             (kk & 3) * 32,
+                         16, 1024),
+          kk > 0);
+    s9::wgmma_commit();
+    s9::wgmma_wait<0>();
+    s9::fence_regs(s);
+
+    // masks only where a tile needs them: the causal diagonal (or a
+    // chunk partly in the future), the s_len tail, a segment boundary
+    const bool masked = kp0 + KEYS - 1 > offset + q0 || k0 + KEYS > s_len ||
+                        kp0 < lo_last;
+    if (masked) {
+      const int hi_a = min(pos_a - kp0, s_len - k0 - 1);
+      const int hi_b = min(pos_b - kp0, s_len - k0 - 1);
+      const int lo_ca = lo_a - kp0, lo_cb = lo_b - kp0;
+#pragma unroll
+      for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + col0 + e;
+          if (c > hi_a || c < lo_ca) s[4 * j + e] = -INFINITY;
+          if (c > hi_b || c < lo_cb) s[4 * j + 2 + e] = -INFINITY;
+        }
+    }
+
+    // online softmax in registers: the rows' maxima by quad shuffles
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    // max(scale * s) = scale * max(s): rounding is monotonic
+    const float mn_a = fmaxf(m_a, s9::quad_max(mx_a) * a.scale);
+    const float mn_b = fmaxf(m_b, s9::quad_max(mx_b) * a.scale);
+    const float al_a = exp2f((m_a - mn_a) * LOG2E);
+    const float al_b = exp2f((m_b - mn_b) * LOG2E);
+    m_a = mn_a;
+    m_b = mn_b;
+    const float nm_a = -mn_a * LOG2E;
+    const float nm_b = -mn_b * LOG2E;
+    float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+      // a masked score is -inf: its probability is exactly 0
+      s[4 * j] = exp2f(fmaf(s[4 * j], sl2, nm_a));
+      s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, nm_a));
+      s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, nm_b));
+      s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], sl2, nm_b));
+      ps_a += s[4 * j] + s[4 * j + 1];
+      ps_b += s[4 * j + 2] + s[4 * j + 3];
+    }
+    // l from the f32 probabilities (a thread's share of its rows; the
+    // quad's shares are summed once at the end)
+    l_a = l_a * al_a + ps_a;
+    l_b = l_b * al_b + ps_b;
+    // once the rows' maxima settle, alpha is 1 and the rescale is skipped
+    // (multiplying by 1 changes nothing)
+    if (al_a != 1.f || al_b != 1.f) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[h][4 * j] *= al_a;
+          o[h][4 * j + 1] *= al_a;
+          o[h][4 * j + 2] *= al_b;
+          o[h][4 * j + 3] *= al_b;
+        }
+    }
+    uint32_t pa[KEYS / 16][4];  // P rounded to bf16, as P.V's A fragments
+    s9::p_fragments<KEYS>(s, pa);
+
+    // O += P V on the tensor cores
+    s9::mbar_wait(full_v + st, par);
+    s9::wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+        s9::wgmma_rs_tb(o[h], pa[kk],
+                        s9::desc_sw128(v_addr + (st * NH + h) * KSLAB * 2 +
+                                           kk * 16 * 128,
+                                       KEYS * 128, 1024));
+    s9::wgmma_commit();
+    s9::wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < NH; ++h) s9::fence_regs(o[h]);
+    s9::mbar_arrive(empty + st);
+  }
+
+  l_a = s9::quad_sum(l_a);
+  l_b = s9::quad_sum(l_b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const bool live = half == 0 ? live_a : live_b;
+    if (!live) continue;
+    const int q = half == 0 ? qa : qb;
+    const int h = half == 0 ? ha : hb;
+    const float l = half == 0 ? l_a : l_b;
+    const long row = ((long)b * t_len + q) * a.hq + hk * g + h;
+    if (a.acc != nullptr) {
+#pragma unroll
+      for (int sl = 0; sl < NH; ++sl)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(a.acc + row * D + 64 * sl + 8 * j +
+                                     col0) =
+              make_float2(o[sl][4 * j + 2 * half],
+                          o[sl][4 * j + 2 * half + 1]);
+      if ((lane & 3) == 0) {
+        a.m_out[row] = half == 0 ? m_a : m_b;
+        a.l_out[row] = l;
+      }
+    } else {
+      const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+      for (int sl = 0; sl < NH; ++sl)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(a.o + row * D + 64 * sl +
+                                             8 * j + col0) =
+              __floats2bfloat162_rn(o[sl][4 * j + 2 * half] / den,
+                                    o[sl][4 * j + 2 * half + 1] / den);
+    }
+  }
+}
+
+template <int D, int NWG>
+cudaError_t launch(const Plan& a, const void* k, const void* v, int b,
+                   cudaStream_t stream) {
+  CUtensorMap tm_k, tm_v;
+  if (!s9::bshd_map(&tm_k, k, b, a.s_len, a.hkv, D, KEYS) ||
+      !s9::bshd_map(&tm_v, v, b, a.s_len, a.hkv, D, KEYS))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<D, NWG>();
+  // the shared-memory attribute is set once per device for this instance
+  // (a bit per device), not on every launch
+  static std::atomic<uint64_t> smem_set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(smem_set.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(attn_kernel<D, NWG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_set.fetch_or(bit, std::memory_order_release);
+  }
+  const int q_tiles = (a.t_len + a.q_per_tile - 1) / a.q_per_tile;
+  const dim3 grid(q_tiles * a.h_tiles, a.hkv, b);
+  attn_kernel<D, NWG><<<grid, NWG * 128 + 32, smem, stream>>>(tm_k, tm_v, a);
+  return cudaGetLastError();
+}
+
+}  // namespace hop
 }  // namespace
 
 // q: (B, T, Hq, D); k, v: (B, S, Hkv, D); all contiguous, one dtype
@@ -293,21 +719,52 @@ cudaError_t launch(const Args<T>& a, int b, cudaStream_t stream) {
 // memory) is not null. q_start / k_start are read from device memory (one
 // int32 each) when their pointers are not null, else the values passed.
 // Exactly one output form: o (B, T, Hq, D) of the dtype, normalized; or
-// acc (B, T, Hq, D), m, l (B, T, Hq) f32, unnormalized. Returns a
-// cudaError_t.
+// acc (B, T, Hq, D), m, l (B, T, Hq) f32, unnormalized. The bf16 kernel's
+// packing (flash_attention.py's flash_plan): rows a block (64 or 128),
+// queries a tile, heads of the group a tile, tiles across the group; the
+// f32 body ignores it. Returns a cudaError_t.
 extern "C" int td_flash_attn(const void* q, const void* k, const void* v,
                              void* o, void* acc, void* m_out, void* l_out,
                              int b, int t_len, int s_len, int hq, int hkv,
                              int d, const void* q_start_ptr, int q_start,
                              const void* k_start_ptr, int k_start,
                              const void* cu, int n_seq, float scale,
-                             int dtype, void* stream) {
+                             int dtype, int rows, int q_per_tile,
+                             int h_per_tile, int h_tiles, void* stream) {
   if (b <= 0 || t_len <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0 ||
       (o == nullptr) == (acc == nullptr) ||
       (acc != nullptr && (m_out == nullptr || l_out == nullptr)) ||
       (cu != nullptr && n_seq <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == td::BF16) {
+    // the plan must cover every (query, head) pair of a kv head's group
+    const int g = hq / hkv;
+    if ((rows != 64 && rows != 128) || q_per_tile <= 0 || h_per_tile <= 0 ||
+        h_tiles <= 0 || q_per_tile * h_per_tile > rows ||
+        h_per_tile * h_tiles < g || (h_per_tile < g && q_per_tile != 1) ||
+        (h_per_tile > g))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const hop::Plan a{static_cast<const __nv_bfloat16*>(q),
+                      static_cast<__nv_bfloat16*>(o),
+                      static_cast<float*>(acc),
+                      static_cast<float*>(m_out),
+                      static_cast<float*>(l_out),
+                      t_len, s_len, hq, hkv,
+                      static_cast<const int*>(q_start_ptr), q_start,
+                      static_cast<const int*>(k_start_ptr), k_start,
+                      static_cast<const int*>(cu), n_seq, scale,
+                      q_per_tile, h_per_tile, h_tiles};
+#define TD_HOP(DIM, NWG)                                                     \
+  if (d == DIM && rows == 64 * NWG)                                          \
+    return static_cast<int>(hop::launch<DIM, NWG>(a, k, v, b, st));
+    TD_HOP(64, 1)
+    TD_HOP(64, 2)
+    TD_HOP(128, 1)
+    TD_HOP(128, 2)
+#undef TD_HOP
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define TD_CASE(CODE, TYPE, DIM)                                             \
   if (dtype == CODE && d == DIM) {                                           \
     const Args<TYPE> a{static_cast<const TYPE*>(q),                          \
@@ -325,8 +782,6 @@ extern "C" int td_flash_attn(const void* q, const void* k, const void* v,
   }
   TD_CASE(td::F32, float, 64)
   TD_CASE(td::F32, float, 128)
-  TD_CASE(td::BF16, __nv_bfloat16, 64)
-  TD_CASE(td::BF16, __nv_bfloat16, 128)
 #undef TD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

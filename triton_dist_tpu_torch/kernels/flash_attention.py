@@ -2,7 +2,9 @@
 kernels/flash_attention.py over its Pallas _prefill_kernel and
 _decode_kernel).
 
-B1, ``csrc/flash_prefill.cu``, in its three forms:
+B1, ``csrc/flash_prefill.cu`` (bf16: the Hopper kernel of
+``csrc/attn_tile_sm90.cuh``'s tiles, packed by ``flash_plan``; f32: the
+FMA body), in its three forms:
 
   * ``flash_prefill``: normalized causal attention over a cache, the
     prefill and the dense decode step (counted in
@@ -40,6 +42,7 @@ segment is the number of boundaries cu_seqlens[1:] at or below it.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -104,6 +107,47 @@ def _fold_ref(q, k, v, q_start, k_start, cu_seqlens):
         m = m_new
         acc = acc * alpha + torch.matmul(p_cast(p, v.dtype), vb)
     return acc, m, l
+
+
+# -- B1's packing: GQA rows of one kv head in a block --------------------------
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """How B1's bf16 kernel packs one launch. A block holds ``rows`` (64:
+    one consumer warpgroup, 128: two) (query, head) pairs of ONE kv head:
+    row r is query ``q_tile * q_per_tile + r // h_per_tile`` and group
+    head ``h_tile * h_per_tile + r % h_per_tile``; rows past the tile's
+    pairs, past T or past the group are padding, computed and never
+    stored. The grid is (q_tiles * h_tiles, Hkv, B): block x is
+    ``q_tile * h_tiles + h_tile``. It depends only on T and the group g,
+    never on the offsets, which the kernel reads on the device (and with
+    them its own live key steps)."""
+    rows: int
+    q_per_tile: int
+    h_per_tile: int
+    h_tiles: int
+    grid: tuple[int, int, int]
+
+
+def flash_plan(b: int, t: int, hq: int, hkv: int) -> FlashPlan:
+    """B1's bf16 packing for q (b, t, hq, D) against hkv kv heads: one
+    warpgroup's 64 rows when the t * g pairs of a kv head fit (the decode
+    step: g live rows), else two warpgroups' 128; rows // g queries a tile
+    with all g heads, or, when g exceeds the rows, one query a tile and
+    the group cut into tiles of ``rows`` heads."""
+    if b <= 0 or t <= 0 or hkv <= 0 or hq % hkv:
+        raise ValueError(f"flash_plan: B={b}, T={t}, Hq={hq}, Hkv={hkv}")
+    g = hq // hkv
+    rows = 64 if t * g <= 64 else 128
+    if g <= rows:
+        q_per_tile, h_per_tile, h_tiles = rows // g, g, 1
+    else:
+        q_per_tile, h_per_tile, h_tiles = 1, rows, -(-g // rows)
+    return FlashPlan(rows, q_per_tile, h_per_tile, h_tiles,
+                     (-(-t // q_per_tile) * h_tiles, hkv, b))
+
+
+_F32_PLAN = FlashPlan(0, 0, 0, 0, (0, 0, 0))   # the f32 body takes no plan
 
 
 def flash_prefill_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -270,19 +314,23 @@ def _launch(q, k, v, q_start, k_start, cu_seqlens, emit_stats: bool):
     else:
         out = torch.empty_like(q)
         acc = m = l = None
+    plan = (flash_plan(b, t, hq, hkv) if q.dtype == torch.bfloat16
+            else _F32_PLAN)
     fn = build.function("flash_prefill", "td_flash_attn", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
     ptr = (lambda x: None if x is None else x.data_ptr())
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(out),
                  ptr(acc), ptr(m), ptr(l), b, t, s, hq, hkv, d, q_ptr,
                  q_val, k_ptr, k_val, cu_ptr, n_seq, d ** -0.5,
-                 _DTYPE_CODE[q.dtype], build.stream_of(q))
+                 _DTYPE_CODE[q.dtype], plan.rows, plan.q_per_tile,
+                 plan.h_per_tile, plan.h_tiles, build.stream_of(q))
     build.check(err, what)
     return (acc, m, l) if emit_stats else (out, None, None)
 

@@ -69,19 +69,19 @@ def fold_in(key, data: int) -> tuple[int, int]:
     return (int(a[0]), int(b[0]))
 
 
-def random_bits(key, shape, device="cpu") -> torch.Tensor:
+def random_bits(key, shape, device) -> torch.Tensor:
     """32 random bits per element of ``shape`` (int64 tensor holding
-    uint32 values): the hash of each element's flat-index counter pair,
-    its two words XORed."""
+    uint32 values) on ``device``: the hash of each element's flat-index
+    counter pair, its two words XORed."""
     size = math.prod(shape)
     idx = torch.arange(size, dtype=torch.int64, device=device)
     w0, w1 = threefry_2x32(key, idx >> 32, idx & _MASK)
     return (w0 ^ w1).reshape(shape)
 
 
-def uniform(key, shape, device="cpu") -> torch.Tensor:
-    """f32 uniform in [0, 1) of ``shape``: the top 23 random bits as the
-    mantissa of a float in [1, 2), minus 1."""
+def uniform(key, shape, device) -> torch.Tensor:
+    """f32 uniform in [0, 1) of ``shape`` on ``device``: the top 23 random
+    bits as the mantissa of a float in [1, 2), minus 1."""
     bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
