@@ -19,8 +19,9 @@ steps, and small f32 models (dense and MoE) served on the card against
 the CPU. Then the tensor-parallel kernels: tutorial 01's notify / wait,
 B10 (AllGather + GEMM), B13a (GEMM + ReduceScatter), B4 across ranks
 (GEMM + AllReduce), B5 (one-shot all-reduce), B6 (recursive
-halving-doubling all-reduce), B9 / B7 (the ring reduce-scatter and
-all-gather) and B14 / B15 across ranks (the MoE token all-gather + gate/up
+halving-doubling all-reduce), B9 / B7 (the reduce-scatter and
+all-gather of TWO_SHOT, one hop each on NVSwitch, with a flag's round
+trip as their latency floor) and B14 / B15 across ranks (the MoE token all-gather + gate/up
 grouped GEMM, the down grouped GEMM + top-k combine + reduce-scatter, at
 Qwen3-30B-A3B's TP=4 shapes) against their plain versions with four
 logical ranks on one card (the one-card world); and, when four cards are
@@ -1863,10 +1864,12 @@ TP_MODEL = "Qwen/Qwen3-32B"
 FOUR_CARD_PHASES = ("tp4_serve", "tp4_consistency", "tp4_continuous",
                     "tp4_continuous_consistency", "tp4_moe",
                     "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency",
-                    "tp4_sp", "tp4_sp_consistency", "tp4_comm", "tp4_quant")
+                    "tp4_sp", "tp4_sp_consistency", "tp4_comm", "tp4_quant",
+                    "tp4_ring")
 ONE_CARD_TP_PHASES = ("dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs",
                       "b4_gemm_ar_tp", "b5_one_shot", "b6_rhd",
-                      "b9_ring_rs", "b7_ring_ag", "two_shot", "b14_b15_tp",
+                      "b9_ring_rs", "b7_ring_ag", "two_shot", "ring_floor",
+                      "b14_b15_tp",
                       "b8_full_mesh_ag", "b11_ag_gemm_bidir",
                       "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
                       "b16_ep_dispatch_gg", "b1_fold",
@@ -2219,12 +2222,18 @@ def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
     return rec
 
 
-# the ring collectives' one-card shapes: (name, kind, rows m of each
-# rank's chunk, K); kinds "ring_rs" (B9: each rank's x (4m, K) -> (m, K)),
+# the ring collectives' one-card shapes: (name, rows m of each rank's
+# chunk, K); kinds "ring_rs" (B9: each rank's x (4m, K) -> (m, K)),
 # "ring_ag" (B7: (m, K) -> (4m, K)) and "two_shot" (B9 then B7: (4m, K)
 # -> (4m, K)). m 4: a TP=4 decode step's 16 rows; m 128: one 512-token
-# prefill chunk.
+# prefill chunk (timed). The edges, held only: m 1 and 2 (the
+# ContinuousEngine's padded short chunks) and K 5000 (625 vectors a row
+# in bf16, 1,250 in f32: the grid's column slices are uneven).
 _RING_SHAPES = (("m4", 4, 5120), ("m128", 128, 5120))
+_RING_EDGES = (("m1", 1, 5120), ("m2", 2, 5120), ("m4_k5000", 4, 5000),
+               ("m128_k5000", 128, 5000))
+# rows a rank chunk of the protocol sweep (K 5120 bf16)
+_RING_SWEEP_ROWS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def _ring_io(kind, m, k):
@@ -2234,19 +2243,74 @@ def _ring_io(kind, m, k):
             "two_shot": (full, full)}[kind]
 
 
+def _world_graphs(torch, world, fn):
+    """A CUDA graph per rank of the one-card world, fn(r) captured on the
+    rank's stream after an eager warm-up of every rank (workspaces and
+    kernels are made outside capture), as each rank process of four cards
+    captures its own. Returns (each rank's captured outputs, replay):
+    replay() launches the ranks' graphs together and returns its device
+    ms."""
+    world.run(fn)
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for r, s in enumerate(world.streams):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            outs.append(fn(r))
+        graphs.append(graph)
+
+    def replay():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        world.run(lambda r: graphs[r].replay())
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1])
+    return outs, replay
+
+
+def _two_shot_graph(torch, world, fn, plain, draw, pairs=64, replays=3):
+    """`pairs` TWO_SHOT calls on distinct inputs captured in one graph per
+    rank (as the ContinuousEngine captures its steps' sums), replayed
+    `replays` times over fresh inputs written into the captured ones;
+    after each replay every output must equal the eager call on the same
+    inputs and the plain version, bit for bit, on every rank."""
+    xs = [draw() for _ in range(pairs)]
+    outs, replay = _world_graphs(
+        torch, world, lambda r: [fn(world.mesh(r), x[r]) for x in xs])
+    ok = []
+    for _ in range(replays):
+        for x in xs:
+            for r, t in enumerate(draw()):
+                x[r].copy_(t)
+        replay()
+        same = True
+        for i, x in enumerate(xs):
+            eager = world.run(lambda r: fn(world.mesh(r), x[r]))
+            torch.cuda.synchronize()
+            refs = plain(x)
+            same &= all(torch.equal(outs[r][i], eager[r]) and
+                        torch.equal(outs[r][i], refs[r]) for r in range(TP))
+        ok.append(bool(same))
+    return ok
+
+
 def phase_ring(torch, symm, rsm, agm, arm, kind, calls: int = 20):
     """B9 ("ring_rs"), B7 ("ring_ag") or TWO_SHOT (B9 then B7) against
     the plain version in the one-card world (four logical ranks, each its
-    stream and symmetric buffer): Qwen3-32B's hidden rows at TP=4, a
-    decode step's 16 rows and a 512-token prefill chunk (_RING_SHAPES),
-    bf16 and f32, then `calls` successive bf16 calls of each shape with
-    fresh inputs. They only add (B9, in the ring's order) or move rows
-    (B7), so every rank's output must equal the plain version bit for bit
-    (ring_rs_ref_shards; the concatenation in rank order). Timed: the four
-    ranks' calls together (queued_ms); the bound is the four ranks' input
-    read once and output written once at HBM speed (the exchange is the
-    kernel's own traffic); the library yardstick one torch op of the same
-    function on the four inputs (stack-sum-slice, cat, stack-sum)."""
+    stream and symmetric buffer): Qwen3-32B's hidden rows at TP=4
+    (_RING_SHAPES) and the edges (_RING_EDGES), bf16 and f32, then
+    `calls` successive bf16 calls of each shape with fresh inputs; for
+    TWO_SHOT also a graph of 64 pairs a rank replayed 3 times over fresh
+    inputs (_two_shot_graph). They only add (B9, in the ring's order) or
+    move rows (B7), so every rank's output must equal the plain version
+    bit for bit (ring_rs_ref_shards; the concatenation in rank order).
+    Timed: the four ranks' calls together (queued_ms) and `calls` calls a
+    rank captured in a graph per rank (graph_ms); the bound is the four
+    ranks' input read once and output written once at HBM speed (the
+    exchange is the kernel's own traffic); the library yardstick one torch
+    op of the same function on the four inputs (stack-sum-slice, cat,
+    stack-sum)."""
     world = symm.OneCardWorld(TP)
     g = torch.Generator(device=DEV).manual_seed(53)
     fns = {"ring_rs": rsm.ring_reduce_scatter, "ring_ag": agm.ring_all_gather,
@@ -2288,12 +2352,12 @@ def phase_ring(torch, symm, rsm, agm, arm, kind, calls: int = 20):
                 for r in range(TP)]
 
     rows, timed, seq_ok = [], {}, []
-    for shp, m, k in _RING_SHAPES:
+    for shp, m, k in _RING_SHAPES + _RING_EDGES:
         for dt in (torch.bfloat16, torch.float32):
             name = shp if dt == torch.bfloat16 else f"{shp}_f32"
             xs = draw(dt, m, k)
             rows += run_check(name, xs)
-            if dt != torch.bfloat16:
+            if dt != torch.bfloat16 or (shp, m, k) not in _RING_SHAPES:
                 continue
             n_in, n_out = _ring_io(kind, m, k)
             nbytes = TP * (n_in + n_out) * xs[0].element_size()
@@ -2301,19 +2365,29 @@ def phase_ring(torch, symm, rsm, agm, arm, kind, calls: int = 20):
             timed[name] = _one_card_kernel_row(
                 torch, world, name, lambda r: fn(world.mesh(r), xs[r]),
                 lambda: plain(xs), nbytes, adds)
+            _, replay = _world_graphs(torch, world, lambda r: [
+                fn(world.mesh(r), xs[r]) for _ in range(calls)])
+            replay()
+            timed[name]["graph_ms"] = replay() / calls
             timed[name]["library_ms"] = queued_ms(
                 torch, lambda: library(xs))[0]
             timed[name]["max_abs_err"] = max(
                 x["max_abs_err"] for x in rows if x["case"].startswith(name))
         seq_ok += [all(x["ok"] for x in run_check(
             f"seq_{shp}", draw(torch.bfloat16, m, k))) for _ in range(calls)]
+    graph_ok = (_two_shot_graph(torch, world, fn, plain,
+                                lambda: draw(torch.bfloat16, 4, 5120))
+                if kind == "two_shot" else [])
     phase = {"ring_rs": "b9_ring_rs", "ring_ag": "b7_ring_ag",
              "two_shot": "two_shot"}[kind]
     emit({"phase": phase, "world": "one card, 4 logical ranks",
-          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
-    if not all(x["ok"] for x in rows) or not all(seq_ok):
+          "cases": rows, "successive_calls_ok": seq_ok,
+          "graph_64_pairs_x3_ok": graph_ok, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or \
+            not all(graph_ok):
         fail(f"{phase} disagrees with its plain version: "
-             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"graph replays {graph_ok}")
     if kind == "two_shot":
         return None
     rec = _tp_kernel_record(
@@ -2322,9 +2396,96 @@ def phase_ring(torch, symm, rsm, agm, arm, kind, calls: int = 20):
         "triton_dist_tpu/kernels/reduce_scatter.py:38" if kind == "ring_rs"
         else "triton_dist_tpu/kernels/allgather.py:59", timed,
         "one card, 4 logical ranks")
+    rec["graph_ms"] = sum(t["graph_ms"] for t in timed.values()) / len(timed)
     rec["library_ms_call"] = ("[torch.stack(xs).sum(0).chunk(4)]"
                               if kind == "ring_rs" else "torch.cat(xs)")
     return rec
+
+
+def _forced_ring(torch, rsm, kind, mesh, x, m, ll):
+    """B9 (kind "ring_rs") or B7 ("ring_ag") on this rank under the
+    protocol ``ll`` (LL if true, flags if false) on the plan's own grid,
+    through the package's private launcher (the package fixes the protocol
+    by LL_MAX_SLOT_BYTES; only this sweep forces one). Not counted."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = rsm.ring_plan(mesh.world, m, x.shape[1], x.element_size(), sms,
+                         mesh.ranks_per_device)
+    forced = rsm.ring_layout(mesh.world, m, plan.kv, plan.grid, ll)
+    return rsm._launch(kind, mesh, x, forced)
+
+
+def _ring_sweep(call, held, library=None):
+    """B9 and B7 under each protocol (LL, flags) at _RING_SWEEP_ROWS rows
+    a rank chunk of 5120 bf16: call(kind, m, ll) returns (ms, the plan's
+    own choice), held(kind, m, ll) whether the outputs equal the plain
+    version, library(kind, m) the yardstick's ms. The rows that set
+    LL_MAX_SLOT_BYTES."""
+    out = []
+    for m in _RING_SWEEP_ROWS:
+        rec = {"rows_a_chunk": m}
+        for kind in ("ring_rs", "ring_ag"):
+            for ll in (True, False):
+                key = f"{kind}_{'ll' if ll else 'flags'}"
+                rec[f"{key}_ok"] = held(kind, m, ll)
+                rec[f"{key}_ms"], rec["plan"] = call(kind, m, ll)
+            if library is not None:
+                rec[f"{kind}_library_ms"] = library(kind, m)
+        out.append(rec)
+    return out
+
+
+def phase_ring_floor(torch, symm, rsm):
+    """The latency floor of a one-hop kernel in the one-card world: ranks
+    0 and 1 bounce one flag ROUND_TRIPS times (``flag_round_trip``),
+    device ms over ROUND_TRIPS = one round trip; then the protocol sweep
+    of B9 and B7 (_ring_sweep, the four ranks' calls together,
+    queued_ms), each case bitwise its plain version."""
+    world = symm.OneCardWorld(TP)
+    g = torch.Generator(device=DEV).manual_seed(59)
+
+    def bounce():
+        world.run(lambda r: rsm.flag_round_trip(world.mesh(r)))
+    bounce()
+    torch.cuda.synchronize()
+    trip_ms = queued_ms(torch, bounce, iters=5, warm=1)[0] / rsm.ROUND_TRIPS
+    inputs = {}
+
+    def xs_of(kind, m):
+        if (kind, m) not in inputs:
+            rows = TP * m if kind == "ring_rs" else m
+            inputs[kind, m] = [torch.randn((rows, 5120), generator=g,
+                                           device=DEV).to(torch.bfloat16)
+                               for _ in range(TP)]
+        return inputs[kind, m]
+
+    def launch(kind, m, ll):
+        xs = xs_of(kind, m)
+        return lambda r: _forced_ring(torch, rsm, kind, world.mesh(r), xs[r],
+                                      m, ll)
+
+    def held(kind, m, ll):
+        xs = xs_of(kind, m)
+        outs = world.run(launch(kind, m, ll))
+        torch.cuda.synchronize()
+        refs = (rsm.ring_rs_ref_shards(xs) if kind == "ring_rs"
+                else [torch.cat(xs)] * TP)
+        return all(torch.equal(o, ref) for o, ref in zip(outs, refs))
+
+    def call(kind, m, ll):
+        run = launch(kind, m, ll)
+        plan = rsm.ring_plan(TP, m, 5120, 2, torch.cuda.get_device_properties(
+            DEV).multi_processor_count, TP)
+        return (queued_ms(torch, lambda: world.run(run))[0],
+                {"grid": plan.grid, "ll": plan.ll})
+    sweep = _ring_sweep(call, held)
+    emit({"phase": "ring_floor", "world": "one card, 4 logical ranks",
+          "flag_round_trip_ms": trip_ms, "rounds": rsm.ROUND_TRIPS,
+          "ll_max_slot_bytes": rsm.LL_MAX_SLOT_BYTES, "sweep": sweep})
+    if not all(v for rec in sweep for key, v in rec.items()
+               if key.endswith("_ok")):
+        fail(f"ring protocol sweep disagrees with the plain version: "
+             f"{sweep}")
+    return trip_ms
 
 
 # -- slice 8 in the one-card world: B8, B11, B13b ----------------------------
@@ -3296,7 +3457,113 @@ def _tp_ranks_time(torch, dist, mesh):
         if alt is not None:
             out[name]["alt_ms"] = queued_ms(torch, alt)[0]
             dist.barrier()
+        if kind in ("ring_rs", "ring_ag"):
+            out[name]["graph_ms"] = graph_time_ms(run)
+            dist.barrier()
     return out
+
+
+def _tp4_ring(torch, dist, mesh, calls: int = 20):
+    """B9, B7 and TWO_SHOT at their edges on four cards, each rank on its
+    own inputs: every shape of _RING_SHAPES and _RING_EDGES (rows a rank
+    chunk) of each kind in bf16 and f32 against its plain version over the
+    process group, `calls` successive bf16 calls at the decode shape, and
+    64 TWO_SHOT pairs captured in one graph replayed 3 times over fresh
+    inputs against the eager calls and the plain version, all bit for
+    bit; then the flag round trip between ranks 0 and 1 (two cards) and
+    the protocol sweep (_ring_sweep; queued_ms, each rank its own)."""
+    from triton_dist_tpu_torch.kernels import allgather as agk
+    from triton_dist_tpu_torch.kernels import allreduce as arm
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rsk
+    bf16, dev = torch.bfloat16, mesh.device
+    g = torch.Generator(device=dev).manual_seed(90 + mesh.rank)
+    fns = {"ring_rs": (rsk.ring_reduce_scatter, rsk.ring_rs_ref),
+           "ring_ag": (agk.ring_all_gather, agk.ring_ag_ref),
+           "two_shot": (lambda mh, x: arm.all_reduce_per_device(
+               TP, arm.AllReduceMethod.TWO_SHOT, x, mesh=mh),
+               lambda mh, x: agk.ring_ag_ref(mh, rsk.ring_rs_ref(mh, x)))}
+
+    def draw(kind, dt, m, k=5120):
+        rows = m if kind == "ring_ag" else TP * m
+        return torch.randn((rows, k), generator=g, device=dev).to(dt)
+
+    def held(kind, x):
+        fn, ref = fns[kind]
+        got, want = fn(mesh, x), ref(mesh, x)
+        torch.cuda.synchronize()
+        return bool(torch.equal(got, want))
+
+    cases = {}
+    for kind in fns:
+        for shp, m, k in _RING_SHAPES + _RING_EDGES:
+            for dt in (bf16, torch.float32):
+                name = f"{kind}_{shp}" + ("" if dt == bf16 else "_f32")
+                cases[name] = held(kind, draw(kind, dt, m, k))
+        cases[f"{kind}_successive"] = all(
+            held(kind, draw(kind, bf16, 4)) for _ in range(calls))
+    fn, ref = fns["two_shot"]
+    xs = [draw("two_shot", bf16, 4) for _ in range(64)]
+    for x in xs:
+        fn(mesh, x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(mesh, x) for x in xs]
+    graph_ok = []
+    for _ in range(3):
+        for x in xs:
+            x.copy_(draw("two_shot", bf16, 4))
+        graph.replay()
+        same = True
+        for o, x in zip(outs, xs):
+            eager, want = fn(mesh, x), ref(mesh, x)
+            torch.cuda.synchronize()
+            same &= torch.equal(o, eager) and torch.equal(o, want)
+        graph_ok.append(bool(same))
+    del graph, outs
+    dist.barrier()
+
+    def bounce():
+        rsk.flag_round_trip(mesh)
+    bounce()
+    torch.cuda.synchronize()
+    dist.barrier()
+    trip_ms = queued_ms(torch, bounce, iters=5, warm=1)[0] / rsk.ROUND_TRIPS
+    dist.barrier()
+    inputs = {}
+
+    def x_of(kind, m):
+        if (kind, m) not in inputs:
+            inputs[kind, m] = draw(kind, bf16, m)
+        return inputs[kind, m]
+
+    def sweep_held(kind, m, ll):
+        x = x_of(kind, m)
+        got = _forced_ring(torch, rsk, kind, mesh, x, m, ll)
+        want = fns[kind][1](mesh, x)
+        torch.cuda.synchronize()
+        return bool(torch.equal(got, want))
+
+    def sweep_call(kind, m, ll):
+        x = x_of(kind, m)
+        dist.barrier()
+        ms = queued_ms(torch, lambda: _forced_ring(torch, rsk, kind, mesh, x,
+                                                   m, ll))[0]
+        plan = rsk.ring_plan(TP, m, 5120, 2, torch.cuda.get_device_properties(
+            dev).multi_processor_count, mesh.ranks_per_device)
+        return ms, {"grid": plan.grid, "ll": plan.ll}
+    def nccl(kind, m):
+        x = x_of(kind, m)
+        y = x.new_empty((m if kind == "ring_rs" else TP * m, 5120))
+        op = (dist.reduce_scatter_tensor if kind == "ring_rs"
+              else dist.all_gather_into_tensor)
+        dist.barrier()
+        return queued_ms(torch, lambda: op(y, x, group=mesh.group))[0]
+    sweep = _ring_sweep(sweep_call, sweep_held, nccl)
+    dist.barrier()
+    return {"cases": cases, "graph_64_pairs_x3_ok": graph_ok,
+            "flag_round_trip_ms": trip_ms, "rounds": rsk.ROUND_TRIPS,
+            "sweep": sweep}
 
 
 # all-gather shards of the AUTO sweep: rows per rank of Qwen3-32B's hidden
@@ -6584,6 +6851,9 @@ def _tp4_rank(rank, port, phases, tmp, queue):
             res["ag_sweep"] = _tp4_ag_sweep(torch, dist, mesh)
             res["mesh_ops"] = _tp4_mesh_ops(torch, dist, mesh, kern)
             lap("tp4_serve_kernels")
+        if "tp4_ring" in phases:
+            res["ring"] = _tp4_ring(torch, dist, mesh)
+            lap("tp4_ring")
         drawn = None
         if "tp4_serve" in phases or "tp4_continuous" in phases:
             drawn = _tp4_params(torch, mesh, models)
@@ -6728,6 +6998,35 @@ def _tp4_moe_rows(torch, models, results, extra):
         emit({"phase": f"tp4_moe_{name}", "per_rank": rws})
         rows[name] = row
     return rows
+
+
+def _tp4_ring_rows(results, rows):
+    """The parent's side of tp4_ring: every rank's edge cases and graph
+    replays must hold; the round trip of ranks 0 and 1 and the protocol
+    sweep (slowest rank) printed; the round trip and the graph-replayed
+    times join B9's and B7's four-card rows where tp4_serve made them."""
+    ring = [results[r]["ring"] for r in range(TP)]
+    trip_ms = max(x["flag_round_trip_ms"] for x in ring)
+    sweep_rows = [{key: (all(x["sweep"][i][key] for x in ring)
+                         if key.endswith("_ok") else
+                         max(x["sweep"][i][key] for x in ring)
+                         if key.endswith("_ms") else first[key])
+                   for key in first}
+                  for i, first in enumerate(ring[0]["sweep"])]
+    emit({"phase": "tp4_ring", "tp": TP,
+          "cases_per_rank": [x["cases"] for x in ring],
+          "graph_64_pairs_x3_ok": [x["graph_64_pairs_x3_ok"] for x in ring],
+          "flag_round_trip_ms_ranks_0_1": trip_ms,
+          "sweep_slowest_rank": sweep_rows})
+    if not all(all(x["cases"].values()) and all(x["graph_64_pairs_x3_ok"])
+               for x in ring) or \
+            not all(v for rec in sweep_rows for key, v in rec.items()
+                    if key.endswith("_ok")):
+        fail(f"B9 / B7 / TWO_SHOT on four cards disagree with their plain "
+             f"versions: {ring}")
+    for name in ("ring_reduce_scatter", "ring_all_gather"):
+        if name in rows:
+            rows[name]["latency_floor_ms"] = trip_ms
 
 
 def _world1_logits_and_tokens(torch, models, tmp):
@@ -7001,7 +7300,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                          f"version at {shp}: {rws}")
                 timed[shp] = {key: max(x[key] for x in rws)
                               for key in ("ms", "plain_ms", "bound_ms",
-                                          "max_abs_err", "alt_ms")
+                                          "max_abs_err", "alt_ms",
+                                          "graph_ms")
                               if key in rws[0]}
                 lib = [libs.get(r, {}).get(shp, {}) for r in range(TP)]
                 timed[shp]["library_ms"] = (
@@ -7020,6 +7320,9 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                 if n[name]}
             row["launches"] = sum(row["launches_by_path"].values())
             row["library_ms_call"] = lib_call
+            if all("graph_ms" in t for t in timed.values()):
+                row["graph_ms"] = sum(t["graph_ms"] for t in timed.values()
+                                      ) / len(timed)
             rows[name] = row
         # B11 against B10 at the prefill-sized shape, where the rings have
         # bytes to carry
@@ -7100,6 +7403,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
         _tp4_sp_gate(results)
     if "tp4_comm" in phases:
         rows.update(_tp4_comm_rows(results, extra))
+    if "tp4_ring" in phases:
+        _tp4_ring_rows(results, rows)
     if "tp4_quant" in phases:
         rows.update(_tp4_quant_rows(results, extra))
     t_w1 = time.time()
@@ -7300,7 +7605,7 @@ def main() -> None:
     card, Qwen3-8B), "earlier" (the earlier slices' phases),
     "dist_notify_wait", "b10_ag_gemm", "b13_gemm_rs", "b4_gemm_ar_tp",
     "b5_one_shot", "b6_rhd", "b9_ring_rs", "b7_ring_ag", "two_shot",
-    "b14_b15_tp", "b8_full_mesh_ag", "b11_ag_gemm_bidir",
+    "ring_floor", "b14_b15_tp", "b8_full_mesh_ag", "b11_ag_gemm_bidir",
     "b13b_gemm_rs_bidir", "b17_ll_a2a", "b18_ll_a2a_q",
     "b16_ep_dispatch_gg" (the one-card world), "b1_fold",
     "b19_flash_decode_partial", "b20_decode_combine", "b21_ring_attn",
@@ -7310,7 +7615,8 @@ def main() -> None:
     handoff, the one-card world), "tp4_serve", "tp4_consistency",
     "tp4_continuous", "tp4_continuous_consistency", "tp4_moe",
     "tp4_moe_consistency", "tp4_ep", "tp4_ep_consistency", "tp4_sp",
-    "tp4_sp_consistency", "tp4_comm", "tp4_quant" (four cards)."""
+    "tp4_sp_consistency", "tp4_comm", "tp4_quant", "tp4_ring" (four
+    cards)."""
     import torch
     phases = sys.argv[1:] or list(ALL_PHASES)
     if any(p not in ALL_PHASES for p in phases):
@@ -7401,6 +7707,11 @@ def main() -> None:
             rec = phase_ring(torch, symm, ring_rs, ring_ag, arm, kind)
             if rec is not None:
                 tp_rows[rec["name"]] = rec
+    if "ring_floor" in phases:
+        trip_ms = phase_ring_floor(torch, symm, ring_rs)
+        for name in ("ring_reduce_scatter", "ring_all_gather"):
+            if name in tp_rows:
+                tp_rows[name]["latency_floor_ms"] = trip_ms
     if "b14_b15_tp" in phases:
         for rec in phase_b14_b15_tp(torch, symm, agg, mrs, mu, plain):
             tp_rows[rec["name"]] = rec
@@ -7481,7 +7792,8 @@ def main() -> None:
                 one = tp_rows[name]
                 row["one_card_world"] = {
                     k: one[k] for k in
-                    ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")}
+                    ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes",
+                     "graph_ms", "latency_floor_ms") if k in one}
                 # a path the one-card world drove (all_gather_op for B8)
                 for path, n in (one.get("launches_by_path") or {}).items():
                     row.setdefault("launches_by_path", {})[path] = n

@@ -7,8 +7,11 @@ rank order. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     reference's ``lax.all_gather``;
   * RING_1D — B7, ``ring_all_gather``: the hand-written CUDA kernel
     ``csrc/ring_collectives.cu`` for CUDA tensors, ``ring_ag_ref`` for CPU
-    tensors. At step s rank r forwards chunk (r - s) mod n to its right
-    neighbour; the gathered rows are the ranks' bytes, unchanged;
+    tensors. The reference forwards chunk (r - s) mod n to the right
+    neighbour at step s; on the card (an NVSwitch full mesh) every rank
+    stores its shard straight into a slot of every peer (the plan B9
+    shares, ``reduce_scatter.ring_plan``); the gathered rows are the
+    ranks' bytes, unchanged;
   * FULL_MESH — B8, ``full_mesh_all_gather``: the hand-written CUDA kernel
     of the same source for CUDA tensors (each rank stores its shard
     straight into slot ``rank`` of every rank's buffer, one hop on
