@@ -2,8 +2,9 @@
 protocol and the buffer's layout that the launch passes to
 ``csrc/ring_collectives.cu``, held on the CPU. The kernel works out each
 slot, flag, column slice and fold position from those few numbers; this
-file writes the same formulas down (_slot, _flag, _cols, _fold) and holds
-them: the slots must be disjoint and aligned inside the buffer, the flags
+file writes the same formulas down (_flag, _fold; the slot and column
+formulas and the slots' emulation in ``torch_slot_emulation.py``, shared
+with B6's test) and holds them: the slots must be disjoint and aligned inside the buffer, the flags
 after the data, the blocks' column slices must cover every vector once,
 and the grid must leave every rank that shares an H100 resident. An
 emulation of the kernels' data movement (every rank's chunks stored into
@@ -22,6 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_slot_emulation import cols as _cols
+from torch_slot_emulation import exchange as _exchange
+from torch_slot_emulation import slot as _slot
+from torch_slot_emulation import tensor as _tensor
+from torch_slot_emulation import vectors as _vectors
 from triton_dist_tpu_torch.kernels.plain import ring_rs_fold
 from triton_dist_tpu_torch.kernels.reduce_scatter import (
     LL_MAX_SLOT_BYTES, ring_layout, ring_plan,
@@ -47,22 +53,9 @@ def _plans():
             for n, m, k, es, rpd in SHAPES for ll in PROTOCOLS]
 
 
-def _slot(plan, par, j, n):
-    """Byte offset of slot j of parity par (the kernel's par + j
-    slot_bytes, par = (e & 1) (n - 1) slot_bytes)."""
-    return (par * (n - 1) + j) * plan.slot_bytes
-
-
 def _flag(plan, b, j, n):
     """Byte offset of block b's flag for slot j."""
     return plan.flag_off + 8 * (b * (n - 1) + j)
-
-
-def _cols(plan):
-    """Each block's (first vector, count) of a row (the kernel's Cols)."""
-    kv, grid = plan.kv, plan.grid
-    return [(b * kv // grid, (b + 1) * kv // grid - b * kv // grid)
-            for b in range(grid)]
 
 
 def _fold(n, p):
@@ -130,59 +123,6 @@ def test_fold_order_is_the_ring():
             # the sender of slot j is the one whose slot for p is j
             for j, r in enumerate(_fold(n, p)[:-1]):
                 assert (r - p - 1) % n == j
-
-
-def _vectors(t: torch.Tensor) -> np.ndarray:
-    """t's bytes as (rows, kv, 4) u32 words (16-byte vectors)."""
-    return t.contiguous().view(torch.uint8).numpy().view(np.uint32).reshape(
-        t.shape[0], -1, 4)
-
-
-def _store(buf, plan, off, rows, cols, f):
-    """Store vectors rows[:, cols] at byte `off` of buf (u32 view) as the
-    kernel does: plain at vector r kv + c, or as LL lines 2v, 2v + 1."""
-    c0, cw = cols
-    for r in range(rows.shape[0]):
-        for c in range(c0, c0 + cw):
-            v = r * plan.kv + c
-            w = rows[r, c]
-            if plan.ll:
-                lines = np.array([w[0], f, w[1], f, w[2], f, w[3], f],
-                                 dtype=np.uint32)
-                buf[off // 4 + 8 * v:off // 4 + 8 * v + 8] = lines
-            else:
-                buf[off // 4 + 4 * v:off // 4 + 4 * v + 4] = w
-
-
-def _load(buf, plan, off, f):
-    """The (m, kv, 4) vectors at byte `off`; under LL every line's epoch
-    words must equal f (what the receiver polls for)."""
-    n_vec = plan.m * plan.kv
-    if not plan.ll:
-        return buf[off // 4:off // 4 + 4 * n_vec].reshape(plan.m, plan.kv, 4)
-    lines = buf[off // 4:off // 4 + 8 * n_vec].reshape(n_vec, 2, 4)
-    assert (lines[:, :, 1] == f).all() and (lines[:, :, 3] == f).all()
-    return lines[:, :, [0, 2]].reshape(plan.m, plan.kv, 4)
-
-
-def _exchange(plan, n, chunks, epoch):
-    """Every owner's n - 1 received slots of one call, through the plan:
-    chunks[r][p] is the (m, kv, 4) vectors rank r sends to owner p."""
-    par = epoch & 1
-    bufs = [np.zeros(plan.nbytes // 4, dtype=np.uint32) for _ in range(n)]
-    for r in range(n):
-        for i in range(1, n):
-            p = (r + i) % n
-            off = _slot(plan, par, (r - p - 1) % n, n)
-            for cols in _cols(plan):
-                _store(bufs[p], plan, off, chunks[r][p], cols, epoch)
-    return [[_load(bufs[p], plan, _slot(plan, par, j, n), epoch)
-             for j in range(n - 1)] for p in range(n)]
-
-
-def _tensor(words: np.ndarray, dtype, k: int) -> torch.Tensor:
-    return torch.from_numpy(words.copy().reshape(-1).view(np.uint8)).view(
-        dtype).reshape(-1, k)
 
 
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))

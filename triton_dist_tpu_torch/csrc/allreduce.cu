@@ -1,5 +1,5 @@
-// B5 (one-shot) and B6 (recursive halving-doubling) all-reduce across
-// ranks, hand-written for Hopper (sm_90a).
+// B5 (one-shot) and B6 (the halving tree's all-reduce) across ranks,
+// hand-written for Hopper (sm_90a).
 //
 // Replace the TPU kernels kernels/allreduce.py::_one_shot_kernel and
 // ::_rhd_kernel of the JAX package (all_reduce_per_device, methods
@@ -10,107 +10,73 @@
 //    buffer; then acc = own, and for i ascending, skipping `rank`, acc =
 //    acc + slot i. The order depends on the rank (kept exactly: results
 //    may differ from rank to rank in the last bit).
-//  * B6: log2(n) halving steps (step s: partner rank ^ (n >> (s+1)); send
-//    the half of the live rows the partner keeps into the partner's
-//    landing strip, then keep = keep + term), then log2(n) doubling steps
-//    with the same partners in reverse, each writing its owned rows
-//    straight into the partner's output rows. a + b == b + a in float, so
-//    every owned shard has one value and every rank ends with the same
-//    bytes. Power-of-two n, M a multiple of n (the wrapper checks).
+//  * B6: the reference's recursive halving-doubling, whose value is the
+//    halving tree's fold of the n terms (pairs at distance n/2, then n/4,
+//    ..., 1: at n = 4, (x0 + x2) + (x1 + x3); kernels/plain.py rhd_fold),
+//    the same for every row and every rank because a + b == b + a in
+//    float. The TPU's log2(n) halving and log2(n) doubling steps suit a
+//    torus; an H100 host is an NVSwitch full mesh, so the dependent chain
+//    of 2 log2(n) flag round trips becomes one hop (or two): the tree is
+//    folded wherever all n terms land. Power-of-two n, M a multiple of n
+//    (the wrapper checks). Every rank returns the same bytes.
 //
 // What bounds them on this card. On the decode path (Qwen3-32B at TP=4,
 // batch 16) x is (16, 5120) bf16, 160 KB: B5 sends 3 x 160 KB per rank,
-// B6 2 x (80 + 40) KB, about a microsecond of NVLink time at 450 GB/s;
-// the kernels are bound by latency (flag round trips, launch), not bytes.
+// about a microsecond of NVLink time at 450 GB/s; the kernels are bound
+// by latency (a flag's trip across the switch, the launch), not bytes. A
+// 512-token prefill chunk is 5.2 MB: there bytes count.
 //
-// Design:
+// Design of B5 (td_dist.cuh flags):
 //  * the grid is G blocks (the wrapper's choice, the same on every rank),
 //    and block b owns a fixed slice of the columns (16-byte vectors) of
-//    every row, in every step. Block b of a rank exchanges data and flags
-//    only with block b of its peers, so no block waits for another block
-//    of its own rank, and each (block, sender, step) has its own flag in
-//    the symmetric buffer (epoch-valued: set to e, waited for >= e);
+//    every row. Block b of a rank exchanges data and flags only with
+//    block b of its peers, so no block waits for another block of its own
+//    rank, and each (block, sender) has its own flag in the symmetric
+//    buffer (epoch-valued: set to e, waited for >= e);
 //  * a sender publishes with __threadfence_system() by every storing
 //    thread, a block barrier, then a release store of the flag at system
 //    scope; a receiver acquires the flag and reads what landed with
 //    L1-bypassing loads;
-//  * no barrier opens a call. B5 double-buffers its landing slots by the
-//    epoch's parity: a rank in call e + 2 reuses the slots of call e only
-//    after it finished call e + 1, which needed every peer's data of call
-//    e + 1, which every peer sends only once it finished call e. B6's
-//    landing strip has a disjoint region per step (a fast pair's step s+1
-//    never lands on a slow pair's step s), and a rank writes a peer's
-//    strip or output in call e + 1 only after that peer's data of call
-//    e + 1 reached it, so the peer finished call e;
-//  * B6's working rows and output live in the symmetric buffer (peers
-//    write into them); the last step copies them out to the caller's
-//    fresh tensor;
-//  * the grid is small enough that every block of every rank that shares
-//    the card is resident at once (G <= occupancy x SMs / ranks per card).
+//  * no barrier opens a call: the landing slots are double-buffered by
+//    the epoch's parity. A rank in call e + 2 reuses the slots of call e
+//    only after it finished call e + 1, which needed every peer's data of
+//    call e + 1, which every peer sends only once it finished call e.
+//
+// Design of B6 (td_oneshot.cuh: B9 / B7's slots, protocols and epochs;
+// kernels/allreduce.py::rhd_plan fixes everything below from the bytes of
+// x, the same on every rank), one launch a call, two regimes:
+//  * one-shot (small x, decode): every rank stores its whole x into its
+//    slot of every peer (sender-indexed: slot (r - p - 1) mod n of rank p
+//    holds rank r's x), then folds the n terms by the halving tree
+//    locally. One hop: one signal latency;
+//  * two-shot (large x, prefill chunks): B9's scatter leg (row chunk p of
+//    every rank into owner p's slots), owner p folds chunk p's n terms by
+//    the halving tree and stores the folded rows into its out and into
+//    its slot of every peer's second region, then B7's gather leg copies
+//    the n - 1 other folded chunks out. 2 (n - 1) / n of x on the wire
+//    instead of (n - 1) x, for one more signal latency;
+//  * either regime under LL lines (the epoch in every 16-byte line, no
+//    fence, twice the bytes) or flags (one fence a publishing thread), by
+//    the bytes of a slot; block b owns a column slice of every row, a
+//    vector a thread; each block keeps its own epoch word; slots
+//    double-buffered by the epoch's parity (every rank receives from every
+//    peer in each region of each call, so finishing call e + 1 proves each
+//    peer ended call e);
+//  * a thread loads an item's n terms before it adds any (their latencies
+//    overlap), then adds them in the tree's order, each add rounded to T;
+//  * every B5 / B6 kernel is loaded at the first call of any, and the grid
+//    leaves every block of every rank that shares the card resident (at
+//    most one block an SM a rank).
 
 #include "td_common.cuh"
 #include "td_dist.cuh"
+#include "td_oneshot.cuh"
 
 namespace {
 
 using td::dist::Team;
 using td::dist::u64;
-
-constexpr int NT = 256;
-
-__device__ __forceinline__ uint4 pack(const float* f, const float*) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack(const float* f, const __nv_bfloat16*) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = __halves2bfloat162(__float2bfloat16(f[2 * i]),
-                              __float2bfloat16(f[2 * i + 1]));
-  return u;
-}
-
-// a + b elementwise, each sum rounded to T
-template <typename T>
-__device__ __forceinline__ uint4 add_vec(const uint4& a, const uint4& b) {
-  constexpr int VEC = td::kVec<T>;
-  float fa[VEC], fb[VEC];
-  td::unpack(a, fa, static_cast<const T*>(nullptr));
-  td::unpack(b, fb, static_cast<const T*>(nullptr));
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) fa[i] = fa[i] + fb[i];
-  return pack(fa, static_cast<const T*>(nullptr));
-}
-
-// This block's columns: vectors [c0, c0 + cw) of every row of kv vectors.
-struct Cols {
-  int c0, cw;
-  __device__ Cols(int kv) {
-    c0 = static_cast<int>(static_cast<long>(blockIdx.x) * kv / gridDim.x);
-    cw = static_cast<int>(static_cast<long>(blockIdx.x + 1) * kv /
-                          gridDim.x) - c0;
-  }
-  // index of item i of `rows` rows starting at row r0
-  __device__ __forceinline__ long at(long i, int r0, int kv) const {
-    return static_cast<long>(r0 + i / cw) * kv + c0 + i % cw;
-  }
-};
-
-__device__ __forceinline__ uint4* buf(const Team& t, int p, long off) {
-  return reinterpret_cast<uint4*>(t.peer(p) + off);
-}
-__device__ __forceinline__ u64* flags(const Team& t, int p, long off) {
-  return reinterpret_cast<u64*>(t.peer(p) + off);
-}
-
-// Fence this block's stores at system scope, then raise `flag` = e.
-__device__ __forceinline__ void publish_to(u64* flag, u64 e) {
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) td::dist::notify(flag, e);
-}
+using namespace td::oneshot;
 
 // B5. Symmetric buffer: landing (2, world, m, kv) vectors at land_off,
 // flags (G, world) at flag_off.
@@ -155,101 +121,102 @@ __global__ void __launch_bounds__(NT)
   td::dist::end_call(ctl, e);
 }
 
-// B6. Symmetric buffer: working rows / output (m, kv) vectors at out_off,
-// landing strip (m - m/world rows, per-step disjoint regions) at
-// land_off, flags (G, 2, logn) at flag_off.
-template <typename T>
+// B6. The slots of the first region (one-shot: x's m rows; two-shot: a
+// row chunk of m rows) from byte 0, their flags (G, n - 1) at flag_off;
+// two-shot: the second region's slots (the folded chunks) from byte
+// ag_off, flags at ag_flag_off. This rank's term of an item is x's
+// (own rows); rank r's is slot (r - me - 1) mod n.
+template <typename T, bool LL, bool TWO>
 __global__ void __launch_bounds__(NT)
     rhd_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
-               Team team, u64* ctl, int m, int kv, long out_off,
-               long land_off, long flag_off) {
-  const int me = team.rank, world = team.world, b = blockIdx.x;
-  const u64 e = td::dist::begin_call(ctl);
+               Team team, u64* ctl, int m, int kv, long slot_bytes,
+               long flag_off, long ag_off, long ag_flag_off) {
+  const int me = team.rank, n = team.world;
+  const Epoch ep(ctl);
+  const unsigned f = static_cast<unsigned>(ep.e);
   const Cols cols(kv);
-  int logn = 0;
-  while ((1 << logn) < world) ++logn;
-  uint4* own = buf(team, me, out_off);
-  const uint4* land = buf(team, me, land_off);
-  u64* my_flags = flags(team, me, flag_off) + static_cast<long>(b) * 2 * logn;
-
-  int base = 0, land_row = 0;
-  for (int s = 0; s < logn; ++s) {          // phase 1: halving
-    const int half = m >> (s + 1);
-    const int partner = me ^ (world >> (s + 1));
-    const int bit = (me >> (logn - 1 - s)) & 1;
-    const int keep_base = base + bit * half;
-    const int send_base = base + (1 - bit) * half;
-    const long items = static_cast<long>(half) * cols.cw;
-    uint4* dst = buf(team, partner, land_off);
-    for (long j = threadIdx.x; j < items; j += NT) {
-      const long v = cols.at(j, send_base, kv);
-      dst[cols.at(j, land_row, kv)] = s == 0 ? x[v] : __ldcg(own + v);
-    }
-    publish_to(flags(team, partner, flag_off) +
-                   static_cast<long>(b) * 2 * logn + s, e);
-    if (threadIdx.x == 0)
-      td::dist::wait(my_flags + s, e, "B6 halving data", partner);
-    __syncthreads();
-    for (long j = threadIdx.x; j < items; j += NT) {
-      const long v = cols.at(j, keep_base, kv);
-      const uint4 keep = s == 0 ? x[v] : __ldcg(own + v);
-      own[v] = add_vec<T>(keep, __ldcg(land + cols.at(j, land_row, kv)));
-    }
-    __threadfence();
-    __syncthreads();
-    base = keep_base;
-    land_row += half;
-  }
-  for (int s = logn - 1; s >= 0; --s) {     // phase 2: doubling
-    const int cur = m >> (s + 1);
-    const int partner = me ^ (world >> (s + 1));
-    const int bit = (me >> (logn - 1 - s)) & 1;
-    const long items = static_cast<long>(cur) * cols.cw;
-    uint4* dst = buf(team, partner, out_off);
-    for (long j = threadIdx.x; j < items; j += NT) {
-      const long v = cols.at(j, base, kv);
-      dst[v] = __ldcg(own + v);
-    }
-    publish_to(flags(team, partner, flag_off) +
-                   static_cast<long>(b) * 2 * logn + logn + s, e);
-    if (threadIdx.x == 0)
-      td::dist::wait(my_flags + logn + s, e, "B6 doubling data", partner);
-    __syncthreads();
-    base -= bit * cur;
-  }
   const long items = static_cast<long>(m) * cols.cw;
+  const long par = static_cast<long>(ep.e & 1) * (n - 1) * slot_bytes;
+  const long own0 = TWO ? static_cast<long>(me) * m : 0;  // own rows
+  if (TWO) {
+    scatter_chunks<LL>(x, team, cols, m, kv, par, slot_bytes, f);
+  } else {
+    for (long j = threadIdx.x; j < items; j += NT) {
+      const long v = cols.at(j, 0, kv);
+      const uint4 val = x[v];
+#pragma unroll
+      for (int i = 0; i < kPeers; ++i)
+        if (i < n - 1)
+          put_vec<LL>(team.peer((me + 1 + i) % n) + par +
+                          (n - 2 - i) * slot_bytes, v, val, f);
+    }
+  }
+  if (!LL) exchange_flags(team, flag_off, ep.e, "B6 reduce slot");
+  const char* land = team.peer(me) + par;
   for (long j = threadIdx.x; j < items; j += NT) {
     const long v = cols.at(j, 0, kv);
-    out[v] = logn == 0 ? x[v] : __ldcg(own + v);
-  }
-  td::dist::end_call(ctl, e);
-}
-
-// Checks that `grid` blocks of kernel fn fit on the card at once with the
-// other ranks that share it (queried once per kernel: never under a CUDA
-// graph capture, callers warm up first; the query also loads the kernel
-// before any spinning launch).
-template <typename K>
-cudaError_t check_resident(K fn, int* occ, int grid, int ranks_per_device) {
-  static int sms = 0;
-  cudaError_t err = cudaSuccess;
-  if (*occ == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, fn, NT, 0);
-    if (err != cudaSuccess) {
-      *occ = 0;
-      return err;
+    uint4 t[td::dist::kMaxWorld];
+#pragma unroll
+    for (int r = 0; r < td::dist::kMaxWorld; ++r)
+      if (r < n)
+        t[r] = r == me ? x[cols.at(j, own0, kv)]
+                       : get_vec<LL>(land + ((r - me - 1 + n) % n) *
+                                                slot_bytes,
+                                     v, f, "B6 reduce line", r);
+    // the halving tree: pairs at distance n/2, then n/4, ..., 1
+#pragma unroll
+    for (int d = td::dist::kMaxWorld / 2; d >= 1; d /= 2)
+      if (d < n) {
+#pragma unroll
+        for (int i = 0; i < d; ++i) t[i] = add_vec<T>(t[i], t[i + d]);
+      }
+    out[cols.at(j, own0, kv)] = t[0];
+    if (TWO) {
+#pragma unroll
+      for (int i = 0; i < kPeers; ++i)
+        if (i < n - 1)
+          put_vec<LL>(team.peer((me + 1 + i) % n) + ag_off + par +
+                          (n - 2 - i) * slot_bytes, v, t[0], f);
     }
   }
-  if (static_cast<long>(grid) * ranks_per_device >
-      static_cast<long>(*occ) * sms)
-    return cudaErrorInvalidConfiguration;
-  return cudaSuccess;
+  if (TWO) {
+    if (!LL) exchange_flags(team, ag_flag_off, ep.e, "B6 gather slot");
+    gather_slots<LL>(out, team, cols, m, kv, ag_off + par, slot_bytes, f,
+                     "B6 gather line");
+  }
+  ep.close();
+}
+
+int occ_one_shot[2] = {0, 0};
+template <typename T, bool LL, bool TWO>
+int occ_rhd = 0;
+
+// Every B5 / B6 kernel is queried (and so loaded) at the first call of
+// any: a lazy load behind a spinning kernel could wait for ranks not yet
+// launched on a shared card.
+cudaError_t load_kernels() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t err =
+      check_resident(one_shot_kernel<float>, &occ_one_shot[0], 1, 1);
+#define TD_LOAD(TYPE, LL, TWO)                                              \
+  if (err == cudaSuccess)                                                   \
+    err = check_resident(rhd_kernel<TYPE, LL, TWO>, &occ_rhd<TYPE, LL, TWO>, \
+                         1, 1);
+  if (err == cudaSuccess)
+    err = check_resident(one_shot_kernel<__nv_bfloat16>, &occ_one_shot[1], 1,
+                         1);
+  TD_LOAD(float, false, false)
+  TD_LOAD(float, false, true)
+  TD_LOAD(float, true, false)
+  TD_LOAD(float, true, true)
+  TD_LOAD(__nv_bfloat16, false, false)
+  TD_LOAD(__nv_bfloat16, false, true)
+  TD_LOAD(__nv_bfloat16, true, false)
+  TD_LOAD(__nv_bfloat16, true, true)
+#undef TD_LOAD
+  done = err == cudaSuccess;
+  return err;
 }
 
 template <typename T>
@@ -257,8 +224,10 @@ cudaError_t launch_one_shot(const void* x, void* out, const Team& team,
                             u64* ctl, int m, int kv, long land_off,
                             long flag_off, int grid, int rpd,
                             cudaStream_t st) {
-  static int occ = 0;
-  cudaError_t err = check_resident(one_shot_kernel<T>, &occ, grid, rpd);
+  cudaError_t err = load_kernels();
+  if (err == cudaSuccess)
+    err = check_resident(one_shot_kernel<T>,
+                         &occ_one_shot[sizeof(T) == 2 ? 1 : 0], grid, rpd);
   if (err != cudaSuccess) return err;
   one_shot_kernel<T><<<grid, NT, 0, st>>>(
       static_cast<const uint4*>(x), static_cast<uint4*>(out), team, ctl, m,
@@ -266,17 +235,37 @@ cudaError_t launch_one_shot(const void* x, void* out, const Team& team,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_rhd(const void* x, void* out, const Team& team, u64* ctl,
-                       int m, int kv, long out_off, long land_off,
-                       long flag_off, int grid, int rpd, cudaStream_t st) {
-  static int occ = 0;
-  cudaError_t err = check_resident(rhd_kernel<T>, &occ, grid, rpd);
+struct RhdArgs {
+  const uint4* x;
+  uint4* out;
+  Team team;
+  u64* ctl;
+  int m, kv;
+  long slot_bytes, flag_off, ag_off, ag_flag_off;
+  int grid, rpd;
+};
+
+template <typename T, bool LL, bool TWO>
+cudaError_t launch_rhd(const RhdArgs& a, cudaStream_t st) {
+  cudaError_t err = load_kernels();
+  if (err == cudaSuccess)
+    err = check_resident(rhd_kernel<T, LL, TWO>, &occ_rhd<T, LL, TWO>,
+                         a.grid, a.rpd);
   if (err != cudaSuccess) return err;
-  rhd_kernel<T><<<grid, NT, 0, st>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(out), team, ctl, m,
-      kv, out_off, land_off, flag_off);
+  rhd_kernel<T, LL, TWO><<<a.grid, NT, 0, st>>>(
+      a.x, a.out, a.team, a.ctl, a.m, a.kv, a.slot_bytes, a.flag_off,
+      a.ag_off, a.ag_flag_off);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_rhd(const RhdArgs& a, bool ll, bool two,
+                         cudaStream_t st) {
+  if (ll)
+    return two ? launch_rhd<T, true, true>(a, st)
+               : launch_rhd<T, true, false>(a, st);
+  return two ? launch_rhd<T, false, true>(a, st)
+             : launch_rhd<T, false, false>(a, st);
 }
 
 bool valid(int rank, int world, int m, int kv, int grid, int rpd) {
@@ -316,28 +305,44 @@ int td_one_shot(const void* x, void* out, int rank, int world,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// B6. As td_one_shot, with world a power of two and m a multiple of it;
-// the symmetric buffer holds the working rows (m, K) at out_off, the
-// landing strip (m - m/world, K) at land_off and the flags (grid, 2,
-// log2 world) u64 at flag_off. Returns a cudaError_t.
+// B6. x, out: (M, K) of one dtype (td::F32 or td::BF16), contiguous,
+// 16-byte aligned, kv = K * itemsize / 16 vectors per row, world a power
+// of two. The plan (kernels/allreduce.py::rhd_plan, the same on every
+// rank): two_shot (m = M / world rows a slot) or one-shot (m = M); ll:
+// the LL protocol (slots of LL lines) or flags; grid: blocks. base: device
+// table of every rank's symmetric buffer: the first region's slots (2,
+// world - 1) of slot_bytes from byte 0 and their flags (grid, world - 1)
+// u64 at flag_off (unused under LL); two-shot: the second region's slots
+// from byte ag_off, flags at ag_flag_off; zeroed once. ctl: this rank's
+// control block (kCtlHeader + grid u64, zeroed once); ranks_per_device:
+// ranks that share this card. Returns a cudaError_t.
 int td_rhd(const void* x, void* out, int rank, int world, const void* base,
-           void* ctl, int m, int kv, long long out_off, long long land_off,
-           long long flag_off, int grid, int ranks_per_device, int dtype,
-           void* stream) {
+           void* ctl, int m, int kv, long long slot_bytes, long long flag_off,
+           long long ag_off, long long ag_flag_off, int grid, int ll,
+           int two_shot, int ranks_per_device, int dtype, void* stream) {
   if (!valid(rank, world, m, kv, grid, ranks_per_device) ||
-      (world & (world - 1)) != 0 || m % world != 0)
+      (world & (world - 1)) != 0 || (ll != 0 && ll != 1) ||
+      (two_shot != 0 && two_shot != 1) || slot_bytes % 16 || flag_off % 8 ||
+      ag_off % 16 || ag_flag_off % 8 ||
+      slot_bytes < static_cast<long long>(m) * kv * 16 * (ll ? 2 : 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Team team{rank, world, static_cast<const long long*>(base), 0};
+  const RhdArgs a{static_cast<const uint4*>(x),
+                  static_cast<uint4*>(out),
+                  Team{rank, world, static_cast<const long long*>(base), 0},
+                  static_cast<u64*>(ctl),
+                  m,
+                  kv,
+                  static_cast<long>(slot_bytes),
+                  static_cast<long>(flag_off),
+                  static_cast<long>(ag_off),
+                  static_cast<long>(ag_flag_off),
+                  grid,
+                  ranks_per_device};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  u64* c = static_cast<u64*>(ctl);
   if (dtype == td::F32)
-    return static_cast<int>(launch_rhd<float>(
-        x, out, team, c, m, kv, out_off, land_off, flag_off, grid,
-        ranks_per_device, st));
+    return static_cast<int>(dispatch_rhd<float>(a, ll, two_shot, st));
   if (dtype == td::BF16)
-    return static_cast<int>(launch_rhd<__nv_bfloat16>(
-        x, out, team, c, m, kv, out_off, land_off, flag_off, grid,
-        ranks_per_device, st));
+    return static_cast<int>(dispatch_rhd<__nv_bfloat16>(a, ll, two_shot, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,29 +21,42 @@
 // moves 256 rows of 130 f32 a rank to three peers (~0.4 MB over NVLink):
 // a few microseconds, bound by the flag round trip and the launch.
 //
-// Design of B19:
-//  * the TPU grid (B, Hkv, ns) carries the fold of the ns key blocks
-//    through VMEM in order, which at the decode shape would leave 32
-//    blocks for 132 SMs. Here the shard is split across blocks, as the
-//    source project's kernel_gqa_fwd_batch_decode_split_kv does: block
-//    (split, kv head, batch) folds its split's keys and writes a partial
-//    (acc, m, l); a second small kernel in the same call merges the splits
-//    in ascending order by exact LSE. The floats therefore differ from the
-//    sequential fold by rounding only;
-//  * start and q_pos are read from device memory when pointers are given,
-//    so the launch reads nothing on the host and a CUDA graph that
-//    captures it stays right as q_pos advances; keys past the causal
-//    horizon or the shard are neither scored nor read for P.V;
-//  * one block folds the g = Hq / Hkv query heads of one kv head, so each
-//    key and value row is read once per block. A step is 128 keys: each
-//    thread scores one key against the g queries (its key row read
-//    straight from device memory in 16-byte loads, the queries from
-//    shared memory), the tile's row max and sum are reduced across the
-//    four warps, and for P.V each thread owns one column of the g output
-//    rows, reading the value rows coalesced across the block;
-//  * the reference's numerics: scores scaled after Q.K, finite NEG_INF,
-//    probabilities rounded to bf16 before P.V when V is bf16, l summed
-//    before that rounding.
+// Design of B19. The TPU grid (B, Hkv, ns) carries the fold of the ns key
+// blocks through VMEM in order, which at the decode shape would leave 32
+// blocks for 132 SMs. Here the shard is split across blocks, as the source
+// project's kernel_gqa_fwd_batch_decode_split_kv does: block (split, kv
+// head, batch) folds its split's keys into a partial (acc, m, l); a second
+// small kernel in the same call merges the splits in ascending order by
+// exact LSE. The floats therefore differ from the sequential fold by
+// rounding only. start and q_pos are read from device memory when
+// pointers are given, so the launch reads nothing on the host and a CUDA
+// graph that captures it stays right as q_pos advances; keys past the
+// causal horizon or the shard are neither scored nor read for P.V, and a
+// split wholly past q_pos issues no load. The reference's numerics:
+// scores scaled after Q.K, finite NEG_INF, probabilities rounded to bf16
+// before P.V when V is bf16, l summed before that rounding, f32
+// accumulators.
+//  * bf16 (the Hopper kernel, decode_tma_kernel): bytes bound it, so the
+//    design keeps HBM busy. The plan (kernels/flash_attention.py::
+//    decode_plan) gives about one block an SM, each split a long run of
+//    keys. One producer warp keeps STAGES 64-key K and V tiles in flight by
+//    TMA (4-D tensor maps over the strides the launcher passes, in the
+//    128-byte swizzle, through an mbarrier ring: attn_tile_sm90.cuh), up
+//    to 128 KB a block; four consumer warps each take 16 keys of every
+//    tile with their own online softmax and merge by exact LSE at the end
+//    of the split. QK^T and P.V run on the tensor cores (mma.sync
+//    m16n8k16, bf16 -> f32) with the g query heads of the kv head as the
+//    16-row side, padded with zero rows; P is reused from the QK^T
+//    accumulator as the A fragment of P.V (FA2's register layout), K read
+//    by ldmatrix, V by ldmatrix.trans. The padding costs tensor-core
+//    operations the card has to spare; B1's wgmma tile (64 rows) would pad
+//    8x more and needs a warpgroup a tile, so it was not taken;
+//  * f32 (decode_split_kernel): the FMA body, unchanged by the bf16 form: block
+//    (split, kv head, batch) scores a key a thread against the g queries
+//    (its key row read straight from device memory in 16-byte loads, the
+//    queries from shared memory), reduces the tile's row max and sum
+//    across the four warps, and for P.V each thread owns one column of the
+//    g output rows, reading the value rows coalesced across the block.
 //
 // Design of B20 (on td_dist.cuh):
 //  * block b of the grid owns row block b of the flattened B * Hq rows
@@ -62,6 +75,9 @@
 //    once its call e kernel, the last reader of the slot, had ended. The
 //    epoch advances on the device, so the call can be captured in a graph.
 
+#include <atomic>
+
+#include "attn_tile_sm90.cuh"
 #include "td_common.cuh"
 #include "td_dist.cuh"
 
@@ -217,14 +233,9 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int D, int G>
-cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          float* acc, float* m, float* l, float* part, int b,
-                          int hq, int hkv, int s_loc, long sb, long sh,
-                          long sk, const int* start_ptr, int start,
-                          const int* qpos_ptr, int qpos, int chunk,
-                          int splits, float scale, cudaStream_t st) {
-  // the merge kernel is loaded with the first: no lazy load between them
+// The merge kernel is loaded before the first launch of either form: no
+// lazy load between the two kernels of a call.
+cudaError_t load_merge() {
   static bool loaded = false;
   if (!loaded) {
     cudaFuncAttributes attr;
@@ -232,16 +243,338 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     loaded = true;
   }
+  return cudaSuccess;
+}
+
+template <typename T, int D, int G>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          float* part, int b, int hq, int hkv, int s_loc,
+                          long sb, long sh, long sk, const int* start_ptr,
+                          int start, const int* qpos_ptr, int qpos, int chunk,
+                          int splits, float scale, cudaStream_t st) {
   decode_split_kernel<T, D, G><<<dim3(splits, hkv, b), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), part, b, hq, s_loc, sb, sh, sk, start_ptr,
       start, qpos_ptr, qpos, chunk, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_merge_kernel<<<b * hq, NT, 0, st>>>(part, acc, m, l, b * hq, D,
-                                              splits);
   return cudaGetLastError();
 }
+
+// -- B19, bf16: the Hopper kernel --------------------------------------------
+
+namespace hop {
+
+namespace s9 = td::sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr int KT = 64;             // keys a tile
+constexpr int STAGES = 4;          // tiles in the ring
+constexpr int NCW = 4;             // consumer warps: warp w keys [16w, 16w+16)
+constexpr int NTH = NCW * 32 + 32; // and one producer warp
+constexpr int MAXG = 8;            // query heads of a kv head, at most
+constexpr int SLAB = KT * 64;      // bf16 of one 64-column slab of a tile
+
+struct DecodeArgs {
+  const bf16* q;
+  float* part;
+  int b_len, hq, hkv, s_loc;
+  const int* start_ptr;
+  int start;
+  const int* qpos_ptr;
+  int qpos;
+  int chunk;
+  float scale;
+  int hs;  // the maps' dims: (d, h, s, b) if 1, (d, s, h, b) if 0
+};
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return 1024 + size_t(STAGES) * 2 * (D / 64) * SLAB * sizeof(bf16) +
+         2 * STAGES * sizeof(uint64_t) +
+         size_t(NCW) * MAXG * (D + 2) * sizeof(float);
+}
+
+// D (16 x 8 f32) += A (16 x 16 bf16, row-major fragment) x B (16 x 8,
+// "col" fragment)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a2, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// byte address of 16-byte chunk c (0..D/8) of tile row r in a tile of
+// 64-column slabs in the 128-byte swizzle
+template <int D>
+__device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
+  return base + (c >> 3) * SLAB * 2 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Block (split, kv head, batch): the g query heads of kv head hk of batch
+// row b against keys [k_lo, k_hi) of the shard, written as the split's
+// partial (acc, m, l) rows.
+template <int D>
+__global__ void __launch_bounds__(NTH, 1)
+    decode_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const DecodeArgs a) {
+  constexpr int NH = D / 64;                       // slabs a row
+  constexpr uint32_t TILE_BYTES = NH * SLAB * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const ks = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* const vs = ks + STAGES * NH * SLAB;        // [STAGES][NH][KT][64]
+  uint64_t* const full = reinterpret_cast<uint64_t*>(vs + STAGES * NH * SLAB);
+  uint64_t* const empty = full + STAGES;
+  float* const mrg = reinterpret_cast<float*>(empty + STAGES);
+
+  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int g = a.hq / a.hkv;
+  const int start = a.start_ptr != nullptr ? *a.start_ptr : a.start;
+  const int qpos = a.qpos_ptr != nullptr ? *a.qpos_ptr : a.qpos;
+  // this split's live keys: [k_lo, k_hi) of the shard
+  const int k_lo = sp * a.chunk;
+  const long long horizon = static_cast<long long>(qpos) - start + 1;
+  long long hi = k_lo + a.chunk < a.s_loc ? k_lo + a.chunk : a.s_loc;
+  if (horizon < hi) hi = horizon;  // keys at or before q_pos only
+  const int k_hi = hi > k_lo ? static_cast<int>(hi) : k_lo;
+  const int ntiles = (k_hi - k_lo + KT - 1) / KT;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      s9::mbar_init(full + st, 1);
+      s9::mbar_init(empty + st, NCW * 32);
+    }
+    s9::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == NCW) {
+    // producer: K and V tiles into the ring, slab by slab
+    if (lane == 0) {
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) s9::mbar_wait(empty + st, ((i / STAGES) & 1) ^ 1);
+        s9::mbar_expect_tx(full + st, 2 * TILE_BYTES);
+        const int s0 = k_lo + i * KT;
+        const int c1 = a.hs ? hk : s0, c2 = a.hs ? s0 : hk;
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          s9::tma_load_4d(ks + (st * NH + h) * SLAB, &tm_k, full + st, 64 * h,
+                          c1, c2, b);
+          s9::tma_load_4d(vs + (st * NH + h) * SLAB, &tm_v, full + st, 64 * h,
+                          c1, c2, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warp: query row `row` (a head of the group, rows >= g zero)
+  const int row = lane >> 2, cq = 2 * (lane & 3);
+  uint32_t qa[D / 16][2];
+  {
+    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+        a.q + (static_cast<long>(b) * a.hq + hk * g + row) * D);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][0] = row < g ? __ldg(qr + (16 * kk + cq) / 2) : 0u;
+      qa[kk][1] = row < g ? __ldg(qr + (16 * kk + 8 + cq) / 2) : 0u;
+    }
+  }
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) o[j][u] = 0.f;
+  float m_r = td::NEG_INF, l_r = 0.f;
+  const uint32_t ks_base = s9::smem_addr(ks), vs_base = s9::smem_addr(vs);
+  // this lane's ldmatrix rows: K (non-transposed) and V (transposed)
+  const int rk = 16 * warp + (lane & 7) + ((lane >> 4) << 3);
+  const int ck = (lane >> 3) & 1;
+  const int rv = 16 * warp + (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int cv = lane >> 4;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % STAGES;
+    s9::mbar_wait(full + st, (i / STAGES) & 1);
+    const int kw0 = k_lo + i * KT + 16 * warp;  // this warp's first key
+    if (kw0 < k_hi) {
+      const uint32_t kb = ks_base + st * NH * SLAB * 2;
+      const uint32_t vb = vs_base + st * NH * SLAB * 2;
+      if (kw0 + 16 > k_hi) {
+        // the group's value rows at or past k_hi: zeros (they may hold
+        // anything; their probabilities are 0)
+        bf16* vt = vs + st * NH * SLAB;
+        for (int x = lane; x < 16 * NH * 8; x += 32) {
+          const int r = x / (NH * 8), c = x % (NH * 8);
+          if (kw0 + r >= k_hi)
+            *reinterpret_cast<uint4*>(
+                reinterpret_cast<uint8_t*>(vt) +
+                (tile_addr<D>(0, 16 * warp + r, c))) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncwarp();
+      }
+      // S = Q K^T over the group's 16 keys: two n-tiles of 8 keys
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bk[4];
+        ldsm_x4(bk, tile_addr<D>(kb, rk, 2 * kk + ck));
+        mma_bf16(sc[0], qa[kk][0], qa[kk][1], bk[0], bk[1]);
+        mma_bf16(sc[1], qa[kk][0], qa[kk][1], bk[2], bk[3]);
+      }
+      // online softmax of row `row` over its 4 scores in this lane
+      float p[2][2], tmax = td::NEG_INF;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const bool valid = kw0 + 8 * nt + cq + u < k_hi;
+          sc[nt][u] = valid ? sc[nt][u] * a.scale : td::NEG_INF;
+          tmax = fmaxf(tmax, sc[nt][u]);
+        }
+      tmax = s9::quad_max(tmax);
+      const float m_new = fmaxf(m_r, tmax);
+      float psum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const bool valid = kw0 + 8 * nt + cq + u < k_hi;
+          p[nt][u] = valid ? expf(sc[nt][u] - m_new) : 0.f;
+          psum += p[nt][u];
+        }
+      const float alpha = expf(m_r - m_new);
+      l_r = l_r * alpha + s9::quad_sum(psum);
+      m_r = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= alpha;
+        o[j][1] *= alpha;
+      }
+      // P (rounded to bf16) as the A fragment of P.V
+      const uint32_t pa0 = s9::pack_bf16(p[0][0], p[0][1]);
+      const uint32_t pa2 = s9::pack_bf16(p[1][0], p[1][1]);
+#pragma unroll
+      for (int j2 = 0; j2 < D / 16; ++j2) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, tile_addr<D>(vb, rv, 2 * j2 + cv));
+        mma_bf16(o[2 * j2], pa0, pa2, bv[0], bv[1]);
+        mma_bf16(o[2 * j2 + 1], pa0, pa2, bv[2], bv[3]);
+      }
+    }
+    s9::mbar_arrive(empty + st);
+  }
+
+  // merge the four warps' (acc, m, l) by exact LSE, warps in order
+  float* const mo = mrg + (warp * MAXG + row) * (D + 2);
+  if (row < g) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      mo[8 * j + cq] = o[j][0];
+      mo[8 * j + cq + 1] = o[j][1];
+    }
+    if ((lane & 3) == 0) {
+      mo[D] = m_r;
+      mo[D + 1] = l_r;
+    }
+  }
+  s9::named_sync(1, NCW * 32);
+  float* const out = a.part + ((static_cast<long>(sp) * a.b_len + b) * a.hq +
+                               hk * g) * (D + 2);
+  for (int x = threadIdx.x; x < g * D; x += NCW * 32) {
+    const int r = x / D, c = x % D;
+    float mx = td::NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NCW; ++w)
+      mx = fmaxf(mx, mrg[(w * MAXG + r) * (D + 2) + D]);
+    float acc = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NCW; ++w) {
+      const float* mw = mrg + (w * MAXG + r) * (D + 2);
+      const float sc = expf(mw[D] - mx);
+      acc = __fadd_rn(acc, __fmul_rn(mw[c], sc));
+      l = __fadd_rn(l, __fmul_rn(mw[D + 1], sc));
+    }
+    out[r * (D + 2) + c] = acc;
+    if (c == 0) {
+      out[r * (D + 2) + D] = mx;
+      out[r * (D + 2) + D + 1] = l;
+    }
+  }
+}
+
+// The map of one dense bf16 shard, K or V: dims (d, h, s, b) or (d, s, h,
+// b), whichever keeps the strides ascending (hs), a box of one 64-column
+// slab of KT keys of one (b, h), 128-byte swizzle; rows past S read as
+// zeros. Strides in elements. False if the CUDA driver refuses it.
+bool shard_map(CUtensorMap* map, const void* base, int b, int s, int h,
+               int d, long sb, long sh, long sk, bool hs) {
+  const s9::EncodeTiledFn fn = s9::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)(hs ? h : s),
+                              (cuuint64_t)(hs ? s : h), (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)(hs ? sh : sk) * 2,
+                                 (cuuint64_t)(hs ? sk : sh) * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, hs ? 1u : (cuuint32_t)KT,
+                             hs ? (cuuint32_t)KT : 1u, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const DecodeArgs& a, const void* k, const void* v,
+                   long sb, long sh, long sk, int splits, cudaStream_t st) {
+  CUtensorMap tm_k, tm_v;
+  if (!shard_map(&tm_k, k, a.b_len, a.s_loc, a.hkv, D, sb, sh, sk, a.hs) ||
+      !shard_map(&tm_v, v, a.b_len, a.s_loc, a.hkv, D, sb, sh, sk, a.hs))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<D>();
+  // the shared-memory attribute is set once per device (a bit per device)
+  static std::atomic<uint64_t> smem_set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(smem_set.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(decode_tma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_set.fetch_or(bit, std::memory_order_release);
+  }
+  decode_tma_kernel<D><<<dim3(splits, a.hkv, a.b_len), NTH, smem, st>>>(
+      tm_k, tm_v, a);
+  return cudaGetLastError();
+}
+
+}  // namespace hop
 
 // -- B20 ----------------------------------------------------------------------
 
@@ -340,9 +673,9 @@ extern "C" {
 // (splits, B, Hq, D + 2) f32 scratch; the shard's keys split in `chunk`
 // keys (a multiple of 128), `splits` of them covering s_loc. start / q_pos
 // read from device memory (one int32 each) when their pointers are not
-// null. One dtype (td::F32 or td::BF16), D in {64, 128}, Hq / Hkv in
-// {1, 2, 4, 8}; contiguous, 16-byte aligned key rows. Returns a
-// cudaError_t.
+// null. One dtype (td::F32: the FMA body; td::BF16: the Hopper kernel,
+// every stride 16-byte aligned), D in {64, 128}, Hq / Hkv in {1, 2, 4, 8};
+// contiguous, 16-byte aligned key rows. Returns a cudaError_t.
 int td_flash_decode_partial(const void* q, const void* k, const void* v,
                             void* acc, void* m, void* l, void* part, int b,
                             int hq, int hkv, int s_loc, int d, long long sb,
@@ -359,27 +692,37 @@ int td_flash_decode_partial(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sp = static_cast<const int*>(start_ptr);
   const int* qp = static_cast<const int*>(qpos_ptr);
-  float* a = static_cast<float*>(acc);
-  float* mm = static_cast<float*>(m);
-  float* ll = static_cast<float*>(l);
   float* pp = static_cast<float*>(part);
-#define TD_CASE(CODE, TYPE, DIM, G)                                          \
-  if (dtype == CODE && d == DIM && g == G)                                   \
-    return static_cast<int>(launch_decode<TYPE, DIM, G>(                     \
-        q, k, v, a, mm, ll, pp, b, hq, hkv, s_loc, sb, sh, sk, sp, start,    \
-        qp, qpos, chunk, splits, scale, st));
-#define TD_GROUPS(CODE, TYPE, DIM) \
-  TD_CASE(CODE, TYPE, DIM, 1)      \
-  TD_CASE(CODE, TYPE, DIM, 2)      \
-  TD_CASE(CODE, TYPE, DIM, 4)      \
-  TD_CASE(CODE, TYPE, DIM, 8)
-  TD_GROUPS(td::F32, float, 64)
-  TD_GROUPS(td::F32, float, 128)
-  TD_GROUPS(td::BF16, __nv_bfloat16, 64)
-  TD_GROUPS(td::BF16, __nv_bfloat16, 128)
+  cudaError_t err = load_merge();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaErrorInvalidValue;
+  if (dtype == td::BF16 && (g == 1 || g == 2 || g == 4 || g == 8) &&
+      (d == 64 || d == 128)) {
+    const hop::DecodeArgs a{static_cast<const __nv_bfloat16*>(q), pp, b, hq,
+                            hkv, s_loc, sp, start, qp, qpos, chunk, scale,
+                            sh <= sk ? 1 : 0};
+    err = d == 64 ? hop::launch<64>(a, k, v, sb, sh, sk, splits, st)
+                  : hop::launch<128>(a, k, v, sb, sh, sk, splits, st);
+  }
+#define TD_CASE(DIM, G)                                                      \
+  if (dtype == td::F32 && d == DIM && g == G)                                \
+    err = launch_decode<float, DIM, G>(q, k, v, pp, b, hq, hkv, s_loc, sb,   \
+                                       sh, sk, sp, start, qp, qpos, chunk,   \
+                                       splits, scale, st);
+#define TD_GROUPS(DIM) \
+  TD_CASE(DIM, 1)      \
+  TD_CASE(DIM, 2)      \
+  TD_CASE(DIM, 4)      \
+  TD_CASE(DIM, 8)
+  TD_GROUPS(64)
+  TD_GROUPS(128)
 #undef TD_GROUPS
 #undef TD_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_merge_kernel<<<b * hq, NT, 0, st>>>(
+      pp, static_cast<float*>(acc), static_cast<float*>(m),
+      static_cast<float*>(l), b * hq, d, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B20. acc (rows, d), m, l (rows) f32: this rank's partial; exactly one

@@ -33,7 +33,8 @@
 // of NVLink time, B7 the same. B8 moves B7's bytes in one hop with a flag
 // per rank.
 //
-// Design of B9 and B7:
+// Design of B9 and B7 (their legs, protocols and epochs live in
+// td_oneshot.cuh, shared with B6 in allreduce.cu):
 //  * a plan (kernels/reduce_scatter.py::ring_plan, the same on every rank)
 //    fixes the grid G, the landing slots (2 parities x n - 1 slots of
 //    slot_bytes from byte 0 of the symmetric buffer: slot j of parity P
@@ -88,179 +89,13 @@
 
 #include "td_common.cuh"
 #include "td_dist.cuh"
+#include "td_oneshot.cuh"
 
 namespace {
 
 using td::dist::Team;
 using td::dist::u64;
-
-constexpr int NT = 256;
-
-__device__ __forceinline__ uint4 pack(const float* f, const float*) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack(const float* f, const __nv_bfloat16*) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = __halves2bfloat162(__float2bfloat16(f[2 * i]),
-                              __float2bfloat16(f[2 * i + 1]));
-  return u;
-}
-
-// a + b elementwise, each sum rounded to T
-template <typename T>
-__device__ __forceinline__ uint4 add_vec(const uint4& a, const uint4& b) {
-  constexpr int VEC = td::kVec<T>;
-  float fa[VEC], fb[VEC];
-  td::unpack(a, fa, static_cast<const T*>(nullptr));
-  td::unpack(b, fb, static_cast<const T*>(nullptr));
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) fa[i] = fa[i] + fb[i];
-  return pack(fa, static_cast<const T*>(nullptr));
-}
-
-// This block's columns: vectors [c0, c0 + cw) of every row of kv vectors.
-struct Cols {
-  int c0, cw;
-  __device__ Cols(int kv) {
-    c0 = static_cast<int>(static_cast<long>(blockIdx.x) * kv / gridDim.x);
-    cw = static_cast<int>(static_cast<long>(blockIdx.x + 1) * kv /
-                          gridDim.x) - c0;
-  }
-  // index of item i of a chunk whose first row is r0
-  __device__ __forceinline__ long at(long i, long r0, int kv) const {
-    return (r0 + i / cw) * kv + c0 + i % cw;
-  }
-};
-
-__device__ __forceinline__ uint4* buf(const Team& t, int p, long off) {
-  return reinterpret_cast<uint4*>(t.peer(p) + off);
-}
-__device__ __forceinline__ u64* flags(const Team& t, int p, long off) {
-  return reinterpret_cast<u64*>(t.peer(p) + off);
-}
-
-// -- B9 / B7 signalling -----------------------------------------------------
-
-constexpr long long kSpinPolls = 1 << 12;     // polls before any sleep
-constexpr long long kPollLimit = 1LL << 25;   // then >= 2 s of 64 ns sleeps
-
-__device__ __noinline__ void lost(const char* what, int from,
-                                  unsigned long long have,
-                                  unsigned long long want) {
-  printf("td_dist: lost signal: %s from rank %d (flag %llu, want %llu)\n",
-         what, from, have, want);
-  __trap();
-}
-
-// one poll done: spin tightly first, then back off; bounded
-__device__ __forceinline__ void backoff(long long& polls, const char* what,
-                                        int from, unsigned long long have,
-                                        unsigned long long want) {
-  if (++polls > kSpinPolls) {
-    if (polls > kPollLimit) lost(what, from, have, want);
-    __nanosleep(64);
-  }
-}
-
-// Wait (one thread) until *flag >= e.
-__device__ __forceinline__ void await_flag(const u64* flag, u64 e,
-                                           const char* what, int from) {
-  long long polls = 0;
-  u64 v;
-  while ((v = td::dist::ld_acquire(flag)) < e) backoff(polls, what, from, v, e);
-}
-
-// LL lines: {lo, f, hi, f}, written and read whole (volatile: relaxed at
-// system scope); each 8-byte half holds a data word and the epoch.
-__device__ __forceinline__ void st_line(uint4* p, unsigned lo, unsigned hi,
-                                        unsigned f) {
-  asm volatile("st.volatile.global.v4.u32 [%0], {%1, %2, %3, %4};"
-               :: "l"(p), "r"(lo), "r"(f), "r"(hi), "r"(f) : "memory");
-}
-__device__ __forceinline__ uint4 ld_line(const uint4* p) {
-  uint4 v;
-  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p) : "memory");
-  return v;
-}
-
-// One 16-byte vector as the two LL lines at `lines`, tagged f.
-__device__ __forceinline__ void send_ll(uint4* lines, const uint4& v,
-                                        unsigned f) {
-  st_line(lines, v.x, v.y, f);
-  st_line(lines + 1, v.z, v.w, f);
-}
-
-// The 16-byte vector of the two LL lines at `lines` once both carry f.
-__device__ __forceinline__ uint4 recv_ll(const uint4* lines, unsigned f,
-                                         const char* what, int from) {
-  long long polls = 0;
-  for (;;) {
-    const uint4 a = ld_line(lines), b = ld_line(lines + 1);
-    if (a.y == f && a.w == f && b.y == f && b.w == f)
-      return make_uint4(a.x, a.z, b.x, b.z);
-    backoff(polls, what, from, a.y, f);
-  }
-}
-
-// Flags protocol, after this block's stores: threads 0..n-2 each raise
-// the flag (b, slot) of the peer they stored into (the peer at distance
-// t + 1 takes slot n - 2 - t) after a system fence, then wait for this
-// rank's flag (b, t); the block goes on when all n - 1 are up.
-__device__ __forceinline__ void exchange_flags(const Team& team,
-                                               long flag_off, u64 e,
-                                               const char* what) {
-  const int me = team.rank, n = team.world, t = threadIdx.x;
-  const long row = static_cast<long>(blockIdx.x) * (n - 1);
-  __syncthreads();
-  if (t < n - 1) {
-    __threadfence_system();
-    td::dist::notify(flags(team, (me + 1 + t) % n, flag_off) + row + n - 2 - t,
-                     e);
-    await_flag(flags(team, me, flag_off) + row + t, e, what, (me + 1 + t) % n);
-  }
-  __syncthreads();
-}
-
-// This block's epoch: its own word of the control block.
-struct Epoch {
-  u64* word;
-  u64 e;
-  __device__ explicit Epoch(u64* ctl)
-      : word(ctl + td::dist::kCtlHeader + blockIdx.x), e(__ldcg(word) + 1) {}
-  __device__ void close() const {
-    __syncthreads();
-    if (threadIdx.x == 0) *word = e;
-  }
-};
-
-constexpr int kPeers = td::dist::kMaxWorld - 1;
-
-// One 16-byte vector into item v of a peer's slot at `slot`: plain, or as
-// two LL lines tagged f.
-template <bool LL>
-__device__ __forceinline__ void put_vec(char* slot, long v, const uint4& val,
-                                        unsigned f) {
-  uint4* dst = reinterpret_cast<uint4*>(slot);
-  if (LL)
-    send_ll(dst + 2 * v, val, f);
-  else
-    dst[v] = val;
-}
-
-// Item v of this rank's slot at `slot`, which rank `from` stores: waits
-// for its LL lines, or reads it after the flags.
-template <bool LL>
-__device__ __forceinline__ uint4 get_vec(const char* slot, long v, unsigned f,
-                                         const char* what, int from) {
-  const uint4* src = reinterpret_cast<const uint4*>(slot);
-  return LL ? recv_ll(src + 2 * v, f, what, from) : __ldcg(src + v);
-}
+using namespace td::oneshot;
 
 // B9. The peer at distance i + 1 (owner me + 1 + i) takes this rank's
 // rows in its slot n - 2 - i; slot s of this rank holds the rows of rank
@@ -277,19 +112,7 @@ __global__ void __launch_bounds__(NT)
   const Cols cols(kv);
   const long items = static_cast<long>(m) * cols.cw;
   const long par = static_cast<long>(ep.e & 1) * (n - 1) * slot_bytes;
-  for (long j = threadIdx.x; j < items; j += NT) {
-    const long v = cols.at(j, 0, kv);
-    uint4 val[kPeers];
-#pragma unroll
-    for (int i = 0; i < kPeers; ++i)
-      if (i < n - 1)
-        val[i] = x[cols.at(j, static_cast<long>((me + 1 + i) % n) * m, kv)];
-#pragma unroll
-    for (int i = 0; i < kPeers; ++i)
-      if (i < n - 1)
-        put_vec<LL>(team.peer((me + 1 + i) % n) + par +
-                        (n - 2 - i) * slot_bytes, v, val[i], f);
-  }
+  scatter_chunks<LL>(x, team, cols, m, kv, par, slot_bytes, f);
   if (!LL) exchange_flags(team, flag_off, ep.e, "B9 reduce-scatter slot");
   const char* land = team.peer(me) + par;
   for (long j = threadIdx.x; j < items; j += NT) {
@@ -313,12 +136,10 @@ __global__ void __launch_bounds__(NT)
 // B7. As B9's slots: this rank's shard goes to slot n - 2 - i of the
 // peer at distance i + 1, slot s of this rank holds rank me + 1 + s's
 // rows, copied out as its lines land (LL) or once the block's flags are
-// up. Under flags a thread loads kBatch
-// items before it stores any, so their latencies overlap; under LL (a
-// few items a block: the plan keeps LL blocks small) one at a time
-// measured faster on the card.
-constexpr int kBatch = 4;
-
+// up (gather_slots). Under flags a thread loads kBatch items before it
+// stores any, so their latencies overlap; under LL (a few items a block:
+// the plan keeps LL blocks small) one at a time measured faster on the
+// card.
 template <bool LL>
 __global__ void __launch_bounds__(NT)
     ring_ag_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
@@ -350,22 +171,8 @@ __global__ void __launch_bounds__(NT)
     }
   }
   if (!LL) exchange_flags(team, flag_off, ep.e, "B7 all-gather slot");
-  const char* land = team.peer(me) + par;
-  for (int s = 0; s < n - 1; ++s) {
-    const int from = (me + 1 + s) % n;
-    const char* slot = land + s * slot_bytes;
-    for (long j0 = threadIdx.x; j0 < items; j0 += kB * NT) {
-#pragma unroll
-      for (int u = 0; u < kB; ++u)
-        if (j0 + u * NT < items)
-          val[u] = get_vec<LL>(slot, cols.at(j0 + u * NT, 0, kv), f,
-                               "B7 all-gather line", from);
-#pragma unroll
-      for (int u = 0; u < kB; ++u)
-        if (j0 + u * NT < items)
-          out[cols.at(j0 + u * NT, static_cast<long>(from) * m, kv)] = val[u];
-    }
-  }
+  gather_slots<LL>(out, team, cols, m, kv, par, slot_bytes, f,
+                   "B7 all-gather line");
   ep.close();
 }
 
@@ -414,33 +221,6 @@ __global__ void __launch_bounds__(NT)
        i += static_cast<long>(gridDim.x) * NT)
     out[i] = __ldcg(rows + i);
   td::dist::end_call(ctl, e);
-}
-
-// Checks that `grid` blocks of kernel fn fit on the card at once with the
-// other ranks that share it (queried once per kernel: never under a CUDA
-// graph capture, callers warm up first; the query also loads the kernel
-// before any spinning launch).
-template <typename K>
-cudaError_t check_resident(K fn, int* occ, int grid, int ranks_per_device) {
-  static int sms = 0;
-  cudaError_t err = cudaSuccess;
-  if (*occ == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, fn, NT, 0);
-    if (err != cudaSuccess) {
-      *occ = 0;
-      return err;
-    }
-  }
-  if (static_cast<long>(grid) * ranks_per_device >
-      static_cast<long>(*occ) * sms)
-    return cudaErrorInvalidConfiguration;
-  return cudaSuccess;
 }
 
 template <typename T, bool LL>

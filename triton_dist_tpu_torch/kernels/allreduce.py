@@ -10,10 +10,14 @@ in x's dtype. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     and adds its own term first, then the others in ascending rank, each
     add rounded to x's dtype: the reference's order, which depends on the
     rank, so float results may differ from rank to rank in the last bit;
-  * RHD — B6, ``rhd_all_reduce``: recursive halving-doubling (the same
-    kernel source; ``rhd_ref`` for CPU tensors), power-of-two n and M a
-    multiple of n (anything else raises: the reference's per-device
-    kernel would drop rows there). Every rank ends with the same bytes;
+  * RHD — B6, ``rhd_all_reduce``: the reference's recursive
+    halving-doubling, whose value is the halving tree's fold of the n
+    terms (``rhd_fold``; ``rhd_ref`` for CPU tensors), power-of-two n and
+    M a multiple of n (anything else raises: the reference's per-device
+    kernel would drop rows there). Every rank ends with the same bytes.
+    On the card (the same kernel source) the tree is folded where the
+    terms land, after one hop (small x) or after a one-hop reduce-scatter
+    and before a one-hop all-gather (large x): ``rhd_plan``;
   * TWO_SHOT — the ring reduce-scatter B9 (kernels/reduce_scatter.py)
     then the ring all-gather B7 (kernels/allgather.py), composed as the
     reference composes them. n must divide M: anything else raises (the
@@ -47,7 +51,9 @@ on the card) waits for ROADMAP A9 (tail), its fault preamble for A8.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import enum
+import functools
 
 import torch
 import torch.distributed as dist
@@ -170,16 +176,93 @@ def _round_up(x: int, a: int = _ALIGN) -> int:
 
 
 def grid_blocks(m: int, kv: int, sm_count: int, ranks_per_device: int) -> int:
-    """Blocks of B5/B6 for an (m, kv-vector) x: about _BLOCK_BYTES of x
+    """Blocks of B5 for an (m, kv-vector) x: about _BLOCK_BYTES of x
     each, at most one column vector wide each, and few enough that every
     rank sharing the card is resident at once (one block per SM)."""
     want = -(-m * kv * 16 // _BLOCK_BYTES)
     return max(1, min(want, kv, sm_count // ranks_per_device))
 
 
-def _launch(kind: str, mesh, x: torch.Tensor) -> torch.Tensor:
-    """Launch B5 ("one_shot") or B6 ("rhd") on this rank's x."""
-    what = f"{kind}_all_reduce"
+# B6's regimes: one-shot (every rank's whole x into every peer, the tree
+# folded locally: one signal latency, (n - 1) x on the wire a rank) while
+# x holds at most this many bytes, two-shot above (a one-hop
+# reduce-scatter whose owners fold the tree, then a one-hop all-gather of
+# the folded chunks: one more signal latency, 2 (n - 1) / n x on the
+# wire). The protocol of either (LL lines or flags) follows the bytes of a
+# slot as B9 / B7's (reduce_scatter.LL_MAX_SLOT_BYTES). Four H100s
+# (chip_smoke.py tp4_ring's rhd_sweep, rows of 5120 bf16, the slowest
+# rank): one-shot 0.0072 / 0.0084 / 0.0103 / 0.0124 ms at 4 / 8 / 16 / 32
+# rows (40-320 KiB) against two-shot's best 0.0099 / 0.0102 / 0.0115 /
+# 0.0134; at 64 rows (640 KiB) two-shot 0.0175-0.0182 against 0.0197,
+# and the gap grows with the rows (512: 0.0502 against 0.0852).
+RHD_ONE_SHOT_MAX_BYTES = 320 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class RhdPlan:
+    """What a launch of B6 passes besides its tensors, the same on every
+    rank of a world. two_shot: the regime; m: rows a slot (M / n
+    two-shot, M one-shot); kv: 16-byte vectors a row; grid: blocks, block
+    b owning vectors [b kv / grid, (b + 1) kv / grid) of every row; ll: LL
+    lines or flags. The first region (B9 / B7's ``ring_layout``: slot j of
+    parity P at byte (P (n - 1) + j) slot_bytes, rank r's rows for rank p
+    in p's slot (r - p - 1) mod n) from byte 0, its flags (grid, n - 1)
+    u64 at flag_off; two-shot: the second region (the folded chunks, the
+    same layout) from byte ag_off, its flags at ag_flag_off. nbytes: the
+    buffer's size."""
+    two_shot: bool
+    m: int
+    kv: int
+    grid: int
+    ll: bool
+    slot_bytes: int
+    flag_off: int
+    ag_off: int
+    ag_flag_off: int
+    nbytes: int
+
+
+def rhd_layout(world: int, rows: int, kv: int, grid: int, ll: bool,
+               two_shot: bool) -> RhdPlan:
+    """The plan of B6 for x of ``rows`` rows of kv vectors on ``grid``
+    blocks under the protocol ``ll`` and the regime ``two_shot``."""
+    from triton_dist_tpu_torch.kernels.reduce_scatter import ring_layout
+    m = rows // world if two_shot else rows
+    first = ring_layout(world, m, kv, grid, ll)
+    if not two_shot:
+        return RhdPlan(False, m, kv, grid, ll, first.slot_bytes,
+                       first.flag_off, 0, 0, max(first.nbytes, _ALIGN))
+    ag_off = _round_up(first.nbytes)
+    return RhdPlan(True, m, kv, grid, ll, first.slot_bytes, first.flag_off,
+                   ag_off, ag_off + first.flag_off,
+                   max(ag_off + first.nbytes, _ALIGN))
+
+
+@functools.lru_cache(maxsize=None)
+def rhd_plan(world: int, rows: int, k: int, itemsize: int, sm_count: int,
+             ranks_per_device: int) -> RhdPlan:
+    """The plan of B6 for x (rows, K): the regime by x's bytes
+    (RHD_ONE_SHOT_MAX_BYTES), the grid as B9 / B7's (a vector a thread a
+    slot, at most one block an SM per rank that shares the card and one a
+    column vector), the protocol by a slot's bytes (LL_MAX_SLOT_BYTES)."""
+    from triton_dist_tpu_torch.kernels.reduce_scatter import (
+        LL_MAX_SLOT_BYTES,
+    )
+    kv = k * itemsize // 16
+    two_shot = rows * kv * 16 > RHD_ONE_SHOT_MAX_BYTES
+    m = rows // world if two_shot else rows
+    return rhd_layout(world, rows, kv,
+                      rhd_grid(m, kv, sm_count, ranks_per_device),
+                      m * kv * 16 <= LL_MAX_SLOT_BYTES, two_shot)
+
+
+def rhd_grid(m: int, kv: int, sm_count: int, ranks_per_device: int) -> int:
+    """B6's blocks for slots of m rows of kv vectors: B9 / B7's grid."""
+    from triton_dist_tpu_torch.kernels.reduce_scatter import _NT
+    return max(1, min(kv, -(-m * kv // _NT), sm_count // ranks_per_device))
+
+
+def _check_x(what: str, x: torch.Tensor) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"{what}: dtype {x.dtype} not in "
                          f"{list(_DTYPE_CODE)}")
@@ -188,48 +271,58 @@ def _launch(kind: str, mesh, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{what}: x must be a non-empty contiguous 2-D "
                          "tensor, 16-byte aligned, rows a multiple of 16 "
                          f"bytes; got {tuple(x.shape)}")
+
+
+def _launch_rhd(mesh, x: torch.Tensor, plan: RhdPlan) -> torch.Tensor:
+    """B6's launch on this rank's x under a given plan (chip_smoke.py's
+    regime sweep forces one through ``rhd_layout``). The plan's symmetric
+    buffer is made at its first call (a collective allocation; never under
+    capture), with a control block of an epoch word a block."""
+    ws = op_workspace(mesh, ("rhd", x.dtype, plan), (plan.nbytes,),
+                      torch.uint8, ctl_words=plan.grid)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        fn = build.function("allreduce", "td_rhd", (
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+        err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, mesh.world,
+                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), plan.m, plan.kv,
+                 plan.slot_bytes, plan.flag_off, plan.ag_off,
+                 plan.ag_flag_off, plan.grid, int(plan.ll),
+                 int(plan.two_shot), mesh.ranks_per_device,
+                 _DTYPE_CODE[x.dtype], build.stream_of(x))
+    build.check(err, "rhd_all_reduce")
+    return out
+
+
+def _launch_one_shot(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Launch B5 on this rank's x."""
+    what = "one_shot_all_reduce"
+    _check_x(what, x)
     world, (m, k) = mesh.world, x.shape
-    if kind == "rhd":
-        check_rhd(world, x)
     es = x.element_size()
     kv = k * es // 16
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = grid_blocks(m, kv, sms, mesh.ranks_per_device)
-    row_bytes = k * es
-    logn = world.bit_length() - 1
-    if kind == "one_shot":
-        land_off = 0
-        flag_off = _round_up(2 * world * m * row_bytes)
-        total = flag_off + grid * world * 8
-    else:
-        out_off = 0
-        land_off = _round_up(m * row_bytes)
-        flag_off = land_off + _round_up((m - m // world) * row_bytes)
-        total = flag_off + grid * 2 * max(logn, 1) * 8
-    ws = op_workspace(mesh, (kind, m, k, x.dtype), (total,), torch.uint8)
+    land_off = 0
+    flag_off = _round_up(2 * world * m * k * es)
+    total = flag_off + grid * world * 8
+    ws = op_workspace(mesh, ("one_shot", m, k, x.dtype), (total,),
+                      torch.uint8)
     out = torch.empty_like(x)
-    base = ws.buf.table.data_ptr()
     with torch.cuda.device(x.device):
-        if kind == "one_shot":
-            fn = build.function("allreduce", "td_one_shot", (
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-            err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, world, base,
-                     ws.ctl.data_ptr(), m, kv, land_off, flag_off, grid,
-                     mesh.ranks_per_device, _DTYPE_CODE[x.dtype],
-                     build.stream_of(x))
-        else:
-            fn = build.function("allreduce", "td_rhd", (
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-            err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, world, base,
-                     ws.ctl.data_ptr(), m, kv, out_off, land_off, flag_off,
-                     grid, mesh.ranks_per_device, _DTYPE_CODE[x.dtype],
-                     build.stream_of(x))
+        fn = build.function("allreduce", "td_one_shot", (
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+        err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, world,
+                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), m, kv, land_off,
+                 flag_off, grid, mesh.ranks_per_device, _DTYPE_CODE[x.dtype],
+                 build.stream_of(x))
     build.check(err, what)
     return out
 
@@ -245,7 +338,7 @@ def one_shot_all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"one_shot_all_reduce: unsupported device "
                          f"{x.device}")
-    out = _launch("one_shot", mesh, x)
+    out = _launch_one_shot(mesh, x)
     one_shot_all_reduce.launches += 1
     return out
 
@@ -254,15 +347,21 @@ one_shot_all_reduce.launches = 0
 
 
 def rhd_all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
-    """B6 on this rank: the sum over the ranks of x (M, K) by recursive
-    halving-doubling, in x's dtype; a fresh tensor, the same bytes on every
-    rank. CUDA tensors launch the kernel (counted in
-    ``rhd_all_reduce.launches``); CPU tensors run ``rhd_ref``."""
+    """B6 on this rank: the sum over the ranks of x (M, K) folded along
+    the halving tree (recursive halving-doubling's value), in x's dtype; a
+    fresh tensor, the same bytes on every rank. CUDA tensors launch the
+    kernel under ``rhd_plan`` (counted in ``rhd_all_reduce.launches``);
+    CPU tensors run ``rhd_ref``."""
     if x.device.type == "cpu":
         return rhd_ref(mesh, x)
     if x.device.type != "cuda":
         raise ValueError(f"rhd_all_reduce: unsupported device {x.device}")
-    out = _launch("rhd", mesh, x)
+    _check_x("rhd_all_reduce", x)
+    check_rhd(mesh.world, x)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = rhd_plan(mesh.world, x.shape[0], x.shape[1], x.element_size(),
+                    sms, mesh.ranks_per_device)
+    out = _launch_rhd(mesh, x, plan)
     rhd_all_reduce.launches += 1
     return out
 

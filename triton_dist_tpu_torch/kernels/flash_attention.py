@@ -17,8 +17,9 @@ FMA body), in its three forms:
     (``flash_fold_partial.launches``).
 
 B19, ``csrc/flash_decode.cu``: ``flash_decode_partial``, the split-KV
-partial of one decode step over a dense key shard
-(``flash_decode_partial.launches``).
+partial of one decode step over a dense key shard, cut by ``decode_plan``
+(bf16: a Hopper kernel that streams K/V tiles by TMA into tensor-core
+products; f32: the FMA body) (``flash_decode_partial.launches``).
 
 CUDA tensors launch the kernels; CPU tensors run the plain PyTorch
 versions (``*_ref``). There is no fallback between the two: a CUDA tensor
@@ -42,6 +43,7 @@ segment is the number of boundaries cu_seqlens[1:] at or below it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -53,8 +55,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _DECODE_GROUPS = (1, 2, 4, 8)   # Hq/Hkv values B19 is built for
 _REF_BK = 128     # the TPU kernels' key block, min(128, S)
-_DECODE_TILE = 128              # keys per B19 step; splits are multiples
-_DECODE_BLOCKS_PER_SM = 4       # B19 blocks to aim for, per SM
+_DECODE_TILE = 128              # splits of B19 are multiples of it (and
+                                # the f32 form's keys a step)
+_DECODE_BLOCKS_PER_SM = 4       # B19's f32 form: blocks to aim for, per SM
+_DECODE_KEYS = 64               # B19's bf16 form: keys a TMA tile
+_DECODE_STAGES = 4              # B19's bf16 form: tiles in flight a block
+_DECODE_GROUPS_A_TILE = 4       # B19's bf16 form: consumer warps, each
+                                # folding its 16 keys of every tile
 
 
 def p_cast(p: torch.Tensor, v_dtype: torch.dtype) -> torch.Tensor:
@@ -403,13 +410,60 @@ flash_decode_partial.launches = 0
 
 
 def decode_splits(s_loc: int, rows: int, sms: int) -> tuple[int, int]:
-    """(keys per split, splits) of B19: about _DECODE_BLOCKS_PER_SM blocks
-    per SM over the rows = B * Hkv (batch, kv head) pairs, each split a
-    multiple of the kernel's 128-key step."""
+    """(keys per split, splits) of B19's f32 form: about
+    _DECODE_BLOCKS_PER_SM blocks per SM over the rows = B * Hkv (batch, kv
+    head) pairs, each split a multiple of the kernel's 128-key step."""
     want = max(1, -(-_DECODE_BLOCKS_PER_SM * sms // max(rows, 1)))
+    return _split(s_loc, want)
+
+
+def _split(s_loc: int, want: int) -> tuple[int, int]:
+    """(keys per split, splits): s_loc cut into at most `want` splits of a
+    multiple of _DECODE_TILE keys, none empty."""
     chunk = -(-s_loc // want)
     chunk = max(_DECODE_TILE, -(-chunk // _DECODE_TILE) * _DECODE_TILE)
     return chunk, -(-s_loc // chunk)
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How B19 cuts one launch: block (split, kv head, batch) folds keys
+    [split * chunk, min((split + 1) * chunk, S_loc, q_pos - start + 1))
+    of the shard, ``tile`` keys at a time (the bf16 form: TMA tiles,
+    ``stages`` of them in flight, each tile's keys dealt in ``groups``
+    runs of tile / groups to warps that fold their runs apart and merge by
+    exact LSE, warp 0 first, at the split's end; the f32 form: 128-key
+    steps, one group), and the splits are merged in ascending order by
+    exact LSE."""
+    chunk: int
+    splits: int
+    tile: int
+    stages: int
+    groups: int
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(s_loc: int, rows: int, sms: int,
+                dtype: torch.dtype) -> DecodePlan:
+    """B19's plan for a shard of S_loc keys and rows = B * Hkv (batch, kv
+    head) pairs on a card of ``sms`` SMs. bf16: one block an SM at a time
+    (each keeps up to _DECODE_STAGES tiles of K and V in flight: 128 KB at
+    D 128, enough bytes to stream HBM), the splits chosen among 1 ..
+    2 sms / rows to fill the waves of blocks best (fewest splits on a
+    tie); f32: ``decode_splits``."""
+    if dtype != torch.bfloat16:
+        chunk, splits = decode_splits(s_loc, rows, sms)
+        return DecodePlan(chunk, splits, _DECODE_TILE, 1, 1)
+    rows = max(rows, 1)
+    best = None
+    for want in range(1, max(1, 2 * sms // rows) + 1):
+        chunk, splits = _split(s_loc, want)
+        blocks = splits * rows
+        fill = blocks / (-(-blocks // sms) * sms)
+        if best is None or fill > best[0] + 1e-9:
+            best = (fill, chunk, splits)
+    return DecodePlan(best[1], best[2], _DECODE_KEYS, _DECODE_STAGES,
+                      _DECODE_GROUPS_A_TILE)
 
 
 def _decode_launch(q, k, v, start_pos, q_pos, head_major: bool):
@@ -449,7 +503,8 @@ def _decode_launch(q, k, v, start_pos, q_pos, head_major: bool):
     s_ptr, s_val = _position_args(start_pos, q, what)
     p_ptr, p_val = _position_args(q_pos, q, what)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    chunk, splits = decode_splits(s_loc, b * hkv, sms)
+    plan = decode_plan(s_loc, b * hkv, sms, q.dtype)
+    chunk, splits = plan.chunk, plan.splits
     dev = q.device
     acc = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     m = torch.empty((b, hq), dtype=torch.float32, device=dev)
