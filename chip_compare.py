@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times B6 (rhd_all_reduce) and B19 (flash_decode_partial) of one
+"""Times B6 (rhd_all_reduce) and B19 (flash_decode_partial), or with
+``--gemm`` B4 at world 1 (gemm_ar) and B12 (pallas_matmul), of one
 checkout of the port, with chip_smoke.py's timing methods, so that two
 checkouts can be compared in one call on the same card(s):
 
-    python3 chip_compare.py [--root DIR] [--four]
+    python3 chip_compare.py [--root DIR] [--four | --gemm]
 
 ``--root`` is the checkout whose ``triton_dist_tpu_torch`` is timed
 (default: the one beside this script; an older commit unpacked with
@@ -13,9 +14,13 @@ queued_ms, and 20 calls a rank in a graph per rank) at 16 and 512 rows
 of 5,120 bf16, and B19 at B=4 over S_loc 32,768 and 4,096 of Qwen3-32B's
 heads, bf16 (time_ms and graph_time_ms). ``--four``: B6 on four cards,
 one process a card, 16 and 512 rows (queued_ms and graph_time_ms, the
-slowest rank). Prints one JSON line with the checkout's root and the
-card's name and power limit. Run it on the card: without one it exits
-non-zero.
+slowest rank). ``--gemm``: B4 at Qwen3-8B's o and down, B12 at Qwen3-8B's
+QKV, o, gate_up and down and Qwen3-30B-A3B's QKV and o, bf16, at M = 4
+and 8, each warm (20 calls on one weight in a graph: the weight stays in
+L2) and cold (the calls rotate over weight copies that exceed twice the
+L2), torch.mm beside each in the same two states. Prints one JSON line
+with the checkout's root and the card's name and power limit. Run it on
+the card: without one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -33,6 +38,12 @@ import chip_smoke as cs  # noqa: E402  (the timing helpers; stdlib only)
 
 ROWS = (16, 512)
 S_LOCS = (32768, 4096)
+# (entry, shape name, K, N): the decode projections B4 and B12 serve
+GEMMS = (("b4", "o", 4096, 4096), ("b4", "down", 12288, 4096),
+         ("b12", "qkv", 4096, 6144), ("b12", "o", 4096, 4096),
+         ("b12", "gate_up", 4096, 24576), ("b12", "down", 12288, 4096),
+         ("b12", "moe_qkv", 2048, 5120), ("b12", "moe_o", 4096, 2048))
+GEMM_ROWS = (4, 8)
 
 
 def _import_port(root: str):
@@ -81,6 +92,32 @@ def one_card(torch, arm, fa, symm) -> dict:
         out[f"b19_s_loc{s_loc}"] = {"ms": cs.time_ms(call),
                                     "graph_ms": cs.graph_time_ms(call)}
         del k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def gemm(torch, ga, agm) -> dict:
+    """B4 (world 1) and B12 in bf16, ms a call, warm and cold, with
+    torch.mm in the same states."""
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(53)
+    entry = {"b4": ga.gemm_ar, "b12": agm.pallas_matmul}
+    for which, name, k, n in GEMMS:
+        ws = cs.weight_copies(torch, g, k, n, torch.bfloat16)
+        for m in GEMM_ROWS:
+            a = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            fn = entry[which]
+            out[f"{which}_{name}_m{m}"] = {
+                "warm": cs.cold_graph_ms(torch, lambda w: fn(a, w), ws[:1]),
+                "cold": cs.cold_graph_ms(torch, lambda w: fn(a, w), ws),
+                "mm_warm": cs.cold_graph_ms(
+                    torch, lambda w: torch.mm(a, w), ws[:1]),
+                "mm_cold": cs.cold_graph_ms(
+                    torch, lambda w: torch.mm(a, w), ws),
+                "bound": cs.bound_ms(2 * (m * k + k * n + m * n),
+                                     2.0 * m * k * n)[0]}
+        del ws
         torch.cuda.empty_cache()
     return out
 
@@ -151,7 +188,9 @@ def four_cards(root: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--four", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--four", action="store_true")
+    mode.add_argument("--gemm", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -165,6 +204,10 @@ def main() -> None:
     rec = {"root": os.path.abspath(args.root), "cards": smi}
     if args.four:
         rec.update(four_cards(args.root))
+    elif args.gemm:
+        from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+        from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
+        rec.update(gemm(torch, ga, agm))
     else:
         rec.update(one_card(torch, arm, fa, symm))
     print(json.dumps(rec), flush=True)

@@ -151,6 +151,42 @@ def graph_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_BYTES = 50 * 2 ** 20    # H100 SXM L2 cache (data sheet)
+
+
+def weight_copies(torch, g, k: int, n: int, dtype) -> list:
+    """Copies of a random (K, N) weight, enough that together they exceed
+    twice the L2 (at least two): a graph that calls a kernel on them in
+    turn finds each call's weights out of L2, as a model's step finds each
+    layer's weights."""
+    count = max(2, -(-2 * L2_BYTES // (k * n * 2)) + 1)
+    return [(torch.randn((k, n), generator=g, device=DEV)
+             * k ** -0.5).to(dtype) for _ in range(count)]
+
+
+def cold_graph_ms(torch, fn, ws: list, rounds: int = 6) -> float:
+    """Device time per call of fn(w) with w taken in turn from ws (see
+    weight_copies): rounds x len(ws) calls captured in one CUDA graph,
+    replayed under CUDA events after a warm-up replay. With one w it is
+    graph_time_ms: the weights stay in L2 (warm)."""
+    iters = max(20, rounds * len(ws))
+    fn(ws[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(ws[i % len(ws)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def graph_or_none(torch, fn, iters: int = 10):
     """graph_time_ms of fn, or None where a library call refuses capture
     (for the yardsticks only: a kernel of the port is timed by
@@ -546,111 +582,182 @@ def _held(torch, name, out, ref, tol):
             "ok": err <= tol * scale and bool(torch.isfinite(out).all())}
 
 
-# -- B4: GEMM + AR at world 1 ------------------------------------------------
+# -- B4: GEMM + AR at world 1, and B12: the same function ---------------------
+
+# what B4's world-1 body and B12 run in bf16 (csrc/gemm_stream_sm90.cuh)
+GEMM_INSTRUCTIONS = ("bf16: mma.sync m16n8k16 bf16->f32 with the operands "
+                     "swapped (16 weight columns the MMA's rows, the batch "
+                     "its n side), 128 x 128 weight tiles by TMA through a "
+                     "5-stage mbarrier ring, a persistent stream-K grid, "
+                     "the split-K fold in the same launch; f32: FMA")
+
+
+def _device_kernels(torch, fn):
+    """Device kernels that one call of fn() launches, by torch.profiler;
+    None where the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev) or None
+
+
+def _gemm_held(torch, g, entry, ref, cases):
+    """Each (name, dtype, M, K, N, tol) case: the kernel against its plain
+    version (max abs error <= tol x max|ref|), and in bf16 two calls the
+    same bytes; A's address 2 bytes off 16 where the name says so."""
+    rows = []
+    for name, dt, m, k, n, tol in cases:
+        if name.startswith("misaligned"):
+            a = torch.randn((m * k + 1,), generator=g, device=DEV).to(dt)
+            a = a[1:].view(m, k)
+        else:
+            a = torch.randn((m, k), generator=g, device=DEV).to(dt)
+        b = (torch.randn((k, n), generator=g, device=DEV) * k ** -0.5).to(dt)
+        out, again = entry(a, b), entry(a, b)
+        want = ref(a, b)
+        torch.cuda.synchronize()
+        rows.append(_held(torch, name, out, want, tol))
+        rows[-1]["same_bytes"] = bool(torch.equal(out, again))
+        rows[-1]["ok"] = rows[-1]["ok"] and rows[-1]["same_bytes"]
+    return rows
+
+
+def _gemm_timed(torch, g, entry, ref, library, m, k, n):
+    """bf16 (M, K) @ (K, N) timed in graphs of calls, warm (one weight:
+    it stays in L2) and cold (weight_copies in turn, as a model's step
+    finds each layer's), kernel, plain version and library call alike."""
+    ws = weight_copies(torch, g, k, n, torch.bfloat16)
+    a = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
+    rec = {"shape": [m, k, n]}
+    for key, fn in (("", entry), ("plain_", ref), ("library_", library)):
+        rec[f"{key}ms"] = cold_graph_ms(torch, lambda w: fn(a, w), ws[:1])
+        rec[f"{key}cold_ms"] = cold_graph_ms(torch, lambda w: fn(a, w), ws)
+    rec["bytes"] = (m * k + k * n + m * n) * 2
+    rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], 2.0 * m * k * n)
+    del ws
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gemm_row(rows, timed, row_shapes):
+    """The kernels-line fields: the mean over the main path's launches
+    (``row_shapes``, one each a layer) of each time, warm and cold."""
+    keys = ("ms", "cold_ms", "plain_ms", "plain_cold_ms", "library_ms",
+            "library_cold_ms", "bound_ms")
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["case"] in row_shapes),
+            **{key: sum(timed[s][key] for s in row_shapes) / len(row_shapes)
+               for key in keys},
+            "bound_by": "bytes", "instructions": GEMM_INSTRUCTIONS,
+            "shapes": timed}
+
 
 def phase_b4(torch, ga):
     """Kernel vs plain version at the decode path's o (K = N = 4096) and
-    down (K = 12288, N = 4096) shapes at M = 4 (the static Engine's batch)
-    and M = 8 (the ContinuousEngine's max_batch), and M = 2048, bf16; o
-    at M = 4 in f32. Max abs error <= 1e-2 x max|ref| for bf16 (one bf16
-    rounding of the output, 2^-9, and another f32 summation order), 1e-4
-    relative for f32. Timed at the two decode shapes; the row's times are
-    the mean over the main path's launches (one o and one down per
-    layer)."""
+    down (K = 12288, N = 4096) shapes at M = 1, 4 (the static Engine's
+    batch), 8 (the ContinuousEngine's max_batch) and 16, 17 and 2048, at
+    an odd K with A's address 2 bytes off 16 (the kernel's scalar copy of
+    A) and K 4097, bf16; o at M = 4 in f32. Max abs error <= 1e-2 x
+    max|ref| for bf16 (one bf16 rounding of the output, 2^-9, and another
+    f32 summation order), 1e-4 relative for f32; in bf16 two calls give
+    the same bytes. Timed at o and down, M = 4 and 8, warm and cold
+    (weights out of L2, as the model reads them), beside the plain
+    version and torch.mm in the same states; one call's device kernels
+    counted by the profiler (one). The row's times are the mean over the
+    main path's launches at M = 4 (one o and one down a layer); warm as
+    in earlier runs, cold beside it."""
     g = torch.Generator(device=DEV).manual_seed(13)
-    cases = [("o_m4", torch.bfloat16, 4, 4096, 4096, 1e-2),
-             ("down_m4", torch.bfloat16, 4, 12288, 4096, 1e-2),
-             ("o_m8", torch.bfloat16, 8, 4096, 4096, 1e-2),
-             ("down_m8", torch.bfloat16, 8, 12288, 4096, 1e-2),
-             ("o_m2048", torch.bfloat16, 2048, 4096, 4096, 1e-2),
-             ("o_m4_f32", torch.float32, 4, 4096, 4096, 1e-4)]
-    rows, timed = [], {}
-    for name, dt, m, k, n, tol in cases:
-        a = torch.randn((m, k), generator=g, device=DEV).to(dt)
-        b = (torch.randn((k, n), generator=g, device=DEV) * k ** -0.5).to(dt)
-        out = ga.gemm_ar(a, b)
-        ref = ga.gemm_ar_ref(a, b)
-        torch.cuda.synchronize()
-        rows.append(_held(torch, name, out, ref, tol))
-        err = rows[-1]["max_abs_err"]
-        if name in ("o_m4", "down_m4"):
-            ms = graph_time_ms(lambda: ga.gemm_ar(a, b))
-            plain_ms = graph_time_ms(lambda: ga.gemm_ar_ref(a, b))
-            library_ms = graph_time_ms(
-                lambda: torch.mm(a, b, out_dtype=torch.float32))
-            nbytes = (m * k + k * n + m * n) * a.element_size()
-            bms, by = bound_ms(nbytes, 2.0 * m * k * n)
-            timed[name] = {"ms": ms, "plain_ms": plain_ms,
-                           "library_ms": library_ms, "bound_ms": bms,
-                           "bound_by": by, "bytes": nbytes,
-                           "shape": [m, k, n], "max_abs_err": err}
-    emit({"phase": "b4_gemm_ar", "cases": rows})
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("o_m4", bf, 4, 4096, 4096, 1e-2),
+             ("down_m4", bf, 4, 12288, 4096, 1e-2),
+             ("o_m8", bf, 8, 4096, 4096, 1e-2),
+             ("down_m8", bf, 8, 12288, 4096, 1e-2),
+             ("o_m1", bf, 1, 4096, 4096, 1e-2),
+             ("o_m16", bf, 16, 4096, 4096, 1e-2),
+             ("o_m17", bf, 17, 4096, 4096, 1e-2),
+             ("o_m2048", bf, 2048, 4096, 4096, 1e-2),
+             ("misaligned_k100_m8", bf, 8, 100, 64, 1e-2),
+             ("k4097_m3", bf, 3, 4097, 136, 1e-2),
+             ("o_m4_f32", f32, 4, 4096, 4096, 1e-4)]
+    rows = _gemm_held(torch, g, ga.gemm_ar, ga.gemm_ar_ref, cases)
+    a = torch.randn((4, 4096), generator=g, device=DEV).to(bf)
+    b = torch.randn((4096, 4096), generator=g, device=DEV).to(bf)
+    kernels = _device_kernels(torch, lambda: ga.gemm_ar(a, b))
+    timed = {}
+    for name, k, n in (("o", 4096, 4096), ("down", 12288, 4096)):
+        for m in (4, 8):
+            timed[f"{name}_m{m}"] = _gemm_timed(
+                torch, g, ga.gemm_ar, ga.gemm_ar_ref,
+                lambda x, w: torch.mm(x, w, out_dtype=torch.float32),
+                m, k, n)
+    emit({"phase": "b4_gemm_ar", "cases": rows,
+          "device_kernels_per_call": kernels, "timed": timed})
     if not all(r["ok"] for r in rows):
-        fail(f"B4 disagrees with its plain version: "
+        fail(f"B4 disagrees with its plain version or repeats differ: "
              f"{[r for r in rows if not r['ok']]}")
-    mean = {key: sum(t[key] for t in timed.values()) / len(timed)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    if kernels not in (None, 1):
+        fail(f"B4: one call launched {kernels} device kernels, not 1")
     return {"name": "gemm_ar", "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/gemm_ar.cu",
             "replaces": "triton_dist_tpu/kernels/gemm_allreduce.py:101",
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **mean, "bound_by": "bytes", "library_ms_call":
-                "torch.mm(a, b, out_dtype=torch.float32)",
-            "shapes": timed}
+            **_gemm_row(rows, timed, ("o_m4", "down_m4")),
+            "library_ms_call": "torch.mm(a, b, out_dtype=torch.float32)",
+            "device_kernels_per_call": kernels}
 
 
 # -- B12: the tiled local GEMM of the triton_dist projections ----------------
 
 def phase_b12(torch, agm):
     """Kernel vs plain version at the triton_dist decode step's shapes of
-    both models at M = 4 (Qwen3-30B-A3B: QKV K 2048 / N 5120, o K 4096 /
-    N 2048; Qwen3-8B: QKV K 4096 / N 6144, down K 12288 / N 4096) and at
-    M = 2048, in bf16 and f32. Tolerance as B4's (the same function): max
+    both models at M = 4 and 8 (Qwen3-30B-A3B: QKV K 2048 / N 5120, o K
+    4096 / N 2048; Qwen3-8B: QKV K 4096 / N 6144, o K = N = 4096, gate_up
+    K 4096 / N 24576, down K 12288 / N 4096), at M = 2048, and at an odd
+    shape, in bf16 and f32. Tolerance as B4's (the same function): max
     abs error <= 1e-2 x max|ref| in bf16 (one bf16 rounding of the output
-    and another f32 summation order), 1e-4 x max|ref| in f32. Timed at
-    Qwen3-30B-A3B's two decode shapes; the row's times are the mean over
-    the main path's launches (one QKV and one o per layer). Library call:
+    and another f32 summation order), 1e-4 x max|ref| in f32; in bf16 two
+    calls give the same bytes. Timed at every decode shape at M = 4 and 8,
+    warm and cold, beside the plain version and torch.mm in the same
+    states; one call's device kernels counted (one). The row's times are
+    the mean over Qwen3-30B-A3B's launches at M = 4 (one QKV and one o a
+    layer), warm as in earlier runs, cold beside it. Library call:
     torch.mm in the inputs' dtype (f32 accumulation, one rounding)."""
     g = torch.Generator(device=DEV).manual_seed(14)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [("moe_qkv_m4", bf, 4, 2048, 5120),
-             ("moe_o_m4", bf, 4, 4096, 2048),
-             ("dense_qkv_m4", bf, 4, 4096, 6144),
-             ("dense_down_m4", bf, 4, 12288, 4096),
-             ("moe_qkv_m2048", bf, 2048, 2048, 5120),
-             ("dense_o_m2048", bf, 2048, 4096, 4096),
-             ("moe_o_m4_f32", f32, 4, 4096, 2048),
-             ("moe_qkv_m2048_f32", f32, 2048, 2048, 5120)]
-    rows, timed = [], {}
-    for name, dt, m, k, n in cases:
-        a = torch.randn((m, k), generator=g, device=DEV).to(dt)
-        b = (torch.randn((k, n), generator=g, device=DEV) * k ** -0.5).to(dt)
-        out = agm.pallas_matmul(a, b)
-        ref = agm.matmul_ref(a, b)
-        torch.cuda.synchronize()
-        rows.append(_held(torch, name, out, ref,
-                          1e-2 if dt == bf else 1e-4))
-        if name in ("moe_qkv_m4", "moe_o_m4"):
-            nbytes = (m * k + k * n + m * n) * a.element_size()
-            bms, by = bound_ms(nbytes, 2.0 * m * k * n)
-            timed[name] = {
-                "ms": graph_time_ms(lambda: agm.pallas_matmul(a, b)),
-                "plain_ms": graph_time_ms(lambda: agm.matmul_ref(a, b)),
-                "library_ms": graph_time_ms(lambda: torch.mm(a, b)),
-                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-                "shape": [m, k, n], "max_abs_err": rows[-1]["max_abs_err"]}
-    emit({"phase": "b12_matmul", "cases": rows})
+    shapes = (("moe_qkv", 2048, 5120), ("moe_o", 4096, 2048),
+              ("dense_qkv", 4096, 6144), ("dense_o", 4096, 4096),
+              ("dense_gate_up", 4096, 24576), ("dense_down", 12288, 4096))
+    cases = [(f"{name}_m{m}", bf, m, k, n, 1e-2)
+             for name, k, n in shapes for m in (4, 8)]
+    cases += [("moe_qkv_m2048", bf, 2048, 2048, 5120, 1e-2),
+              ("dense_o_m2048", bf, 2048, 4096, 4096, 1e-2),
+              ("odd_k1000_m5", bf, 5, 1000, 8, 1e-2),
+              ("moe_o_m4_f32", f32, 4, 4096, 2048, 1e-4),
+              ("moe_qkv_m2048_f32", f32, 2048, 2048, 5120, 1e-4)]
+    rows = _gemm_held(torch, g, agm.pallas_matmul, agm.matmul_ref, cases)
+    a = torch.randn((4, 2048), generator=g, device=DEV).to(bf)
+    b = torch.randn((2048, 5120), generator=g, device=DEV).to(bf)
+    kernels = _device_kernels(torch, lambda: agm.pallas_matmul(a, b))
+    timed = {f"{name}_m{m}": _gemm_timed(
+        torch, g, agm.pallas_matmul, agm.matmul_ref, torch.mm, m, k, n)
+        for name, k, n in shapes for m in (4, 8)}
+    emit({"phase": "b12_matmul", "cases": rows,
+          "device_kernels_per_call": kernels, "timed": timed})
     if not all(r["ok"] for r in rows):
-        fail(f"B12 disagrees with its plain version: "
+        fail(f"B12 disagrees with its plain version or repeats differ: "
              f"{[r for r in rows if not r['ok']]}")
-    mean = {key: sum(t[key] for t in timed.values()) / len(timed)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    if kernels not in (None, 1):
+        fail(f"B12: one call launched {kernels} device kernels, not 1")
     return {"name": "pallas_matmul", "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/matmul.cu",
             "replaces": "triton_dist_tpu/kernels/allgather_gemm.py:452",
-            "max_abs_err": max(t["max_abs_err"] for t in timed.values()),
-            **mean, "bound_by": "bytes", "library_ms_call": "torch.mm(a, b)",
-            "shapes": timed}
+            **_gemm_row(rows, timed, ("moe_qkv_m4", "moe_o_m4")),
+            "library_ms_call": "torch.mm(a, b)",
+            "device_kernels_per_call": kernels}
 
 
 # -- B14 / B15: the MoE expert grouped GEMMs ---------------------------------

@@ -15,6 +15,7 @@ test's own claims are held too, with the port's static Engine as the
 ground truth.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,11 +89,14 @@ def test_active_mask_freezes_rows():
     ids = [[3, 1, 4, 1], [2, 7, 1, 8]]
     jc = jmodel.create_paged_kv_cache(2, page_size=8)
     tc = tmodel.create_paged_kv_cache(2, page_size=8)
-    _, jc = jmodel.inference(jparams, jc, jnp.asarray(ids, jnp.int32))
+    # the JAX model jitted: eager, every op (B2 in interpret mode too)
+    # dispatches on its own
+    jinfer = jax.jit(jmodel.inference)
+    _, jc = jinfer(jparams, jc, jnp.asarray(ids, jnp.int32))
     _, tc = tmodel.inference(tparams, tc, torch.tensor(ids))
     tok, act = [[5], [5]], [True, False]
-    jl, jc = jmodel.inference(jparams, jc, jnp.asarray(tok, jnp.int32),
-                              active=jnp.asarray(act))
+    jl, jc = jinfer(jparams, jc, jnp.asarray(tok, jnp.int32),
+                    active=jnp.asarray(act))
     before = tc.lengths.clone()
     tl, tc = tmodel.inference(tparams, tc, torch.tensor(tok),
                               active=torch.tensor(act))

@@ -69,7 +69,7 @@ def _jax_serve(arch_kw, raw, ids, kv_resident):
     toks = np.asarray(eng.serve(jnp.asarray(ids), gen_len=GEN))
     cache = model.create_paged_kv_cache(B, page_size=32,
                                         kv_resident=kv_resident)
-    logits, _ = model.inference(params, cache, jnp.asarray(ids))
+    logits, _ = jax.jit(model.inference)(params, cache, jnp.asarray(ids))
     return toks, np.asarray(logits), eng.kv_cache
 
 

@@ -23,7 +23,9 @@ PALLAS_FUSED) identical to the JAX Engine's.
 """
 
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,15 +76,17 @@ def ep_model(mesh4, tmp_path_factory):
         arch_, ctx, model, params = jax_ep_model(mesh4, inp)
         ids = jnp.asarray(inp["ids_model"])
         out = {}
-        lg, _ = model.inference(params, model.create_kv_cache(4), ids,
-                                mode="xla")
+        # jitted: eager, every op of the layers dispatches on its own
+        lg, _ = jax.jit(functools.partial(model.inference, mode="xla"))(
+            params, model.create_kv_cache(4), ids)
         out["logits/xla"] = np.asarray(lg)
         for method in ("xla", "pallas"):
             m = JQwen3MoE(arch_, dataclasses.replace(
                 ctx, ep_a2a_method=JMethod(method)), max_length=32,
                 dtype=jnp.float32)
-            lg, _ = m.inference(params, m.create_kv_cache(4), ids,
-                                mode="triton_dist")
+            lg, _ = jax.jit(functools.partial(m.inference,
+                                              mode="triton_dist"))(
+                params, m.create_kv_cache(4), ids)
             out[f"logits/triton_dist/{method}"] = np.asarray(lg)
         return out
 

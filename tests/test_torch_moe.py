@@ -94,12 +94,23 @@ def _mesh1():
 
 
 def _per_device(fn, *args):
-    """Run a JAX per-device function under a one-device shard_map."""
+    """Run a JAX per-device function under a one-device shard_map, jitted
+    (eager, each op of the interpret-mode kernels dispatches on its own:
+    several times slower)."""
     mesh = _mesh1()
-    out = td_shard_map(fn, mesh=mesh, in_specs=tuple(P() for _ in args),
-                       out_specs=P(), check_vma=False)(
+    out = jax.jit(td_shard_map(fn, mesh=mesh,
+                               in_specs=tuple(P() for _ in args),
+                               out_specs=P(), check_vma=False))(
         *jax.tree_util.tree_map(jnp.asarray, args))
     return jax.tree_util.tree_map(np.asarray, out)
+
+
+# the JAX schedules, jitted over their static sizes: integer outputs,
+# exact either way, and eager every op dispatches on its own
+_jax_aligned_schedule = jax.jit(jmu.aligned_chunk_schedule,
+                                static_argnums=(1, 2, 3))
+_jax_arrival_schedule = jax.jit(jmu.arrival_ordered_schedule,
+                                static_argnums=(1, 2, 3))
 
 
 def _routing(rng, m, topk, e):
@@ -119,7 +130,7 @@ def test_schedules_match_jax(m, topk, e, bm, n):
     count) and combine_matrix: every field exactly equal."""
     ids, w = _routing(np.random.default_rng(m * 7 + e), m, topk, e)
     ours = moe_utils.aligned_chunk_schedule(_t(ids), n, e, bm)
-    ref = jmu.aligned_chunk_schedule(jnp.asarray(ids), n, e, bm)
+    ref = _jax_aligned_schedule(jnp.asarray(ids), n, e, bm)
     assert ours._fields == ref._fields
     for name, a, b in zip(ours._fields, ours, ref):
         assert a.dtype == torch.int32, name
@@ -128,7 +139,7 @@ def test_schedules_match_jax(m, topk, e, bm, n):
     for cb in sorted({1, moe_utils.legal_comm_blocks(mc, 4), mc}):
         assert cb == jmu.legal_comm_blocks(mc, cb)
         s2, ready = moe_utils.arrival_ordered_schedule(ours, mc, bm, cb)
-        js2, jready = jmu.arrival_ordered_schedule(ref, mc, bm, cb)
+        js2, jready = _jax_arrival_schedule(ref, mc, bm, cb)
         np.testing.assert_array_equal(ready.numpy(), np.asarray(jready))
         for name, a, b in zip(s2._fields, s2, js2):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b),

@@ -18,6 +18,7 @@ XLA tier. B15 is held in tests/test_torch_moe_tp_rs.py, the model in
 tests/test_torch_moe_tp_model.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +32,14 @@ from triton_dist_tpu.kernels import moe_utils as jmu
 
 from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
 from triton_dist_tpu_torch.kernels import moe_utils
+
+
+# the JAX schedules, jitted over their static sizes (integer outputs,
+# exact either way; eager, every op dispatches on its own)
+_jax_aligned_schedule = jax.jit(jmu.aligned_chunk_schedule,
+                                static_argnums=(1, 2, 3))
+_jax_arrival_schedule = jax.jit(jmu.arrival_ordered_schedule,
+                                static_argnums=(1, 2, 3))
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +84,7 @@ def test_n_chunk_schedules_equal_jax(seed, m_loc, topk, e, bm, reorders):
     ids = routing(np.random.default_rng(seed), WORLD * m_loc, topk, e)
     ours = moe_utils.aligned_chunk_schedule(torch.from_numpy(ids), WORLD, e,
                                             bm)
-    ref = jmu.aligned_chunk_schedule(jnp.asarray(ids), WORLD, e, bm)
+    ref = _jax_aligned_schedule(jnp.asarray(ids), WORLD, e, bm)
     for name, a, b in zip(ours._fields, ours, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
     moved = False
@@ -83,7 +92,7 @@ def test_n_chunk_schedules_equal_jax(seed, m_loc, topk, e, bm, reorders):
         nblk = moe_utils.legal_comm_blocks(m_loc, cb)
         assert nblk == jmu.legal_comm_blocks(m_loc, cb) == cb
         s2, ready = moe_utils.arrival_ordered_schedule(ours, m_loc, bm, nblk)
-        js2, jready = jmu.arrival_ordered_schedule(ref, m_loc, bm, nblk)
+        js2, jready = _jax_arrival_schedule(ref, m_loc, bm, nblk)
         np.testing.assert_array_equal(ready.numpy(), np.asarray(jready))
         for name, a, b in zip(s2._fields, s2, js2):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b),

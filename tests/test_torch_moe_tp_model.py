@@ -19,6 +19,8 @@ on the MoE model equal to the JAX engine's, step by step; and what stays
 refused raises naming its ROADMAP item.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,8 +57,8 @@ FWD_MODES = ("xla", "triton_dist_AR", "triton_dist")
 
 
 def _jax_moe_fwd(mesh, mode, arch, w, x):
-    """The JAX layer on mesh4: the weights sharded as the model shards
-    them, x replicated (xla, triton_dist_AR) or batch-sharded
+    """The JAX layer on mesh4, jitted: the weights sharded as the model
+    shards them, x replicated (xla, triton_dist_AR) or batch-sharded
     (triton_dist)."""
     ctx = JTPContext(mesh, "tp")
     wspec = {"w_router": P(), "w_gate_up": P(None, None, "tp"),
@@ -68,10 +70,10 @@ def _jax_moe_fwd(mesh, mode, arch, w, x):
                          arch.num_experts_per_tok, arch.norm_topk_prob, w_,
                          x_)
 
-    return np.asarray(td_shard_map(
+    return np.asarray(jax.jit(td_shard_map(
         fn, mesh=mesh, in_specs=(wspec, xspec), out_specs=xspec,
-        check_vma=False)({k: jnp.asarray(v) for k, v in w.items()},
-                         jnp.asarray(x)))
+        check_vma=False))({k: jnp.asarray(v) for k, v in w.items()},
+                          jnp.asarray(x)))
 
 
 @pytest.fixture(scope="module")
@@ -104,8 +106,9 @@ def tp(mesh4, tmp_path_factory):
         ids = jnp.asarray(inp["ids_model"])
         out = {}
         for mode in ("xla", "triton_dist"):
-            lg, _ = model.inference(params, model.create_kv_cache(4), ids,
-                                    mode=mode)
+            # jitted: eager, every op of the layers dispatches on its own
+            lg, _ = jax.jit(functools.partial(model.inference, mode=mode))(
+                params, model.create_kv_cache(4), ids)
             out[f"logits/{mode}"] = np.asarray(lg)
         prompt = jnp.asarray(inp["prompt"])
         out["tokens/triton_dist"] = np.asarray(JEngine(

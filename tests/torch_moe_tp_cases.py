@@ -4,17 +4,21 @@ test_torch_moe_tp_model.py): the numpy inputs, the four gloo ranks of
 tests/torch_moe_tp_worker.py (a FileStore under the test's tmp dir, a
 150 s join that kills the ranks) and the JAX side on the suite's 4-device
 ``mesh4``, its Pallas kernels in interpret mode (as tests/test_moe.py runs
-them). The ranks run while the JAX side computes in the test process.
+them), each mesh-level call under ``jax.jit`` (eager, every op of the
+interpret-mode kernels dispatches on its own: ~1.5x slower). The ranks run
+while the JAX side computes in the test process.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,9 +155,9 @@ def jax_b14(mesh, inp: dict, kind: str, tier: str):
     ctx = create_ag_group_gemm_context(mesh, E, TOPK,
                                        method=JAgMethod(method), bm=BM,
                                        comm_blocks=cb)
-    out, ag = ag_group_gemm(ctx, jnp.asarray(inp[f"b14_tok_{kind}"]),
-                            jnp.asarray(inp["ids"]),
-                            jnp.asarray(inp[f"b14_w_{kind}"]))
+    out, ag = jax.jit(functools.partial(ag_group_gemm, ctx))(
+        jnp.asarray(inp[f"b14_tok_{kind}"]), jnp.asarray(inp["ids"]),
+        jnp.asarray(inp[f"b14_w_{kind}"]))
     return np.asarray(out), np.asarray(ag)
 
 
@@ -163,8 +167,8 @@ def jax_b15(mesh, inp: dict, kind: str, tier: str):
     ctx = create_moe_reduce_rs_context(mesh, E, TOPK,
                                        method=JRsMethod(method), bm=BM,
                                        comm_blocks=cb)
-    return np.asarray(moe_reduce_rs(
-        ctx, jnp.asarray(inp[f"b15_inter_{kind}"]), jnp.asarray(inp["ids"]),
+    return np.asarray(jax.jit(functools.partial(moe_reduce_rs, ctx))(
+        jnp.asarray(inp[f"b15_inter_{kind}"]), jnp.asarray(inp["ids"]),
         jnp.asarray(inp[f"topk_w_{kind}"]),
         jnp.asarray(inp[f"b15_w_{kind}"])))
 

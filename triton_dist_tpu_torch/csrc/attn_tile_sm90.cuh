@@ -1,8 +1,8 @@
 // Hopper (sm_90a) tile machinery of the port's attention kernels: TMA
 // tensor maps and loads, mbarrier rings, wgmma descriptors and the bf16 ->
 // f32 products (m64n128k16 with A and B from shared memory, m64n64k16
-// with A from registers and B transposed), the accumulator-fragment
-// helpers of an online softmax.
+// with A from registers and B transposed), mma.sync m16n8k16 and its
+// ldmatrix loads, the accumulator-fragment helpers of an online softmax.
 //
 // Layouts. Every bf16 tile lives in shared memory as 64-column slabs of
 // 128-byte rows in the 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B:
@@ -109,6 +109,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A 2-D tiled box (c0 the contiguous coordinate) from global into shared
+// memory, completing on `bar`; elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // generic-proxy stores to shared memory made visible to wgmma / TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -210,6 +222,39 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
 
 #undef TD_WGMMA_D32
 #undef TD_WGMMA_OUT32
+
+// -- mma.sync ----------------------------------------------------------------
+
+// D (16 x 8 f32) += A (16 x 16 bf16, the row-major fragment a0..a3) x B
+// (16 x 8, the "col" fragment b0, b1)
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 b16 matrices from shared memory: lanes 8j .. 8j + 7 give the
+// row addresses of matrix j, register j receives it
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
 // -- accumulator fragments ---------------------------------------------------
 

@@ -293,32 +293,13 @@ constexpr size_t smem_bytes() {
          size_t(NCW) * MAXG * (D + 2) * sizeof(float);
 }
 
-// D (16 x 8 f32) += A (16 x 16 bf16, row-major fragment) x B (16 x 8,
-// "col" fragment)
+// D (16 x 8 f32) += A (16 x 16 bf16: rows 0-7 of the fragment, rows 8-15
+// zero) x B (16 x 8)
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
                                          uint32_t a2, uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+  const uint32_t a[4] = {a0, 0u, a2, 0u};
+  s9::mma_m16n8k16(d, a, b0, b1);
 }
 
 // byte address of 16-byte chunk c (0..D/8) of tile row r in a tile of
@@ -440,7 +421,7 @@ __global__ void __launch_bounds__(NTH, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t bk[4];
-        ldsm_x4(bk, tile_addr<D>(kb, rk, 2 * kk + ck));
+        s9::ldsm_x4(bk, tile_addr<D>(kb, rk, 2 * kk + ck));
         mma_bf16(sc[0], qa[kk][0], qa[kk][1], bk[0], bk[1]);
         mma_bf16(sc[1], qa[kk][0], qa[kk][1], bk[2], bk[3]);
       }
@@ -479,7 +460,7 @@ __global__ void __launch_bounds__(NTH, 1)
 #pragma unroll
       for (int j2 = 0; j2 < D / 16; ++j2) {
         uint32_t bv[4];
-        ldsm_x4_t(bv, tile_addr<D>(vb, rv, 2 * j2 + cv));
+        s9::ldsm_x4_t(bv, tile_addr<D>(vb, rv, 2 * j2 + cv));
         mma_bf16(o[2 * j2], pa0, pa2, bv[0], bv[1]);
         mma_bf16(o[2 * j2 + 1], pa0, pa2, bv[2], bv[3]);
       }

@@ -7,8 +7,11 @@
 //
 // World 1 (td_gemm_ar): the TPU kernel's sum over the sender slots is its
 // own partial, so the body is the GEMM, the f32 accumulator and the cast
-// epilogue: the split-K GEMM of gemm_splitk.cuh (the device code B12
-// shares), where the bound and the design are described.
+// epilogue, the function B12 computes too (matmul.cu): in bf16 the Hopper
+// kernel of gemm_stream_sm90.cuh (TMA weight tiles into mma.sync, a
+// persistent stream-K grid, the split-K fold in the same launch), in f32
+// the FMA body of gemm_splitk.cuh; the bound and the designs are described
+// there.
 //
 // World n > 1 (td_gemm_ar_tp): the device code of gemm_land.cuh (shared
 // with B13a) with kAll = true. Each tile's f32 partial is stored into
@@ -23,17 +26,25 @@
 // partial crosses NVLink to 3 peers.
 
 #include "gemm_land.cuh"
+#include "gemm_stream_sm90.cuh"
 
 // a: (M, K); w: (K, N); out: (M, N); all contiguous, one dtype (td::F32 or
-// td::BF16), w and out 16-byte aligned, N a multiple of the 16-byte vector.
-// The K rows are cut into `splits` slices of k_chunk rows (k_chunk * splits
-// >= K); with splits > 1, part is an f32 (splits, M, N) workspace. out =
-// cast(a @ w) with f32 accumulation. Returns a cudaError_t.
+// td::BF16), w 16-byte aligned, N a multiple of the 16-byte vector. out =
+// cast(a @ w) with f32 accumulation. bf16: part is the f32 workspace and
+// tickets the zeroed ticket words of td_gemm_stream, over `grid` blocks.
+// f32: the K rows are cut into `splits` slices of k_chunk rows (k_chunk *
+// splits >= K); with splits > 1, part is an f32 (splits, M, N) workspace.
+// Returns a cudaError_t.
 extern "C" int td_gemm_ar(const void* a, const void* w, void* part,
-                          void* out, int m_rows, int k_dim, int n_cols,
-                          int k_chunk, int splits, int dtype, void* stream) {
-  return td_gemm_splitk(a, w, part, out, m_rows, k_dim, n_cols, k_chunk,
-                        splits, dtype, stream);
+                          int* tickets, void* out, int m_rows, int k_dim,
+                          int n_cols, int k_chunk, int splits, int grid,
+                          int dtype, void* stream) {
+  if (dtype == td::BF16)
+    return td_gemm_stream(a, w, part, tickets, out, m_rows, k_dim, n_cols,
+                          grid, stream);
+  if (dtype != td::F32) return static_cast<int>(cudaErrorInvalidValue);
+  return td_gemm_splitk_f32(a, w, part, out, m_rows, k_dim, n_cols, k_chunk,
+                            splits, stream);
 }
 
 // a: (m, K) this rank's rows; w: (K, N) its weight shard; out: (m, N), the

@@ -1,11 +1,9 @@
-// The split-K weight-streaming GEMM shared by B4 (gemm_ar.cu, the world-1
-// body of the fused GEMM + allreduce) and B12 (matmul.cu, the tiled local
-// GEMM behind AG + GEMM and GEMM + RS at world 1): out = cast(A @ W) with f32
-// accumulation, A (M, K), W (K, N). Both TPU kernels compute this function
-// at world 1, so they share this device code; each source has its own C
-// entry point and its own launch counter in Python. The overlapped kernels
-// across ranks (ag_gemm.cu, B10; gemm_rs.cu, B13a) run the same work item,
-// gemm_tile, from a persistent grid.
+// The split-K weight-streaming GEMM of the f32 forms of B4's world-1 body
+// (gemm_ar.cu) and B12 (matmul.cu): out = cast(A @ W) with f32
+// accumulation, A (M, K), W (K, N); their bf16 forms run the Hopper kernel
+// of gemm_stream_sm90.cuh. The overlapped kernels across ranks (ag_gemm.cu,
+// B10; gemm_rs.cu, B13a; gemm_land.cuh, B4 across ranks) run this file's
+// work item, gemm_tile, in bf16 and f32, from a persistent grid.
 //
 // What bounds it on this card. On the decode path M is the batch (4): the
 // o projection (K = N = 4096) and the down projection (K = 12288, N = 4096)
@@ -193,22 +191,17 @@ cudaError_t dispatch(const void* a, const void* w, void* part, void* out,
 
 }  // namespace td_gemm
 
-// Validates the C interface's arguments and launches (see gemm_ar.cu and
-// matmul.cu); returns a cudaError_t.
-inline int td_gemm_splitk(const void* a, const void* w, void* part, void* out,
-                          int m_rows, int k_dim, int n_cols, int k_chunk,
-                          int splits, int dtype, void* stream) {
+// The f32 forms' launch (see gemm_ar.cu and matmul.cu): validates the
+// arguments and launches; returns a cudaError_t.
+inline int td_gemm_splitk_f32(const void* a, const void* w, void* part,
+                              void* out, int m_rows, int k_dim, int n_cols,
+                              int k_chunk, int splits, void* stream) {
   using namespace td_gemm;
   if (m_rows <= 0 || k_dim <= 0 || n_cols <= 0 || k_chunk <= 0 ||
       splits <= 0 || static_cast<long>(k_chunk) * splits < k_dim ||
-      (splits > 1 && part == nullptr))
+      (splits > 1 && part == nullptr) || n_cols % td::kVec<float> != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == td::F32 && n_cols % td::kVec<float> == 0)
-    return static_cast<int>(dispatch<float>(a, w, part, out, m_rows, k_dim,
-                                            n_cols, k_chunk, splits, st));
-  if (dtype == td::BF16 && n_cols % td::kVec<__nv_bfloat16> == 0)
-    return static_cast<int>(dispatch<__nv_bfloat16>(
-        a, w, part, out, m_rows, k_dim, n_cols, k_chunk, splits, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch<float>(a, w, part, out, m_rows, k_dim,
+                                          n_cols, k_chunk, splits,
+                                          static_cast<cudaStream_t>(stream)));
 }

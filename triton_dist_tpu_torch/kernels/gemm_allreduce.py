@@ -7,7 +7,10 @@ f32 partials: the row-parallel projection of the o and down products.
 World 1: the allreduce is the identity, so the op is cast(a @ b) with f32
 accumulation. ``gemm_ar`` launches the hand-written CUDA kernel
 ``csrc/gemm_ar.cu`` (the world-1 body of ``_gemm_ar_kernel``) for CUDA
-tensors and runs ``gemm_ar_ref``, its plain version, for CPU tensors.
+tensors and runs ``gemm_ar_ref``, its plain version, for CPU tensors. In
+bf16 that kernel is the Hopper decode GEMM of
+``csrc/gemm_stream_sm90.cuh`` (B12's too), cut by ``stream_plan``; in f32
+the split-K FMA GEMM of ``csrc/gemm_splitk.cuh``, cut by ``split_plan``.
 
 World n > 1 (``mesh`` is the ranks' Mesh): XLA is the f32 product,
 ``dist.all_reduce`` in f32 and one cast (the reference's
@@ -38,6 +41,7 @@ tensor a kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import enum
 
 import torch
@@ -53,6 +57,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCKS_PER_SM = 4    # blocks the K split aims for at decode M
 _K_ROW_STEP = 64      # k_chunk granule: 8 warps x 8 rows per pass
 _M_TILE_MAX = 8       # the kernel's largest M tile
+
+# csrc/gemm_stream_sm90.cuh: the bf16 kernel's tile (its NBX * BOX, BK)
+STREAM_BN = 128       # columns of W a tile
+STREAM_BK = 128       # K rows a tile
+_TICKET_WORDS = 4096  # ticket words a device keeps (4 a block)
+_TICKETS: dict = {}   # device -> its int32 tickets
 
 
 class GemmArMethod(enum.Enum):
@@ -202,10 +212,54 @@ def split_plan(m: int, k: int, n: int, vec: int,
     return k_chunk, -(-k // k_chunk)
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """The cut of the bf16 kernel's launch (csrc/gemm_stream_sm90.cuh
+    computes the same from M, K, N and grid): units (M group of mg rows,
+    column tile of STREAM_BN, K tile of STREAM_BK) in that order, block b
+    taking [b * units // grid, (b + 1) * units // grid)."""
+    m: int
+    k: int
+    n: int
+    mg: int          # rows an M group: 8 up to M = 8, else 16
+    n_tiles: int     # column tiles
+    n_kt: int        # K tiles
+    n_mg: int        # M groups
+    units: int
+    grid: int        # blocks: min(SMs, units)
+    ws_floats: int   # f32 workspace: 2 slots a block x STREAM_BN x mg
+
+
+def stream_plan(m: int, k: int, n: int, sm_count: int) -> StreamPlan:
+    """The bf16 kernel's cut: at most one block an SM, the units spread
+    evenly (a block's count differs from another's by at most one)."""
+    mg = 8 if m <= 8 else 16
+    n_tiles, n_kt, n_mg = -(-n // STREAM_BN), -(-k // STREAM_BK), -(-m // mg)
+    units = n_mg * n_tiles * n_kt
+    grid = min(sm_count, units)
+    return StreamPlan(m, k, n, mg, n_tiles, n_kt, n_mg, units, grid,
+                      2 * grid * STREAM_BN * mg)
+
+
+def _tickets(device) -> torch.Tensor:
+    """The device's ticket words: zero, and left zero by every call. Made
+    on first use, never under CUDA-graph capture (the warm-up call before
+    a capture makes it)."""
+    t = _TICKETS.get(device)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("gemm tickets: first call under CUDA-graph "
+                               "capture; warm up before capturing")
+        t = _TICKETS[device] = torch.zeros(_TICKET_WORDS, dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 def splitk_launch(a, b, source: str, symbol: str, what: str):
-    """Launch the split-K GEMM of ``csrc/gemm_splitk.cuh`` through the C
-    entry point ``symbol`` of ``csrc/<source>.cu`` (B4's td_gemm_ar, B12's
-    td_matmul): checks, the K split, the output and f32 workspace."""
+    """Launch the world-1 GEMM through the C entry point ``symbol`` of
+    ``csrc/<source>.cu`` (B4's td_gemm_ar, B12's td_matmul): checks, then
+    in bf16 the Hopper kernel's plan, workspace and tickets, in f32 the K
+    split and the f32 (splits, M, N) workspace; the output."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"{what}: a {tuple(a.shape)} @ b {tuple(b.shape)}")
     m, k = a.shape
@@ -215,26 +269,36 @@ def splitk_launch(a, b, source: str, symbol: str, what: str):
                          f"{list(_DTYPE_CODE)}; got {a.dtype}/{b.dtype}")
     vec = 16 // a.element_size()
     if n % vec or m == 0 or k == 0 or -(-m // _M_TILE_MAX) > 65535:
-        raise ValueError(f"{what}: N={n} must be a multiple of {vec}; "
-                         f"M={m}, K={k} must be positive (M tiles <= 65535)")
+        raise ValueError(f"{what}: N={n} must be a multiple of {vec} (bf16: "
+                         f"the TMA map's row stride, 16-byte units); M={m}, "
+                         f"K={k} must be positive (M tiles <= 65535)")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{what}: a/b must be contiguous")
     if a.device != b.device:
         raise ValueError(f"{what}: a/b on different devices")
     if b.data_ptr() % 16:
-        raise ValueError(f"{what}: b must be 16-byte aligned")
-    k_chunk, splits = split_plan(
-        m, k, n, vec,
-        torch.cuda.get_device_properties(a.device).multi_processor_count)
+        raise ValueError(f"{what}: b must be 16-byte aligned (bf16: the TMA "
+                         f"map's base address)")
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-            if splits > 1 else None)
+    tickets, grid = None, 0
+    if a.dtype == torch.bfloat16:
+        plan = stream_plan(m, k, n, sms)
+        k_chunk, splits, grid = 0, 0, plan.grid
+        part = torch.empty((plan.ws_floats,), dtype=torch.float32,
+                           device=a.device)
+        tickets = _tickets(a.device)
+    else:
+        k_chunk, splits = split_plan(m, k, n, vec, sms)
+        part = (torch.empty((splits, m, n), dtype=torch.float32,
+                            device=a.device) if splits > 1 else None)
     fn = build.function(source, symbol, (
-        *(ctypes.c_void_p,) * 4, *(ctypes.c_int,) * 6, ctypes.c_void_p))
+        *(ctypes.c_void_p,) * 5, *(ctypes.c_int,) * 7, ctypes.c_void_p))
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(),
                  part.data_ptr() if part is not None else None,
-                 out.data_ptr(), m, k, n, k_chunk, splits,
+                 tickets.data_ptr() if tickets is not None else None,
+                 out.data_ptr(), m, k, n, k_chunk, splits, grid,
                  _DTYPE_CODE[a.dtype], build.stream_of(a))
     build.check(err, what)
     return out
