@@ -2881,28 +2881,146 @@ def phase_b11(torch, symm, agm, calls: int = 20):
     return rec
 
 
+def _same_bits(a, b) -> bool:
+    """Two outputs (a tensor or a tuple of tensors) hold the same bytes."""
+    if isinstance(a, (tuple, list)):
+        return all(_same_bits(x, y) for x, y in zip(a, b))
+    return _bitwise(a, b)
+
+
+def _world_parity_calls(torch, world, fn, draw, plain, held, calls=4,
+                        replays=2):
+    """Both parities of a double-buffered kernel in the one-card world:
+    `calls` successive eager calls on fresh inputs (draw(): each rank's
+    input tuple), each rank's output held to plain(xs)[r] by held(); then
+    `calls` calls on `calls` input sets captured in one graph a rank,
+    replayed `replays` times over fresh inputs copied into the captured
+    ones, every output the eager call's bytes on the same inputs and held
+    to the plain version."""
+    eager = []
+    for _ in range(calls):
+        xs = draw()
+        outs = world.run(lambda r: fn(world.mesh(r), *xs[r]))
+        torch.cuda.synchronize()
+        eager.append(all(held(o, ref) for o, ref in zip(outs, plain(xs))))
+    sets = [draw() for _ in range(calls)]
+    outs, replay = _world_graphs(torch, world, lambda r: [
+        fn(world.mesh(r), *x[r]) for x in sets])
+    graph = []
+    for _ in range(replays):
+        for x in sets:
+            for r, new in enumerate(draw()):
+                for dst, src in zip(x[r], new):
+                    dst.copy_(src)
+        replay()
+        ok = True
+        for i, x in enumerate(sets):
+            again = world.run(lambda r: fn(world.mesh(r), *x[r]))
+            torch.cuda.synchronize()
+            refs = plain(x)
+            ok &= all(_same_bits(outs[r][i], again[r])
+                      and held(outs[r][i], refs[r]) for r in range(TP))
+        graph.append(bool(ok))
+    return {"eager_calls_ok": eager, "graph_replays_ok": graph}
+
+
+def _rank_parity_calls(torch, fn, draw, plain, held, calls=4, replays=2):
+    """_world_parity_calls on one rank of four cards (every rank runs it in
+    step): draw() gives this rank's input tuple, plain(*x) its reference."""
+    eager = []
+    for _ in range(calls):
+        x = draw()
+        eager.append(bool(held(fn(*x), plain(*x))))
+    sets = [draw() for _ in range(calls)]
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*x) for x in sets]
+    replayed = []
+    for _ in range(replays):
+        for x in sets:
+            for dst, src in zip(x, draw()):
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = True
+        for x, o in zip(sets, outs):
+            ok &= _same_bits(o, fn(*x)) and held(o, plain(*x))
+        replayed.append(bool(ok))
+    return {"eager_calls_ok": eager, "graph_replays_ok": replayed}
+
+
+def _parity_ok(rec) -> bool:
+    return all(rec["eager_calls_ok"]) and all(rec["graph_replays_ok"])
+
+
+def _tol_held(torch, tol):
+    """held() within tol x max|ref|, or bit for bit at tol 0."""
+    if tol == 0:
+        return _same_bits
+    return lambda out, ref: _held(torch, "", out, ref, tol)["ok"]
+
+
+def _world_cold_ms(torch, world, fn, ws, rounds: int = 3) -> float:
+    """Device ms a call of fn(r, w) in the one-card world with each rank's
+    w taken in turn from ws[r] (weight_copies: out of L2 at each call),
+    the calls of every rank captured in one graph a rank."""
+    iters = max(20, rounds * len(ws[0]))
+    _, replay = _world_graphs(torch, world, lambda r: [
+        fn(r, ws[r][i % len(ws[r])]) for i in range(iters)])
+    replay()
+    return replay() / iters
+
+
+# what B13b runs on (csrc/gemm_rs.cu)
+B13B_INSTRUCTIONS = ("bf16: gemm_stream_sm90.cuh's mma.sync m16n8k16 "
+                     "stream-K GEMM over every chunk's rows in one pass "
+                     "(128 x 128 weight tiles by TMA, 5 stages), each "
+                     "tile's f32 rows landed in their owners' slots (LL "
+                     "lines up to RS_LL_MAX_SLOT_BYTES a slot, else flags), "
+                     "the arcs' fold by the owner; f32: FMA")
+
+
 def phase_b13b(torch, symm, grs, calls: int = 20):
     """B13b (the bidirectional-ring GEMM + ReduceScatter) against its plain
     version (gemm_rs_bidir_ref_shards: the same arcs, the same fold) in
-    the one-card world at B13a's shapes: Qwen3-32B at TP=4, B=16 decode
-    (m_loc 4, A (16, K_loc)): o K_loc 2048 -> N 5120 and down K_loc 6400
-    -> N 5120, bf16 and f32, random (within 1e-2 x max|ref| in bf16, 1e-4
-    in f32: the products are summed in another order) and integer-valued
-    (bit for bit: every sum exact); then `calls` successive calls with
-    fresh inputs. Timed: the four ranks' calls together, B13a beside
-    it."""
+    the one-card world at Qwen3-32B's TP=4 shapes, B=16 decode (m_loc 4,
+    A (16, K_loc)): o K_loc 2048 -> N 5120 and down K_loc 6400 -> N 5120,
+    bf16 and f32, random (within 1e-2 x max|ref| in bf16, 1e-4 in f32:
+    the products are summed in another order) and integer-valued (bit for
+    bit: every sum exact); the flags protocol forced at the decode shape;
+    an odd shape (m 3, K 1000, N 136); the static serve's prefill (m_loc
+    2,048, flags); `calls` successive calls with fresh inputs. Over both
+    parities: 4 successive eager calls and 4 calls in one graph a rank,
+    replayed over fresh inputs, at o in bf16 (random and integer-valued,
+    and under flags). Timed: the four ranks' calls
+    together, warm (one weight a rank, queued_ms) and cold (the calls
+    rotate over weight copies larger than twice the L2), B13a beside it;
+    and at the prefill shape."""
     bf, f32 = torch.bfloat16, torch.float32
     world = symm.OneCardWorld(TP)
     g = torch.Generator(device=DEV).manual_seed(67)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [("o_m4", bf, 4, 2048, 5120), ("down_m4", bf, 4, 6400, 5120),
              ("o_m4_f32", f32, 4, 2048, 5120),
              ("o_m4_int", bf, 4, 2048, 5120),
-             ("down_m4_int_f32", f32, 4, 6400, 5120)]
+             ("down_m4_int_f32", f32, 4, 6400, 5120),
+             ("o_m4_flags", bf, 4, 2048, 5120),
+             ("o_m4_int_flags", bf, 4, 2048, 5120),
+             ("odd_m3", bf, 3, 1000, 136),
+             ("o_m2048", bf, 2048, 2048, 5120),
+             ("down_m2048", bf, 2048, 6400, 5120)]
     rows, timed = [], {}
 
-    def run_check(name, a, b, tol):
-        outs = world.run(lambda r: grs.pallas_gemm_rs_bidir(
-            world.mesh(r), a[r], b[r]))
+    def run(name, m, k, n):
+        if "_flags" not in name:
+            return lambda mesh, a, b: grs.pallas_gemm_rs_bidir(mesh, a, b)
+        plan = grs.bidir_layout(TP, m, k, n, True, sms, TP, False)
+        return lambda mesh, a, b: grs._launch_bidir(mesh, a, b, plan)
+
+    def run_check(name, fn, a, b, tol):
+        outs = world.run(lambda r: fn(world.mesh(r), a[r], b[r]))
         torch.cuda.synchronize()
         refs = grs.gemm_rs_bidir_ref_shards(a, b)
         res = [_held(torch, f"{name}/rank{r}", outs[r], refs[r], tol)
@@ -2916,8 +3034,9 @@ def phase_b13b(torch, symm, grs, calls: int = 20):
     for name, dt, m, k, n in cases:
         draw = _int_shards if "_int" in name else _tp_shards
         a, b = draw(torch, g, dt, TP * m, k, n)
-        rows += run_check(name, a, b, _tp_tol(torch, dt))
-        if name not in ("o_m4", "down_m4"):
+        fn = run(name, m, k, n)
+        rows += run_check(name, fn, a, b, _tp_tol(torch, dt))
+        if name not in ("o_m4", "down_m4", "o_m2048", "down_m2048"):
             continue
         es = a[0].element_size()
         nbytes = TP * (TP * m * k + k * n + m * n) * es
@@ -2930,20 +3049,50 @@ def phase_b13b(torch, symm, grs, calls: int = 20):
             lambda r: grs.pallas_gemm_rs(world.mesh(r), a[r], b[r])))[0]
         timed[name]["max_abs_err"] = max(
             x["max_abs_err"] for x in rows if x["case"].startswith(name))
+        if m == 4:
+            ws = [weight_copies(torch, g, k, n, bf) for _ in range(TP)]
+            timed[name]["cold_ms"] = _world_cold_ms(
+                torch, world, lambda r, w: grs.pallas_gemm_rs_bidir(
+                    world.mesh(r), a[r], w), ws)
+            timed[name]["b13a_cold_ms"] = _world_cold_ms(
+                torch, world, lambda r, w: grs.pallas_gemm_rs(
+                    world.mesh(r), a[r], w), ws)
+            del ws
+        del a, b
+        torch.cuda.empty_cache()
     seq_ok = []
     for _ in range(calls):
         a, b = _tp_shards(torch, g, bf, TP * 4, 2048, 5120)
-        seq_ok.append(all(x["ok"] for x in run_check("seq", a, b, 1e-2)))
+        seq_ok.append(all(x["ok"] for x in run_check(
+            "seq", run("o_m4", 4, 2048, 5120), a, b, 1e-2)))
+    parity = {}
+    for name, draw, tol in (("o_m4", _tp_shards, 1e-2),
+                            ("o_m4_int", _int_shards, 0),
+                            ("o_m4_flags", _tp_shards, 1e-2)):
+        def draw_xs(draw=draw):
+            a, b = draw(torch, g, bf, TP * 4, 2048, 5120)
+            return [(a[r], b[r]) for r in range(TP)]
+        parity[name] = _world_parity_calls(
+            torch, world, run(name, 4, 2048, 5120), draw_xs,
+            lambda xs: grs.gemm_rs_bidir_ref_shards(
+                [x[0] for x in xs], [x[1] for x in xs]),
+            _tol_held(torch, tol))
     emit({"phase": "b13b_gemm_rs_bidir",
           "world": "one card, 4 logical ranks", "cases": rows,
-          "successive_calls_ok": seq_ok, "timed": timed})
-    if not all(x["ok"] for x in rows) or not all(seq_ok):
+          "successive_calls_ok": seq_ok, "parity_calls": parity,
+          "timed": timed, "instructions": B13B_INSTRUCTIONS})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or \
+            not all(_parity_ok(v) for v in parity.values()):
         fail(f"B13b disagrees with its plain version: "
-             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
-    return _tp_kernel_record(
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"parity {parity}")
+    rec = _tp_kernel_record(
         "pallas_gemm_rs_bidir", "gemm_rs.cu",
-        "triton_dist_tpu/kernels/gemm_reduce_scatter.py:432", timed,
+        "triton_dist_tpu/kernels/gemm_reduce_scatter.py:432",
+        {k: timed[k] for k in ("o_m4", "down_m4")},
         "one card, 4 logical ranks")
+    rec["prefill_shape"] = {k: timed[k] for k in ("o_m2048", "down_m2048")}
+    return rec
 
 
 # -- expert parallelism in the one-card world: B17, B18, B16 -----------------
@@ -2973,6 +3122,48 @@ def _bitwise(a, b) -> bool:
     if a.element_size() == 1:
         return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
     return torch.equal(a, b)
+
+
+def _a2a_protocols(torch, world, ll, plain, draw, row_bytes, scale_bytes):
+    """B17 (scale_bytes 0) or B18 at _EP_SLOTS' shapes in the one-card
+    world: both parities, eagerly and graph-replayed (draw(mm): each
+    rank's input tuple), bitwise the plain exchange; then each shape under
+    the protocol its plan does not pick (forced through ``a2a_layout``),
+    bitwise too."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def fn(mesh, x, s=None):
+        return ll.fast_all_to_all_per_device(mesh, x) if s is None else \
+            ll.fast_all_to_all_q_per_device(mesh, x, s)
+
+    def ref(xs):
+        outs = [plain.all_to_all_slots_shards([x[i] for x in xs])
+                for i in range(len(xs[0]))]
+        return [tuple(o[r] for o in outs) if len(outs) > 1 else outs[0][r]
+                for r in range(TP)]
+
+    parity, forced = {}, []
+    for shp, m_loc in _EP_SLOTS:
+        mm = m_loc * EP_DIMS[4]
+        parity[shp] = _world_parity_calls(
+            torch, world, fn, lambda mm=mm: draw(mm), ref, _same_bits)
+        xs = draw(mm)
+        rows1 = xs[0][1].shape[1] if scale_bytes else 0
+        pick = ll.a2a_plan(TP, mm, row_bytes, rows1, scale_bytes, sms, TP)
+        plan = ll.a2a_layout(TP, mm, row_bytes, rows1, scale_bytes,
+                             pick.grid, not pick.ll)
+        outs = world.run(lambda r: ll._launch(
+            world.mesh(r), xs[r][0], xs[r][1] if rows1 else None, plan))
+        torch.cuda.synchronize()
+        want = ref(xs)
+        for r in range(TP):
+            got = outs[r] if rows1 else outs[r][0]
+            forced.append({"case": f"{shp}_{'ll' if plan.ll else 'flags'}"
+                                   f"/rank{r}", "grid": plan.grid,
+                           "ok": _same_bits(got, want[r])})
+        del xs, outs, want
+        torch.cuda.empty_cache()
+    return parity, forced
 
 
 def phase_b17(torch, symm, kern, ll, plain, calls: int = 5):
@@ -3018,6 +3209,9 @@ def phase_b17(torch, symm, kern, ll, plain, calls: int = 5):
                 x["max_abs_err"] for x in rows if x["case"].startswith(name))
         seq_ok += [all(x["ok"] for x in run_check(
             f"seq_{shp}", draw(torch.bfloat16, mm))) for _ in range(calls)]
+    parity, forced = _a2a_protocols(
+        torch, world, ll, plain, lambda mm: [(x,) for x in draw(
+            torch.bfloat16, mm)], 2 * d, 0)
     xs = draw(torch.bfloat16, 32)
     kern.reset_launch_counts()
     outs = world.run(lambda r: ll.fast_all_to_all(world.mesh(r), "tp",
@@ -3029,11 +3223,13 @@ def phase_b17(torch, symm, kern, ll, plain, calls: int = 5):
         path == _only(path, fast_all_to_all_per_device=TP)
     emit({"phase": "b17_ll_a2a", "world": "one card, 4 logical ranks",
           "cases": rows, "successive_calls_ok": seq_ok, "timed": timed,
+          "parity_calls": parity, "other_protocol": forced,
           "fast_all_to_all": {"launches": path, "ok": op_ok}})
-    if not all(x["ok"] for x in rows) or not all(seq_ok) or not op_ok:
+    if not all(x["ok"] for x in rows + forced) or not all(seq_ok) or \
+            not op_ok or not all(_parity_ok(v) for v in parity.values()):
         fail(f"B17 disagrees with its plain version: "
-             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
-             f"fast_all_to_all {path}")
+             f"{[x for x in rows + forced if not x['ok']]}; successive "
+             f"{seq_ok}; parity {parity}; fast_all_to_all {path}")
     rec = _tp_kernel_record(
         "fast_all_to_all_per_device", "ep_a2a.cu",
         "triton_dist_tpu/kernels/low_latency_all_to_all.py:38",
@@ -3094,6 +3290,9 @@ def phase_b18(torch, symm, kern, ll, plain, calls: int = 5):
             x["max_abs_err"] for x in rows if x["case"].startswith(shp))
         seq_ok += [all(x["ok"] for x in run_check(f"seq_{shp}", *draw(mm)))
                    for _ in range(calls)]
+    parity, forced = _a2a_protocols(
+        torch, world, ll, plain, lambda mm: list(zip(*draw(mm))), d,
+        4 * ll._LANE)
     xs = [torch.randn((TP, 32, d), generator=g, device=DEV).to(
         torch.bfloat16) for _ in range(TP)]
     # the reference first: it also loads the dequantize kernels, which the
@@ -3113,11 +3312,13 @@ def phase_b18(torch, symm, kern, ll, plain, calls: int = 5):
         path == _only(path, fast_all_to_all_q_per_device=TP)
     emit({"phase": "b18_ll_a2a_q", "world": "one card, 4 logical ranks",
           "cases": rows, "successive_calls_ok": seq_ok, "timed": timed,
+          "parity_calls": parity, "other_protocol": forced,
           "fast_all_to_all_quantized": {"launches": path, "ok": op_ok}})
-    if not all(x["ok"] for x in rows) or not all(seq_ok) or not op_ok:
+    if not all(x["ok"] for x in rows + forced) or not all(seq_ok) or \
+            not op_ok or not all(_parity_ok(v) for v in parity.values()):
         fail(f"B18 disagrees with its plain version: "
-             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
-             f"fast_all_to_all_quantized {path}")
+             f"{[x for x in rows + forced if not x['ok']]}; successive "
+             f"{seq_ok}; parity {parity}; fast_all_to_all_quantized {path}")
     rec = _tp_kernel_record(
         "fast_all_to_all_q_per_device", "ep_a2a.cu",
         "triton_dist_tpu/kernels/low_latency_all_to_all.py:96",
@@ -3512,7 +3713,9 @@ _TP_SHAPES = (("qkv_m4", "ag", 4, 5120, 2560),
               ("qkv_m2048", "ag", 2048, 5120, 2560),
               ("qkv_m2048_bidir", "ag_bidir", 2048, 5120, 2560),
               ("o_m4_bidir", "rs_bidir", 4, 2048, 5120),
-              ("down_m4_bidir", "rs_bidir", 4, 6400, 5120))
+              ("down_m4_bidir", "rs_bidir", 4, 6400, 5120),
+              ("o_m2048_bidir", "rs_bidir", 2048, 2048, 5120),
+              ("down_m2048_bidir", "rs_bidir", 2048, 6400, 5120))
 # kernels-line rows of the four-card timings: (wrapper, its shapes,
 # source, the TPU kernel it replaces, the library call timed beside it)
 _TP_ROWS = (
@@ -3698,7 +3901,70 @@ def _tp_ranks_time(torch, dist, mesh):
         if kind in ("ring_rs", "ring_ag", "rhd"):
             out[name]["graph_ms"] = graph_time_ms(run)
             dist.barrier()
+        if kind == "rs_bidir" and m == 4:
+            out[name].update(_tp4_bidir_extras(torch, dist, mesh, m, k, n))
+            out[name]["ok"] = out[name]["ok"] and all(
+                _parity_ok(out[name][key])
+                for key in ("parity_random", "parity_int"))
     return out
+
+
+def queued_cold_ms(torch, fn, ws) -> float:
+    """queued_ms of fn(w) with w taken in turn from ws (weight_copies: out
+    of L2 at each call), for work a graph may not hold (NCCL) and for the
+    kernels timed beside it."""
+    it = iter(range(1 << 30))
+    return queued_ms(torch, lambda: fn(ws[next(it) % len(ws)]),
+                     iters=max(20, 3 * len(ws)))[0]
+
+
+def _tp4_bidir_extras(torch, dist, mesh, m, k, n):
+    """B13b on one of four cards beyond _tp_ranks_time's warm timing: cold
+    (queued calls rotating over weight copies larger than twice the L2),
+    B13a and torch.mm + NCCL reduce-scatter cold beside it; both parities
+    eagerly and graph-replayed, random bf16 within 1e-2 x max|ref| and
+    integer-valued bit for bit."""
+    import torch.distributed as dist_
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    bf, dev = torch.bfloat16, mesh.device
+    g = torch.Generator(device=dev).manual_seed(70 + mesh.rank)
+    a = torch.randn((TP * m, k), generator=g, device=dev).to(bf)
+    ws = weight_copies(torch, g, k, n, bf)
+
+    def mm_rs(w):
+        part = torch.mm(a, w)
+        y = part.new_empty((m, n))
+        dist_.reduce_scatter_tensor(y, part, group=mesh.group)
+        return y
+    rec = {}
+    for key, fn in (("cold_ms", lambda w: grs.pallas_gemm_rs_bidir(
+            mesh, a, w)), ("b13a_cold_ms", lambda w: grs.pallas_gemm_rs(
+                mesh, a, w)), ("mm_nccl_rs_cold_ms", mm_rs)):
+        fn(ws[0])
+        torch.cuda.synchronize()
+        dist.barrier()
+        rec[key] = queued_cold_ms(torch, fn, ws)
+        dist.barrier()
+    del ws
+
+    def draw_rand():
+        return (torch.randn((TP * m, k), generator=g, device=dev).to(bf),
+                (torch.randn((k, n), generator=g, device=dev)
+                 * k ** -0.5).to(bf))
+
+    def draw_int():
+        return (torch.randint(-3, 4, (TP * m, k), generator=g,
+                              device=dev).to(bf),
+                torch.randint(-3, 4, (k, n), generator=g, device=dev).to(bf))
+    for tag, draw, tol in (("random", draw_rand, 1e-2),
+                           ("int", draw_int, 0)):
+        rec[f"parity_{tag}"] = _rank_parity_calls(
+            torch, lambda x, w: grs.pallas_gemm_rs_bidir(mesh, x, w), draw,
+            lambda x, w: grs.gemm_rs_bidir_ref(mesh, x, w),
+            _tol_held(torch, tol))
+        dist.barrier()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _tp4_ring(torch, dist, mesh, calls: int = 20):
@@ -4647,6 +4913,31 @@ def _tp4_ep_kernels(torch, dist, mesh, calls: int = 3):
                 "ok": _bitwise(rq, plain.all_to_all_slots(mesh, q))
                 and _bitwise(rs, plain.all_to_all_slots(mesh, s))
                 and all(same), "repeats_bitwise": same}
+
+        def draw17(mm=mm):
+            return (torch.randn((TP, mm, d), generator=g, device=dev).to(
+                torch.bfloat16),)
+
+        def draw18(mm=mm):
+            q_, s_ = ll.quantize_rows(draw17(mm)[0], torch.float8_e4m3fn)
+            return q_, ll.pack_scales(s_)
+        dist.barrier()
+        parity = {
+            "b17": _rank_parity_calls(
+                torch, lambda x_: ll.fast_all_to_all_per_device(mesh, x_),
+                draw17, lambda x_: plain.all_to_all_slots(mesh, x_),
+                _same_bits),
+            "b18": _rank_parity_calls(
+                torch, lambda q_, s_: ll.fast_all_to_all_q_per_device(
+                    mesh, q_, s_), draw18,
+                lambda q_, s_: (plain.all_to_all_slots(mesh, q_),
+                                plain.all_to_all_slots(mesh, s_)),
+                _same_bits)}
+        dist.barrier()
+        out[f"b17_{shp}"]["parity_calls"] = parity["b17"]
+        out[f"b17_{shp}"]["ok"] &= _parity_ok(parity["b17"])
+        held["parity_calls"] = parity["b18"]
+        held["ok"] = held["ok"] and _parity_ok(parity["b18"])
         qb = q.view(torch.uint8)
         slot = mm * d + s[0].numel() * 4
         timed(f"b18_{shp}",
@@ -7691,7 +7982,9 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                 timed[shp] = {key: max(x[key] for x in rws)
                               for key in ("ms", "plain_ms", "bound_ms",
                                           "max_abs_err", "alt_ms",
-                                          "graph_ms")
+                                          "graph_ms", "cold_ms",
+                                          "b13a_cold_ms",
+                                          "mm_nccl_rs_cold_ms")
                               if key in rws[0]}
                 lib = [libs.get(r, {}).get(shp, {}) for r in range(TP)]
                 timed[shp]["library_ms"] = (
@@ -7725,6 +8018,17 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
             pre[shp] = {key: max(x[key] for x in rws) for key in
                         ("ms", "plain_ms", "bound_ms", "max_abs_err")}
         rows["pallas_ag_gemm_bidir"]["prefill_shape"] = pre
+        # B13b at the static serve's prefill (2,048 rows a rank)
+        pre = {}
+        for shp in ("o_m2048_bidir", "down_m2048_bidir"):
+            rws = [k[shp] for k in per_rank]
+            if not all(x["ok"] for x in rws):
+                fail(f"{shp} on four cards disagrees with its plain "
+                     f"version: {rws}")
+            pre[shp] = {key: max(x[key] for x in rws) for key in
+                        ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                         "alt_ms")}
+        rows["pallas_gemm_rs_bidir"]["prefill_shape"] = pre
     if "tp4_continuous" in phases:
         per = [results[r]["continuous"] for r in range(TP)]
         L = models.QWEN3_ARCHS[TP_MODEL].num_layers

@@ -1,5 +1,7 @@
 """An emulation of the one-hop collectives' slots on the CPU, shared by
-``test_torch_ring_plan.py`` (B9, B7) and ``test_torch_rhd_plan.py`` (B6):
+``test_torch_ring_plan.py`` (B9, B7), ``test_torch_rhd_plan.py`` (B6),
+``test_torch_gemm_rs_bidir_plan.py`` (B13b) and ``test_torch_ll_a2a_plan.py``
+(B17, B18):
 rows as 16-byte vectors, stored into a rank's buffer as the kernels of
 ``csrc/td_oneshot.cuh`` store them (plain vectors, or LL lines that carry
 the epoch), and read back as a receiver reads them.
@@ -35,21 +37,27 @@ def tensor(words: np.ndarray, dtype, k: int) -> torch.Tensor:
         dtype).reshape(-1, k)
 
 
+def store_vectors(buf, ll, off, words, index, f):
+    """Store 16-byte vectors words[..., 4] (u32) at vector indices `index`
+    (broadcast to words' leading shape) of the slot at byte `off` of buf
+    (u32 view) as the kernels do: plain at vector v, or as LL lines 2v,
+    2v + 1, each {lo, f, hi, f}."""
+    if ll:
+        lines = np.empty(words.shape[:-1] + (8,), dtype=np.uint32)
+        lines[..., 0::2] = words
+        lines[..., 1::2] = f
+        buf[off // 4 + 8 * index[..., None] + np.arange(8)] = lines
+    else:
+        buf[off // 4 + 4 * index[..., None] + np.arange(4)] = words
+
+
 def store(buf, plan, off, rows, block_cols, f):
     """Store vectors rows[:, block_cols] at byte `off` of buf (u32 view)
-    as the kernel does: plain at vector r kv + c, or as LL lines 2v,
-    2v + 1, each {lo, f, hi, f}."""
+    as the kernel does, at vector r kv + c (``store_vectors``)."""
     c0, cw = block_cols
-    w = rows[:, c0:c0 + cw]                                   # (m, cw, 4)
     v = (np.arange(rows.shape[0])[:, None] * plan.kv
          + np.arange(c0, c0 + cw)[None, :])                   # vector index
-    if plan.ll:
-        lines = np.empty(w.shape[:2] + (8,), dtype=np.uint32)
-        lines[..., 0::2] = w
-        lines[..., 1::2] = f
-        buf[off // 4 + 8 * v[..., None] + np.arange(8)] = lines
-    else:
-        buf[off // 4 + 4 * v[..., None] + np.arange(4)] = w
+    store_vectors(buf, plan.ll, off, rows[:, c0:c0 + cw], v, f)
 
 
 def load(buf, plan, off, f):

@@ -28,17 +28,26 @@
 // experts a rank): ~126 MB, ~38 us at 3.35 TB/s, bound by bytes.
 //
 // Design:
-//  * B17 / B18: the grid is G blocks (the wrapper's choice, the same on
-//    every rank), and block b owns a fixed contiguous share, 1/G, of the
-//    16-byte vectors of every slot of each payload (column slices left
-//    32-byte runs per row: at a 512-token chunk the one-card world's four
-//    ranks took 1.42 ms on an H100, plain copies 0.19 ms). Block b stores
-//    its share of slot p into peer p's landing slot `rank` (16-byte
-//    stores over NVLink) and copies its share of its own slot straight to
-//    the output; then every storing thread fences, and the block raises
-//    one epoch flag per (block, sender) on each peer. It waits for the
-//    n - 1 senders' flags of block b and copies its share of the landed
-//    slots out. No block waits for another block of its own rank;
+//  * B17 / B18: a plan (kernels/low_latency_all_to_all.py::a2a_plan, the
+//    same on every rank) fixes the grid G, the protocol and the landing
+//    slots ([parity][sender] of each payload). Block b owns a fixed
+//    contiguous share, 1/G, of the 16-byte vectors of every slot of each
+//    payload (column slices left 32-byte runs per row: at a 512-token
+//    chunk the one-card world's four ranks took 1.42 ms on an H100, plain
+//    copies 0.19 ms). Block b stores its share of slot p into peer p's
+//    landing slot `rank` (a thread loads its item of every peer's slot
+//    before it stores any) and copies its share of its own slot straight
+//    to the output, with no wait; then it copies its share of the landed
+//    slots out. Two protocols, by the bytes of a slot of the first
+//    payload (A2A_LL_MAX_SLOT_BYTES, from a four-card sweep), through
+//    td_oneshot.cuh's put_vec / get_vec and waits: LL lines (each 16-byte
+//    vector as two lines that carry the call's epoch; no fence, no flag:
+//    the receiver reads each line as it lands, straight into the output;
+//    the decode dispatch and combine, B18's fp8 rows and scales), or
+//    flags (plain stores, then one flag per (block, sender) raised after
+//    a system fence, td_oneshot.cuh exchange_flags: the 512-token chunk).
+//    An epoch word a block in the control block. No block waits for
+//    another block of its own rank;
 //  * B16: the push of B14 across ranks (moe_group_gemm.cu), from slot p of
 //    the payload to peer p: each (peer, row block) is split over the grid,
 //    and the last block to finish it raises one epoch flag per (sender,
@@ -65,15 +74,19 @@
 //    for ranks not yet launched on a shared card).
 
 #include "moe_tile.cuh"
+#include "td_oneshot.cuh"
 
 namespace {
+
+namespace os = td::oneshot;
 
 using td::dist::Team;
 using td::dist::u64;
 
 // One payload of the all-to-all: x and out hold (world, rows, kv) 16-byte
-// vectors; its landing slots (2, world, rows, kv) start at byte `land` of
-// every rank's symmetric buffer. rows == 0: no payload.
+// vectors; its landing slots (2, world) of rows x kv vectors (as plain
+// vectors or LL lines) start at byte `land` of every rank's symmetric
+// buffer. rows == 0: no payload.
 struct Payload {
   const uint4* x;
   uint4* out;
@@ -92,69 +105,72 @@ struct Share {
   }
 };
 
-__device__ __forceinline__ u64* flags(const Team& t, int p, long off) {
-  return reinterpret_cast<u64*>(t.peer(p) + off);
+// Sender s's landing slot of parity par on rank p.
+template <bool LL>
+__device__ __forceinline__ char* landing(const Payload& pl, const Team& t,
+                                         int p, int par, int s) {
+  const long slot = static_cast<long>(pl.rows) * pl.kv * (LL ? 32 : 16);
+  return t.peer(p) + pl.land + (static_cast<long>(par) * t.world + s) * slot;
 }
 
 // Block b's share of slot q of every peer q into that peer's landing slot
-// `rank` (parity `par`), and of the own slot into the output.
+// `rank` (parity `par`, tagged f under LL), and of the own slot into the
+// output. A thread loads its item of every peer's slot before it stores
+// any, so their latencies overlap.
+template <bool LL>
 __device__ __forceinline__ void push_payload(const Payload& p, const Team& t,
-                                             int par) {
+                                             int par, unsigned f) {
+  const long slot = static_cast<long>(p.rows) * p.kv;
+  const int me = t.rank, n = t.world;
+  const Share sh(slot);
+  for (long j = threadIdx.x; j < sh.nv; j += NT) {
+    const long v = sh.v0 + j;
+    uint4 val[os::kPeers];
+#pragma unroll
+    for (int i = 0; i < os::kPeers; ++i)
+      if (i < n - 1) val[i] = p.x[((me + 1 + i) % n) * slot + v];
+#pragma unroll
+    for (int i = 0; i < os::kPeers; ++i)
+      if (i < n - 1)
+        os::put_vec<LL>(landing<LL>(p, t, (me + 1 + i) % n, par, me), v,
+                        val[i], f);
+    p.out[me * slot + v] = p.x[me * slot + v];
+  }
+}
+
+// Block b's share of the landed slots (parity `par`) into the output, each
+// vector as its LL lines land (or after the flags).
+template <bool LL>
+__device__ __forceinline__ void take_payload(const Payload& p, const Team& t,
+                                             int par, unsigned f) {
   const long slot = static_cast<long>(p.rows) * p.kv;
   const Share sh(slot);
   for (int i = 1; i < t.world; ++i) {
-    const int q = (t.rank + i) % t.world;
-    uint4* dst = reinterpret_cast<uint4*>(t.peer(q) + p.land) +
-                 (static_cast<long>(par) * t.world + t.rank) * slot + sh.v0;
-    const uint4* src = p.x + q * slot + sh.v0;
-    for (long j = threadIdx.x; j < sh.nv; j += NT) dst[j] = src[j];
-  }
-  const uint4* src = p.x + t.rank * slot + sh.v0;
-  uint4* dst = p.out + t.rank * slot + sh.v0;
-  for (long j = threadIdx.x; j < sh.nv; j += NT) dst[j] = src[j];
-}
-
-// Block b's share of the landed slots (parity `par`) into the output.
-__device__ __forceinline__ void take_payload(const Payload& p, const Team& t,
-                                             int par) {
-  const long slot = static_cast<long>(p.rows) * p.kv;
-  const Share sh(slot);
-  const uint4* land = reinterpret_cast<const uint4*>(t.peer(t.rank) + p.land) +
-                      static_cast<long>(par) * t.world * slot + sh.v0;
-  for (int s = 0; s < t.world; ++s) {
-    if (s == t.rank) continue;
-    uint4* out = p.out + s * slot + sh.v0;
+    const int s = (t.rank + i) % t.world;
+    const char* land = landing<LL>(p, t, t.rank, par, s);
+    uint4* out = p.out + s * slot;
     for (long j = threadIdx.x; j < sh.nv; j += NT)
-      out[j] = __ldcg(land + s * slot + j);
+      out[sh.v0 + j] = os::get_vec<LL>(land, sh.v0 + j, f,
+                                       "B17 all-to-all line", s);
   }
 }
 
-// B17 (p1.rows == 0) and B18 (both payloads). Flags (G, world) u64 at
-// flag_off of the symmetric buffer.
+// B17 (p1.rows == 0) and B18 (both payloads). Flags (G, world - 1) u64 at
+// flag_off of the symmetric buffer (flags protocol only); the block's
+// epoch word at ctl[kCtlHeader + b].
+template <bool LL>
 __global__ void __launch_bounds__(NT)
     ll_a2a_kernel(Payload p0, Payload p1, Team team, u64* ctl,
                   long flag_off) {
-  const int me = team.rank, world = team.world, b = blockIdx.x;
-  const u64 e = td::dist::begin_call(ctl);
-  const int par = static_cast<int>(e & 1);
-  push_payload(p0, team, par);
-  if (p1.rows > 0) push_payload(p1, team, par);
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x < world && threadIdx.x != me)
-    td::dist::notify(flags(team, threadIdx.x, flag_off) +
-                         static_cast<long>(b) * world + me,
-                     e);
-  if (threadIdx.x == 0)
-    for (int s = 0; s < world; ++s)
-      if (s != me)
-        td::dist::wait(flags(team, me, flag_off) +
-                           static_cast<long>(b) * world + s,
-                       e, "B17 all-to-all slot", s);
-  __syncthreads();
-  take_payload(p0, team, par);
-  if (p1.rows > 0) take_payload(p1, team, par);
-  td::dist::end_call(ctl, e);
+  const os::Epoch ep(ctl);
+  const int par = static_cast<int>(ep.e & 1);
+  const unsigned f = static_cast<unsigned>(ep.e);
+  push_payload<LL>(p0, team, par, f);
+  if (p1.rows > 0) push_payload<LL>(p1, team, par, f);
+  if (!LL) os::exchange_flags(team, flag_off, ep.e, "B17 all-to-all slot");
+  take_payload<LL>(p0, team, par, f);
+  if (p1.rows > 0) take_payload<LL>(p1, team, par, f);
+  ep.close();
 }
 
 // B16's flag for row block b of sender s, on the receiving rank's pad.
@@ -301,9 +317,10 @@ __global__ void __launch_bounds__(NT)
   out[i] = td::from_f<T>(sum);
 }
 
-// Occupancy of B17 / B18's kernel and the card's SMs, queried once (the
-// first call; never under a CUDA-graph capture: callers warm up first).
-// The query also loads the kernel.
+// Occupancy of B17 / B18's kernel (the lower of its two protocols' forms)
+// and the card's SMs, queried once (the first call; never under a
+// CUDA-graph capture: callers warm up first). The query also loads both
+// forms.
 struct A2aLaunch {
   int sms = 0, occ = 0;
 };
@@ -318,10 +335,15 @@ cudaError_t a2a_launch_info(A2aLaunch* out) {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&q.sms, cudaDevAttrMultiProcessorCount,
                                    dev);
+    int occ_ll = 0;
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&q.occ,
-                                                          ll_a2a_kernel, NT, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &q.occ, ll_a2a_kernel<false>, NT, 0);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ_ll, ll_a2a_kernel<true>, NT, 0);
     if (err != cudaSuccess) return err;
+    q.occ = q.occ < occ_ll ? q.occ : occ_ll;
     info = q;
   }
   *out = info;
@@ -391,19 +413,21 @@ bool bad_team(int rank, int world, int rpd) {
 
 extern "C" {
 
-// B17 (rows1 == 0) and B18. Payload i: x_i and out_i (world, rows_i, kv_i)
-// 16-byte vectors, contiguous, 16-byte aligned; its landing slots (2,
-// world, rows_i, kv_i) at byte land_i of every rank's symmetric buffer,
-// the flags (grid, world) u64 at flag_off (zeroed once); base: device
-// table of every rank's symmetric buffer; ctl: this rank's control block
-// (4 u64, zeroed once); grid: blocks, the same on every rank, at most
-// rows0 * kv0; ranks_per_device: ranks that share this card. Returns a
-// cudaError_t.
+// B17 (rows1 == 0) and B18, under kernels/low_latency_all_to_all.py::
+// a2a_plan. Payload i: x_i and out_i (world, rows_i, kv_i) 16-byte
+// vectors, contiguous, 16-byte aligned; its landing slots (2, world) of
+// rows_i x kv_i vectors (ll: as LL lines, 32 bytes a vector) at byte
+// land_i of every rank's symmetric buffer; under flags the flags (grid,
+// world - 1) u64 at flag_off (zeroed once); base: device table of every
+// rank's symmetric buffer; ctl: this rank's control block (4 u64, then an
+// epoch word a block, zeroed once); grid: blocks, the same on every rank,
+// at most rows0 * kv0; ranks_per_device: ranks that share this card.
+// Returns a cudaError_t.
 int td_ll_a2a(const void* x0, void* out0, int rows0, int kv0,
               long long land0, const void* x1, void* out1, int rows1,
               int kv1, long long land1, int rank, int world, const void* base,
-              void* ctl, long long flag_off, int grid, int ranks_per_device,
-              void* stream) {
+              void* ctl, long long flag_off, int grid, int ll,
+              int ranks_per_device, void* stream) {
   if (bad_team(rank, world, ranks_per_device) || rows0 <= 0 || kv0 <= 0 ||
       grid < 1 || static_cast<long>(grid) > static_cast<long>(rows0) * kv0 ||
       rows1 < 0 || (rows1 > 0 && kv1 <= 0))
@@ -419,8 +443,14 @@ int td_ll_a2a(const void* x0, void* out0, int rows0, int kv0,
                    rows0, kv0, static_cast<long>(land0)};
   const Payload p1{static_cast<const uint4*>(x1), static_cast<uint4*>(out1),
                    rows1, kv1, static_cast<long>(land1)};
-  ll_a2a_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, team, static_cast<u64*>(ctl), static_cast<long>(flag_off));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  u64* c = static_cast<u64*>(ctl);
+  if (ll)
+    ll_a2a_kernel<true><<<grid, NT, 0, st>>>(p0, p1, team, c,
+                                             static_cast<long>(flag_off));
+  else
+    ll_a2a_kernel<false><<<grid, NT, 0, st>>>(p0, p1, team, c,
+                                              static_cast<long>(flag_off));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,6 +42,15 @@
 //    ticket to 0. One launch a call, the same bytes every call, and no
 //    memset between calls (a captured graph replays it as it is).
 //
+//  * the epilogue is a template parameter (Epi): CastStore casts and
+//    stores each finished tile (B4's world-1 body, B12); gemm_rs.cu's B13b
+//    lands each tile's f32 rows in their owners' slots instead and folds
+//    them after its items. Epi::begin runs on every thread before the
+//    kernel's first barrier (with Epi::kSmemBytes of dynamic shared memory
+//    of its own), Epi::tile on each consumer warp for each tile it
+//    finishes, Epi::end on each consumer warp after its items (the
+//    producer warp has returned by then: no block barrier there).
+//
 // Workspace (the launcher's): f32 slots [2 G][4 warps][NS][MG / 8][32
 // lanes] of float4: slot 2 b holds block b's first item, 2 b + 1 its last
 // (only those two can share a tile with another block). Tickets: int
@@ -82,11 +91,18 @@ constexpr int A_LD = BK + 8;      // A's row stride in a stage (elements):
 constexpr uint32_t BOX_BYTES = BK * BOX * sizeof(bf16);
 constexpr uint32_t W_BYTES = NBX * BOX_BYTES;
 
+// The ring's shared memory: alignment slack, the W tiles, A's rows, the
+// full and empty barriers; the epilogue's own bytes follow.
 template <int MG>
-constexpr size_t smem_bytes() {
+constexpr size_t ring_bytes() {
   return 1024 + size_t(STAGES) * W_BYTES +
          size_t(STAGES) * MG * A_LD * sizeof(bf16) +
          2 * STAGES * sizeof(uint64_t);
+}
+
+template <int MG, typename Epi>
+constexpr size_t smem_bytes() {
+  return ring_bytes<MG>() + Epi::kSmemBytes;
 }
 
 // The launch's shape and cut; the launcher's stream_plan computes the same.
@@ -97,6 +113,7 @@ struct Plan {
   long long units;  // M groups x n_tiles x n_kt
   int grid;         // blocks, <= units
   int a_vec;        // A's rows 16-byte aligned: cp.async
+  int whole;        // items are whole tiles, column-tile major (below)
 };
 
 // first unit of block b
@@ -110,9 +127,19 @@ __device__ __forceinline__ int owner(const Plan& p, long long u) {
 }
 
 // f(t, kt0, kt1) for each item of block b: tile t (M group t / n_tiles,
-// column tile t % n_tiles), K tiles [kt0, kt1)
+// column tile t % n_tiles), K tiles [kt0, kt1). With p.whole (many M
+// groups, gemm_rs.cu's prefill) block b takes whole tiles b, b + grid,
+// ... in column-tile-major order instead: the blocks then work on one
+// column strip of W at a time, which stays in L2 while every M group
+// reads it, and no tile is split.
 template <typename F>
 __device__ __forceinline__ void for_items(const Plan& p, int b, F&& f) {
+  if (p.whole) {
+    const long long tiles = p.units / p.n_kt, n_mg = tiles / p.n_tiles;
+    for (long long i = b; i < tiles; i += p.grid)
+      f((i % n_mg) * p.n_tiles + i / n_mg, 0, p.n_kt);
+    return;
+  }
   const long long end = unit0(p, b + 1);
   for (long long u = unit0(p, b); u < end;) {
     const long long t = u / p.n_kt;
@@ -184,10 +211,39 @@ __device__ __forceinline__ void store_out(const Plan& p, bf16* out,
     }
 }
 
+// The tile of a consumer warp: its first column n0 (16 NS warp + l / 4 of
+// the column tile) and first row m0 (2 (l % 4) of the M group), as
+// store_out reads its accumulator fragment.
+__device__ __forceinline__ int warp_n0(const Plan& p, long long t, int warp,
+                                       int lane) {
+  return static_cast<int>(t % p.n_tiles) * BN + 16 * NS * warp + (lane >> 2);
+}
 template <int MG>
+__device__ __forceinline__ int warp_m0(const Plan& p, long long t, int lane) {
+  return static_cast<int>(t / p.n_tiles) * MG + 2 * (lane & 3);
+}
+
+// The epilogue of B4's world-1 body and B12: each finished tile cast to
+// bf16 and stored into out (M, N).
+template <int MG>
+struct CastStore {
+  static constexpr size_t kSmemBytes = 0;
+  bf16* out;
+  __device__ __forceinline__ void begin(void*) {}
+  __device__ __forceinline__ void tile(const Plan& p, long long t, int warp,
+                                       int lane,
+                                       const float (&acc)[NS][MG / 8][4]) {
+    const int n0 = warp_n0(p, t, warp, lane), m0 = warp_m0<MG>(p, t, lane);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) store_out<MG>(p, out, acc[s], n0 + 16 * s, m0);
+  }
+  __device__ __forceinline__ void end(const Plan&, int, int) {}
+};
+
+template <int MG, typename Epi>
 __global__ void __launch_bounds__(NTH, 1)
     stream_kernel(const __grid_constant__ CUtensorMap tm_w,
-                  const bf16* __restrict__ a, bf16* __restrict__ out,
+                  const bf16* __restrict__ a, const Epi epi,
                   float4* __restrict__ ws, int* __restrict__ tickets,
                   const Plan p) {
   extern __shared__ uint8_t smem_raw[];
@@ -197,6 +253,8 @@ __global__ void __launch_bounds__(NTH, 1)
   uint64_t* const full =
       reinterpret_cast<uint64_t*>(at + STAGES * MG * A_LD);
   uint64_t* const empty = full + STAGES;
+  Epi ep = epi;
+  ep.begin(empty + STAGES);
 
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -289,16 +347,12 @@ __global__ void __launch_bounds__(NTH, 1)
       s9::mbar_arrive(empty + st);
     }
 
-    // the item's sums: stored, or folded with the tile's other slices
+    // the item's sums: to the epilogue, or folded with the tile's other
+    // slices first
     const long long t0 = t * p.n_kt;  // the tile's first unit
     const int b_first = owner(p, t0), b_last = owner(p, t0 + p.n_kt - 1);
-    const int n0 = static_cast<int>(t % p.n_tiles) * BN + 16 * NS * warp +
-                   (lane >> 2);
-    const int m0 = static_cast<int>(t / p.n_tiles) * MG + 2 * (lane & 3);
-    if (b_first == b_last) {
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        store_out<MG>(p, out, acc[s], n0 + 16 * s, m0);
+    if (p.whole || b_first == b_last) {
+      ep.tile(p, t, warp, lane, acc);
       return;
     }
     const auto slot = [&](int bb) {
@@ -344,10 +398,10 @@ __global__ void __launch_bounds__(NTH, 1)
           acc[s][j][3] += v.w;
         }
     }
-#pragma unroll
-    for (int s = 0; s < NS; ++s) store_out<MG>(p, out, acc[s], n0 + 16 * s, m0);
+    ep.tile(p, t, warp, lane, acc);
     if (lane == 0) *ticket = 0;
   });
+  ep.end(p, warp, lane);
 }
 
 // The map of W (K, N) bf16, row-major: boxes of BN columns x BK rows in
@@ -395,24 +449,47 @@ inline bool weight_map(CUtensorMap* map, const void* w, int k, int n,
   return true;
 }
 
-template <int MG>
-cudaError_t launch(const CUtensorMap& map, const bf16* a, bf16* out,
-                   float* ws, int* tickets, const Plan& p, int dev,
-                   cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<MG>();
-  // the shared-memory attribute is set once per device (a bit per device)
+// Sets the kernel's shared-memory attribute, once per device (a bit per
+// device); before its first launch and before an occupancy query.
+template <int MG, typename Epi>
+cudaError_t set_smem(int dev) {
   static std::atomic<uint64_t> smem_set{0};
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(smem_set.load(std::memory_order_acquire) & bit)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stream_kernel<MG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    smem_set.fetch_or(bit, std::memory_order_release);
-  }
-  stream_kernel<MG><<<p.grid, NTH, smem, st>>>(
-      map, a, out, reinterpret_cast<float4*>(ws), tickets, p);
+  if (smem_set.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      stream_kernel<MG, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<MG, Epi>()));
+  if (err == cudaSuccess) smem_set.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int MG, typename Epi>
+cudaError_t launch(const CUtensorMap& map, const bf16* a, const Epi& epi,
+                   float* ws, int* tickets, const Plan& p, int dev,
+                   cudaStream_t st) {
+  const cudaError_t err = set_smem<MG, Epi>(dev);
+  if (err != cudaSuccess) return err;
+  stream_kernel<MG, Epi><<<p.grid, NTH, smem_bytes<MG, Epi>(), st>>>(
+      map, a, epi, reinterpret_cast<float4*>(ws), tickets, p);
   return cudaGetLastError();
+}
+
+// The plan of M x K x N on `grid` blocks: rows an M group (8 up to M = 8,
+// else 16), units, and whether A's rows are 16-byte aligned (cp.async).
+inline int plan_of(Plan* p, const void* a, int m_rows, int k_dim,
+                   int n_cols, int grid) {
+  const int mg = m_rows <= 8 ? 8 : 16;
+  p->m = m_rows;
+  p->k = k_dim;
+  p->n = n_cols;
+  p->n_tiles = (n_cols + BN - 1) / BN;
+  p->n_kt = (k_dim + BK - 1) / BK;
+  p->units = static_cast<long long>((m_rows + mg - 1) / mg) * p->n_tiles *
+             p->n_kt;
+  p->grid = grid;
+  p->a_vec = k_dim % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  p->whole = 0;
+  return mg;
 }
 
 }  // namespace td_stream
@@ -431,17 +508,8 @@ int td_gemm_stream(const void* a, const void* w, void* ws, int* tickets,
       reinterpret_cast<uintptr_t>(w) % 16 != 0 || ws == nullptr ||
       tickets == nullptr || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int mg = m_rows <= 8 ? 8 : 16;
   Plan p;
-  p.m = m_rows;
-  p.k = k_dim;
-  p.n = n_cols;
-  p.n_tiles = (n_cols + BN - 1) / BN;
-  p.n_kt = (k_dim + BK - 1) / BK;
-  p.units = static_cast<long long>((m_rows + mg - 1) / mg) * p.n_tiles *
-            p.n_kt;
-  p.grid = grid;
-  p.a_vec = k_dim % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const int mg = plan_of(&p, a, m_rows, k_dim, n_cols, grid);
   if (grid > p.units) return static_cast<int>(cudaErrorInvalidConfiguration);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -453,8 +521,10 @@ int td_gemm_stream(const void* a, const void* w, void* ws, int* tickets,
   const bf16* ap = static_cast<const bf16*>(a);
   bf16* op = static_cast<bf16*>(out);
   float* wsp = static_cast<float*>(ws);
-  err = mg == 8 ? td_stream::launch<8>(map, ap, op, wsp, tickets, p, dev, st)
-                : td_stream::launch<16>(map, ap, op, wsp, tickets, p, dev, st);
+  err = mg == 8 ? td_stream::launch<8>(map, ap, CastStore<8>{op}, wsp,
+                                       tickets, p, dev, st)
+                : td_stream::launch<16>(map, ap, CastStore<16>{op}, wsp,
+                                        tickets, p, dev, st);
   return static_cast<int>(err);
 }
 

@@ -28,7 +28,10 @@ with one cast. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     ``gemm_rs_bidir_ref`` for CPU tensors, both in the reference's fold
     (each hop own + arrival, the owner own + right + left, one cast); at
     n <= 2 there is no second direction and it is B13a, as in the
-    reference.
+    reference. On the card the arcs' hops become one (an NVSwitch full
+    mesh): one pass over W for every chunk's rows, each row stored into
+    its owner's slot for this sender, the owner folding its n slots in
+    the arcs' order (``bidir_plan``).
 
 The mesh-level ``gemm_rs(ctx, a, b)`` resolves the method from a
 ``GemmRsContext`` (``create_gemm_rs_context``); M must be a multiple of
@@ -46,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import enum
+import functools
 
 import torch
 import torch.distributed as dist
@@ -54,7 +58,7 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _peer, check_mesh, check_not_2d, matmul_ref, pallas_matmul,
 )
 from triton_dist_tpu_torch.kernels.gemm_allreduce import (
-    _DTYPE_CODE, landing_launch, split_plan,
+    _DTYPE_CODE, landing_launch, split_plan, stream_plan,
 )
 from triton_dist_tpu_torch.kernels.plain import (
     all_gather_list, bidir_rs_fold, dot_f32,
@@ -245,6 +249,100 @@ def pallas_gemm_rs(mesh, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 pallas_gemm_rs.launches = 0
 
 
+# B13b's protocol: LL lines (the epoch in every 16-byte line) while a slot
+# (one sender's m rows of N f32 for one owner) holds at most this many
+# bytes, flags above. Four H100s (NVIDIA H100 80GB HBM3, 700.00 W;
+# chip_compare.py --bidir --sweep, the slowest rank, K 2,048, N 5,120
+# bf16), LL against flags at m = 4 / 8 / 16 / 32 rows a rank (80-640
+# KiB a slot): 0.0170 / 0.0258 / 0.0388 / 0.0536 ms against 0.0227 /
+# 0.0291 / 0.0471 / 0.0670; larger slots not measured (the prefill's 40
+# MiB take flags).
+RS_LL_MAX_SLOT_BYTES = 640 * 1024
+_F32_TILE = 32 * 4     # gemm_splitk.cuh's f32 column tile (32 lanes x 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class BidirPlan:
+    """What a launch of B13b passes besides its tensors, the same on every
+    rank of a world. rows: world * m, the product's rows. rg: rows a
+    landing group, the GEMM's row tile (bf16: the stream kernel's M group,
+    8 up to 8 rows, else 16; f32: gemm_splitk.cuh's row tile, 1, 2, 4 or
+    8). grid: blocks, at most one an SM per rank that shares the card. ll:
+    LL lines or flags. slot_bytes: one sender's m rows on an owner; slot
+    (P, s) of parity P and sender s at byte (P world + s) slot_bytes.
+    flag_off: the flags, u64 (world, groups, quarters) (none under LL).
+    nbytes: the symmetric buffer. ctl_words: the control block after its
+    header: an epoch word a block, then bf16: the stream kernel's tickets
+    (4 int32 a block), f32: a counter per tile. part_floats: the per-call
+    f32 workspace. k_chunk, splits: the f32 K split (0 in bf16). whole:
+    bf16 at many M groups (prefill): block b takes whole tiles b, b +
+    grid, ... column-tile major instead of the stream-K cut (the C
+    launcher's rule)."""
+    rows: int
+    m: int
+    n: int
+    rg: int
+    grid: int
+    ll: bool
+    slot_bytes: int
+    flag_off: int
+    nbytes: int
+    ctl_words: int
+    part_floats: int
+    k_chunk: int
+    splits: int
+    whole: bool = False
+
+    @property
+    def groups(self) -> int:
+        return -(-self.rows // self.rg)
+
+    @property
+    def quarters(self) -> int:
+        return -(-self.n // 32)
+
+
+def _f32_row_tile(rows: int) -> int:
+    return 1 if rows == 1 else 2 if rows == 2 else 4 if rows <= 4 else 8
+
+
+def bidir_layout(world: int, m: int, k: int, n: int, bf16: bool,
+                 sm_count: int, ranks_per_device: int,
+                 ll: bool) -> BidirPlan:
+    """B13b's plan at m rows a chunk, K x N, under the protocol ``ll``."""
+    rows, sms = world * m, max(1, sm_count // ranks_per_device)
+    whole = False
+    if bf16:
+        sp = stream_plan(rows, k, n, sms)
+        rg, grid, part = sp.mg, sp.grid, sp.ws_floats
+        after, k_chunk, splits = 2 * grid, 0, 0
+        tiles = sp.n_mg * sp.n_tiles
+        whole = tiles > sp.n_tiles and tiles >= 4 * grid
+    else:
+        rg = _f32_row_tile(rows)
+        k_chunk, splits = split_plan(rows, k, n, 4, sm_count)
+        tiles = -(-rows // rg) * -(-n // _F32_TILE)
+        grid = min(tiles * splits, sms)
+        after, part = tiles, splits * rows * n
+    slot_bytes = m * n * 4 * (2 if ll else 1)
+    data = 2 * world * slot_bytes
+    flag_off = -(-data // _ALIGN) * _ALIGN
+    flags = 0 if ll else 8 * world * -(-rows // rg) * -(-n // 32)
+    return BidirPlan(rows, m, n, rg, grid, ll, slot_bytes, flag_off,
+                     flag_off + flags, grid + after, part, k_chunk, splits,
+                     whole)
+
+
+@functools.lru_cache(maxsize=None)
+def bidir_plan(world: int, m: int, k: int, n: int, itemsize: int,
+               sm_count: int, ranks_per_device: int) -> BidirPlan:
+    """B13b's plan at m rows a chunk of A (world * m, K) against W (K, N)
+    (itemsize 2: bf16, 4: f32): LL while a slot holds at most
+    RS_LL_MAX_SLOT_BYTES."""
+    return bidir_layout(world, m, k, n, itemsize == 2, sm_count,
+                        ranks_per_device, m * n * 4 <= RS_LL_MAX_SLOT_BYTES)
+
+
 def pallas_gemm_rs_bidir(mesh, a: torch.Tensor,
                          b: torch.Tensor) -> torch.Tensor:
     """B13b on this rank, world >= 3: rows [rank*m, (rank+1)*m) of the sum
@@ -267,42 +365,44 @@ def pallas_gemm_rs_bidir(mesh, a: torch.Tensor,
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise ValueError(f"{what}: a/b must share one dtype of "
                          f"{list(_DTYPE_CODE)}; got {a.dtype}/{b.dtype}")
-    a = a.contiguous()
     if not b.is_contiguous() or b.data_ptr() % 16:
         raise ValueError(f"{what}: b contiguous, 16-byte aligned")
     m = _rows_per_rank(mesh, a, what)
-    world, k, n_cols = mesh.world, a.shape[1], b.shape[1]
     vec = 16 // a.element_size()
-    if n_cols % vec:
-        raise ValueError(f"{what}: N={n_cols} must be a multiple of {vec}")
-    chains = world // 2 + (world - 1) // 2
-    # one landing slot per (chain, round), 2 parities; then a flag per
-    # (slot, row, column tile) and a counter per (phase, row, column
-    # tile): one per row covers any row tile the kernel picks
-    row_tiles = m * -(-n_cols // (32 * vec))
-    land = 2 * chains * m * n_cols * 4
-    flag_off = -(-land // _ALIGN) * _ALIGN
-    ws = op_workspace(mesh, ("gemm_rs_bidir", m, n_cols, a.dtype),
-                      (flag_off + chains * row_tiles * 8,), torch.uint8,
-                      ctl_words=(chains + 1) * row_tiles)
-    k_chunk, splits = split_plan(
-        m, k, n_cols, vec,
-        torch.cuda.get_device_properties(a.device).multi_processor_count)
-    out = torch.empty((m, n_cols), dtype=a.dtype, device=a.device)
-    part = torch.empty((chains + 1, splits, m, n_cols), dtype=torch.float32,
+    if b.shape[1] % vec:
+        raise ValueError(f"{what}: N={b.shape[1]} must be a multiple of "
+                         f"{vec}")
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = bidir_plan(mesh.world, m, a.shape[1], b.shape[1],
+                      a.element_size(), sms, mesh.ranks_per_device)
+    out = _launch_bidir(mesh, a.contiguous(), b, plan)
+    pallas_gemm_rs_bidir.launches += 1
+    return out
+
+
+def _launch_bidir(mesh, a: torch.Tensor, b: torch.Tensor,
+                  plan: BidirPlan) -> torch.Tensor:
+    """pallas_gemm_rs_bidir's launch under a given plan (chip_smoke.py's
+    protocol sweep forces one through ``bidir_layout``)."""
+    ws = op_workspace(mesh, ("gemm_rs_bidir", a.dtype, plan),
+                      (plan.nbytes,), torch.uint8, ctl_words=plan.ctl_words)
+    out = torch.empty((plan.m, plan.n), dtype=a.dtype, device=a.device)
+    part = torch.empty((plan.part_floats,), dtype=torch.float32,
                        device=a.device)
     fn = build.function("gemm_rs", "td_gemm_rs_bidir", (
         *(ctypes.c_void_p,) * 4, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        *(ctypes.c_int,) * 7, ctypes.c_void_p))
+        ctypes.c_void_p, ctypes.c_void_p, *(ctypes.c_int,) * 5,
+        ctypes.c_longlong, ctypes.c_longlong, *(ctypes.c_int,) * 5,
+        ctypes.c_void_p))
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), part.data_ptr(),
-                 out.data_ptr(), mesh.rank, world, ws.buf.table.data_ptr(),
-                 flag_off, ws.ctl.data_ptr(), m, k, n_cols, k_chunk, splits,
+                 out.data_ptr(), mesh.rank, mesh.world,
+                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), plan.m,
+                 a.shape[1], plan.n, plan.rg, int(plan.ll), plan.slot_bytes,
+                 plan.flag_off, plan.grid, plan.k_chunk, plan.splits,
                  mesh.ranks_per_device, _DTYPE_CODE[a.dtype],
                  build.stream_of(a))
-    build.check(err, what)
-    pallas_gemm_rs_bidir.launches += 1
+    build.check(err, "pallas_gemm_rs_bidir")
     return out
 
 

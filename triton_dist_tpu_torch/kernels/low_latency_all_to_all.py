@@ -8,13 +8,14 @@ moved unchanged. At world n > 1 (``mesh`` is the ranks' Mesh):
 
   * B17, ``fast_all_to_all_per_device``: the hand-written CUDA kernel
     ``csrc/ep_a2a.cu`` for CUDA tensors (each block pushes its contiguous
-    share of slot p into peer p's landing slot `rank` with 16-byte stores
-    and raises one epoch flag per (block, sender); landing slots
-    double-buffered by the epoch's parity), ``plain.all_to_all_slots``
-    (the process group's all_to_all_single) for CPU tensors;
+    share of slot p into peer p's landing slot `rank`; landing slots
+    double-buffered by the epoch's parity; by a slot's bytes, LL lines
+    that carry the epoch or plain stores and one epoch flag per (block,
+    sender): ``a2a_plan``), ``plain.all_to_all_slots`` (the process
+    group's all_to_all_single) for CPU tensors;
   * B18, ``fast_all_to_all_q_per_device``: the same kernel over two
     payloads in one launch, the fp8 rows and their packed f32 scales
-    (``pack_scales``), under one flag per (block, sender).
+    (``pack_scales``), both under the first payload's protocol.
 
 ``quantize_rows`` / ``dequantize_rows`` (the reference's per-row
 symmetric fp8 codec) stay outside the kernel, as in the reference. The
@@ -28,6 +29,8 @@ take raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -38,12 +41,79 @@ from triton_dist_tpu_torch.runtime.symm import op_workspace
 
 _LANE = 128             # packed scales per row (the reference's lane tile)
 _ALIGN = 256
-_BLOCK_BYTES = 8192     # bytes of the slots each block aims to own
-_BLOCKS_PER_SM = 4      # a light copy kernel: 4 blocks of 256 threads fit
+_NT = 256               # threads a block (csrc/ep_a2a.cu NT)
+_BLOCK_BYTES = 8192     # flags: bytes of the slots each block aims to own
+_BLOCKS_PER_SM = 4      # flags: a light copy kernel, 4 blocks of 256 fit
+# B17 / B18 protocol: LL lines (the epoch in every 16-byte line, no fence,
+# no flag) while a slot of the first payload (one rank's rows for one
+# peer) holds at most this many bytes, flags above. Four H100s (NVIDIA
+# H100 80GB HBM3, 700.00 W; chip_compare.py --bidir --sweep, the slowest
+# rank, rows of 2,048 bf16, each protocol on its own grid), LL against
+# flags at 16 / 32 / 64 / 128 / 256 rows (64 KiB-1 MiB a slot): 0.0080 /
+# 0.0102 / 0.0146 / 0.0262 / 0.0340 ms against 0.0104 / 0.0106 / 0.0128
+# / 0.0184 / 0.0234.
+A2A_LL_MAX_SLOT_BYTES = 128 * 1024
 
 
 def _round_up(x: int, a: int = _ALIGN) -> int:
     return -(-x // a) * a
+
+
+@dataclasses.dataclass(frozen=True)
+class A2aPlan:
+    """What a launch of B17 (rows1 == 0) or B18 passes besides its
+    tensors, the same on every rank of a world. grid: blocks, block b
+    owning vectors [b V / grid, (b + 1) V / grid) of every slot of V
+    vectors of each payload. ll: LL lines (32 bytes a 16-byte vector) or
+    plain vectors and flags. land0 / land1: byte offsets of the payloads'
+    landing slots (2, n) [parity][sender] of rows x row bytes (doubled
+    under LL). flag_off: the u64 flags (grid, n - 1) (none under LL).
+    nbytes: the symmetric buffer; the control block holds an epoch word a
+    block."""
+    rows0: int
+    kv0: int
+    rows1: int
+    kv1: int
+    grid: int
+    ll: bool
+    land0: int
+    land1: int
+    flag_off: int
+    nbytes: int
+
+
+def a2a_layout(world: int, rows0: int, row_bytes0: int, rows1: int,
+               row_bytes1: int, grid: int, ll: bool) -> A2aPlan:
+    """The regions of B17 / B18 on `grid` blocks under the protocol ``ll``:
+    payload 0's slots from byte 0, payload 1's, then the flags."""
+    wide = 2 if ll else 1
+    land1 = _round_up(2 * world * rows0 * row_bytes0 * wide)
+    flag_off = _round_up(land1 + 2 * world * rows1 * row_bytes1 * wide)
+    nbytes = flag_off + (0 if ll else 8 * grid * (world - 1))
+    return A2aPlan(rows0, row_bytes0 // 16, rows1, max(row_bytes1 // 16, 1),
+                   grid, ll, 0, land1, flag_off, nbytes)
+
+
+@functools.lru_cache(maxsize=None)
+def a2a_plan(world: int, rows0: int, row_bytes0: int, rows1: int,
+             row_bytes1: int, sm_count: int,
+             ranks_per_device: int) -> A2aPlan:
+    """The plan of B17 / B18 at slots of rows0 rows of row_bytes0 (and
+    rows1 of row_bytes1): LL while a slot of the first payload holds at
+    most A2A_LL_MAX_SLOT_BYTES, a vector a thread of each slot (~4 KiB of
+    a slot a block, as B7's plan), at most one block an SM per rank that
+    shares the card; under flags ~_BLOCK_BYTES of the slots a block, up to
+    _BLOCKS_PER_SM blocks an SM per rank. Every grid is at most one block
+    a vector of the first payload's slot."""
+    vectors = rows0 * row_bytes0 // 16
+    ll = rows0 * row_bytes0 <= A2A_LL_MAX_SLOT_BYTES
+    if ll:
+        grid = min(-(-vectors // _NT), sm_count // ranks_per_device)
+    else:
+        grid = min(-(-world * rows0 * row_bytes0 // _BLOCK_BYTES),
+                   _BLOCKS_PER_SM * sm_count // ranks_per_device)
+    return a2a_layout(world, rows0, row_bytes0, rows1, row_bytes1,
+                      max(1, min(grid, vectors)), ll)
 
 
 def _check_slots(x: torch.Tensor, n: int, what: str) -> int:
@@ -59,24 +129,17 @@ def _check_slots(x: torch.Tensor, n: int, what: str) -> int:
     return x.shape[2] * x.element_size()
 
 
-def _workspace(mesh, rows0: int, row_bytes0: int, rows1: int,
-               row_bytes1: int):
-    """B17's (rows1 == 0) or B18's workspace on this rank: the two
-    payloads' landing slots (2, n, rows, row bytes) and the flags (grid,
-    n). Returns (ws, grid, land0, land1, flag_off)."""
-    n = mesh.world
-    kv0 = row_bytes0 // 16
+def _plan_of(mesh, rows0: int, row_bytes0: int, rows1: int,
+             row_bytes1: int) -> A2aPlan:
     sms = torch.cuda.get_device_properties(mesh.device).multi_processor_count
-    # about _BLOCK_BYTES of the slots a block, at most one vector of a
-    # slot each, every rank sharing the card resident at once
-    grid = max(1, min(-(-n * rows0 * row_bytes0 // _BLOCK_BYTES),
-                      rows0 * kv0,
-                      _BLOCKS_PER_SM * sms // mesh.ranks_per_device))
-    land1 = _round_up(2 * n * rows0 * row_bytes0)
-    flag_off = _round_up(land1 + 2 * n * rows1 * row_bytes1)
-    ws = op_workspace(mesh, ("ll_a2a", rows0, row_bytes0, rows1, row_bytes1),
-                      (flag_off + grid * n * 8,), torch.uint8)
-    return ws, grid, 0, land1, flag_off
+    return a2a_plan(mesh.world, rows0, row_bytes0, rows1, row_bytes1, sms,
+                    mesh.ranks_per_device)
+
+
+def _workspace(mesh, plan: A2aPlan):
+    """B17's or B18's workspace on this rank under ``plan``."""
+    return op_workspace(mesh, ("ll_a2a", plan), (plan.nbytes,), torch.uint8,
+                        ctl_words=plan.grid)
 
 
 def prepare(mesh, x: torch.Tensor) -> None:
@@ -85,18 +148,23 @@ def prepare(mesh, x: torch.Tensor) -> None:
     layer; in the one-card world an allocation behind a spinning kernel
     waits for ranks not yet launched). A no-op off CUDA and at world 1."""
     if x.is_cuda and mesh is not None and mesh.world > 1:
-        _workspace(mesh, x.shape[1], x.shape[2] * x.element_size(), 0, 0)
+        _workspace(mesh, _plan_of(mesh, x.shape[1],
+                                  x.shape[2] * x.element_size(), 0, 0))
 
 
-def _launch(mesh, x: torch.Tensor, s: torch.Tensor | None):
+def _launch(mesh, x: torch.Tensor, s: torch.Tensor | None,
+            plan: A2aPlan | None = None):
+    """Launch B17 (s None) or B18 on this rank's slots, under their plan
+    (chip_smoke.py's protocol sweep forces one through ``a2a_layout``)."""
     n = mesh.world
     rb0 = _check_slots(x, n, "fast_all_to_all")
     rows1, rb1 = 0, 0
     if s is not None:
         rb1 = _check_slots(s, n, "fast_all_to_all_q scales")
         rows1 = s.shape[1]
-    ws, grid, land0, land1, flag_off = _workspace(mesh, x.shape[1], rb0,
-                                                  rows1, rb1)
+    if plan is None:
+        plan = _plan_of(mesh, x.shape[1], rb0, rows1, rb1)
+    ws = _workspace(mesh, plan)
     out = torch.empty_like(x)
     out_s = torch.empty_like(s) if s is not None else None
     fn = build.function("ep_a2a", "td_ll_a2a", (
@@ -104,14 +172,15 @@ def _launch(mesh, x: torch.Tensor, s: torch.Tensor | None):
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p))
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), x.shape[1], rb0 // 16, land0,
-                 s.data_ptr() if s is not None else None,
-                 out_s.data_ptr() if s is not None else None, rows1,
-                 max(rb1 // 16, 1), land1, mesh.rank, n,
-                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), flag_off, grid,
-                 mesh.ranks_per_device, build.stream_of(x))
+        err = fn(x.data_ptr(), out.data_ptr(), plan.rows0, plan.kv0,
+                 plan.land0, s.data_ptr() if s is not None else None,
+                 out_s.data_ptr() if s is not None else None, plan.rows1,
+                 plan.kv1, plan.land1, mesh.rank, n,
+                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), plan.flag_off,
+                 plan.grid, int(plan.ll), mesh.ranks_per_device,
+                 build.stream_of(x))
     build.check(err, "fast_all_to_all")
     return out, out_s
 
