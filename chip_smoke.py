@@ -2196,68 +2196,155 @@ def _mm_f32(torch, a, b):
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
+# what B4 across ranks runs on (csrc/gemm_ar.cu)
+B4_TP_INSTRUCTIONS = ("bf16: gemm_stream_sm90.cuh's mma.sync m16n8k16 "
+                      "stream-K GEMM, one pass over the weight shard (128 x "
+                      "128 weight tiles by TMA, 5 stages), each tile's f32 "
+                      "rows landed in this rank's slot on every rank (LL "
+                      "lines up to AR_LL_MAX_SLOT_BYTES a slot, else flags), "
+                      "slot 0 + ... + slot n-1 folded in f32 by every rank; "
+                      "f32: FMA")
+
+
+def _b4_alternating(draw):
+    """draw() of _world_parity_calls for B4's alternating gate: each call
+    the next of Qwen3-32B's o (K_loc 2,048) and down (K_loc 6,400) at
+    TP=4, 16 rows -> 5,120, bf16: each rank's (a, b)."""
+    turn = iter(range(1 << 30))
+
+    def f():
+        a, b = draw((2048, 6400)[next(turn) % 2])
+        return [(a[r], b[r]) for r in range(TP)]
+    return f
+
+
 def phase_b4_tp(torch, symm, ga, calls: int = 20):
-    """B4 across ranks (the f32 partials of every rank pushed into each
-    rank's sender-indexed slot, folded slot 0 + ... + slot 3, one cast)
-    against its plain version (gemm_ar_ref_shards: the same fold) in the
-    one-card world. Qwen3-32B at TP=4, B=16 replicated decode: o (16,
-    2048) x (2048, 5120) and down (16, 6400) x (6400, 5120), bf16 and
-    f32; then `calls` successive o calls with fresh inputs, every one
-    checked. Within 1e-2 x max|ref| in bf16, 1e-4 in f32 (B10/B13a's
-    tolerances), and the four ranks' outputs the same bytes. Timed: the
-    four ranks' calls together on the one card (queued_ms), bound by the
-    four ranks' bytes at HBM speed; the library yardstick each rank's
-    torch.mm (f32 output) and one torch.stack(...).sum(0) of the four
-    partials."""
+    """B4 across ranks (one pass over the weight shard, each tile's f32
+    rows landed in this rank's slot on every rank, slot 0 + ... + slot 3
+    folded in f32, one cast) against its plain version (gemm_ar_ref_shards:
+    the same fold) in the one-card world. Qwen3-32B at TP=4, B=16
+    replicated decode: o (16, 2048) x (2048, 5120) and down (16, 6400) x
+    (6400, 5120), bf16 and f32; integer-valued (bit for bit: every sum
+    exact); the protocol the plan does not pick at o and down; an odd
+    shape (m 6, K 1000, N 136) and a 512-row prefill chunk; then `calls`
+    successive o calls with fresh inputs, every one checked; and o and
+    down alternately over both parities (4 eager calls, 4 calls in one
+    graph a rank replayed over fresh inputs), random and integer-valued,
+    with the flags protocol too. Within 1e-2 x max|ref| in bf16, 1e-4 in
+    f32 (B10/B13a's tolerances), exact on integer-valued inputs, and the
+    four ranks' outputs the same bytes. Timed: the four ranks' calls
+    together on the one card (queued_ms), warm (one weight a rank) and
+    cold (the calls rotate over weight copies larger than twice the L2),
+    bound by the four ranks' bytes at HBM speed; the library yardstick
+    each rank's torch.mm (f32 output) and one torch.stack(...).sum(0) of
+    the four partials, warm and cold."""
     bf, f32 = torch.bfloat16, torch.float32
     world = symm.OneCardWorld(TP)
     g = torch.Generator(device=DEV).manual_seed(43)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [("o_m16", bf, 16, 2048, 5120), ("down_m16", bf, 16, 6400, 5120),
              ("o_m16_f32", f32, 16, 2048, 5120),
-             ("down_m16_f32", f32, 16, 6400, 5120)]
+             ("down_m16_f32", f32, 16, 6400, 5120),
+             ("o_m16_int", bf, 16, 2048, 5120),
+             ("down_m16_int_f32", f32, 16, 6400, 5120),
+             ("o_m16_other", bf, 16, 2048, 5120),
+             ("down_m16_other", bf, 16, 6400, 5120),
+             ("odd_m6", bf, 6, 1000, 136),
+             ("o_m512", bf, 512, 2048, 5120)]
     rows, timed = [], {}
 
-    def run_check(name, a, b, tol):
-        outs = world.run(lambda r: ga.pallas_gemm_ar(world.mesh(r), a[r],
-                                                      b[r]))
+    def forced(k, ll):
+        """B4 under the protocol ll at 16 rows of K -> 5,120 bf16."""
+        plan = ga.ar_layout(TP, 16, k, 5120, True, sms, TP, ll)
+        return lambda mesh, a, b: ga._launch_ar(mesh, a, b, plan)
+
+    def run(name, k):
+        if "_other" not in name:
+            return ga.pallas_gemm_ar
+        return forced(k, not ga.ar_plan(TP, 16, k, 5120, 2, sms, TP).ll)
+
+    def run_check(name, fn, a, b, tol):
+        outs = world.run(lambda r: fn(world.mesh(r), a[r], b[r]))
         torch.cuda.synchronize()
         refs = ga.gemm_ar_ref_shards(a, b)
         res = [_held(torch, f"{name}/rank{r}", outs[r], refs[r], tol)
                for r in range(TP)]
+        if "_int" in name:
+            for r, row in enumerate(res):
+                row["exact"] = bool(torch.equal(outs[r], refs[r]))
+                row["ok"] = row["ok"] and row["exact"]
         res[0]["ranks_same_bytes"] = _same_bytes(torch, outs)
         res[0]["ok"] = res[0]["ok"] and res[0]["ranks_same_bytes"]
         return res
 
     for name, dt, m, k, n in cases:
-        a, b = _tp_shards(torch, g, dt, m, k, n)
-        rows += run_check(name, a, b, _tp_tol(torch, dt))
-        if dt == bf:
-            es = a[0].element_size()
-            nbytes = TP * (m * k + k * n + m * n) * es
-            timed[name] = _one_card_kernel_row(
-                torch, world, name,
-                lambda r: ga.pallas_gemm_ar(world.mesh(r), a[r], b[r]),
-                lambda: ga.gemm_ar_ref_shards(a, b),
-                nbytes, TP * 2.0 * m * k * n)
-            timed[name]["library_ms"] = queued_ms(
-                torch, lambda: torch.stack(
-                    [_mm_f32(torch, a[r], b[r]) for r in range(TP)]).sum(0)
-                .to(dt))[0]
-            timed[name]["max_abs_err"] = max(
-                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+        draw = _int_shards if "_int" in name else _tp_shards
+        a, b = draw(torch, g, dt, m, k, n)
+        rows += run_check(name, run(name, k), a, b, _tp_tol(torch, dt))
+        if name not in ("o_m16", "down_m16"):
+            continue
+        es = a[0].element_size()
+        nbytes = TP * (m * k + k * n + m * n) * es
+        timed[name] = _one_card_kernel_row(
+            torch, world, name,
+            lambda r: ga.pallas_gemm_ar(world.mesh(r), a[r], b[r]),
+            lambda: ga.gemm_ar_ref_shards(a, b),
+            nbytes, TP * 2.0 * m * k * n)
+
+        def lib(w):
+            return torch.stack([_mm_f32(torch, a[r], w[r])
+                                for r in range(TP)]).sum(0).to(dt)
+        timed[name]["library_ms"] = queued_ms(torch, lambda: lib(b))[0]
+        ws = [weight_copies(torch, g, k, n, dt) for _ in range(TP)]
+        timed[name]["cold_ms"] = _world_cold_ms(
+            torch, world, lambda r, w: ga.pallas_gemm_ar(
+                world.mesh(r), a[r], w), ws)
+        timed[name]["library_cold_ms"] = cold_graph_ms(
+            torch, lib, [list(w) for w in zip(*ws)])
+        del ws
+        timed[name]["max_abs_err"] = max(
+            x["max_abs_err"] for x in rows if x["case"].startswith(name))
+        timed[name]["plan"] = {
+            key: getattr(ga.ar_plan(TP, m, k, n, es, sms, TP), key)
+            for key in ("grid", "ll", "slot_bytes")}
+        del a, b
+        torch.cuda.empty_cache()
     seq_ok = []
     for _ in range(calls):
         a, b = _tp_shards(torch, g, bf, 16, 2048, 5120)
-        seq_ok.append(all(x["ok"] for x in run_check("seq", a, b, 1e-2)))
+        seq_ok.append(all(x["ok"] for x in run_check(
+            "seq", ga.pallas_gemm_ar, a, b, 1e-2)))
+    alternating = {}
+    for name, draw, tol, other in (("random", _tp_shards, 1e-2, False),
+                                   ("int", _int_shards, 0, False),
+                                   ("random_other", _tp_shards, 1e-2, True)):
+        # the other protocol: o and down each under the one their plan
+        # does not pick (still one plan, one workspace for both)
+        def fn(mesh, a, b, other=other):
+            if not other:
+                return ga.pallas_gemm_ar(mesh, a, b)
+            return run("_other", a.shape[1])(mesh, a, b)
+        alternating[name] = _world_parity_calls(
+            torch, world, fn,
+            _b4_alternating(lambda k, draw=draw: draw(torch, g, bf, 16, k,
+                                                      5120)),
+            lambda xs: ga.gemm_ar_ref_shards([x[0] for x in xs],
+                                             [x[1] for x in xs]),
+            _tol_held(torch, tol), same_bytes=True)
     emit({"phase": "b4_gemm_ar_tp", "world": "one card, 4 logical ranks",
-          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
-    if not all(x["ok"] for x in rows) or not all(seq_ok):
+          "cases": rows, "successive_calls_ok": seq_ok,
+          "alternating_o_down": alternating, "timed": timed,
+          "instructions": B4_TP_INSTRUCTIONS})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or \
+            not all(_parity_ok(v) for v in alternating.values()):
         fail(f"B4 across ranks disagrees with its plain version: "
-             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"alternating {alternating}")
     rec = _tp_kernel_record(
         "pallas_gemm_ar", "gemm_ar.cu",
         "triton_dist_tpu/kernels/gemm_allreduce.py:101", timed,
         "one card, 4 logical ranks")
+    rec["cold_ms"] = sum(t["cold_ms"] for t in timed.values()) / len(timed)
     rec["library_ms_call"] = ("4 x torch.mm(a_r, b_r, out_dtype=f32), "
                               "torch.stack(...).sum(0), cast")
     return rec
@@ -2277,13 +2364,15 @@ _RHD_SWEEP_ROWS = (4, 8, 16, 32, 64, 128, 256, 512, 2048)
 
 def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
     """B5 (kind "one_shot") or B6 ("rhd") against its plain version in
-    the one-card world. B5: each rank's x (16, 5120), Qwen3-32B's hidden
-    rows at B=16 (the sum after the o and down products); B6: x of
-    _RHD_ROWS rows (and the K 5000 edges), each in bf16 and f32; then
-    `calls` successive bf16 calls with fresh inputs (B6: at each timed
-    shape), and for B6 a graph of 64 calls a rank replayed 3 times over
-    fresh inputs against the eager calls (_graph_calls) and the regime /
-    protocol sweep (_rhd_sweep). Both only add, so each rank's output must
+    the one-card world. B5: each rank's x of 4, 16 (Qwen3-32B's hidden
+    rows at B=16: the sum after the o and down products) and 512 rows (a
+    prefill chunk) of 5,120, and 16 of 5,000; B6: x of _RHD_ROWS rows (and
+    the K 5000 edges), each in bf16 and f32; then `calls` successive bf16
+    calls with fresh inputs (B6: at each timed shape), a graph of 64
+    calls a rank replayed 3 times over fresh inputs against the eager
+    calls (_graph_calls); for B5 both protocols forced at 16 and 512 rows
+    and a world of 3 ranks, for B6 the regime / protocol sweep
+    (_rhd_sweep). Both only add, so each rank's output must
     equal its plain fold bit for bit (B5: own term first, then the others
     ascending; B6: the halving tree, the same bytes on every rank). Timed:
     the four ranks' calls together (queued_ms; B6 also `calls` calls a
@@ -2316,7 +2405,8 @@ def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
             res[0]["ok"] = res[0]["ok"] and res[0]["ranks_same_bytes"]
         return res
 
-    shapes = ([(16, 5120)] if kind == "one_shot" else
+    shapes = ([(4, 5120), (16, 5120), (512, 5120), (16, 5000)]
+              if kind == "one_shot" else
               [(m, 5120) for m in _RHD_ROWS] + list(_RHD_EDGES))
     timed_rows = (16,) if kind == "one_shot" else _RHD_TIMED
     seq_ok = []
@@ -2344,6 +2434,18 @@ def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
                 timed[name]["plan"] = _rhd_plan_of(torch, arm, xs[0], TP)
             seq_ok += [all(x["ok"] for x in run_check(
                 f"seq_m{m}", draw(torch.bfloat16, m))) for _ in range(calls)]
+    if kind == "one_shot":
+        rows += _one_shot_protocols(torch, world, arm, draw)
+        world3 = symm.OneCardWorld(3)
+        xs = [torch.randn((16, 5120), generator=g, device=DEV).to(
+            torch.bfloat16) for _ in range(3)]
+        outs = world3.run(lambda r: fn(world3.mesh(r), xs[r]))
+        torch.cuda.synchronize()
+        rows += [{"case": f"x_m16_world3/rank{r}",
+                  "ok": bool(torch.equal(o, want))}
+                 for r, (o, want) in enumerate(zip(outs, ref(xs)))]
+        del world3
+        xs = draw(torch.bfloat16)
     before = fn.launches
     world.run(lambda r: fn(world.mesh(r), xs[r]))
     torch.cuda.synchronize()
@@ -2352,12 +2454,13 @@ def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
            "world": "one card, 4 logical ranks", "cases": rows,
            "successive_calls_ok": seq_ok, "timed": timed,
            "launches_per_call_a_rank": launches_per_call}
-    graph_ok, sweep = [], []
+    graph_ok = _graph_calls(torch, world, fn, ref,
+                            lambda: draw(torch.bfloat16))
+    rec["graph_64_calls_x3_ok"] = graph_ok
+    sweep = []
     if kind == "rhd":
-        graph_ok = _graph_calls(torch, world, fn, ref,
-                                lambda: draw(torch.bfloat16))
         sweep = _rhd_sweep_world(torch, world, arm, g)
-        rec.update(graph_64_calls_x3_ok=graph_ok, rhd_sweep=sweep,
+        rec.update(rhd_sweep=sweep,
                    one_shot_max_bytes=arm.RHD_ONE_SHOT_MAX_BYTES)
     phase = rec["phase"]
     emit(rec)
@@ -2379,6 +2482,37 @@ def phase_all_reduce(torch, symm, arm, kind, calls: int = 20):
             timed)
     rec["library_ms_call"] = "torch.stack(xs).sum(0)"
     return rec
+
+
+def _forced_one_shot(torch, arm, mesh, x, ll):
+    """B5 on this rank's x under the protocol ``ll`` (LL if true, flags if
+    false) on its plan's grid, through the package's private launcher (the
+    package fixes it by the bytes of a slot; only the checks and the sweep
+    force it). Not counted."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, k = x.shape
+    kv = k * x.element_size() // 16
+    plan = arm.rhd_layout(mesh.world, rows, kv,
+                          arm.rhd_grid(rows, kv, sms, mesh.ranks_per_device),
+                          ll, False)
+    return arm._launch_one_shot(mesh, x, plan)
+
+
+def _one_shot_protocols(torch, world, arm, draw):
+    """B5 under each protocol at 16 and 512 rows of 5,120 bf16 in the
+    one-card world, each rank's output bitwise one_shot_ref_shards'."""
+    rows = []
+    for m in (16, 512):
+        xs = draw(torch.bfloat16, m)
+        refs = arm.one_shot_ref_shards(xs)
+        for ll in (True, False):
+            outs = world.run(lambda r: _forced_one_shot(
+                torch, arm, world.mesh(r), xs[r], ll))
+            torch.cuda.synchronize()
+            rows += [{"case": f"x_m{m}_{'ll' if ll else 'flags'}/rank{r}",
+                      "ok": bool(torch.equal(outs[r], refs[r]))}
+                     for r in range(TP)]
+    return rows
 
 
 def _rhd_plan_of(torch, arm, x, rpd):
@@ -2889,20 +3023,25 @@ def _same_bits(a, b) -> bool:
 
 
 def _world_parity_calls(torch, world, fn, draw, plain, held, calls=4,
-                        replays=2):
+                        replays=2, same_bytes=False):
     """Both parities of a double-buffered kernel in the one-card world:
     `calls` successive eager calls on fresh inputs (draw(): each rank's
     input tuple), each rank's output held to plain(xs)[r] by held(); then
     `calls` calls on `calls` input sets captured in one graph a rank,
     replayed `replays` times over fresh inputs copied into the captured
     ones, every output the eager call's bytes on the same inputs and held
-    to the plain version."""
+    to the plain version. same_bytes: every rank's output also the same
+    bytes as rank 0's."""
+    def same(outs):
+        return not same_bytes or all(_same_bits(o, outs[0]) for o in outs)
+
     eager = []
     for _ in range(calls):
         xs = draw()
         outs = world.run(lambda r: fn(world.mesh(r), *xs[r]))
         torch.cuda.synchronize()
-        eager.append(all(held(o, ref) for o, ref in zip(outs, plain(xs))))
+        eager.append(all(held(o, ref) for o, ref in zip(outs, plain(xs)))
+                     and same(outs))
     sets = [draw() for _ in range(calls)]
     outs, replay = _world_graphs(torch, world, lambda r: [
         fn(world.mesh(r), *x[r]) for x in sets])
@@ -2920,6 +3059,7 @@ def _world_parity_calls(torch, world, fn, draw, plain, held, calls=4,
             refs = plain(x)
             ok &= all(_same_bits(outs[r][i], again[r])
                       and held(outs[r][i], refs[r]) for r in range(TP))
+            ok &= same([outs[r][i] for r in range(TP)])
         graph.append(bool(ok))
     return {"eager_calls_ok": eager, "graph_replays_ok": graph}
 
@@ -2946,7 +3086,9 @@ def _rank_parity_calls(torch, fn, draw, plain, held, calls=4, replays=2):
         torch.cuda.synchronize()
         ok = True
         for x, o in zip(sets, outs):
-            ok &= _same_bits(o, fn(*x)) and held(o, plain(*x))
+            # both sides on every rank: each may hold a collective
+            again, ref = fn(*x), plain(*x)
+            ok &= bool(_same_bits(o, again)) & bool(held(o, ref))
         replayed.append(bool(ok))
     return {"eager_calls_ok": eager, "graph_replays_ok": replayed}
 
@@ -3906,6 +4048,12 @@ def _tp_ranks_time(torch, dist, mesh):
             out[name]["ok"] = out[name]["ok"] and all(
                 _parity_ok(out[name][key])
                 for key in ("parity_random", "parity_int"))
+        if kind == "ar":
+            out[name].update(_tp4_ar_extras(torch, dist, mesh, m, k, n,
+                                            gate=k == 2048))
+            out[name]["ok"] = out[name]["ok"] and all(
+                _parity_ok(v) for key, v in out[name].items()
+                if key.startswith("alternating_"))
     return out
 
 
@@ -3962,6 +4110,67 @@ def _tp4_bidir_extras(torch, dist, mesh, m, k, n):
             torch, lambda x, w: grs.pallas_gemm_rs_bidir(mesh, x, w), draw,
             lambda x, w: grs.gemm_rs_bidir_ref(mesh, x, w),
             _tol_held(torch, tol))
+        dist.barrier()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tp4_ar_extras(torch, dist, mesh, m, k, n, gate):
+    """B4 across ranks on one of four cards beyond _tp_ranks_time's warm
+    timing: cold (queued calls rotating over weight copies larger than
+    twice the L2) beside torch.mm + NCCL all-reduce cold; with ``gate``,
+    o and down alternately over both parities, eagerly and
+    graph-replayed (_rank_parity_calls), random bf16 within 1e-2 x
+    max|ref| and integer-valued bit for bit, every rank's output the same
+    bytes as every other rank's."""
+    from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
+    from triton_dist_tpu_torch.kernels.plain import all_gather_list
+    bf, dev = torch.bfloat16, mesh.device
+    g = torch.Generator(device=dev).manual_seed(80 + mesh.rank)
+    a = torch.randn((m, k), generator=g, device=dev).to(bf)
+    ws = weight_copies(torch, g, k, n, bf)
+
+    def mm_ar(w):
+        y = torch.mm(a, w)
+        dist.all_reduce(y, group=mesh.group)
+        return y
+    rec = {}
+    for key, fn in (("cold_ms", lambda w: ga.pallas_gemm_ar(mesh, a, w)),
+                    ("mm_nccl_ar_cold_ms", mm_ar)):
+        fn(ws[0])
+        torch.cuda.synchronize()
+        dist.barrier()
+        rec[key] = queued_cold_ms(torch, fn, ws)
+        dist.barrier()
+    del ws
+    if not gate:
+        torch.cuda.empty_cache()
+        return rec
+    turn = iter(range(1 << 30))
+
+    def draw(integer):
+        kk = (2048, 6400)[next(turn) % 2]
+        if integer:
+            return (torch.randint(-3, 4, (m, kk), generator=g,
+                                  device=dev).to(bf),
+                    torch.randint(-3, 4, (kk, n), generator=g,
+                                  device=dev).to(bf))
+        return (torch.randn((m, kk), generator=g, device=dev).to(bf),
+                (torch.randn((kk, n), generator=g, device=dev)
+                 * kk ** -0.5).to(bf))
+
+    def held_same(tol):
+        held = _tol_held(torch, tol)
+
+        def f(out, ref):
+            outs = all_gather_list(mesh, out)   # on every rank, first
+            return held(out, ref) and all(_same_bits(o, out) for o in outs)
+        return f
+    for tag, integer, tol in (("random", False, 1e-2), ("int", True, 0)):
+        rec[f"alternating_{tag}"] = _rank_parity_calls(
+            torch, lambda x, w: ga.pallas_gemm_ar(mesh, x, w),
+            lambda integer=integer: draw(integer),
+            lambda x, w: ga.gemm_ar_ref_tp(mesh, x, w), held_same(tol))
         dist.barrier()
     torch.cuda.empty_cache()
     return rec
@@ -7984,7 +8193,8 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                                           "max_abs_err", "alt_ms",
                                           "graph_ms", "cold_ms",
                                           "b13a_cold_ms",
-                                          "mm_nccl_rs_cold_ms")
+                                          "mm_nccl_rs_cold_ms",
+                                          "mm_nccl_ar_cold_ms")
                               if key in rws[0]}
                 lib = [libs.get(r, {}).get(shp, {}) for r in range(TP)]
                 timed[shp]["library_ms"] = (

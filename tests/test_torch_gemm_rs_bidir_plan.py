@@ -1,22 +1,22 @@
 """B13b's landing plan (``gemm_reduce_scatter.bidir_plan``), held on the
-CPU. The kernel (``csrc/gemm_rs.cu``) computes the product of every
-chunk in one pass over W, stores each row of its f32 partial into the
-landing slot of the row's owner for this sender (slot (parity, sender)),
-signals by LL lines or by flags per (sender, row group, 32-column
-quarter), and each owner folds its n slots in the arcs' order
-(``plain.bidir_rs_fold``) and casts once. This file writes the kernel's
-formulas down (_slot, _flag, _land, _owners, _fold_units, _fold) and holds
-them: the slots and flags are disjoint, aligned and inside the buffer,
-every row lands once, every owner's rows are folded once by units whose
-flags every sender raises, the grid leaves every rank that shares an
-H100 resident, and the control block holds the epochs and tickets. An
-emulation of the landing (every rank's f32 partials, whose sums depend
-on the order of the adds, stored in plain vectors or in LL lines tagged
-with the epoch, over both parities) and of the kernel's fold must give
-``bidir_rs_fold``'s bytes on every rank at n = 3, 4, 5 and 8. That the
-kernel's own addressing is these formulas is held on the card:
-``chip_smoke.py``'s ``b13b_gemm_rs_bidir`` and ``tp4_serve`` compare every
-output with the plain version.
+CPU. The kernel (``csrc/gemm_rs.cu`` on ``csrc/gemm_land_stream.cuh``)
+computes the product of every chunk in one pass over W, stores each row
+of its f32 partial into the landing slot of the row's owner for this
+sender (slot (parity, sender)), signals by LL lines or by flags per
+(sender, row group, 32-column quarter), and each owner folds its n slots
+in the arcs' order (``plain.bidir_rs_fold``) and casts once. This file
+writes the kernel's formulas down (_slot, _flag, _land, _owners,
+_fold_units, _fold) and holds them: the slots and flags are disjoint,
+aligned and inside the buffer, every row lands once, every owner's rows
+are folded once by units whose flags every sender raises, the grid
+leaves every rank that shares an H100 resident, and the control block
+holds the epochs and tickets. An emulation of the landing (every rank's
+f32 partials, whose sums depend on the order of the adds, stored in
+plain vectors or in LL lines tagged with the epoch, over both parities)
+and of the kernel's fold must give ``bidir_rs_fold``'s bytes on every
+rank at n = 3, 4, 5 and 8. That the kernel's own addressing is these
+formulas is held on the card: ``chip_smoke.py``'s ``b13b_gemm_rs_bidir``
+and ``tp4_serve`` compare every output with the plain version.
 """
 
 from __future__ import annotations
@@ -36,8 +36,10 @@ from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
 from triton_dist_tpu_torch.kernels.plain import bidir_rs_fold
 
 SMS = 132                  # an H100's SMs
-SOURCE = (Path(grs.__file__).resolve().parent.parent / "csrc"
-          / "gemm_rs.cu").read_text()
+CSRC = Path(grs.__file__).resolve().parent.parent / "csrc"
+# the entry point and the landing device code it shares with B4
+SOURCE = "".join((CSRC / f).read_text()
+                 for f in ("gemm_rs.cu", "gemm_land_stream.cuh"))
 WORLDS = (3, 4, 5, 8)
 # (m rows a chunk, K, N, itemsize): Qwen3-32B's o and down at TP=4 decode
 # (4 rows a rank) and prefill (2,048), f32 gates, odd shapes (a group

@@ -6,10 +6,10 @@
 // ONE_SHOT and RHD): every rank holds x (M, K) and returns the sum over
 // ranks, accumulated in x's dtype (each add rounded to it, as the TPU
 // kernels' `acc[:] + term[:]` on bf16 rounds), into a fresh tensor.
-//  * B5: every rank stores its x into slot `rank` of every peer's landing
-//    buffer; then acc = own, and for i ascending, skipping `rank`, acc =
-//    acc + slot i. The order depends on the rank (kept exactly: results
-//    may differ from rank to rank in the last bit).
+//  * B5: every rank's x reaches every peer; then acc = own, and for i
+//    ascending, skipping `rank`, acc = acc + term i. The order depends on
+//    the rank (kept exactly: results may differ from rank to rank in the
+//    last bit).
 //  * B6: the reference's recursive halving-doubling, whose value is the
 //    halving tree's fold of the n terms (pairs at distance n/2, then n/4,
 //    ..., 1: at n = 4, (x0 + x2) + (x1 + x3); kernels/plain.py rhd_fold),
@@ -26,29 +26,16 @@
 // by latency (a flag's trip across the switch, the launch), not bytes. A
 // 512-token prefill chunk is 5.2 MB: there bytes count.
 //
-// Design of B5 (td_dist.cuh flags):
-//  * the grid is G blocks (the wrapper's choice, the same on every rank),
-//    and block b owns a fixed slice of the columns (16-byte vectors) of
-//    every row. Block b of a rank exchanges data and flags only with
-//    block b of its peers, so no block waits for another block of its own
-//    rank, and each (block, sender) has its own flag in the symmetric
-//    buffer (epoch-valued: set to e, waited for >= e);
-//  * a sender publishes with __threadfence_system() by every storing
-//    thread, a block barrier, then a release store of the flag at system
-//    scope; a receiver acquires the flag and reads what landed with
-//    L1-bypassing loads;
-//  * no barrier opens a call: the landing slots are double-buffered by
-//    the epoch's parity. A rank in call e + 2 reuses the slots of call e
-//    only after it finished call e + 1, which needed every peer's data of
-//    call e + 1, which every peer sends only once it finished call e.
-//
-// Design of B6 (td_oneshot.cuh: B9 / B7's slots, protocols and epochs;
-// kernels/allreduce.py::rhd_plan fixes everything below from the bytes of
-// x, the same on every rank), one launch a call, two regimes:
-//  * one-shot (small x, decode): every rank stores its whole x into its
-//    slot of every peer (sender-indexed: slot (r - p - 1) mod n of rank p
-//    holds rank r's x), then folds the n terms by the halving tree
-//    locally. One hop: one signal latency;
+// Design (td_oneshot.cuh: B9 / B7's slots, protocols and epochs; one
+// kernel template for both, all_reduce_kernel; kernels/allreduce.py's
+// rhd_plan and one_shot_plan fix everything below from the bytes of x,
+// the same on every rank), one launch a call. B6 has two regimes, B5 the
+// first:
+//  * one-shot (B5 always; B6 at small x, decode): every rank stores its
+//    whole x into its slot of every peer (sender-indexed: slot (r - p - 1)
+//    mod n of rank p holds rank r's x), then folds the n terms locally, B6
+//    by the halving tree, B5 own first, then ascending. One hop: one
+//    signal latency;
 //  * two-shot (large x, prefill chunks): B9's scatter leg (row chunk p of
 //    every rank into owner p's slots), owner p folds chunk p's n terms by
 //    the halving tree and stores the folded rows into its out and into
@@ -57,13 +44,15 @@
 //    instead of (n - 1) x, for one more signal latency;
 //  * either regime under LL lines (the epoch in every 16-byte line, no
 //    fence, twice the bytes) or flags (one fence a publishing thread), by
-//    the bytes of a slot; block b owns a column slice of every row, a
-//    vector a thread; each block keeps its own epoch word; slots
-//    double-buffered by the epoch's parity (every rank receives from every
-//    peer in each region of each call, so finishing call e + 1 proves each
+//    the bytes of a slot (B6: reduce_scatter.py LL_MAX_SLOT_BYTES; B5:
+//    allreduce.py ONE_SHOT_LL_MAX_SLOT_BYTES, from a four-card sweep);
+//    block b owns a column slice of every row, a vector a thread; each
+//    block keeps its own epoch word; slots double-buffered by the epoch's
+//    parity, with no opening barrier (every rank receives from every peer
+//    in each region of each call, so finishing call e + 1 proves each
 //    peer ended call e);
 //  * a thread loads an item's n terms before it adds any (their latencies
-//    overlap), then adds them in the tree's order, each add rounded to T;
+//    overlap), then adds them in the fold's order, each add rounded to T;
 //  * every B5 / B6 kernel is loaded at the first call of any, and the grid
 //    leaves every block of every rank that shares the card resident (at
 //    most one block an SM a rank).
@@ -78,59 +67,22 @@ using td::dist::Team;
 using td::dist::u64;
 using namespace td::oneshot;
 
-// B5. Symmetric buffer: landing (2, world, m, kv) vectors at land_off,
-// flags (G, world) at flag_off.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    one_shot_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
-                    Team team, u64* ctl, int m, int kv, long land_off,
-                    long flag_off) {
-  const int me = team.rank, world = team.world, b = blockIdx.x;
-  const u64 e = td::dist::begin_call(ctl);
-  const Cols cols(kv);
-  const long items = static_cast<long>(m) * cols.cw;
-  const long slot = static_cast<long>(m) * kv;
-  const long parity = static_cast<long>(e & 1) * world;
+// The fold of the n terms: B6's halving tree, or B5's own term first,
+// then the others in ascending rank.
+enum Fold { kTree, kOwnFirst };
 
-  for (int i = 1; i < world; ++i) {
-    const int p = (me + i) % world;
-    uint4* dst = buf(team, p, land_off) + (parity + me) * slot;
-    for (long j = threadIdx.x; j < items; j += NT) {
-      const long v = cols.at(j, 0, kv);
-      dst[v] = x[v];
-    }
-  }
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x < world && threadIdx.x != me)
-    td::dist::notify(flags(team, threadIdx.x, flag_off) + b * world + me, e);
-  if (threadIdx.x == 0)
-    for (int s = 0; s < world; ++s)
-      if (s != me)
-        td::dist::wait(flags(team, me, flag_off) + b * world + s, e,
-                       "B5 one-shot data", s);
-  __syncthreads();
-  const uint4* land = buf(team, me, land_off) + parity * slot;
-  for (long j = threadIdx.x; j < items; j += NT) {
-    const long v = cols.at(j, 0, kv);
-    uint4 acc = x[v];
-    for (int s = 0; s < world; ++s)
-      if (s != me) acc = add_vec<T>(acc, __ldcg(land + s * slot + v));
-    out[v] = acc;
-  }
-  td::dist::end_call(ctl, e);
-}
-
-// B6. The slots of the first region (one-shot: x's m rows; two-shot: a
-// row chunk of m rows) from byte 0, their flags (G, n - 1) at flag_off;
-// two-shot: the second region's slots (the folded chunks) from byte
-// ag_off, flags at ag_flag_off. This rank's term of an item is x's
-// (own rows); rank r's is slot (r - me - 1) mod n.
-template <typename T, bool LL, bool TWO>
+// B5 (F = kOwnFirst, one-shot) and B6 (F = kTree). The slots of the first
+// region (one-shot: x's m rows; two-shot: a row chunk of m rows) from
+// byte 0, their flags (G, n - 1) at flag_off; two-shot: the second
+// region's slots (the folded chunks) from byte ag_off, flags at
+// ag_flag_off. This rank's term of an item is x's (own rows); rank r's is
+// slot (r - me - 1) mod n.
+template <typename T, bool LL, bool TWO, Fold F>
 __global__ void __launch_bounds__(NT)
-    rhd_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
-               Team team, u64* ctl, int m, int kv, long slot_bytes,
-               long flag_off, long ag_off, long ag_flag_off) {
+    all_reduce_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                      Team team, u64* ctl, int m, int kv, long slot_bytes,
+                      long flag_off, long ag_off, long ag_flag_off) {
+  static_assert(F == kTree || !TWO, "B5 is one-shot");
   const int me = team.rank, n = team.world;
   const Epoch ep(ctl);
   const unsigned f = static_cast<unsigned>(ep.e);
@@ -151,25 +103,38 @@ __global__ void __launch_bounds__(NT)
                           (n - 2 - i) * slot_bytes, v, val, f);
     }
   }
-  if (!LL) exchange_flags(team, flag_off, ep.e, "B6 reduce slot");
+  if (!LL)
+    exchange_flags(team, flag_off, ep.e,
+                   F == kTree ? "B6 reduce slot" : "B5 slot");
   const char* land = team.peer(me) + par;
   for (long j = threadIdx.x; j < items; j += NT) {
     const long v = cols.at(j, 0, kv);
+    const uint4 own = x[cols.at(j, own0, kv)];
     uint4 t[td::dist::kMaxWorld];
 #pragma unroll
     for (int r = 0; r < td::dist::kMaxWorld; ++r)
       if (r < n)
-        t[r] = r == me ? x[cols.at(j, own0, kv)]
+        t[r] = r == me ? own
                        : get_vec<LL>(land + ((r - me - 1 + n) % n) *
                                                 slot_bytes,
-                                     v, f, "B6 reduce line", r);
-    // the halving tree: pairs at distance n/2, then n/4, ..., 1
+                                     v, f,
+                                     F == kTree ? "B6 reduce line"
+                                                : "B5 line", r);
+    if (F == kTree) {
+      // the halving tree: pairs at distance n/2, then n/4, ..., 1
 #pragma unroll
-    for (int d = td::dist::kMaxWorld / 2; d >= 1; d /= 2)
-      if (d < n) {
+      for (int d = td::dist::kMaxWorld / 2; d >= 1; d /= 2)
+        if (d < n) {
 #pragma unroll
-        for (int i = 0; i < d; ++i) t[i] = add_vec<T>(t[i], t[i + d]);
-      }
+          for (int i = 0; i < d; ++i) t[i] = add_vec<T>(t[i], t[i + d]);
+        }
+    } else {
+      // own first, then ascending rank (me's own term skipped)
+      t[0] = me == 0 ? own : add_vec<T>(own, t[0]);
+#pragma unroll
+      for (int r = 1; r < td::dist::kMaxWorld; ++r)
+        if (r < n && r != me) t[0] = add_vec<T>(t[0], t[r]);
+    }
     out[cols.at(j, own0, kv)] = t[0];
     if (TWO) {
 #pragma unroll
@@ -187,9 +152,8 @@ __global__ void __launch_bounds__(NT)
   ep.close();
 }
 
-int occ_one_shot[2] = {0, 0};
-template <typename T, bool LL, bool TWO>
-int occ_rhd = 0;
+template <typename T, bool LL, bool TWO, Fold F>
+int occ = 0;
 
 // Every B5 / B6 kernel is queried (and so loaded) at the first call of
 // any: a lazy load behind a spinning kernel could wait for ranks not yet
@@ -197,45 +161,27 @@ int occ_rhd = 0;
 cudaError_t load_kernels() {
   static bool done = false;
   if (done) return cudaSuccess;
-  cudaError_t err =
-      check_resident(one_shot_kernel<float>, &occ_one_shot[0], 1, 1);
-#define TD_LOAD(TYPE, LL, TWO)                                              \
-  if (err == cudaSuccess)                                                   \
-    err = check_resident(rhd_kernel<TYPE, LL, TWO>, &occ_rhd<TYPE, LL, TWO>, \
-                         1, 1);
-  if (err == cudaSuccess)
-    err = check_resident(one_shot_kernel<__nv_bfloat16>, &occ_one_shot[1], 1,
-                         1);
-  TD_LOAD(float, false, false)
-  TD_LOAD(float, false, true)
-  TD_LOAD(float, true, false)
-  TD_LOAD(float, true, true)
-  TD_LOAD(__nv_bfloat16, false, false)
-  TD_LOAD(__nv_bfloat16, false, true)
-  TD_LOAD(__nv_bfloat16, true, false)
-  TD_LOAD(__nv_bfloat16, true, true)
+  cudaError_t err = cudaSuccess;
+#define TD_LOAD(TYPE, LL, TWO, F)                                        \
+  if (err == cudaSuccess)                                                \
+    err = check_resident(all_reduce_kernel<TYPE, LL, TWO, F>,            \
+                         &occ<TYPE, LL, TWO, F>, 1, 1);
+#define TD_LOAD_TYPE(TYPE)                   \
+  TD_LOAD(TYPE, false, false, kTree)         \
+  TD_LOAD(TYPE, false, true, kTree)          \
+  TD_LOAD(TYPE, true, false, kTree)          \
+  TD_LOAD(TYPE, true, true, kTree)           \
+  TD_LOAD(TYPE, false, false, kOwnFirst)     \
+  TD_LOAD(TYPE, true, false, kOwnFirst)
+  TD_LOAD_TYPE(float)
+  TD_LOAD_TYPE(__nv_bfloat16)
+#undef TD_LOAD_TYPE
 #undef TD_LOAD
   done = err == cudaSuccess;
   return err;
 }
 
-template <typename T>
-cudaError_t launch_one_shot(const void* x, void* out, const Team& team,
-                            u64* ctl, int m, int kv, long land_off,
-                            long flag_off, int grid, int rpd,
-                            cudaStream_t st) {
-  cudaError_t err = load_kernels();
-  if (err == cudaSuccess)
-    err = check_resident(one_shot_kernel<T>,
-                         &occ_one_shot[sizeof(T) == 2 ? 1 : 0], grid, rpd);
-  if (err != cudaSuccess) return err;
-  one_shot_kernel<T><<<grid, NT, 0, st>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(out), team, ctl, m,
-      kv, land_off, flag_off);
-  return cudaGetLastError();
-}
-
-struct RhdArgs {
+struct Args {
   const uint4* x;
   uint4* out;
   Team team;
@@ -245,27 +191,30 @@ struct RhdArgs {
   int grid, rpd;
 };
 
-template <typename T, bool LL, bool TWO>
-cudaError_t launch_rhd(const RhdArgs& a, cudaStream_t st) {
+template <typename T, bool LL, bool TWO, Fold F>
+cudaError_t launch(const Args& a, cudaStream_t st) {
   cudaError_t err = load_kernels();
   if (err == cudaSuccess)
-    err = check_resident(rhd_kernel<T, LL, TWO>, &occ_rhd<T, LL, TWO>,
-                         a.grid, a.rpd);
+    err = check_resident(all_reduce_kernel<T, LL, TWO, F>,
+                         &occ<T, LL, TWO, F>, a.grid, a.rpd);
   if (err != cudaSuccess) return err;
-  rhd_kernel<T, LL, TWO><<<a.grid, NT, 0, st>>>(
+  all_reduce_kernel<T, LL, TWO, F><<<a.grid, NT, 0, st>>>(
       a.x, a.out, a.team, a.ctl, a.m, a.kv, a.slot_bytes, a.flag_off,
       a.ag_off, a.ag_flag_off);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_rhd(const RhdArgs& a, bool ll, bool two,
-                         cudaStream_t st) {
+cudaError_t dispatch(const Args& a, bool ll, bool two, bool tree,
+                     cudaStream_t st) {
+  if (!tree)
+    return ll ? launch<T, true, false, kOwnFirst>(a, st)
+              : launch<T, false, false, kOwnFirst>(a, st);
   if (ll)
-    return two ? launch_rhd<T, true, true>(a, st)
-               : launch_rhd<T, true, false>(a, st);
-  return two ? launch_rhd<T, false, true>(a, st)
-             : launch_rhd<T, false, false>(a, st);
+    return two ? launch<T, true, true, kTree>(a, st)
+               : launch<T, true, false, kTree>(a, st);
+  return two ? launch<T, false, true, kTree>(a, st)
+             : launch<T, false, false, kTree>(a, st);
 }
 
 bool valid(int rank, int world, int m, int kv, int grid, int rpd) {
@@ -278,36 +227,10 @@ bool valid(int rank, int world, int m, int kv, int grid, int rpd) {
 
 extern "C" {
 
-// B5. x, out: (m, K) of one dtype (td::F32 or td::BF16), contiguous,
-// 16-byte aligned, kv = K * itemsize / 16 vectors per row; base: device
-// table of every rank's symmetric buffer (landing slots (2, world, m, K)
-// at byte land_off, flags (grid, world) u64 at flag_off, zeroed once);
-// ctl: this rank's control block (4 u64, zeroed once); grid: blocks, the
-// same on every rank; ranks_per_device: ranks that share this card.
-// Returns a cudaError_t.
-int td_one_shot(const void* x, void* out, int rank, int world,
-                const void* base, void* ctl, int m, int kv, long long land_off,
-                long long flag_off, int grid, int ranks_per_device, int dtype,
-                void* stream) {
-  if (!valid(rank, world, m, kv, grid, ranks_per_device))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Team team{rank, world, static_cast<const long long*>(base), 0};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  u64* c = static_cast<u64*>(ctl);
-  if (dtype == td::F32)
-    return static_cast<int>(launch_one_shot<float>(
-        x, out, team, c, m, kv, land_off, flag_off, grid, ranks_per_device,
-        st));
-  if (dtype == td::BF16)
-    return static_cast<int>(launch_one_shot<__nv_bfloat16>(
-        x, out, team, c, m, kv, land_off, flag_off, grid, ranks_per_device,
-        st));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// B6. x, out: (M, K) of one dtype (td::F32 or td::BF16), contiguous,
-// 16-byte aligned, kv = K * itemsize / 16 vectors per row, world a power
-// of two. The plan (kernels/allreduce.py::rhd_plan, the same on every
+// B5 and B6. x, out: (M, K) of one dtype (td::F32 or td::BF16),
+// contiguous, 16-byte aligned, kv = K * itemsize / 16 vectors per row.
+// tree: B6 (world a power of two) or B5 (one-shot, any world). The plan
+// (kernels/allreduce.py's rhd_plan / one_shot_plan, the same on every
 // rank): two_shot (m = M / world rows a slot) or one-shot (m = M); ll:
 // the LL protocol (slots of LL lines) or flags; grid: blocks. base: device
 // table of every rank's symmetric buffer: the first region's slots (2,
@@ -316,33 +239,36 @@ int td_one_shot(const void* x, void* out, int rank, int world,
 // from byte ag_off, flags at ag_flag_off; zeroed once. ctl: this rank's
 // control block (kCtlHeader + grid u64, zeroed once); ranks_per_device:
 // ranks that share this card. Returns a cudaError_t.
-int td_rhd(const void* x, void* out, int rank, int world, const void* base,
-           void* ctl, int m, int kv, long long slot_bytes, long long flag_off,
-           long long ag_off, long long ag_flag_off, int grid, int ll,
-           int two_shot, int ranks_per_device, int dtype, void* stream) {
+int td_all_reduce(const void* x, void* out, int rank, int world,
+                  const void* base, void* ctl, int m, int kv,
+                  long long slot_bytes, long long flag_off, long long ag_off,
+                  long long ag_flag_off, int grid, int ll, int two_shot,
+                  int tree, int ranks_per_device, int dtype, void* stream) {
   if (!valid(rank, world, m, kv, grid, ranks_per_device) ||
-      (world & (world - 1)) != 0 || (ll != 0 && ll != 1) ||
+      (tree != 0 && tree != 1) || (tree && (world & (world - 1)) != 0) ||
+      (!tree && two_shot != 0) || (ll != 0 && ll != 1) ||
       (two_shot != 0 && two_shot != 1) || slot_bytes % 16 || flag_off % 8 ||
       ag_off % 16 || ag_flag_off % 8 ||
       slot_bytes < static_cast<long long>(m) * kv * 16 * (ll ? 2 : 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const RhdArgs a{static_cast<const uint4*>(x),
-                  static_cast<uint4*>(out),
-                  Team{rank, world, static_cast<const long long*>(base), 0},
-                  static_cast<u64*>(ctl),
-                  m,
-                  kv,
-                  static_cast<long>(slot_bytes),
-                  static_cast<long>(flag_off),
-                  static_cast<long>(ag_off),
-                  static_cast<long>(ag_flag_off),
-                  grid,
-                  ranks_per_device};
+  const Args a{static_cast<const uint4*>(x),
+               static_cast<uint4*>(out),
+               Team{rank, world, static_cast<const long long*>(base), 0},
+               static_cast<u64*>(ctl),
+               m,
+               kv,
+               static_cast<long>(slot_bytes),
+               static_cast<long>(flag_off),
+               static_cast<long>(ag_off),
+               static_cast<long>(ag_flag_off),
+               grid,
+               ranks_per_device};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == td::F32)
-    return static_cast<int>(dispatch_rhd<float>(a, ll, two_shot, st));
+    return static_cast<int>(dispatch<float>(a, ll, two_shot, tree, st));
   if (dtype == td::BF16)
-    return static_cast<int>(dispatch_rhd<__nv_bfloat16>(a, ll, two_shot, st));
+    return static_cast<int>(
+        dispatch<__nv_bfloat16>(a, ll, two_shot, tree, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

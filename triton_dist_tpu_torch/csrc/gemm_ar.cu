@@ -13,20 +13,27 @@
 // the FMA body of gemm_splitk.cuh; the bound and the designs are described
 // there.
 //
-// World n > 1 (td_gemm_ar_tp): the device code of gemm_land.cuh (shared
-// with B13a) with kAll = true. Each tile's f32 partial is stored into
-// slot `rank` of every rank's (n, M, N) f32 landing buffer (the TPU
-// kernel's push of each partial block to every peer's sender-indexed
-// slot), and every rank folds slot 0 + slot 1 + ... + slot n-1 in f32 and
-// casts once: the TPU kernel's reduce_chunk order (slot `me` holds the
-// own partial there too), the same on every rank, so every rank returns
-// the same bytes. On the decode path of Qwen3-32B at TP=4 (M = 16, bf16)
-// the product streams 21 MB (o) and 65.5 MB (down) of weights per rank:
-// bound by HBM bytes, 6.3 us and 19.6 us at 3.35 TB/s; the 320 KB f32
-// partial crosses NVLink to 3 peers.
+// World n > 1 (td_gemm_ar_tp): the TPU kernel pushes each partial block to
+// every peer's sender-indexed slot and folds slot 0 + slot 1 + ... + slot
+// n-1 (its reduce_chunk order; slot `me` holds the own partial), the same
+// on every rank, so every rank returns the same bytes. On the decode path
+// of Qwen3-32B at TP=4 (M = 16, bf16) the product streams 21 MB (o) and
+// 65.5 MB (down) of weights per rank: bound by HBM bytes, 6.3 us and 19.6
+// us at 3.35 TB/s; its 320 KB f32 partial goes to 3 peers (2 us of
+// NVLink at 450 GB/s, 4 as LL lines), at the end of the pass, when the
+// stream-K tiles finish. The design is
+// gemm_land_stream.cuh's with kAll = true (B13b's one-hop landing): one
+// launch, one pass over the weight shard on gemm_stream_sm90.cuh in bf16
+// (gemm_splitk.cuh's FMA item in f32), each finished tile's f32 rows
+// stored by its warp into this rank's slot on every rank, its own
+// included, while the rest of the weights stream; LL lines or flags by
+// the bytes of a slot (kernels/gemm_allreduce.py AR_LL_MAX_SLOT_BYTES,
+// from a four-card sweep); after its items every consumer warp folds a
+// share of the (m, N) rows, slot 0 + ... + slot n-1 in f32, one cast; an
+// epoch word a block and the slots double-buffered by its parity, with no
+// opening barrier.
 
-#include "gemm_land.cuh"
-#include "gemm_stream_sm90.cuh"
+#include "gemm_land_stream.cuh"
 
 // a: (M, K); w: (K, N); out: (M, N); all contiguous, one dtype (td::F32 or
 // td::BF16), w 16-byte aligned, N a multiple of the 16-byte vector. out =
@@ -47,16 +54,18 @@ extern "C" int td_gemm_ar(const void* a, const void* w, void* part,
                             splits, stream);
 }
 
-// a: (m, K) this rank's rows; w: (K, N) its weight shard; out: (m, N), the
-// sum over ranks; the rest as td_gemm_land (gemm_land.cuh), with landing
-// slots (world, m, N) f32. Returns a cudaError_t.
+// Under kernels/gemm_allreduce.py::ar_plan: a (m, K) this rank's rows;
+// out (m, N), the sum over ranks; the rest as land::land_gemm
+// (gemm_land_stream.cuh), with rows = m. Returns a cudaError_t.
 extern "C" int td_gemm_ar_tp(const void* a, const void* w, void* part,
                              void* out, int rank, int world,
-                             const void* base, long long sig_off, void* ctl,
-                             int m, int k_dim, int n_cols, int k_chunk,
-                             int splits, int ranks_per_device, int dtype,
-                             void* stream) {
-  return td_gemm_land<true>(a, w, part, out, rank, world, base, sig_off, ctl,
-                            m, k_dim, n_cols, k_chunk, splits,
-                            ranks_per_device, dtype, stream);
+                             const void* base, void* ctl, int m, int k_dim,
+                             int n_cols, int rg, int ll,
+                             long long slot_bytes, long long flag_off,
+                             int grid, int k_chunk, int splits,
+                             int ranks_per_device, int dtype, void* stream) {
+  return land::land_gemm<true>(a, w, part, out, rank, world, base, ctl, m,
+                               k_dim, n_cols, rg, ll, slot_bytes, flag_off,
+                               grid, k_chunk, splits, ranks_per_device, dtype,
+                               stream);
 }

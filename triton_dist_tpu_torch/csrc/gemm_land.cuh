@@ -1,41 +1,34 @@
-// The row-parallel GEMM whose f32 partials land in the peers' symmetric
-// buffers, shared by B13a (gemm_rs.cu, GEMM + ReduceScatter) and B4 across
-// ranks (gemm_ar.cu, GEMM + AllReduce). Both compute, on every rank, the
-// product of A (rows, K_loc) with a (K_loc, N) row shard of W and reduce
-// the ranks' f32 partials with one cast; they differ only in which rows
-// each rank keeps:
-//  * kAll = false (B13a): rows = world * m; rank d keeps rows [d*m,
-//    (d+1)*m);
-//  * kAll = true (B4): rows = m; every rank keeps all m rows.
+// B13a's row-parallel GEMM whose f32 partials land in the owners'
+// symmetric buffers (gemm_rs.cu, GEMM + ReduceScatter): every rank computes
+// the product of A (world * m, K_loc) with a (K_loc, N) row shard of W,
+// and rank d keeps rows [d*m, (d+1)*m), the ranks' f32 partials reduced
+// with one cast. (B13b and B4 across ranks land the stream GEMM's tiles
+// in one hop instead: gemm_land_stream.cuh.)
 //
 // What bounds it on this card. On the decode path (Qwen3-32B at TP=4,
 // batch 16) the product streams the weight shard (o K_loc 2048 x N 5120,
 // 21 MB of bf16; down K_loc 6400, 65.5 MB): bound by HBM bytes (6.3 us and
-// 19.6 us at 3.35 TB/s). The partials that cross NVLink are 3 x 80 KB
-// (B13a) or 3 x 320 KB (B4) of f32 per rank, about a microsecond of wire
-// time or less.
+// 19.6 us at 3.35 TB/s). The partials that cross NVLink are 3 x 80 KB of
+// f32 per rank, about a microsecond of wire time or less.
 //
 // Design:
 //  * the GEMM is the split-K weight-streaming GEMM of gemm_splitk.cuh (the
-//    device code of B4's world-1 body and B12), run as work items by a
+//    f32 device code of B4's world-1 body and B12), run as work items by a
 //    persistent grid over all rows: row tiles fastest, so the tiles that
 //    share a weight slice run side by side and read it once from HBM;
 //  * each item stores its f32 K-slice partial locally; the last of a
 //    tile's K slices to finish (a per-tile counter) sums the slices in
 //    slice order and stores the tile's rows into slot `rank` of the
-//    (world, m, N) f32 landing buffer of every rank that keeps them (full
+//    (world, m, N) f32 landing buffer of the rank that keeps them (full
 //    mesh, one NVLink hop);
 //  * the block that lands the last tile of this rank raises this rank's
 //    data flag on every rank (release at system scope, epoch-valued); a
 //    barrier at the start (every rank's arrival flag) keeps a sender from
-//    overwriting a slot before its owner folded the previous call, also
-//    when two ops of one shape (B4's o and down projections) share the
-//    workspace;
+//    overwriting a slot before its owner folded the previous call;
 //  * every block then folds a share of the rank's own (m, N) rows: it
 //    waits (acquire) until every sender's flag is up and adds the n slots
 //    in a FIXED order, slot 0 + slot 1 + ... + slot n-1 (ascending sender
-//    rank, the same on every rank, so every rank that keeps a row gets the
-//    same bytes), in f32, and casts once;
+//    rank), in f32, and casts once;
 //  * the grid is persistent and small enough that every block of every
 //    rank that shares the card is resident at once (occupancy x SMs /
 //    ranks per card), so no spinning block keeps the block it waits for
@@ -56,7 +49,7 @@ using namespace td_gemm;
 // it took 140 registers, one block per SM, and ran B13a 1.6x slower on
 // the card, so the kernels stay in an anonymous namespace of each source
 // that includes this header.
-template <typename T, int MT, int U, bool kAll>
+template <typename T, int MT, int U>
 __global__ void __launch_bounds__(NT, 2)
     gemm_land_kernel(const T* __restrict__ a, const T* __restrict__ w,
                      float* __restrict__ part, T* __restrict__ out, Team team,
@@ -66,9 +59,9 @@ __global__ void __launch_bounds__(NT, 2)
   const int me = team.rank, world = team.world, tid = threadIdx.x;
   const u64 e = td::dist::begin_call(ctl);
   if (blockIdx.x == 0) td::dist::arrive_all(team, e);
-  td::dist::wait_all_arrived(team, e, kAll ? "B4 arrival" : "B13a arrival");
+  td::dist::wait_all_arrived(team, e, "B13a arrival");
 
-  const int rows = kAll ? m : world * m;
+  const int rows = world * m;
   const int m_tiles = (rows + MT - 1) / MT;
   const int n_tiles = (n_cols + BN - 1) / BN;
   const int tiles = m_tiles * n_tiles;
@@ -104,19 +97,9 @@ __global__ void __launch_bounds__(NT, 2)
         for (int s = 0; s < splits; ++s)
           sum += __ldcg(part + (static_cast<long>(s) * rows + row) * n_cols +
                         col);
-        if (kAll) {
-          // every rank keeps the row: the next rank first
-          for (int i = 1; i <= world; ++i) {
-            const int d = (me + i) % world;
-            reinterpret_cast<float*>(team.peer(d))[
-                me * slot + static_cast<long>(row) * n_cols + col] = sum;
-          }
-        } else {
-          const int d = row / m;
-          reinterpret_cast<float*>(team.peer(d))[
-              me * slot + static_cast<long>(row - d * m) * n_cols + col] =
-              sum;
-        }
+        const int d = row / m;
+        reinterpret_cast<float*>(team.peer(d))[
+            me * slot + static_cast<long>(row - d * m) * n_cols + col] = sum;
       }
     }
     if (tid == 0) tile_done[tile] = 0;
@@ -131,7 +114,7 @@ __global__ void __launch_bounds__(NT, 2)
     if (tid == 0)
       for (int s = 0; s < world; ++s)
         td::dist::wait(team.pad(me) + td::dist::kData + s, e,
-                       kAll ? "B4 partials" : "B13a partials", s);
+                       "B13a partials", s);
     __syncthreads();
     for (long v = first + tid; v < vecs; v += static_cast<long>(gridDim.x) *
                                                NT) {
@@ -154,7 +137,7 @@ __global__ void __launch_bounds__(NT, 2)
   td::dist::end_call(ctl, e);
 }
 
-template <typename T, int MT, int U, bool kAll>
+template <typename T, int MT, int U>
 cudaError_t launch_land(const void* a, const void* w, void* part, void* out,
                         const Team& team, u64* ctl, int m, int k_dim,
                         int n_cols, int k_chunk, int splits,
@@ -172,57 +155,56 @@ cudaError_t launch_land(const void* a, const void* w, void* part, void* out,
                                    dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ, gemm_land_kernel<T, MT, U, kAll>, NT, 0);
+          &occ, gemm_land_kernel<T, MT, U>, NT, 0);
     if (err != cudaSuccess) {
       occ = 0;
       return err;
     }
   }
-  const int rows = kAll ? m : team.world * m;
+  const int rows = team.world * m;
   const long items = static_cast<long>((rows + MT - 1) / MT) * splits *
                      ((n_cols + BN - 1) / BN);
   const long resident = static_cast<long>(occ) * sms / ranks_per_device;
   if (resident < 1) return cudaErrorInvalidConfiguration;
   const unsigned grid = static_cast<unsigned>(items < resident ? items
                                                                : resident);
-  gemm_land_kernel<T, MT, U, kAll><<<grid, NT, 0, stream>>>(
+  gemm_land_kernel<T, MT, U><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(w),
       static_cast<float*>(part), static_cast<T*>(out), team, ctl, m, k_dim,
       n_cols, k_chunk, splits);
   return cudaGetLastError();
 }
 
-template <typename T, bool kAll>
+template <typename T>
 cudaError_t dispatch_land(const void* a, const void* w, void* part,
                           void* out, const Team& team, u64* ctl, int m,
                           int k_dim, int n_cols, int k_chunk, int splits,
                           int rpd, cudaStream_t st) {
-  const int rows = kAll ? m : team.world * m;
+  const int rows = team.world * m;
   if (rows == 1)
-    return launch_land<T, 1, 8, kAll>(a, w, part, out, team, ctl, m, k_dim,
+    return launch_land<T, 1, 8>(a, w, part, out, team, ctl, m, k_dim,
                                       n_cols, k_chunk, splits, rpd, st);
   if (rows == 2)
-    return launch_land<T, 2, 8, kAll>(a, w, part, out, team, ctl, m, k_dim,
+    return launch_land<T, 2, 8>(a, w, part, out, team, ctl, m, k_dim,
                                       n_cols, k_chunk, splits, rpd, st);
   if (rows <= 4)
-    return launch_land<T, 4, 8, kAll>(a, w, part, out, team, ctl, m, k_dim,
+    return launch_land<T, 4, 8>(a, w, part, out, team, ctl, m, k_dim,
                                       n_cols, k_chunk, splits, rpd, st);
-  return launch_land<T, 8, 4, kAll>(a, w, part, out, team, ctl, m, k_dim,
+  return launch_land<T, 8, 4>(a, w, part, out, team, ctl, m, k_dim,
                                     n_cols, k_chunk, splits, rpd, st);
 }
 
 }  // namespace
 
-// The C entry points' common body (td_gemm_rs, td_gemm_ar_tp): a (rows,
-// K) rows of the product (rows = world*m for B13a, m for B4); w: (K, N)
-// weight shard; out: this rank's (m, N) rows; part: f32 (splits, rows, N)
-// workspace; base: device table of every rank's landing slots ((world, m,
-// N) f32, signal pad at sig_off); ctl: this rank's control block, zeroed
-// once: 4 u64, then one counter per (row, BN-column tile) (rows *
-// ceil(N / BN) words cover any row tile); ranks_per_device: ranks that
-// share this card. One dtype (td::F32 or td::BF16); N a multiple of the
-// 16-byte vector; 16-byte aligned pointers. Returns a cudaError_t.
-template <bool kAll>
+// The C entry point's body (td_gemm_rs): a (world*m, K) rows of the
+// product; w: (K, N) weight shard; out: this rank's (m, N) rows; part:
+// f32 (splits, world*m, N) workspace; base: device table of every rank's
+// landing slots ((world, m, N) f32, signal pad at sig_off); ctl: this
+// rank's control block, zeroed once: 4 u64, then one counter per (row,
+// BN-column tile) (rows * ceil(N / BN) words cover any row tile);
+// ranks_per_device: ranks that share this card. One dtype (td::F32 or
+// td::BF16); N a multiple of the 16-byte vector; 16-byte aligned
+// pointers. Returns a cudaError_t.
 inline int td_gemm_land(const void* a, const void* w, void* part, void* out,
                         int rank, int world, const void* base,
                         long long sig_off, void* ctl, int m, int k_dim,
@@ -239,11 +221,11 @@ inline int td_gemm_land(const void* a, const void* w, void* part, void* out,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   u64* c = static_cast<u64*>(ctl);
   if (dtype == td::F32 && n_cols % td::kVec<float> == 0)
-    return static_cast<int>(dispatch_land<float, kAll>(
+    return static_cast<int>(dispatch_land<float>(
         a, w, part, out, team, c, m, k_dim, n_cols, k_chunk, splits,
         ranks_per_device, st));
   if (dtype == td::BF16 && n_cols % td::kVec<__nv_bfloat16> == 0)
-    return static_cast<int>(dispatch_land<__nv_bfloat16, kAll>(
+    return static_cast<int>(dispatch_land<__nv_bfloat16>(
         a, w, part, out, team, c, m, k_dim, n_cols, k_chunk, splits,
         ranks_per_device, st));
   return static_cast<int>(cudaErrorInvalidValue);

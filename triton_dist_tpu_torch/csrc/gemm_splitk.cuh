@@ -2,8 +2,9 @@
 // (gemm_ar.cu) and B12 (matmul.cu): out = cast(A @ W) with f32
 // accumulation, A (M, K), W (K, N); their bf16 forms run the Hopper kernel
 // of gemm_stream_sm90.cuh. The overlapped kernels across ranks (ag_gemm.cu,
-// B10; gemm_rs.cu, B13a; gemm_land.cuh, B4 across ranks) run this file's
-// work item, gemm_tile, in bf16 and f32, from a persistent grid.
+// B10; gemm_land.cuh, B13a) run this file's work item, gemm_tile, in bf16
+// and f32, from a persistent grid; gemm_land_stream.cuh's f32 forms of
+// B13b and B4 across ranks run it in f32.
 //
 // What bounds it on this card. On the decode path M is the batch (4): the
 // o projection (K = N = 4096) and the down projection (K = 12288, N = 4096)

@@ -43,9 +43,10 @@
 //    memset between calls (a captured graph replays it as it is).
 //
 //  * the epilogue is a template parameter (Epi): CastStore casts and
-//    stores each finished tile (B4's world-1 body, B12); gemm_rs.cu's B13b
-//    lands each tile's f32 rows in their owners' slots instead and folds
-//    them after its items. Epi::begin runs on every thread before the
+//    stores each finished tile (B4's world-1 body, B12);
+//    gemm_land_stream.cuh's LandStream (B13b, B4 across ranks) lands each
+//    tile's f32 rows in the slots of the ranks that keep them instead and
+//    folds them after its items. Epi::begin runs on every thread before the
 //    kernel's first barrier (with Epi::kSmemBytes of dynamic shared memory
 //    of its own), Epi::tile on each consumer warp for each tile it
 //    finishes, Epi::end on each consumer warp after its items (the

@@ -76,7 +76,7 @@
 //    raises this rank's flag on the owner. Then every block folds a share
 //    of the rank's own rows: it waits for all n senders' flags and adds
 //    slot 0 + slot 1 + ... + slot n-1 (ascending sender) in f32, one cast
-//    (B13a's and B4's landing discipline, gemm_land.cuh). The reference's
+//    (B13a's landing discipline, gemm_land.cuh). The reference's
 //    ring adds in a rank-dependent order: the two agree to f32 rounding.
 //  * No barrier opens a call: the landing buffers are double-buffered by
 //    the epoch's parity (as B5, B9, B7). A rank writes a peer's parity-p

@@ -1,9 +1,11 @@
 // Device code of the port's one-hop collectives on an NVSwitch full mesh
-// (B9 and B7 in ring_collectives.cu, B5 and B6 in allreduce.cu): a block's
-// column slice, 16-byte adds in a dtype, the two signalling protocols (LL
-// lines that carry the epoch, or flags raised after one fence a
-// publishing thread), the bounded waits that trap, a block's epoch word
-// and the residency check of a spinning grid.
+// (B9 and B7 in ring_collectives.cu, B5 and B6 in allreduce.cu; the LL
+// lines and flags also carry B17 / B18 in ep_a2a.cu and the landing of
+// B13b and B4 across ranks in gemm_land_stream.cuh): a block's column
+// slice, 16-byte adds in a dtype, the two signalling protocols (LL lines
+// that carry the epoch, or flags raised after one fence a publishing
+// thread), the bounded waits that trap, a block's epoch word and the
+// residency check of a spinning grid.
 //
 // Slots (kernels/reduce_scatter.py::ring_layout): a rank receives n - 1
 // slots of slot_bytes from every call, double-buffered by the epoch's

@@ -9,7 +9,9 @@ in x's dtype. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     tensors. Every rank pushes x into a sender-indexed slot on every peer
     and adds its own term first, then the others in ascending rank, each
     add rounded to x's dtype: the reference's order, which depends on the
-    rank, so float results may differ from rank to rank in the last bit;
+    rank, so float results may differ from rank to rank in the last bit.
+    On the card it is B6's one-shot regime with this fold, one launch, LL
+    lines or flags by the bytes of a slot (``one_shot_plan``);
   * RHD — B6, ``rhd_all_reduce``: the reference's recursive
     halving-doubling, whose value is the halving tree's fold of the n
     terms (``rhd_fold``; ``rhd_ref`` for CPU tensors), power-of-two n and
@@ -176,9 +178,10 @@ def _round_up(x: int, a: int = _ALIGN) -> int:
 
 
 def grid_blocks(m: int, kv: int, sm_count: int, ranks_per_device: int) -> int:
-    """Blocks of B5 for an (m, kv-vector) x: about _BLOCK_BYTES of x
-    each, at most one column vector wide each, and few enough that every
-    rank sharing the card is resident at once (one block per SM)."""
+    """Blocks of B8 (kernels/allgather.py) for an (m, kv-vector) shard:
+    about _BLOCK_BYTES of it each, at most one column vector wide each,
+    and few enough that every rank sharing the card is resident at once
+    (one block per SM)."""
     want = -(-m * kv * 16 // _BLOCK_BYTES)
     return max(1, min(want, kv, sm_count // ranks_per_device))
 
@@ -262,6 +265,29 @@ def rhd_grid(m: int, kv: int, sm_count: int, ranks_per_device: int) -> int:
     return max(1, min(kv, -(-m * kv // _NT), sm_count // ranks_per_device))
 
 
+# B5's protocol: LL lines (the epoch in every 16-byte line, no fence, no
+# flag, twice the bytes) while a slot (one rank's whole x) holds at most
+# this many bytes, flags above. Four H100s (NVIDIA H100 80GB HBM3, 700.00
+# W; chip_compare.py --ar --sweep, the slowest rank, rows of 5,120 bf16),
+# LL against flags at 4 / 8 / 16 / 32 / 64 rows (40-640 KiB a slot),
+# queued: 0.0076 / 0.0090 / 0.0111 / 0.0162 / 0.0319 ms against 0.0095 /
+# 0.0100 / 0.0109 / 0.0128 / 0.0207 (in a graph at 16 rows 0.0118
+# against 0.0116): LL up to 8 rows, flags from 16.
+ONE_SHOT_LL_MAX_SLOT_BYTES = 128 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def one_shot_plan(world: int, rows: int, k: int, itemsize: int,
+                  sm_count: int, ranks_per_device: int) -> RhdPlan:
+    """The plan of B5 for x (rows, K): B6's one-shot regime (every rank's
+    whole x into its slot of every peer) on B6's grid, LL lines while a
+    slot holds at most ONE_SHOT_LL_MAX_SLOT_BYTES, flags above."""
+    kv = k * itemsize // 16
+    return rhd_layout(world, rows, kv,
+                      rhd_grid(rows, kv, sm_count, ranks_per_device),
+                      rows * kv * 16 <= ONE_SHOT_LL_MAX_SLOT_BYTES, False)
+
+
 def _check_x(what: str, x: torch.Tensor) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"{what}: dtype {x.dtype} not in "
@@ -273,58 +299,41 @@ def _check_x(what: str, x: torch.Tensor) -> None:
                          f"bytes; got {tuple(x.shape)}")
 
 
-def _launch_rhd(mesh, x: torch.Tensor, plan: RhdPlan) -> torch.Tensor:
-    """B6's launch on this rank's x under a given plan (chip_smoke.py's
-    regime sweep forces one through ``rhd_layout``). The plan's symmetric
-    buffer is made at its first call (a collective allocation; never under
-    capture), with a control block of an epoch word a block."""
-    ws = op_workspace(mesh, ("rhd", x.dtype, plan), (plan.nbytes,),
-                      torch.uint8, ctl_words=plan.grid)
+def _launch(mesh, x: torch.Tensor, plan: RhdPlan, tree: bool):
+    """B6's (tree) or B5's launch on this rank's x under a given plan. The
+    plan's symmetric buffer is made at its first call (a collective
+    allocation; never under capture), with a control block of an epoch
+    word a block."""
+    what = "rhd_all_reduce" if tree else "one_shot_all_reduce"
+    ws = op_workspace(mesh, ("rhd" if tree else "one_shot", x.dtype, plan),
+                      (plan.nbytes,), torch.uint8, ctl_words=plan.grid)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        fn = build.function("allreduce", "td_rhd", (
+        fn = build.function("allreduce", "td_all_reduce", (
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+            ctypes.c_longlong, *(ctypes.c_int,) * 6, ctypes.c_void_p))
         err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, mesh.world,
                  ws.buf.table.data_ptr(), ws.ctl.data_ptr(), plan.m, plan.kv,
                  plan.slot_bytes, plan.flag_off, plan.ag_off,
                  plan.ag_flag_off, plan.grid, int(plan.ll),
-                 int(plan.two_shot), mesh.ranks_per_device,
+                 int(plan.two_shot), int(tree), mesh.ranks_per_device,
                  _DTYPE_CODE[x.dtype], build.stream_of(x))
-    build.check(err, "rhd_all_reduce")
-    return out
-
-
-def _launch_one_shot(mesh, x: torch.Tensor) -> torch.Tensor:
-    """Launch B5 on this rank's x."""
-    what = "one_shot_all_reduce"
-    _check_x(what, x)
-    world, (m, k) = mesh.world, x.shape
-    es = x.element_size()
-    kv = k * es // 16
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = grid_blocks(m, kv, sms, mesh.ranks_per_device)
-    land_off = 0
-    flag_off = _round_up(2 * world * m * k * es)
-    total = flag_off + grid * world * 8
-    ws = op_workspace(mesh, ("one_shot", m, k, x.dtype), (total,),
-                      torch.uint8)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        fn = build.function("allreduce", "td_one_shot", (
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-        err = fn(x.data_ptr(), out.data_ptr(), mesh.rank, world,
-                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), m, kv, land_off,
-                 flag_off, grid, mesh.ranks_per_device, _DTYPE_CODE[x.dtype],
-                 build.stream_of(x))
     build.check(err, what)
     return out
+
+
+def _launch_rhd(mesh, x: torch.Tensor, plan: RhdPlan) -> torch.Tensor:
+    """B6's launch under a given plan (chip_smoke.py's regime sweep forces
+    one through ``rhd_layout``)."""
+    return _launch(mesh, x, plan, True)
+
+
+def _launch_one_shot(mesh, x: torch.Tensor, plan: RhdPlan) -> torch.Tensor:
+    """B5's launch under a given plan (the protocol sweep forces one
+    through ``rhd_layout`` with two_shot False)."""
+    return _launch(mesh, x, plan, False)
 
 
 def one_shot_all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
@@ -338,7 +347,11 @@ def one_shot_all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"one_shot_all_reduce: unsupported device "
                          f"{x.device}")
-    out = _launch_one_shot(mesh, x)
+    _check_x("one_shot_all_reduce", x)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = one_shot_plan(mesh.world, x.shape[0], x.shape[1],
+                         x.element_size(), sms, mesh.ranks_per_device)
+    out = _launch_one_shot(mesh, x, plan)
     one_shot_all_reduce.launches += 1
     return out
 

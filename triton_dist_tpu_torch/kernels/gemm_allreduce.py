@@ -15,11 +15,14 @@ the split-K FMA GEMM of ``csrc/gemm_splitk.cuh``, cut by ``split_plan``.
 World n > 1 (``mesh`` is the ranks' Mesh): XLA is the f32 product,
 ``dist.all_reduce`` in f32 and one cast (the reference's
 ``psum(part).astype``); PALLAS is ``pallas_gemm_ar``, B4 across ranks: the
-kernel of ``csrc/gemm_ar.cu`` (td_gemm_ar_tp) for CUDA tensors, which
-stores each tile's f32 partial into every rank's sender-indexed landing
-slot and folds slot 0 + ... + slot n-1 (the reference's order, the same on
-every rank), and ``gemm_ar_ref_tp`` for CPU tensors, which folds the
-ranks' partials in that order.
+kernel of ``csrc/gemm_ar.cu`` (td_gemm_ar_tp) for CUDA tensors, and
+``gemm_ar_ref_tp`` for CPU tensors, which folds the ranks' partials in the
+kernel's order. The kernel is one pass over the weight shard (bf16: the
+stream GEMM of ``csrc/gemm_stream_sm90.cuh``) whose warps store each
+finished tile's f32 rows into this rank's landing slot on every rank, and
+every rank folds slot 0 + ... + slot n-1 (the reference's order, the same
+on every rank) with one cast: ``csrc/gemm_land_stream.cuh``, cut by
+``ar_plan`` (``land_layout``, shared with B13b).
 
 XLA_RING is the reference's two-shot with GEMM overlap: the XLA_RING
 GEMM + ReduceScatter (kernels/gemm_reduce_scatter.py), then the RING_1D
@@ -43,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import enum
+import functools
 
 import torch
 import torch.distributed as dist
@@ -62,6 +66,7 @@ _M_TILE_MAX = 8       # the kernel's largest M tile
 STREAM_BN = 128       # columns of W a tile
 STREAM_BK = 128       # K rows a tile
 _TICKET_WORDS = 4096  # ticket words a device keeps (4 a block)
+_ALIGN = 256
 _TICKETS: dict = {}   # device -> its int32 tickets
 
 
@@ -127,16 +132,29 @@ def gemm_ar_ref_shards(a_shards, b_shards) -> list[torch.Tensor]:
 
 def pallas_gemm_ar(mesh, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """B4 across ranks on this rank: cast(sum over ranks of a @ b), a
-    (M, K_loc), b (K_loc, N). CUDA tensors launch the kernel (counted in
-    ``pallas_gemm_ar.launches``); CPU tensors run ``gemm_ar_ref_tp``.
-    Every rank calls it with the same shapes, in the same order."""
+    (M, K_loc), b (K_loc, N). CUDA tensors launch the kernel under
+    ``ar_plan`` (counted in ``pallas_gemm_ar.launches``); CPU tensors run
+    ``gemm_ar_ref_tp``. Every rank calls it with the same shapes, in the
+    same order."""
     if a.device.type == "cpu":
         return gemm_ar_ref_tp(mesh, a, b)
     if a.device.type != "cuda":
         raise ValueError(f"pallas_gemm_ar: unsupported device {a.device}")
-    _check_tp(a, b, "pallas_gemm_ar")
-    out = landing_launch(mesh, a, b, a.shape[0], "gemm_ar", "td_gemm_ar_tp",
-                         "pallas_gemm_ar")
+    what = "pallas_gemm_ar"
+    _check_tp(a, b, what)
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise ValueError(f"{what}: a/b must share one dtype of "
+                         f"{list(_DTYPE_CODE)}; got {a.dtype}/{b.dtype}")
+    if not b.is_contiguous() or b.data_ptr() % 16:
+        raise ValueError(f"{what}: b contiguous, 16-byte aligned")
+    vec = 16 // a.element_size()
+    if b.shape[1] % vec or a.shape[0] == 0:
+        raise ValueError(f"{what}: N={b.shape[1]} must be a multiple of "
+                         f"{vec}, M={a.shape[0]} positive")
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = ar_plan(mesh.world, a.shape[0], a.shape[1], b.shape[1],
+                   a.element_size(), sms, mesh.ranks_per_device)
+    out = _launch_ar(mesh, a.contiguous(), b, plan)
     pallas_gemm_ar.launches += 1
     return out
 
@@ -306,12 +324,14 @@ def splitk_launch(a, b, source: str, symbol: str, what: str):
 
 def landing_launch(mesh, a, b, m: int, source: str, symbol: str,
                    what: str):
-    """Launch the landing GEMM of ``csrc/gemm_land.cuh`` through the C
-    entry point ``symbol`` of ``csrc/<source>.cu`` (B13a's td_gemm_rs: a
-    holds n*m rows, rank d keeps rows [d*m, (d+1)*m); B4's td_gemm_ar_tp:
-    a holds m rows, every rank keeps them): checks, the K split, this op's
-    landing slots (n, m, N) f32 with their control block, the output
-    (m, N) and the f32 K-slice workspace."""
+    """Launch B13a's landing GEMM (``csrc/gemm_land.cuh``: the split-K
+    FMA GEMM whose last K slice of a tile stores its f32 rows into the
+    owner's slot, an opening barrier and a data flag per rank) through the
+    C entry point ``symbol`` of ``csrc/<source>.cu`` (td_gemm_rs: a holds
+    n*m rows, rank d keeps rows [d*m, (d+1)*m)): checks, the K split, this
+    op's landing slots (n, m, N) f32 with their control block, the output
+    (m, N) and the f32 K-slice workspace. B4 across ranks and B13b land
+    the stream GEMM's tiles in one hop instead (``_launch_land``)."""
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise ValueError(f"{what}: a/b must share one dtype of "
                          f"{list(_DTYPE_CODE)}; got {a.dtype}/{b.dtype}")
@@ -345,3 +365,147 @@ def landing_launch(mesh, a, b, m: int, source: str, symbol: str,
                  build.stream_of(a))
     build.check(err, what)
     return out
+
+
+# B4's protocol: LL lines (the epoch in every 16-byte line, no fence, no
+# flag, twice the bytes) while a slot (one sender's m rows of N f32, which
+# every rank receives from every sender) holds at most this many bytes,
+# flags above. Four H100s (NVIDIA H100 80GB HBM3, 700.00 W;
+# chip_compare.py --ar --sweep, the slowest rank, Qwen3-32B's o, K 2,048,
+# N 5,120 bf16), LL against flags at 4 / 8 / 16 / 32 / 64 rows (80 KiB -
+# 1.25 MiB a slot): 0.0159 / 0.0210 / 0.0290 / 0.0432 / 0.0791 ms
+# against 0.0219 / 0.0240 / 0.0295 / 0.0346 / 0.0602.
+AR_LL_MAX_SLOT_BYTES = 320 * 1024
+_F32_TILE = 32 * 4     # gemm_splitk.cuh's f32 column tile (32 lanes x 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class LandPlan:
+    """What a launch of the one-hop landing GEMM (csrc/gemm_land_stream.cuh:
+    B13b, B4 across ranks) passes besides its tensors, the same on every
+    rank of a world. rows: the product's rows (B13b world * m, B4 m); m:
+    the rows a rank keeps (B13b its chunk, B4 all). rg: rows a landing
+    group, the GEMM's row tile (bf16: the stream kernel's M group, 8 up to
+    8 rows, else 16; f32: gemm_splitk.cuh's row tile, 1, 2, 4 or 8). grid:
+    blocks, at most one an SM per rank that shares the card. ll: LL lines
+    or flags. slot_bytes: one sender's m rows on a rank that keeps them;
+    slot (P, s) of parity P and sender s at byte (P world + s) slot_bytes.
+    flag_off: the flags, u64 (world, groups, quarters) (none under LL).
+    nbytes: the symmetric buffer. ctl_words: the control block after its
+    header: an epoch word a block, then bf16: the stream kernel's tickets
+    (4 int32 a block), f32: a counter per tile. part_floats: the per-call
+    f32 workspace. k_chunk, splits: the f32 K split (0 in bf16). whole:
+    bf16 at many M groups (prefill): block b takes whole tiles b, b +
+    grid, ... column-tile major instead of the stream-K cut (the C
+    launcher's rule)."""
+    rows: int
+    m: int
+    n: int
+    rg: int
+    grid: int
+    ll: bool
+    slot_bytes: int
+    flag_off: int
+    nbytes: int
+    ctl_words: int
+    part_floats: int
+    k_chunk: int
+    splits: int
+    whole: bool = False
+
+    @property
+    def groups(self) -> int:
+        return -(-self.rows // self.rg)
+
+    @property
+    def quarters(self) -> int:
+        return -(-self.n // 32)
+
+
+def _f32_row_tile(rows: int) -> int:
+    return 1 if rows == 1 else 2 if rows == 2 else 4 if rows <= 4 else 8
+
+
+def land_layout(world: int, rows: int, m: int, k: int, n: int, bf16: bool,
+                sm_count: int, ranks_per_device: int, ll: bool) -> LandPlan:
+    """The one-hop landing GEMM's plan for a product of ``rows`` rows,
+    K x N, whose ranks keep m rows each, under the protocol ``ll``."""
+    sms = max(1, sm_count // ranks_per_device)
+    whole = False
+    if bf16:
+        sp = stream_plan(rows, k, n, sms)
+        rg, grid, part = sp.mg, sp.grid, sp.ws_floats
+        after, k_chunk, splits = 2 * grid, 0, 0
+        tiles = sp.n_mg * sp.n_tiles
+        whole = tiles > sp.n_tiles and tiles >= 4 * grid
+    else:
+        rg = _f32_row_tile(rows)
+        k_chunk, splits = split_plan(rows, k, n, 4, sm_count)
+        tiles = -(-rows // rg) * -(-n // _F32_TILE)
+        grid = min(tiles * splits, sms)
+        after, part = tiles, splits * rows * n
+    slot_bytes = m * n * 4 * (2 if ll else 1)
+    data = 2 * world * slot_bytes
+    flag_off = -(-data // _ALIGN) * _ALIGN
+    flags = 0 if ll else 8 * world * -(-rows // rg) * -(-n // 32)
+    return LandPlan(rows, m, n, rg, grid, ll, slot_bytes, flag_off,
+                    flag_off + flags, grid + after, part, k_chunk, splits,
+                    whole)
+
+
+def ar_layout(world: int, m: int, k: int, n: int, bf16: bool,
+              sm_count: int, ranks_per_device: int, ll: bool) -> LandPlan:
+    """B4's plan across ranks at m rows, K x N, under the protocol ``ll``:
+    every rank keeps all m rows."""
+    return land_layout(world, m, m, k, n, bf16, sm_count, ranks_per_device,
+                       ll)
+
+
+@functools.lru_cache(maxsize=None)
+def ar_plan(world: int, m: int, k: int, n: int, itemsize: int,
+            sm_count: int, ranks_per_device: int) -> LandPlan:
+    """B4's plan across ranks for a (m, K) against W (K, N) (itemsize 2:
+    bf16, 4: f32): LL while a slot holds at most AR_LL_MAX_SLOT_BYTES.
+    The o and down projections at one decode batch get the same plan
+    (their K tiles outnumber the blocks either way), and so one
+    workspace."""
+    return ar_layout(world, m, k, n, itemsize == 2, sm_count,
+                     ranks_per_device, m * n * 4 <= AR_LL_MAX_SLOT_BYTES)
+
+
+def _launch_land(mesh, a: torch.Tensor, b: torch.Tensor, plan: LandPlan,
+                 source: str, symbol: str, what: str) -> torch.Tensor:
+    """The one-hop landing GEMM's launch through the C entry point
+    ``symbol`` of ``csrc/<source>.cu`` (B4's td_gemm_ar_tp, B13b's
+    td_gemm_rs_bidir) under a given plan (the protocol sweeps force one
+    through ``ar_layout`` / ``bidir_layout``). The plan's symmetric buffer
+    is made at its first call (a collective allocation; never under
+    capture): a workspace per (op, dtype, plan)."""
+    ws = op_workspace(mesh, (symbol, a.dtype, plan), (plan.nbytes,),
+                      torch.uint8, ctl_words=plan.ctl_words)
+    out = torch.empty((plan.m, plan.n), dtype=a.dtype, device=a.device)
+    part = torch.empty((plan.part_floats,), dtype=torch.float32,
+                       device=a.device)
+    fn = build.function(source, symbol, (
+        *(ctypes.c_void_p,) * 4, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, *(ctypes.c_int,) * 5,
+        ctypes.c_longlong, ctypes.c_longlong, *(ctypes.c_int,) * 5,
+        ctypes.c_void_p))
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), mesh.rank, mesh.world,
+                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), plan.m,
+                 a.shape[1], plan.n, plan.rg, int(plan.ll), plan.slot_bytes,
+                 plan.flag_off, plan.grid, plan.k_chunk, plan.splits,
+                 mesh.ranks_per_device, _DTYPE_CODE[a.dtype],
+                 build.stream_of(a))
+    build.check(err, what)
+    return out
+
+
+def _launch_ar(mesh, a: torch.Tensor, b: torch.Tensor,
+               plan: LandPlan) -> torch.Tensor:
+    """B4's launch across ranks under a given plan (the protocol checks
+    and sweep force one through ``ar_layout``)."""
+    return _launch_land(mesh, a, b, plan, "gemm_ar", "td_gemm_ar_tp",
+                        "pallas_gemm_ar")

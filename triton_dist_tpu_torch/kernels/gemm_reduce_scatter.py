@@ -46,7 +46,6 @@ n == 1 path runs ``_pallas_matmul``).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import enum
 import functools
@@ -58,16 +57,12 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _peer, check_mesh, check_not_2d, matmul_ref, pallas_matmul,
 )
 from triton_dist_tpu_torch.kernels.gemm_allreduce import (
-    _DTYPE_CODE, landing_launch, split_plan, stream_plan,
+    _DTYPE_CODE, LandPlan, _launch_land, land_layout, landing_launch,
 )
 from triton_dist_tpu_torch.kernels.plain import (
     all_gather_list, bidir_rs_fold, dot_f32,
 )
-from triton_dist_tpu_torch.runtime import build
 from triton_dist_tpu_torch.runtime.mesh import comm_axis_size
-from triton_dist_tpu_torch.runtime.symm import op_workspace
-
-_ALIGN = 256
 
 
 class GemmRsMethod(enum.Enum):
@@ -258,84 +253,20 @@ pallas_gemm_rs.launches = 0
 # 0.0291 / 0.0471 / 0.0670; larger slots not measured (the prefill's 40
 # MiB take flags).
 RS_LL_MAX_SLOT_BYTES = 640 * 1024
-_F32_TILE = 32 * 4     # gemm_splitk.cuh's f32 column tile (32 lanes x 4)
-
-
-@dataclasses.dataclass(frozen=True)
-class BidirPlan:
-    """What a launch of B13b passes besides its tensors, the same on every
-    rank of a world. rows: world * m, the product's rows. rg: rows a
-    landing group, the GEMM's row tile (bf16: the stream kernel's M group,
-    8 up to 8 rows, else 16; f32: gemm_splitk.cuh's row tile, 1, 2, 4 or
-    8). grid: blocks, at most one an SM per rank that shares the card. ll:
-    LL lines or flags. slot_bytes: one sender's m rows on an owner; slot
-    (P, s) of parity P and sender s at byte (P world + s) slot_bytes.
-    flag_off: the flags, u64 (world, groups, quarters) (none under LL).
-    nbytes: the symmetric buffer. ctl_words: the control block after its
-    header: an epoch word a block, then bf16: the stream kernel's tickets
-    (4 int32 a block), f32: a counter per tile. part_floats: the per-call
-    f32 workspace. k_chunk, splits: the f32 K split (0 in bf16). whole:
-    bf16 at many M groups (prefill): block b takes whole tiles b, b +
-    grid, ... column-tile major instead of the stream-K cut (the C
-    launcher's rule)."""
-    rows: int
-    m: int
-    n: int
-    rg: int
-    grid: int
-    ll: bool
-    slot_bytes: int
-    flag_off: int
-    nbytes: int
-    ctl_words: int
-    part_floats: int
-    k_chunk: int
-    splits: int
-    whole: bool = False
-
-    @property
-    def groups(self) -> int:
-        return -(-self.rows // self.rg)
-
-    @property
-    def quarters(self) -> int:
-        return -(-self.n // 32)
-
-
-def _f32_row_tile(rows: int) -> int:
-    return 1 if rows == 1 else 2 if rows == 2 else 4 if rows <= 4 else 8
 
 
 def bidir_layout(world: int, m: int, k: int, n: int, bf16: bool,
                  sm_count: int, ranks_per_device: int,
-                 ll: bool) -> BidirPlan:
-    """B13b's plan at m rows a chunk, K x N, under the protocol ``ll``."""
-    rows, sms = world * m, max(1, sm_count // ranks_per_device)
-    whole = False
-    if bf16:
-        sp = stream_plan(rows, k, n, sms)
-        rg, grid, part = sp.mg, sp.grid, sp.ws_floats
-        after, k_chunk, splits = 2 * grid, 0, 0
-        tiles = sp.n_mg * sp.n_tiles
-        whole = tiles > sp.n_tiles and tiles >= 4 * grid
-    else:
-        rg = _f32_row_tile(rows)
-        k_chunk, splits = split_plan(rows, k, n, 4, sm_count)
-        tiles = -(-rows // rg) * -(-n // _F32_TILE)
-        grid = min(tiles * splits, sms)
-        after, part = tiles, splits * rows * n
-    slot_bytes = m * n * 4 * (2 if ll else 1)
-    data = 2 * world * slot_bytes
-    flag_off = -(-data // _ALIGN) * _ALIGN
-    flags = 0 if ll else 8 * world * -(-rows // rg) * -(-n // 32)
-    return BidirPlan(rows, m, n, rg, grid, ll, slot_bytes, flag_off,
-                     flag_off + flags, grid + after, part, k_chunk, splits,
-                     whole)
+                 ll: bool) -> LandPlan:
+    """B13b's plan at m rows a chunk, K x N, under the protocol ``ll``:
+    ``land_layout`` of the world * m rows, each rank keeping its chunk."""
+    return land_layout(world, world * m, m, k, n, bf16, sm_count,
+                       ranks_per_device, ll)
 
 
 @functools.lru_cache(maxsize=None)
 def bidir_plan(world: int, m: int, k: int, n: int, itemsize: int,
-               sm_count: int, ranks_per_device: int) -> BidirPlan:
+               sm_count: int, ranks_per_device: int) -> LandPlan:
     """B13b's plan at m rows a chunk of A (world * m, K) against W (K, N)
     (itemsize 2: bf16, 4: f32): LL while a slot holds at most
     RS_LL_MAX_SLOT_BYTES."""
@@ -381,29 +312,11 @@ def pallas_gemm_rs_bidir(mesh, a: torch.Tensor,
 
 
 def _launch_bidir(mesh, a: torch.Tensor, b: torch.Tensor,
-                  plan: BidirPlan) -> torch.Tensor:
+                  plan: LandPlan) -> torch.Tensor:
     """pallas_gemm_rs_bidir's launch under a given plan (chip_smoke.py's
     protocol sweep forces one through ``bidir_layout``)."""
-    ws = op_workspace(mesh, ("gemm_rs_bidir", a.dtype, plan),
-                      (plan.nbytes,), torch.uint8, ctl_words=plan.ctl_words)
-    out = torch.empty((plan.m, plan.n), dtype=a.dtype, device=a.device)
-    part = torch.empty((plan.part_floats,), dtype=torch.float32,
-                       device=a.device)
-    fn = build.function("gemm_rs", "td_gemm_rs_bidir", (
-        *(ctypes.c_void_p,) * 4, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, *(ctypes.c_int,) * 5,
-        ctypes.c_longlong, ctypes.c_longlong, *(ctypes.c_int,) * 5,
-        ctypes.c_void_p))
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), part.data_ptr(),
-                 out.data_ptr(), mesh.rank, mesh.world,
-                 ws.buf.table.data_ptr(), ws.ctl.data_ptr(), plan.m,
-                 a.shape[1], plan.n, plan.rg, int(plan.ll), plan.slot_bytes,
-                 plan.flag_off, plan.grid, plan.k_chunk, plan.splits,
-                 mesh.ranks_per_device, _DTYPE_CODE[a.dtype],
-                 build.stream_of(a))
-    build.check(err, "pallas_gemm_rs_bidir")
-    return out
+    return _launch_land(mesh, a, b, plan, "gemm_rs", "td_gemm_rs_bidir",
+                        "pallas_gemm_rs_bidir")
 
 
 pallas_gemm_rs_bidir.launches = 0
