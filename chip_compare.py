@@ -3,12 +3,15 @@
 ``--gemm`` B4 at world 1 (gemm_ar) and B12 (pallas_matmul), or with
 ``--bidir`` B13b (pallas_gemm_rs_bidir), B17 and B18 on four cards, or
 with ``--ar`` B4 across ranks (pallas_gemm_ar) and B5
-(one_shot_all_reduce) on four cards, of one checkout of the port, with
-chip_smoke.py's timing methods, so that two checkouts can be compared in
-one call on the same card(s):
+(one_shot_all_reduce) on four cards, or with ``--paged`` B2
+(paged_flash_decode_partial), B19 and the ContinuousEngine's harvest
+by kernel, of one checkout of the port, with chip_smoke.py's timing
+methods, so that two checkouts can be compared in one call on the same
+card(s):
 
     python3 chip_compare.py [--root DIR]
-                            [--four | --gemm | --bidir | --ar] [--sweep]
+                            [--four | --gemm | --bidir | --ar | --paged]
+                            [--sweep]
 
 ``--root`` is the checkout whose ``triton_dist_tpu_torch`` is timed
 (default: the one beside this script; an older commit unpacked with
@@ -36,7 +39,23 @@ and cold (queued calls rotating over weight copies larger than twice
 the L2), beside torch.mm + NCCL all-reduce in the same states; B5 at 16
 and 512 rows of 5,120 bf16 (queued and in a graph of 20 calls) beside
 NCCL all-reduce and B6 (rhd_all_reduce) forced into its one-shot regime
-on the same x; the slowest rank. ``--sweep`` (a checkout with the plans'
+on the same x; the slowest rank. ``--paged``: B2 in bf16 at the static
+paged Engine's B=4 x 528 keys (Qwen3-8B's heads, a (4, 8) table of
+128-key pages; the host's microseconds to issue a call, eager, and in
+graphs of 20 calls warm and cold: the calls
+rotate over pool copies whose live pages exceed twice the L2), at the
+ContinuousEngine's Qwen3-8B batch (8 ragged rows of a 16-page table) and
+a TP=4 rank of Qwen3-32B (16 rows, Hq 16, Hkv 2), warm and cold, and at
+tp4_sp's paged decode on one card (B=4, Hq 64, Hkv 8, 256 pages a row:
+537 MB), each held against its plain version and beside its bound; B19
+at its two shapes (as the default mode); then Qwen3-8B (36 layers,
+random bf16 weights, seed 0) in the ContinuousEngine at its defaults
+(max_batch 8, page 128, K = 4) with eight requests decoding: one
+harvest's device time by kernel name under torch.profiler (the mean of 3
+harvests), B2's share of it, and the harvest's wall and replay ms by
+CUDA events; the static paged Engine's graph-replayed step by kernel
+and its step run eagerly (the host's wall ms a step, four rounds of
+eight steps). ``--sweep`` (a checkout with the plans'
 ``bidir_layout`` / ``a2a_layout``, or with ``--ar`` ``ar_layout`` and
 ``one_shot_plan``) adds each protocol forced at more rows, the sweep
 that sets RS_LL_MAX_SLOT_BYTES and A2A_LL_MAX_SLOT_BYTES (with
@@ -49,10 +68,12 @@ non-zero.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -78,6 +99,30 @@ def _import_port(root: str):
     return arm, fa, build, symm
 
 
+def b19_times(torch, fa, g) -> dict:
+    """B19 at B=4 over S_loc 32,768 and 4,096 of Qwen3-32B's heads, bf16:
+    ms a call eagerly and in a graph of 20 calls."""
+    out = {}
+    hq, hkv, d = cs.SP_HEADS
+    i32 = dict(dtype=torch.int32, device="cuda")
+    q = torch.randn((4, hq, d), generator=g, device="cuda").to(torch.bfloat16)
+    for s_loc in S_LOCS:
+        k = torch.randn((4, s_loc, hkv, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        v = torch.randn((4, s_loc, hkv, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        st = torch.tensor(3 * s_loc, **i32)
+        qp = torch.tensor(4 * s_loc - 1, **i32)
+
+        def call():
+            return fa.flash_decode_partial(q, k, v, st, qp)
+        out[f"b19_s_loc{s_loc}"] = {"ms": cs.time_ms(call),
+                                    "graph_ms": cs.graph_time_ms(call)}
+        del k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def one_card(torch, arm, fa, symm) -> dict:
     """B6 in the one-card world and B19, ms a call."""
     out = {}
@@ -99,205 +144,199 @@ def one_card(torch, arm, fa, symm) -> dict:
                                     "bitwise": ok}
     del world
     torch.cuda.empty_cache()
-    hq, hkv, d = cs.SP_HEADS
-    i32 = dict(dtype=torch.int32, device="cuda")
-    q = torch.randn((4, hq, d), generator=g, device="cuda").to(torch.bfloat16)
-    for s_loc in S_LOCS:
-        k = torch.randn((4, s_loc, hkv, d), generator=g, device="cuda").to(
-            torch.bfloat16)
-        v = torch.randn((4, s_loc, hkv, d), generator=g, device="cuda").to(
-            torch.bfloat16)
-        st = torch.tensor(3 * s_loc, **i32)
-        qp = torch.tensor(4 * s_loc - 1, **i32)
-
-        def call():
-            return fa.flash_decode_partial(q, k, v, st, qp)
-        out[f"b19_s_loc{s_loc}"] = {"ms": cs.time_ms(call),
-                                    "graph_ms": cs.graph_time_ms(call)}
-        del k, v
-        torch.cuda.empty_cache()
+    out.update(b19_times(torch, fa, g))
     return out
 
 
-def gemm(torch, ga, agm) -> dict:
-    """B4 (world 1) and B12 in bf16, ms a call, warm and cold, with
-    torch.mm in the same states."""
+# (case, B, Hq, Hkv, table width, lengths): B2's bf16 shapes on the paths
+PAGED_CASES = (
+    ("static_b4_528", 4, 32, 8, 8, [528] * 4),
+    ("continuous_8b_b8", 8, 32, 8, 16,
+     [1600, 0, 1, 128, 129, 777, 1536, 1023]),
+    ("continuous_tp4_rank_b16", 16, 16, 2, 16,
+     [2048] * 12 + [1, 0, 1000, 2047]),
+    ("tp4_sp_paged_one_card", 4, 64, 8, 256, [32768] * 4))
+
+
+def paged(torch, root: str) -> dict:
+    """--paged: B2's bf16 cases (PAGED_CASES), B19 (b19_times) and the
+    ContinuousEngine's harvest by kernel (harvest_by_kernel)."""
+    sys.path.insert(0, os.path.abspath(root))
+    from triton_dist_tpu_torch import models
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    pfd = importlib.import_module(
+        "triton_dist_tpu_torch.kernels.paged_flash_decode")
     out = {}
-    g = torch.Generator(device="cuda").manual_seed(53)
-    entry = {"b4": ga.gemm_ar, "b12": agm.pallas_matmul}
-    for which, name, k, n in GEMMS:
-        ws = cs.weight_copies(torch, g, k, n, torch.bfloat16)
-        for m in GEMM_ROWS:
-            a = torch.randn((m, k), generator=g, device="cuda").to(
-                torch.bfloat16)
-            fn = entry[which]
-            out[f"{which}_{name}_m{m}"] = {
-                "warm": cs.cold_graph_ms(torch, lambda w: fn(a, w), ws[:1]),
-                "cold": cs.cold_graph_ms(torch, lambda w: fn(a, w), ws),
-                "mm_warm": cs.cold_graph_ms(
-                    torch, lambda w: torch.mm(a, w), ws[:1]),
-                "mm_cold": cs.cold_graph_ms(
-                    torch, lambda w: torch.mm(a, w), ws),
-                "bound": cs.bound_ms(2 * (m * k + k * n + m * n),
-                                     2.0 * m * k * n)[0]}
-        del ws
+    g = torch.Generator(device="cuda").manual_seed(71)
+    ps, d = 128, 128
+    for case, b, hq, hkv, npg, lens in PAGED_CASES:
+        table = torch.randperm(b * npg, generator=g, device="cuda").reshape(
+            b, npg).to(torch.int32).contiguous()
+        q = torch.randn((b, hq, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        nbytes, flops = cs._b2_bytes(lens, hq, hkv, d, 2, npg, ps)
+        if nbytes < 2 * cs.L2_BYTES:
+            copies = cs._b2_pool_copies(torch, g, hkv, b * npg, ps, d,
+                                        nbytes)
+        else:                 # the live pages alone exceed twice the L2
+            copies = [tuple(torch.randn((hkv, b * npg, ps, d), generator=g,
+                                        device="cuda").to(torch.bfloat16)
+                            for _ in range(2))]
+
+        def call(w, q=q, table=table, lengths=lengths):
+            return pfd.paged_flash_decode_partial(q, w[0], w[1], table,
+                                                  lengths)
+        acc, _, l = call(copies[0])
+        racc, _, rl = pfd.paged_flash_decode_partial_ref(
+            q, *copies[0], table, lengths)
+        err = (acc / l.clamp_min(1e-30)[..., None]
+               - racc / rl.clamp_min(1e-30)[..., None]).abs().max().item()
+        rec = {"ok": err <= 2e-3, "max_abs_err": err,
+               "host_us": host_us(torch, lambda: call(copies[0])),
+               "ms": cs.time_ms(lambda: call(copies[0])),
+               "graph_ms": cs.graph_time_ms(lambda: call(copies[0])),
+               "bound_ms": cs.bound_ms(nbytes, flops)[0], "bytes": nbytes}
+        if nbytes < 2 * cs.L2_BYTES:
+            rec["cold_ms"] = cs.cold_graph_ms(torch, call, copies)
+        out[f"b2_{case}"] = rec
+        del copies, acc, racc
         torch.cuda.empty_cache()
+    out.update(b19_times(torch, fa, g))
+    out["harvest"] = harvest_by_kernel(torch, models)
     return out
 
 
-def four_cards(root: str, mode: str = "four") -> dict:
-    import multiprocessing as mp
-    import socket
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    procs = [ctx.Process(target=_rank, args=(r, port, root, queue, mode))
-             for r in range(cs.TP)]
-    for p in procs:
-        p.start()
-    per = {}
-    try:
-        while len(per) < cs.TP:
-            rank, res = queue.get(timeout=300)
-            if "error" in res:
-                raise RuntimeError(f"rank {rank}: {res['error']}")
-            per[rank] = res
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return _slowest(per)
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds a call of fn() takes to issue, over `calls`
+    calls with no synchronization between them (the device queue keeps
+    up where the kernel is shorter than its launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
-def _timer(torch, dist):
-    """timed(fn[, ws]): queued ms of fn() (or of fn(w), w rotating over ws)
-    with every rank in step; try_timed: the same, or why a yardstick
-    could not run."""
-    def timed(fn, ws=None):
-        fn() if ws is None else fn(ws[0])
+# kernel-name pieces of B2 (the Hopper kernel's source, the FMA body)
+B2_KERNEL_NAMES = ("PagedSrc", "paged_decode_kernel")
+
+
+def harvest_by_kernel(torch, models, harvests: int = 3) -> dict:
+    """Qwen3-8B (all 36 layers, random bf16 weights from seed 0) in the
+    ContinuousEngine at its defaults (max_batch 8, page 128, max_length
+    2,048, prefill chunk 512, K = 4, prefix cache) with eight requests
+    of the continuous phase's kind (seed 11, two sharing a prefix)
+    admitted and prefilled: `harvests` harvests of every row decoding
+    under torch.profiler, their device time by kernel name (ms a
+    harvest) and B2's share of it; before that, without the profiler,
+    as many harvests' host wall ms and device span (CUDA events around
+    them) a harvest. Then the static paged Engine's graph-replayed step
+    (B=4 x 512, page 128) under torch.profiler as chip_smoke.py's
+    profile phase takes it (4 steps), with B2's share."""
+    from torch.profiler import ProfilerActivity, profile
+    arch = models.QWEN3_ARCHS["Qwen/Qwen3-8B"]
+    params = models.init_random_params(
+        torch.Generator(device="cuda").manual_seed(0), arch, "cuda",
+        torch.bfloat16)
+    model = models.Qwen3(arch, max_length=2048, dtype=torch.bfloat16,
+                         device="cuda")
+    eng = models.ContinuousEngine(model, params, max_batch=8, page_size=128,
+                                  prefill_chunk=512, decode_steps=4,
+                                  prefix_cache=True)
+    for prompt, _ in cs._traffic(torch, arch.vocab_size, 8, 11,
+                                 n_shared=2):
+        eng.submit(prompt, max_new_tokens=256)
+    while eng.queue or any(r is None or r.prefilling for r in eng.slots):
+        eng.step()
+    for _ in range(2):                     # graph captured, warm
+        eng.step()
+    torch.cuda.synchronize()
+
+    def window():
+        chunks = eng.stats()["prefill_chunks"]
+        for _ in range(harvests):
+            eng.step()
         torch.cuda.synchronize()
-        dist.barrier()
-        ms = (cs.queued_ms(torch, fn)[0] if ws is None
-              else cs.queued_cold_ms(torch, fn, ws))
-        dist.barrier()
-        return ms
+        return eng.stats()["prefill_chunks"] == chunks
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    clean = window()
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / harvests
+    span_ms = ev[0].elapsed_time(ev[1]) / harvests
+    replays = eng.graph_replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        clean = window() and clean
+    replays = eng.graph_replays - replays
 
-    def try_timed(fn, ws=None):
-        try:
-            return timed(fn, ws)
-        except Exception as exc:     # a yardstick only
-            dist.barrier()
-            return f"{type(exc).__name__}: {str(exc)[:200]}"
-    return timed, try_timed
-
-
-def _bidir_rank(mesh, root, sweep):
-    """--bidir on this rank: {key: {"ms", ... , "ok"}}."""
-    import torch
-    import torch.distributed as dist
-    from torch.distributed import _symmetric_memory as symm_mem
-    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
-    from triton_dist_tpu_torch.kernels import low_latency_all_to_all as ll
-    from triton_dist_tpu_torch.kernels import plain
-    if hasattr(symm_mem, "enable_symm_mem_for_group"):
-        symm_mem.enable_symm_mem_for_group(mesh.group.group_name)
-    tp, bf, dev = cs.TP, torch.bfloat16, mesh.device
-    g = torch.Generator(device=dev).manual_seed(60 + mesh.rank)
-    res = {}
-    timed, try_timed = _timer(torch, dist)
-
-    def held(out, ref, tol=1e-2):
-        return cs._held(torch, "", out, ref, tol)["ok"]
-
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for name, k in (("o", 2048), ("down", 6400)):
-        for m in (4, 2048):
-            a = torch.randn((tp * m, k), generator=g, device=dev).to(bf)
-            b = (torch.randn((k, 5120), generator=g, device=dev)
-                 * k ** -0.5).to(bf)
-
-            def mm_rs(w, a=a, m=m):
-                part = torch.mm(a, w)
-                y = part.new_empty((m, 5120))
-                dist.reduce_scatter_tensor(y, part, group=mesh.group)
-                return y
-
-            def fused(w, a=a):
-                return symm_mem._fused_matmul_reduce_scatter(
-                    a, w, "sum", scatter_dim=0,
-                    group_name=mesh.group.group_name)
-            rec = {"ok": held(grs.pallas_gemm_rs_bidir(mesh, a, b),
-                              grs.gemm_rs_bidir_ref(mesh, a, b)),
-                   "ms": timed(lambda: grs.pallas_gemm_rs_bidir(mesh, a, b)),
-                   "fused_mm_rs_ms": try_timed(lambda: fused(b)),
-                   "mm_nccl_rs_ms": timed(lambda: mm_rs(b))}
-            if m == 4:
-                ws = cs.weight_copies(torch, g, k, 5120, bf)
-                rec["cold_ms"] = timed(
-                    lambda w: grs.pallas_gemm_rs_bidir(mesh, a, w), ws)
-                rec["fused_mm_rs_cold_ms"] = try_timed(fused, ws)
-                rec["mm_nccl_rs_cold_ms"] = timed(mm_rs, ws)
-                del ws
-            if sweep and m == 4 and name == "o":
-                for mm in (4, 8, 16, 32):
-                    am = torch.randn((tp * mm, k), generator=g,
-                                     device=dev).to(bf)
-                    for proto in (True, False):
-                        plan = grs.bidir_layout(tp, mm, k, 5120, True, sms,
-                                                mesh.ranks_per_device, proto)
-                        run = (lambda am=am, plan=plan:
-                               grs._launch_bidir(mesh, am, b, plan))
-                        res[f"sweep_b13b_o_m{mm}_"
-                            f"{'ll' if proto else 'flags'}"] = {
-                            "ok": held(run(),
-                                       grs.gemm_rs_bidir_ref(mesh, am, b)),
-                            "ms": timed(run),
-                            "slot_bytes": mm * 5120 * 4}
-            res[f"b13b_{name}_m{m}"] = rec
-            del a, b
-            torch.cuda.empty_cache()
-
-    def nccl(x):
-        y = torch.empty_like(x)
-        dist.all_to_all_single(y, x, group=mesh.group)
-        return y
-    for shp, mm in (("decode_m32", 32), ("chunk_m4096", 4096)):
-        x = torch.randn((tp, mm, 2048), generator=g, device=dev).to(bf)
-        res[f"b17_{shp}"] = {
-            "ok": cs._bitwise(ll.fast_all_to_all_per_device(mesh, x),
-                              plain.all_to_all_slots(mesh, x)),
-            "ms": timed(lambda: ll.fast_all_to_all_per_device(mesh, x)),
-            "nccl_ms": timed(lambda: nccl(x))}
-        q, s = ll.quantize_rows(x, torch.float8_e4m3fn)
-        s = ll.pack_scales(s)
-        rq, rs = ll.fast_all_to_all_q_per_device(mesh, q, s)
-        res[f"b18_{shp}"] = {
-            "ok": cs._bitwise(rq, plain.all_to_all_slots(mesh, q))
-            and cs._bitwise(rs, plain.all_to_all_slots(mesh, s)),
-            "ms": timed(lambda: ll.fast_all_to_all_q_per_device(mesh, q, s)),
-            "nccl_ms": timed(lambda: (nccl(q.view(torch.uint8)), nccl(s)))}
-        del x, q, s, rq, rs
-        torch.cuda.empty_cache()
-    if sweep:
-        for mm in (16, 32, 64, 128, 256):
-            x = torch.randn((tp, mm, 2048), generator=g, device=dev).to(bf)
-            per = sms // mesh.ranks_per_device
-            grids = {True: min(-(-mm * 256 // ll._NT), per),     # a2a_plan
-                     False: min(-(-tp * mm * 4096 // ll._BLOCK_BYTES),
-                                ll._BLOCKS_PER_SM * per)}
-            for proto in (True, False):
-                plan = ll.a2a_layout(tp, mm, 4096, 0, 0, grids[proto], proto)
-                run = (lambda x=x, plan=plan:
-                       ll._launch(mesh, x, None, plan)[0])
-                res[f"sweep_b17_m{mm}_{'ll' if proto else 'flags'}"] = {
-                    "ok": cs._bitwise(run(), plain.all_to_all_slots(mesh, x)),
-                    "ms": timed(run), "slot_bytes": mm * 4096,
-                    "grid": plan.grid}
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    ev_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in ev_dev) / 1e3 / harvests
+    by_name = sorted(([e.key[:120], dev_us(e) / 1e3 / harvests,
+                       e.count // harvests] for e in ev_dev),
+                     key=lambda r: -r[1])
+    b2_ms = sum(ms for name, ms, _ in by_name
+                if any(p in name for p in B2_KERNEL_NAMES))
+    rows = [r for r in eng.slots if r is not None]
+    res = {"ok": clean and replays == harvests, "harvests": harvests,
+           "rows_decoding": len(rows),
+           "row_lengths": [len(r.prompt) + len(r.out) for r in rows],
+           "wall_ms": wall_ms, "events_span_ms": span_ms,
+           "device_ms_by_profiler": total, "b2_ms": b2_ms,
+           "b2_share": b2_ms / total if total else None,
+           "by_kernel": by_name[:25]}
+    del eng, model
+    torch.cuda.empty_cache()
+    # the static paged Engine's step
+    model = models.Qwen3(arch, max_length=1024, dtype=torch.bfloat16,
+                         device="cuda")
+    engine = models.Engine(model, params, cache_mode="paged", page_size=128)
+    ids = torch.randint(0, arch.vocab_size, (4, 513), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+    engine.serve(ids[:, :512], gen_len=4)          # captures the step
+    _, step = cs._profile_engine(torch, engine, ids, 4)
+    b2_step = sum(ms for name, ms, _ in step["top"]
+                  if any(p in name for p in B2_KERNEL_NAMES))
+    res["paged_step"] = {**step, "b2_ms_in_top": b2_step,
+                         "b2_share": b2_step / step["device_ms"],
+                         "eager_step_ms": eager_paged_step(
+                             torch, model, params, ids)}
+    del engine, model, params
+    torch.cuda.empty_cache()
     return res
+
+
+def eager_paged_step(torch, model, params, ids, rounds: int = 4,
+                     steps: int = 8) -> list:
+    """The paged Engine's decode step run eagerly (Qwen3.inference on a
+    paged cache, no graph; B=4 prompts of 512, page 128), as chip_smoke.py's
+    paged_graph phase times it: after one warm step, `rounds` rounds of
+    `steps` steps, the host's wall ms a step in each round."""
+    cache = model.create_paged_kv_cache(4, page_size=128)
+    logits, _ = model.inference(params, cache, ids[:, :512])
+    tok = logits.argmax(-1).to(torch.int32)
+    model.inference(params, cache, tok[:, None])
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, _ = model.inference(params, cache, tok[:, None])
+            tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / steps)
+    return out
 
 
 # rows of x (B5) and of A (B4's o) in --ar --sweep: 4-64 rows of 5,120
@@ -569,6 +608,7 @@ def main() -> None:
     mode.add_argument("--gemm", action="store_true")
     mode.add_argument("--bidir", action="store_true")
     mode.add_argument("--ar", action="store_true")
+    mode.add_argument("--paged", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--split", action="store_true",
                     help="with --ar: only the stamped split of B5's "
@@ -594,6 +634,8 @@ def main() -> None:
         rec.update(four_cards(args.root, "split:" + _split_library(build)))
     elif args.ar:
         rec.update(four_cards(args.root, "ar_sweep" if args.sweep else "ar"))
+    elif args.paged:
+        rec.update(paged(torch, args.root))
     elif args.gemm:
         from triton_dist_tpu_torch.kernels import allgather_gemm as agm
         from triton_dist_tpu_torch.kernels import gemm_allreduce as ga

@@ -127,17 +127,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def warm_side_stream(torch, fn):
+    """A side stream on which fn() has run once: a capture on it keeps the
+    workspaces that kernels keep per stream (B2's), made by that call, as
+    the engines capture their steps on their warm-up stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    return side
+
+
 def graph_time_ms(fn, iters: int = 20) -> float:
     """Device time per call of fn(): `iters` calls captured in one CUDA
-    graph (after a warm-up call), the graph replayed under CUDA events.
-    For kernels shorter than the host's launch cost, which back-to-back
-    eager calls would time instead; it is also how the dense decode step
-    runs them."""
+    graph (after a warm-up call on the capturing stream), the graph
+    replayed under CUDA events. For kernels shorter than the host's launch
+    cost, which back-to-back eager calls would time instead; it is also
+    how the dense decode step runs them."""
     import torch
-    fn()
-    torch.cuda.synchronize()
+    side = warm_side_stream(torch, fn)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -170,10 +181,9 @@ def cold_graph_ms(torch, fn, ws: list, rounds: int = 6) -> float:
     replayed under CUDA events after a warm-up replay. With one w it is
     graph_time_ms: the weights stay in L2 (warm)."""
     iters = max(20, rounds * len(ws))
-    fn(ws[0])
-    torch.cuda.synchronize()
+    side = warm_side_stream(torch, lambda: fn(ws[0]))
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(ws[i % len(ws)])
     graph.replay()
@@ -304,21 +314,72 @@ def phase_b1(torch, fa):
 
 # -- B2: paged flash decode --------------------------------------------------
 
+# what B2's bf16 form runs on (csrc/paged_flash_decode.cu on
+# csrc/decode_tile_sm90.cuh, shared with B19)
+B2_INSTRUCTIONS = ("bf16: mma.sync m16n8k16 bf16->f32 (QK^T and P.V, the g "
+                   "heads padded to 16 rows), 64-key K/V tiles by TMA from "
+                   "the pool's pages through a 4-stage mbarrier ring, a "
+                   "grid of page splits from paged_plan, the splits merged "
+                   "in the launch by a ticket; f32 / int8: FMA")
+
+
+def _b2_bytes(lengths, hq, hkv, d, kv_bytes, np_table, ps=128,
+              scales=False):
+    """(bytes, flops) one B2 call needs: each live key and value row read
+    once (with its f32 row scale for int8 pools), q, the table, the
+    lengths, the f32 outputs written once."""
+    tokens = sum(min(max(n, 0), np_table * ps) for n in lengths)
+    row = d * kv_bytes + (4 if scales else 0)
+    b = len(lengths)
+    nbytes = (2 * tokens * hkv * row + b * hq * d * 2 + b * np_table * 4
+              + b * 4 + (b * hq * d + 2 * b * hq) * 4)
+    return nbytes, 4.0 * hq * d * tokens
+
+
+def _b2_pool_copies(torch, g, hkv, pages, ps, d, live_bytes):
+    """(k, v) bf16 pool pairs, enough that the live bytes of the calls
+    that rotate over them exceed twice the L2 (at least two): a graph of
+    calls finds each call's pages out of L2, as a model's step finds each
+    layer's."""
+    count = max(2, -(-2 * L2_BYTES // max(live_bytes, 1)) + 1)
+    return [tuple(torch.randn((hkv, pages, ps, d), generator=g,
+                              device=DEV).to(torch.bfloat16)
+                  for _ in range(2)) for _ in range(count)]
+
+
 def phase_b2(torch, pfd, codec):
     """Kernel vs plain version at B=4, Hq=32, Hkv=8, D=128, page 128, a
     shuffled table with garbage in dead slots, ragged lengths with 0, 1 and
-    a page boundary; bf16 and int8 pools. Then the ContinuousEngine's
-    shapes (bf16, page 128, 16-page rows of max_length 2048): Qwen3-8B at
-    max_batch 8 (Hq 32, Hkv 8, ragged lengths up to 1600) and one rank of
-    Qwen3-32B at TP=4, max_batch 16 (Hq 16, Hkv 2: a GQA group of 8, rows
-    of 2048 tokens and four ragged ones). Compared on the normalized
-    output acc/l and on m and l. Tolerance 2e-3 absolute on acc/l (P is
-    rounded to bf16 at the same points in both; f32 summation order
-    otherwise), 1e-4 relative on m and l."""
+    a page boundary, NaN in four unused pages and in the rows past the
+    length of each row's last live page (K and V); bf16, f32 and int8
+    pools (the f32 and int8 forms are the FMA body). The bf16 kernel's
+    page sizes under a tile (8, 16, 32; _b2_small_pages) likewise; its
+    addressing at every edge of tiles, pages and splits with every score
+    0 (_b2_uniform_scores: 1e-5, no rounding of P to blur a key); and
+    four ranks of a one-card world launching at once, eagerly and in
+    per-rank graphs (_b2_concurrent), and a graph captured where no
+    workspace was made (_b2_graph_own_scratch). Then the
+    ContinuousEngine's shapes (bf16, page 128, 16-page rows of max_length
+    2048): Qwen3-8B at max_batch 8 (Hq 32, Hkv 8, ragged lengths up to
+    1600) and one rank of Qwen3-32B at TP=4, max_batch 16 (Hq 16, Hkv 2: a
+    GQA group of 8, rows of 2048 tokens and four ragged ones), and
+    tp4_sp's paged decode on one card (B=4, Qwen3-32B's Hq 64, Hkv 8,
+    32,768 keys a row in 256 pages: 537 MB of pages). The 8B batch also
+    inside one captured CUDA graph replayed while its lengths advance on
+    the card (across pages and splits, an empty row starting). Compared
+    on the normalized output acc/l and on m and l. Tolerance 2e-3
+    absolute on acc/l (P is rounded to bf16 in both, against other
+    running maxima: the kernel's per warp and split; f32 summation order
+    otherwise), 1e-4 relative on m and l; an empty row must give m =
+    -1e30, l = 0, acc = 0 exactly. The bf16 kernel is timed eagerly and in
+    graphs of calls, warm (one pool: what fits stays in the L2) and cold
+    (the calls rotate over pool copies whose live pages exceed twice the
+    L2, as a model's layers do); each case beside its bound."""
     g = torch.Generator(device=DEV).manual_seed(2)
     b, hq, hkv, d, ps, npg = 4, 32, 8, 128, 128, 8
-    num_pages = b * npg
-    perm = torch.randperm(num_pages, generator=g, device=DEV)
+    spare = 4                                    # unused pages, NaN below
+    num_pages = b * npg + spare
+    perm = torch.randperm(b * npg, generator=g, device=DEV)
     table = perm.reshape(b, npg).to(torch.int32).contiguous()
     k16 = torch.randn((hkv, num_pages, ps, d), generator=g,
                       device=DEV).to(torch.bfloat16)
@@ -333,6 +394,14 @@ def phase_b2(torch, pfd, codec):
     dead = table.clone()
     dead[1] = torch.tensor([-7, 99, 5, 3, 1000, -1, 2, 0])   # len-0 row
     main_lens = torch.full((b,), 528, dtype=torch.int32, device=DEV)
+    # NaN garbage: the unused pages, and each ragged row's last live page
+    # past its length
+    k_nan, v_nan = k16.clone(), v16.clone()
+    for pool in (k_nan, v_nan):
+        pool[:, b * npg:] = float("nan")
+        for row, n in enumerate(check_lens.tolist()):
+            if n % ps:
+                pool[:, int(dead[row, n // ps]), n % ps:] = float("nan")
 
     def check(mode, case, q, kp, vp, tab, lens, kw):
         acc, m, l = pfd.paged_flash_decode_partial(q, kp, vp, tab, lens,
@@ -340,6 +409,12 @@ def phase_b2(torch, pfd, codec):
         racc, rm, rl = pfd.paged_flash_decode_partial_ref(
             q, kp, vp, tab, lens, **kw)
         torch.cuda.synchronize()
+        return held(mode, case, (acc, m, l), (racc, rm, rl), lens,
+                    [q.shape[0], q.shape[1], kp.shape[0], tab.shape[1]])
+
+    def held(mode, case, got, ref, lens, shape):
+        acc, m, l = got
+        racc, rm, rl = ref
         out = acc / l.clamp_min(1e-30)[..., None]
         rout = racc / rl.clamp_min(1e-30)[..., None]
         err = (out - rout).abs().max().item()
@@ -350,37 +425,57 @@ def phase_b2(torch, pfd, codec):
                         and (acc[empty] == 0).all())
         ok = (err <= 2e-3 and m_err <= 1e-4 and l_err <= 1e-4
               and empty_ok and bool(torch.isfinite(acc).all()))
-        return {"mode": mode, "case": case,
-                "shape": [q.shape[0], q.shape[1], kp.shape[0],
-                          tab.shape[1]],
+        return {"mode": mode, "case": case, "shape": shape,
                 "max_abs_err": err, "tol": 2e-3, "m_rel_err": m_err,
                 "l_rel_err": l_err, "ok": ok}
 
-    modes = {"bf16": (k16, v16, {}),
-             "int8": (k8, v8, {"k_scales": ks, "v_scales": vs})}
+    # mode: (ragged k / v pools, kwargs, q, main k / v pools)
+    modes = {"bf16": (k_nan, v_nan, {}, q, k16, v16),
+             "f32": (k_nan.float(), v_nan.float(), {}, q.float(),
+                     k16.float(), v16.float()),
+             "int8": (k8, v8, {"k_scales": ks, "v_scales": vs}, q, k8, v8)}
     rows, timed = [], {}
-    for mode, (kp, vp, kw) in modes.items():
-        for case, tab, lens in (("ragged", dead, check_lens),
-                                ("main", table, main_lens)):
-            rows.append(check(mode, case, q, kp, vp, tab, lens, kw))
+    for mode, (kr, vr, kw, qm, kp, vp) in modes.items():
+        rows.append(check(mode, "ragged_nan_garbage" if mode != "int8"
+                          else "ragged", qm, kr, vr, dead, check_lens, kw))
+        rows.append(check(mode, "main", qm, kp, vp, table, main_lens, kw))
         ms = time_ms(lambda: pfd.paged_flash_decode_partial(
-            q, kp, vp, table, main_lens, **kw), iters=50)
+            qm, kp, vp, table, main_lens, **kw), iters=50)
         plain_ms = time_ms(lambda: pfd.paged_flash_decode_partial_ref(
-            q, kp, vp, table, main_lens, **kw), iters=5)
-        tokens = int(main_lens.sum())
-        row_bytes = d * kp.element_size() + (4 if kw else 0)
-        nbytes = (2 * tokens * hkv * row_bytes + q.numel() * 2
-                  + table.numel() * 4 + b * 4 + (b * hq * d + 2 * b * hq) * 4)
-        flops = 4.0 * hq * d * tokens
-        bms, by = bound_ms(nbytes, flops)
+            qm, kp, vp, table, main_lens, **kw), iters=5)
+        nbytes, flops = _b2_bytes(main_lens.tolist(), hq, hkv, d,
+                                  kp.element_size(), npg, ps, bool(kw))
+        bms, by = bound_ms(nbytes, flops,
+                           F32_FLOPS if mode == "f32" else BF16_FLOPS)
         timed[mode] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                        "bound_by": by, "bytes": nbytes, "flops": flops}
-    for case, pb, phq, phkv, plens in (
-            ("continuous_8b_b8", 8, 32, 8,
+    del k_nan, v_nan, modes
+    # bf16 page sizes under a tile, and ranks launching at once
+    for sps, shq, shkv, sd in ((8, 32, 8, 128), (16, 32, 8, 128),
+                               (32, 32, 8, 128), (16, 16, 2, 64)):
+        rows.append(_b2_small_pages(torch, pfd, check, g, sps, shq, shkv,
+                                    sd))
+    rows.append(_b2_uniform_scores(torch, pfd, g))
+    rows.append(_b2_concurrent(torch, pfd, held, g))
+    rows.append(_b2_graph_own_scratch(torch, pfd, held, g))
+    main_call = (lambda w: pfd.paged_flash_decode_partial(
+        q, w[0], w[1], table, main_lens))
+    timed["bf16"]["graph_ms"] = graph_time_ms(lambda: main_call((k16, v16)))
+    copies = _b2_pool_copies(torch, g, hkv, num_pages, ps, d,
+                             timed["bf16"]["bytes"])
+    timed["bf16"]["cold_ms"] = cold_graph_ms(torch, main_call, copies)
+    del copies
+    torch.cuda.empty_cache()
+
+    # the continuous shapes (max_length 2048: 16 pages a row) and tp4_sp's
+    # paged decode on one card (32,768 keys a row: 256 pages)
+    cases = []
+    for case, pb, phq, phkv, pnp, plens in (
+            ("continuous_8b_b8", 8, 32, 8, 16,
              [1600, 0, 1, 128, 129, 777, 1536, 1023]),
-            ("continuous_tp4_rank_b16", 16, 16, 2,
-             [2048] * 12 + [1, 0, 1000, 2047])):
-        pnp = 16                                  # 2048 / page 128
+            ("continuous_tp4_rank_b16", 16, 16, 2, 16,
+             [2048] * 12 + [1, 0, 1000, 2047]),
+            ("tp4_sp_paged_one_card", 4, 64, 8, 256, [32768] * 4)):
         ptab = torch.randperm(pb * pnp, generator=g, device=DEV).reshape(
             pb, pnp).to(torch.int32).contiguous()
         pk = torch.randn((phkv, pb * pnp, ps, d), generator=g,
@@ -391,21 +486,284 @@ def phase_b2(torch, pfd, codec):
                          device=DEV).to(torch.bfloat16)
         plen = torch.tensor(plens, dtype=torch.int32, device=DEV)
         rows.append(check("bf16", case, pq, pk, pv, ptab, plen, {}))
+        nbytes, flops = _b2_bytes(plens, phq, phkv, d, 2, pnp, ps)
+        bms, by = bound_ms(nbytes, flops)
+        call = (lambda w, pq=pq, ptab=ptab, plen=plen:
+                pfd.paged_flash_decode_partial(pq, w[0], w[1], ptab, plen))
+        rec = {"case": case, "shape": [pb, phq, phkv, pnp],
+               "lengths": plens, "bytes": nbytes, "bound_ms": bms,
+               "bound_by": by,
+               "plan": vars(pfd.paged_plan(
+                   pb, phkv, pnp, ps, torch.cuda.get_device_properties(
+                       0).multi_processor_count)),
+               "ms": time_ms(lambda: call((pk, pv)), iters=20),
+               "graph_ms": graph_time_ms(lambda: call((pk, pv)))}
+        if nbytes < 2 * L2_BYTES:
+            copies = _b2_pool_copies(torch, g, phkv, pb * pnp, ps, d,
+                                     nbytes)
+            rec["cold_ms"] = cold_graph_ms(torch, call, copies)
+            del copies
+        if case == "continuous_8b_b8":
+            rows.append(_b2_graph_advance(torch, pfd, held, pq, pk, pv,
+                                          ptab, plens))
+        cases.append(rec)
         del pk, pv
+        torch.cuda.empty_cache()
     for mode in timed:
         timed[mode]["max_abs_err"] = max(r["max_abs_err"] for r in rows
                                          if r["mode"] == mode)
-    emit({"phase": "b2_paged_flash_decode", "cases": rows})
+    emit({"phase": "b2_paged_flash_decode", "cases": rows, "timed": cases})
     bad = [(r["mode"], r["case"]) for r in rows if not r["ok"]]
     if bad:
         fail(f"B2 disagrees with its plain version: {bad}")
-    # the main path's pools are full width (bf16); the int8-resident mode
-    # of the same kernel rides along as a sub-record
+    # the main path's pools are full width (bf16); the f32 and int8 forms
+    # (the FMA body) ride along as sub-records
     return {"name": "paged_flash_decode_partial", "route": "cuda",
             "source": "triton_dist_tpu_torch/csrc/paged_flash_decode.cu",
             "replaces": "triton_dist_tpu/kernels/paged_flash_decode.py:38",
+            "instructions": B2_INSTRUCTIONS,
             **timed["bf16"], "library_ms": None,
-            "shape": [b, hq, hkv, d, ps, 528], "int8": timed["int8"]}
+            "shape": [b, hq, hkv, d, ps, 528], "shapes": cases,
+            "f32": timed["f32"], "int8": timed["int8"]}
+
+
+def _b2_graph_advance(torch, pfd, held, q, kp, vp, table, lengths):
+    """B2 captured once in a CUDA graph over device lengths, replayed
+    while the lengths advance on the card between replays (the
+    ContinuousEngine's use): each replay against the plain version at the
+    lengths it ran with. The advances cross pages and splits; the empty
+    row stays empty for three replays, then starts. The graph is captured
+    on its warm-up stream, as the engines capture theirs, so it keeps that
+    stream's workspace (no scratch of its own is made under capture), and
+    the replays must leave its tickets zero."""
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    steps = [[0] * 8, [1, 0, 1, 1, 127, 1, 64, 1],
+             [1, 0, 126, 383, 1, 640, 0, 0], [447, 1, 1, 1, 1, 1, 448, 1]]
+    cap = table.shape[1] * kp.shape[2]
+    side = warm_side_stream(torch, lambda: pfd.paged_flash_decode_partial(
+        q, kp, vp, table, lens))
+    made = set(pfd._WORKSPACES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = pfd.paged_flash_decode_partial(q, kp, vp, table, lens)
+    kept = set(pfd._WORKSPACES) == made
+    tickets = [t for key, (_, t) in pfd._WORKSPACES.items()
+               if key[1] == side.cuda_stream]
+    worst, ok, seen = None, kept and len(tickets) == 1, []
+    for step in steps:
+        lens.add_(torch.tensor(step, dtype=torch.int32, device=DEV))
+        lens.clamp_(max=cap)
+        graph.replay()
+        ref = pfd.paged_flash_decode_partial_ref(q, kp, vp, table, lens)
+        torch.cuda.synchronize()
+        rec = held("bf16", "graph", got, ref, lens, [])
+        seen.append(lens.tolist())
+        ok = ok and rec["ok"]
+        if worst is None or rec["max_abs_err"] > worst["max_abs_err"]:
+            worst = rec
+    zero = all(int(t.abs().sum()) == 0 for t in tickets)
+    return {**worst, "case": "graph_lengths_advanced_on_card",
+            "shape": [q.shape[0], q.shape[1], kp.shape[0], table.shape[1]],
+            "replays": len(steps), "lengths": seen,
+            "stream_workspace_kept": kept, "tickets_left_zero": zero,
+            "ok": ok and zero}
+
+
+def _b2_graph_own_scratch(torch, pfd, held, g, replays: int = 3):
+    """B2 captured on a stream where no call ran before, at a shape no
+    other call has (B=3): no workspace exists, so the graph takes scratch
+    of its own (its tickets zeroed by a fill node each replay) and the
+    cache of workspaces must not grow under capture; each replay, the
+    lengths advanced on the card, against the plain version."""
+    b, hq, hkv, d, ps, npg = 3, 32, 8, 128, 128, 8
+    table = torch.randperm(b * npg, generator=g, device=DEV).reshape(
+        b, npg).to(torch.int32).contiguous()
+    kp, vp = (torch.randn((hkv, b * npg, ps, d), generator=g,
+                          device=DEV).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((b, hq, d), generator=g, device=DEV).to(torch.bfloat16)
+    lens = torch.tensor([700, 0, 129], dtype=torch.int32, device=DEV)
+    made = set(pfd._WORKSPACES)
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = pfd.paged_flash_decode_partial(q, kp, vp, table, lens)
+    kept = set(pfd._WORKSPACES) == made
+    rows = []
+    for _ in range(replays):
+        graph.replay()
+        ref = pfd.paged_flash_decode_partial_ref(q, kp, vp, table, lens)
+        torch.cuda.synchronize()
+        rows.append(held("bf16", "graph_own_scratch", got, ref, lens, []))
+        lens.add_(57).clamp_(max=npg * ps)
+    worst = max(rows, key=lambda rec: rec["max_abs_err"])
+    return {**worst, "shape": [b, hq, hkv, npg], "replays": replays,
+            "no_workspace_made_under_capture": kept,
+            "ok": kept and all(rec["ok"] for rec in rows)}
+
+
+def _b2_uniform_scores(torch, pfd, g):
+    """B2's addressing with no rounding slack: q = 0, so every score is 0
+    and every probability exactly 1 (in bf16 too); acc / l is the mean of
+    the row's live V rows, which the kernel and the plain version compute
+    alike up to f32 summation order (tolerance 1e-5 absolute, where a key
+    dropped or taken past the length moves the mean of unit-variance rows
+    by ~1/len: ~1e-3 at 1,000 keys), l must equal the row's keys and m 0
+    exactly (an empty row: -1e30, 0 and acc 0). Lengths at every edge: 0-4
+    keys, a tile and a page +-1 and their multiples, the plan's split
+    boundaries (2 pages of 128 at B=4, Hkv 8) and the full table, four rows
+    a launch, at pages of 128 keys and of 8, 16 and 32; shuffled tables
+    with out-of-range values in dead slots, NaN in every page no live slot
+    names and past each row's length."""
+    lens_all = [0, 1, 2, 3, 4, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                383, 384, 385, 511, 512, 513, 700, 17, 1023, 1024]
+    b, hq, hkv, d = 4, 32, 8, 128
+    worst, ok = 0.0, True
+    for ps in (128, 32, 16, 8):
+        npg = 1024 // ps
+        num_pages = b * npg + 4
+        for i in range(0, len(lens_all), b):
+            lens = lens_all[i:i + b]
+            table = torch.randperm(b * npg, generator=g, device=DEV).reshape(
+                b, npg).to(torch.int32)
+            kp, vp = (torch.randn((hkv, num_pages, ps, d), generator=g,
+                                  device=DEV).to(torch.bfloat16)
+                      for _ in range(2))
+            live = torch.zeros(num_pages, dtype=torch.bool, device=DEV)
+            for row, n in enumerate(lens):
+                used = -(-n // ps)
+                live[table[row, :used].long()] = True
+                table[row, used:] = torch.tensor(
+                    [(-7, num_pages, 10 ** 6, -1)[j % 4]
+                     for j in range(npg - used)], dtype=torch.int32)
+                if n % ps:
+                    for pool in (kp, vp):
+                        pool[:, int(table[row, n // ps]), n % ps:] = \
+                            float("nan")
+            for pool in (kp, vp):
+                pool[:, ~live] = float("nan")
+            table = table.contiguous()
+            q = torch.zeros((b, hq, d), dtype=torch.bfloat16, device=DEV)
+            lt = torch.tensor(lens, dtype=torch.int32, device=DEV)
+            acc, m, l = pfd.paged_flash_decode_partial(q, kp, vp, table, lt)
+            racc, _, rl = pfd.paged_flash_decode_partial_ref(q, kp, vp,
+                                                             table, lt)
+            torch.cuda.synchronize()
+            err = (acc / l.clamp_min(1e-30)[..., None]
+                   - racc / rl.clamp_min(1e-30)[..., None]).abs().max().item()
+            keys = lt.float()[:, None].expand_as(l)
+            empty = (lt == 0)[:, None].expand_as(l)
+            worst = max(worst, err)
+            ok = ok and err <= 1e-5 and bool(
+                torch.equal(l, keys)
+                and (m[~empty] == 0).all() and (m[empty] == -1e30).all()
+                and (acc[lt == 0] == 0).all() and torch.isfinite(acc).all())
+    return {"mode": "bf16", "case": "uniform_scores_every_edge",
+            "lengths": lens_all, "page_sizes": [128, 32, 16, 8],
+            "max_abs_err": worst, "tol": 1e-5, "ok": ok}
+
+
+def _b2_small_pages(torch, pfd, check, g, ps, hq, hkv, d):
+    """B2's bf16 kernel at a page size under a tile (8, 16 or 32: a tile
+    is 64 / ps TMA boxes, a box a page, boxes past the length not
+    issued): six ragged rows (543, 0, 5 ps + 1, ps - 1, ps and 1 keys) over
+    a shuffled table with out-of-range values in every dead slot, NaN in
+    every page no live slot names and in the rows past each row's length
+    of its last live page (K and V); against the plain version."""
+    lens = [543, 0, 5 * ps + 1, ps - 1, ps, 1]
+    b, npg = len(lens), 600 // ps + 4
+    num_pages = b * npg + 4
+    table = torch.randperm(b * npg, generator=g, device=DEV).reshape(
+        b, npg).to(torch.int32)
+    kp = torch.randn((hkv, num_pages, ps, d), generator=g,
+                     device=DEV).to(torch.bfloat16)
+    vp = torch.randn((hkv, num_pages, ps, d), generator=g,
+                     device=DEV).to(torch.bfloat16)
+    live = torch.zeros(num_pages, dtype=torch.bool, device=DEV)
+    for row, n in enumerate(lens):
+        used = -(-n // ps)
+        live[table[row, :used].long()] = True
+        table[row, used:] = torch.tensor(
+            [(-7, num_pages, 10 ** 6, -1)[i % 4] for i in range(npg - used)],
+            dtype=torch.int32)
+    for pool in (kp, vp):
+        pool[:, ~live] = float("nan")
+        for row, n in enumerate(lens):
+            if n % ps:
+                pool[:, int(table[row, n // ps]), n % ps:] = float("nan")
+    q = torch.randn((b, hq, d), generator=g, device=DEV).to(torch.bfloat16)
+    return check("bf16", f"ragged_nan_garbage_ps{ps}_hq{hq}_hkv{hkv}_d{d}",
+                 q, kp, vp, table.contiguous(),
+                 torch.tensor(lens, dtype=torch.int32, device=DEV), {})
+
+
+def _b2_concurrent(torch, pfd, held, g, ranks: int = 4, calls: int = 8,
+                   replays: int = 3):
+    """B2 on the four ranks of a one-card world at once, as phase
+    sp_layer's paged decode runs it: each rank its own q, pools, shuffled
+    table and ragged lengths (B=4, Hq 32, Hkv 8, 8-page rows: a plan of 4
+    splits of 2 pages; every row spans 2-4 live splits, so every (row, kv
+    head) merges on its ticket), `calls` calls a rank on the rank's
+    stream, eagerly and captured in a graph a rank (_world_graphs)
+    replayed `replays` times at once, the lengths advanced on the card
+    between replays. The ranks' launches overlap on the card; none may
+    count on another's ticket (the workspace is the stream's). Every
+    output must equal, bit for bit, the same rank's call made alone on
+    the same inputs (the kernel is deterministic: the splits merge in
+    ascending order whichever arrives last), and that call is held
+    against the plain version (held: 2e-3 on acc / l)."""
+    from triton_dist_tpu_torch.runtime import symm
+    world = symm.OneCardWorld(ranks)
+    b, hq, hkv, d, ps, npg = 4, 32, 8, 128, 128, 8
+    ins = []
+    for r in range(ranks):
+        table = torch.randperm(b * npg, generator=g, device=DEV).reshape(
+            b, npg).to(torch.int32).contiguous()
+        kp, vp = (torch.randn((hkv, b * npg, ps, d), generator=g,
+                              device=DEV).to(torch.bfloat16)
+                  for _ in range(2))
+        q = torch.randn((b, hq, d), generator=g, device=DEV).to(
+            torch.bfloat16)
+        lens = torch.tensor([1000 - 37 * r, 529 + r, 300 + 128 * r,
+                             700 + 5 * r], dtype=torch.int32, device=DEV)
+        ins.append((q, kp, vp, table, lens))
+
+    def fn(r):
+        return [pfd.paged_flash_decode_partial(*ins[r])
+                for _ in range(calls)]
+
+    def held_all(outs, case):
+        alone = [pfd.paged_flash_decode_partial(*x) for x in ins]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for r in range(ranks)
+                   for got in outs[r] for a, c in zip(got, alone[r]))
+        recs = []
+        for r, x in enumerate(ins):
+            ref = pfd.paged_flash_decode_partial_ref(*x)
+            rec = held("bf16", case, alone[r], ref, x[4], [])
+            acc, _, l = alone[r]
+            row = ((acc / l.clamp_min(1e-30)[..., None]
+                    - ref[0] / ref[2].clamp_min(1e-30)[..., None]).abs()
+                   .amax(dim=(1, 2)).argmax().item())
+            recs.append({**rec, "worst_row_keys": int(x[4][row])})
+        worst = max(recs, key=lambda rec: rec["max_abs_err"])
+        return {**worst, "bitwise_as_alone": same,
+                "ok": same and all(rec["ok"] for rec in recs)}
+
+    eager = world.run(fn)
+    torch.cuda.synchronize()
+    rows = [held_all(eager, "eager")]
+    outs, replay = _world_graphs(torch, world, fn)
+    for i in range(replays):
+        for x in ins:
+            x[4].add_(7 * i).clamp_(max=npg * ps)
+        replay()
+        rows.append(held_all(outs, f"graph_replay{i}"))
+    worst = max(rows, key=lambda rec: rec["max_abs_err"])
+    return {**worst, "case": f"world{ranks}_concurrent_eager_and_graphs",
+            "shape": [b, hq, hkv, npg], "calls_a_rank": calls,
+            "replays": replays,
+            "bitwise_as_alone": all(rec["bitwise_as_alone"] for rec in rows),
+            "ok": all(rec["ok"] for rec in rows)}
 
 
 # -- B1 in its decode form ---------------------------------------------------
@@ -1201,7 +1559,7 @@ def _profile_engine(torch, engine, ids, steps):
         top = sorted(ev, key=self_dev_us, reverse=True)[:8]
         return {"wall_ms": wall_s * 1e3 / per, "device_ms": dev_ms,
                 "idle_share": 1 - dev_ms / (wall_s * 1e3 / per),
-                "top": [[e.key[:90], self_dev_us(e) / 1e3 / per, e.count]
+                "top": [[e.key[:160], self_dev_us(e) / 1e3 / per, e.count]
                         for e in top]}
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -8487,8 +8845,9 @@ def run_earlier(torch, kern, models, mods, shared) -> list:
     b1_dec["launches"] = sum(decode.values())
     b1_dec["launches_by_path"] = decode
     b2["launches"] = paged["paged_flash_decode_partial"]
-    b2["int8"]["launches"] = 0          # not on a default path
-    b2["int8"]["library_ms"] = None
+    for form in ("int8", "f32"):        # not on a default path
+        b2[form]["launches"] = 0
+        b2[form]["library_ms"] = None
     for rec, key, dense_key in ((b3, "fused_add_rms", "fused_add_rms"),
                                 (b4, "gemm_ar", "gemm_ar")):
         rec["launches_by_path"] = {"dense": dense[dense_key],

@@ -36,21 +36,16 @@
 // scores scaled after Q.K, finite NEG_INF, probabilities rounded to bf16
 // before P.V when V is bf16, l summed before that rounding, f32
 // accumulators.
-//  * bf16 (the Hopper kernel, decode_tma_kernel): bytes bound it, so the
-//    design keeps HBM busy. The plan (kernels/flash_attention.py::
-//    decode_plan) gives about one block an SM, each split a long run of
-//    keys. One producer warp keeps STAGES 64-key K and V tiles in flight by
-//    TMA (4-D tensor maps over the strides the launcher passes, in the
-//    128-byte swizzle, through an mbarrier ring: attn_tile_sm90.cuh), up
-//    to 128 KB a block; four consumer warps each take 16 keys of every
-//    tile with their own online softmax and merge by exact LSE at the end
-//    of the split. QK^T and P.V run on the tensor cores (mma.sync
-//    m16n8k16, bf16 -> f32) with the g query heads of the kv head as the
-//    16-row side, padded with zero rows; P is reused from the QK^T
-//    accumulator as the A fragment of P.V (FA2's register layout), K read
-//    by ldmatrix, V by ldmatrix.trans. The padding costs tensor-core
-//    operations the card has to spare; B1's wgmma tile (64 rows) would pad
-//    8x more and needs a warpgroup a tile, so it was not taken;
+//  * bf16 (the Hopper kernel): bytes bound it, so the design keeps HBM
+//    busy. The plan (kernels/flash_attention.py::decode_plan) gives about
+//    one block an SM, each split a long run of keys; each block runs
+//    decode_tile_sm90.cuh's kernel (a producer warp keeping STAGES 64-key
+//    K and V tiles in flight by TMA, four consumer warps on mma.sync
+//    m16n8k16, shared with B2) over DenseSrc: 4-D tensor maps over the
+//    strides the launcher passes, the split's partial into its slot. The
+//    padding of the g heads to 16 rows costs tensor-core operations the
+//    card has to spare; B1's wgmma tile (64 rows) would pad 8x more and
+//    needs a warpgroup a tile, so it was not taken;
 //  * f32 (decode_split_kernel): the FMA body, unchanged by the bf16 form: block
 //    (split, kv head, batch) scores a key a thread against the g queries
 //    (its key row read straight from device memory in 16-byte loads, the
@@ -77,7 +72,7 @@
 
 #include <atomic>
 
-#include "attn_tile_sm90.cuh"
+#include "decode_tile_sm90.cuh"
 #include "td_common.cuh"
 #include "td_dist.cuh"
 
@@ -216,17 +211,12 @@ __global__ void __launch_bounds__(NT)
                         float* __restrict__ l_out, int rows, int d,
                         int splits) {
   const int r = blockIdx.x, c = threadIdx.x;
-  const long stride = static_cast<long>(rows) * (d + 2);
-  const float* pr = part + static_cast<long>(r) * (d + 2);
-  float m = td::NEG_INF;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, pr[s * stride + d]);
-  float a = 0.f, l = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float sc = expf(pr[s * stride + d] - m);
-    if (c < d) a = __fadd_rn(a, __fmul_rn(pr[s * stride + c], sc));
-    l = __fadd_rn(l, __fmul_rn(pr[s * stride + d + 1], sc));
-  }
-  if (c < d) acc[static_cast<long>(r) * d + c] = a;
+  if (c >= d) return;
+  float a, m, l;
+  td_decode::lse_fold<false>(part + static_cast<long>(r) * (d + 2),
+                             static_cast<long>(rows) * (d + 2), splits, d, c,
+                             a, m, l);
+  acc[static_cast<long>(r) * d + c] = a;
   if (c == 0) {
     m_out[r] = m;
     l_out[r] = l;
@@ -263,248 +253,72 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 
 namespace hop {
 
-namespace s9 = td::sm90;
-using bf16 = __nv_bfloat16;
+using namespace td_decode;
 
-constexpr int KT = 64;             // keys a tile
-constexpr int STAGES = 4;          // tiles in the ring
-constexpr int NCW = 4;             // consumer warps: warp w keys [16w, 16w+16)
-constexpr int NTH = NCW * 32 + 32; // and one producer warp
-constexpr int MAXG = 8;            // query heads of a kv head, at most
-constexpr int SLAB = KT * 64;      // bf16 of one 64-column slab of a tile
-
-struct DecodeArgs {
-  const bf16* q;
+// B19's source of tiles (decode_tile_sm90.cuh's Src): the dense shard by
+// 4-D maps, the split's partial into its slot of `part`.
+struct DenseSrc {
+  Heads heads;
   float* part;
-  int b_len, hq, hkv, s_loc;
+  int b_len, s_loc;
   const int* start_ptr;
   int start;
   const int* qpos_ptr;
   int qpos;
   int chunk;
-  float scale;
   int hs;  // the maps' dims: (d, h, s, b) if 1, (d, s, h, b) if 0
+
+  // this split's live keys: [k_lo, k_hi) of the shard, at or before q_pos
+  __device__ __forceinline__ Range range(int sp, int, int) const {
+    const int st = start_ptr != nullptr ? *start_ptr : start;
+    const int qp = qpos_ptr != nullptr ? *qpos_ptr : qpos;
+    const int k_lo = sp * chunk;
+    const long long horizon = static_cast<long long>(qp) - st + 1;
+    long long hi = k_lo + chunk < s_loc ? k_lo + chunk : s_loc;
+    if (horizon < hi) hi = horizon;
+    return {k_lo, hi > k_lo ? static_cast<int>(hi) : k_lo};
+  }
+  __device__ __forceinline__ bool skip(Range, int) const { return false; }
+  __device__ __forceinline__ void prologue(Range, int, int, int,
+                                           void*) const {}
+
+  template <int D>
+  __device__ __forceinline__ void load_tile(const CUtensorMap* tm_k,
+                                            const CUtensorMap* tm_v,
+                                            bf16* kd, bf16* vd,
+                                            uint64_t* bar, int s0, Range,
+                                            int hk, int b,
+                                            const void*) const {
+    constexpr int NH = D / 64;
+    s9::mbar_expect_tx(bar, 2 * NH * SLAB * sizeof(bf16));
+    const int c1 = hs ? hk : s0, c2 = hs ? s0 : hk;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      s9::tma_load_4d(kd + h * SLAB, tm_k, bar, 64 * h, c1, c2, b);
+      s9::tma_load_4d(vd + h * SLAB, tm_v, bar, 64 * h, c1, c2, b);
+    }
+  }
+
+  // the warps merged, into the split's partial rows
+  template <int D>
+  __device__ __forceinline__ void finish(const float* mrg, Range, int sp,
+                                         int hk, int b, void*) const {
+    const int g = heads.hq / heads.hkv;
+    float* const out =
+        part + ((static_cast<long>(sp) * b_len + b) * heads.hq + hk * g) *
+                   (D + 2);
+    for (int x = threadIdx.x; x < g * D; x += NCW * 32) {
+      const int r = x / D, c = x % D;
+      float acc, mx, l;
+      warp_merge<D>(mrg, r, c, acc, mx, l);
+      out[r * (D + 2) + c] = acc;
+      if (c == 0) {
+        out[r * (D + 2) + D] = mx;
+        out[r * (D + 2) + D + 1] = l;
+      }
+    }
+  }
 };
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return 1024 + size_t(STAGES) * 2 * (D / 64) * SLAB * sizeof(bf16) +
-         2 * STAGES * sizeof(uint64_t) +
-         size_t(NCW) * MAXG * (D + 2) * sizeof(float);
-}
-
-// D (16 x 8 f32) += A (16 x 16 bf16: rows 0-7 of the fragment, rows 8-15
-// zero) x B (16 x 8)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a2, uint32_t b0,
-                                         uint32_t b1) {
-  const uint32_t a[4] = {a0, 0u, a2, 0u};
-  s9::mma_m16n8k16(d, a, b0, b1);
-}
-
-// byte address of 16-byte chunk c (0..D/8) of tile row r in a tile of
-// 64-column slabs in the 128-byte swizzle
-template <int D>
-__device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
-  return base + (c >> 3) * SLAB * 2 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// Block (split, kv head, batch): the g query heads of kv head hk of batch
-// row b against keys [k_lo, k_hi) of the shard, written as the split's
-// partial (acc, m, l) rows.
-template <int D>
-__global__ void __launch_bounds__(NTH, 1)
-    decode_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v,
-                      const DecodeArgs a) {
-  constexpr int NH = D / 64;                       // slabs a row
-  constexpr uint32_t TILE_BYTES = NH * SLAB * sizeof(bf16);
-  extern __shared__ uint8_t smem_raw[];
-  bf16* const ks = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* const vs = ks + STAGES * NH * SLAB;        // [STAGES][NH][KT][64]
-  uint64_t* const full = reinterpret_cast<uint64_t*>(vs + STAGES * NH * SLAB);
-  uint64_t* const empty = full + STAGES;
-  float* const mrg = reinterpret_cast<float*>(empty + STAGES);
-
-  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int g = a.hq / a.hkv;
-  const int start = a.start_ptr != nullptr ? *a.start_ptr : a.start;
-  const int qpos = a.qpos_ptr != nullptr ? *a.qpos_ptr : a.qpos;
-  // this split's live keys: [k_lo, k_hi) of the shard
-  const int k_lo = sp * a.chunk;
-  const long long horizon = static_cast<long long>(qpos) - start + 1;
-  long long hi = k_lo + a.chunk < a.s_loc ? k_lo + a.chunk : a.s_loc;
-  if (horizon < hi) hi = horizon;  // keys at or before q_pos only
-  const int k_hi = hi > k_lo ? static_cast<int>(hi) : k_lo;
-  const int ntiles = (k_hi - k_lo + KT - 1) / KT;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < STAGES; ++st) {
-      s9::mbar_init(full + st, 1);
-      s9::mbar_init(empty + st, NCW * 32);
-    }
-    s9::mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == NCW) {
-    // producer: K and V tiles into the ring, slab by slab
-    if (lane == 0) {
-      for (int i = 0; i < ntiles; ++i) {
-        const int st = i % STAGES;
-        if (i >= STAGES) s9::mbar_wait(empty + st, ((i / STAGES) & 1) ^ 1);
-        s9::mbar_expect_tx(full + st, 2 * TILE_BYTES);
-        const int s0 = k_lo + i * KT;
-        const int c1 = a.hs ? hk : s0, c2 = a.hs ? s0 : hk;
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          s9::tma_load_4d(ks + (st * NH + h) * SLAB, &tm_k, full + st, 64 * h,
-                          c1, c2, b);
-          s9::tma_load_4d(vs + (st * NH + h) * SLAB, &tm_v, full + st, 64 * h,
-                          c1, c2, b);
-        }
-      }
-    }
-    return;
-  }
-
-  // consumer warp: query row `row` (a head of the group, rows >= g zero)
-  const int row = lane >> 2, cq = 2 * (lane & 3);
-  uint32_t qa[D / 16][2];
-  {
-    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
-        a.q + (static_cast<long>(b) * a.hq + hk * g + row) * D);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qa[kk][0] = row < g ? __ldg(qr + (16 * kk + cq) / 2) : 0u;
-      qa[kk][1] = row < g ? __ldg(qr + (16 * kk + 8 + cq) / 2) : 0u;
-    }
-  }
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) o[j][u] = 0.f;
-  float m_r = td::NEG_INF, l_r = 0.f;
-  const uint32_t ks_base = s9::smem_addr(ks), vs_base = s9::smem_addr(vs);
-  // this lane's ldmatrix rows: K (non-transposed) and V (transposed)
-  const int rk = 16 * warp + (lane & 7) + ((lane >> 4) << 3);
-  const int ck = (lane >> 3) & 1;
-  const int rv = 16 * warp + (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int cv = lane >> 4;
-
-  for (int i = 0; i < ntiles; ++i) {
-    const int st = i % STAGES;
-    s9::mbar_wait(full + st, (i / STAGES) & 1);
-    const int kw0 = k_lo + i * KT + 16 * warp;  // this warp's first key
-    if (kw0 < k_hi) {
-      const uint32_t kb = ks_base + st * NH * SLAB * 2;
-      const uint32_t vb = vs_base + st * NH * SLAB * 2;
-      if (kw0 + 16 > k_hi) {
-        // the group's value rows at or past k_hi: zeros (they may hold
-        // anything; their probabilities are 0)
-        bf16* vt = vs + st * NH * SLAB;
-        for (int x = lane; x < 16 * NH * 8; x += 32) {
-          const int r = x / (NH * 8), c = x % (NH * 8);
-          if (kw0 + r >= k_hi)
-            *reinterpret_cast<uint4*>(
-                reinterpret_cast<uint8_t*>(vt) +
-                (tile_addr<D>(0, 16 * warp + r, c))) =
-                make_uint4(0u, 0u, 0u, 0u);
-        }
-        __syncwarp();
-      }
-      // S = Q K^T over the group's 16 keys: two n-tiles of 8 keys
-      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bk[4];
-        s9::ldsm_x4(bk, tile_addr<D>(kb, rk, 2 * kk + ck));
-        mma_bf16(sc[0], qa[kk][0], qa[kk][1], bk[0], bk[1]);
-        mma_bf16(sc[1], qa[kk][0], qa[kk][1], bk[2], bk[3]);
-      }
-      // online softmax of row `row` over its 4 scores in this lane
-      float p[2][2], tmax = td::NEG_INF;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const bool valid = kw0 + 8 * nt + cq + u < k_hi;
-          sc[nt][u] = valid ? sc[nt][u] * a.scale : td::NEG_INF;
-          tmax = fmaxf(tmax, sc[nt][u]);
-        }
-      tmax = s9::quad_max(tmax);
-      const float m_new = fmaxf(m_r, tmax);
-      float psum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const bool valid = kw0 + 8 * nt + cq + u < k_hi;
-          p[nt][u] = valid ? expf(sc[nt][u] - m_new) : 0.f;
-          psum += p[nt][u];
-        }
-      const float alpha = expf(m_r - m_new);
-      l_r = l_r * alpha + s9::quad_sum(psum);
-      m_r = m_new;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= alpha;
-        o[j][1] *= alpha;
-      }
-      // P (rounded to bf16) as the A fragment of P.V
-      const uint32_t pa0 = s9::pack_bf16(p[0][0], p[0][1]);
-      const uint32_t pa2 = s9::pack_bf16(p[1][0], p[1][1]);
-#pragma unroll
-      for (int j2 = 0; j2 < D / 16; ++j2) {
-        uint32_t bv[4];
-        s9::ldsm_x4_t(bv, tile_addr<D>(vb, rv, 2 * j2 + cv));
-        mma_bf16(o[2 * j2], pa0, pa2, bv[0], bv[1]);
-        mma_bf16(o[2 * j2 + 1], pa0, pa2, bv[2], bv[3]);
-      }
-    }
-    s9::mbar_arrive(empty + st);
-  }
-
-  // merge the four warps' (acc, m, l) by exact LSE, warps in order
-  float* const mo = mrg + (warp * MAXG + row) * (D + 2);
-  if (row < g) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      mo[8 * j + cq] = o[j][0];
-      mo[8 * j + cq + 1] = o[j][1];
-    }
-    if ((lane & 3) == 0) {
-      mo[D] = m_r;
-      mo[D + 1] = l_r;
-    }
-  }
-  s9::named_sync(1, NCW * 32);
-  float* const out = a.part + ((static_cast<long>(sp) * a.b_len + b) * a.hq +
-                               hk * g) * (D + 2);
-  for (int x = threadIdx.x; x < g * D; x += NCW * 32) {
-    const int r = x / D, c = x % D;
-    float mx = td::NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NCW; ++w)
-      mx = fmaxf(mx, mrg[(w * MAXG + r) * (D + 2) + D]);
-    float acc = 0.f, l = 0.f;
-#pragma unroll
-    for (int w = 0; w < NCW; ++w) {
-      const float* mw = mrg + (w * MAXG + r) * (D + 2);
-      const float sc = expf(mw[D] - mx);
-      acc = __fadd_rn(acc, __fmul_rn(mw[c], sc));
-      l = __fadd_rn(l, __fmul_rn(mw[D + 1], sc));
-    }
-    out[r * (D + 2) + c] = acc;
-    if (c == 0) {
-      out[r * (D + 2) + D] = mx;
-      out[r * (D + 2) + D + 1] = l;
-    }
-  }
-}
 
 // The map of one dense bf16 shard, K or V: dims (d, h, s, b) or (d, s, h,
 // b), whichever keeps the strides ascending (hs), a box of one 64-column
@@ -530,13 +344,15 @@ bool shard_map(CUtensorMap* map, const void* base, int b, int s, int h,
 }
 
 template <int D>
-cudaError_t launch(const DecodeArgs& a, const void* k, const void* v,
+cudaError_t launch(const DenseSrc& a, const void* k, const void* v,
                    long sb, long sh, long sk, int splits, cudaStream_t st) {
   CUtensorMap tm_k, tm_v;
-  if (!shard_map(&tm_k, k, a.b_len, a.s_loc, a.hkv, D, sb, sh, sk, a.hs) ||
-      !shard_map(&tm_v, v, a.b_len, a.s_loc, a.hkv, D, sb, sh, sk, a.hs))
+  if (!shard_map(&tm_k, k, a.b_len, a.s_loc, a.heads.hkv, D, sb, sh, sk,
+                 a.hs) ||
+      !shard_map(&tm_v, v, a.b_len, a.s_loc, a.heads.hkv, D, sb, sh, sk,
+                 a.hs))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = ring_smem_bytes<D>();
   // the shared-memory attribute is set once per device (a bit per device)
   static std::atomic<uint64_t> smem_set{0};
   int dev = 0;
@@ -544,14 +360,14 @@ cudaError_t launch(const DecodeArgs& a, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (!(smem_set.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(decode_tma_kernel<D>,
+    err = cudaFuncSetAttribute(decode_tile_kernel<D, DenseSrc>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     smem_set.fetch_or(bit, std::memory_order_release);
   }
-  decode_tma_kernel<D><<<dim3(splits, a.hkv, a.b_len), NTH, smem, st>>>(
-      tm_k, tm_v, a);
+  decode_tile_kernel<D, DenseSrc>
+      <<<dim3(splits, a.heads.hkv, a.b_len), NTH, smem, st>>>(tm_k, tm_v, a);
   return cudaGetLastError();
 }
 
@@ -679,9 +495,9 @@ int td_flash_decode_partial(const void* q, const void* k, const void* v,
   err = cudaErrorInvalidValue;
   if (dtype == td::BF16 && (g == 1 || g == 2 || g == 4 || g == 8) &&
       (d == 64 || d == 128)) {
-    const hop::DecodeArgs a{static_cast<const __nv_bfloat16*>(q), pp, b, hq,
-                            hkv, s_loc, sp, start, qp, qpos, chunk, scale,
-                            sh <= sk ? 1 : 0};
+    const hop::DenseSrc a{
+        {static_cast<const __nv_bfloat16*>(q), hq, hkv, scale},
+        pp, b, s_loc, sp, start, qp, qpos, chunk, sh <= sk ? 1 : 0};
     err = d == 64 ? hop::launch<64>(a, k, v, sb, sh, sk, splits, st)
                   : hop::launch<128>(a, k, v, sb, sh, sk, splits, st);
   }

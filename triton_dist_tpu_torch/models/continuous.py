@@ -683,11 +683,11 @@ class ContinuousEngine:
             tokens, active, remaining = nxt, active & ~done, rem
 
     def _capture(self) -> None:
-        """Capture the decode program as a CUDA graph: one warm-up on a
-        side stream first with every row inactive (it builds and loads
-        every kernel and makes every symmetric buffer, none of which may
-        happen under capture), the cache's allocator state put back
-        after it."""
+        """Capture the decode program as a CUDA graph on a side stream:
+        one warm-up there first with every row inactive (it builds and
+        loads every kernel and makes every symmetric buffer and the
+        stream's kernel workspaces, none of which may happen under
+        capture), the cache's allocator state put back after it."""
         dev = self.model.device
         self._in.zero_()
         self._in[3].fill_(-1)
@@ -701,7 +701,7 @@ class ContinuousEngine:
         restore_cache_state(self.cache, saved)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             self._decode_program()
         after = launch_counts()
         self._differs.copy_(differs)

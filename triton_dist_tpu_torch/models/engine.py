@@ -183,9 +183,10 @@ class Engine:
         return logits
 
     def _build_decode_step(self) -> None:
-        """Capture the decode step as a CUDA graph: static token and cache
-        buffers; one warm-up on a side stream first (it builds and loads
-        every kernel, which must not happen under capture), its cache
+        """Capture the decode step as a CUDA graph on a side stream: static
+        token and cache buffers; one warm-up there first (it builds and
+        loads every kernel and makes the stream's kernel workspaces, which
+        must not happen under capture), its cache
         update undone afterwards (the offset, or the paged allocator's
         state; its K/V write lands where the first replay writes
         again)."""
@@ -202,7 +203,7 @@ class Engine:
         restore_cache_state(cache, saved)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             self._logits_buf = self._forward(self._tok_buf[:, None])
         after = launch_counts()
         self.graph_launches = {k: after[k] - before[k] for k in after}
