@@ -5,12 +5,14 @@
 with ``--ar`` B4 across ranks (pallas_gemm_ar) and B5
 (one_shot_all_reduce) on four cards, or with ``--paged`` B2
 (paged_flash_decode_partial), B19 and the ContinuousEngine's harvest
-by kernel, of one checkout of the port, with chip_smoke.py's timing
+by kernel, or with ``--sp`` / ``--sp4`` the sequence-parallel kernels on
+one card / four, of one checkout of the port, with chip_smoke.py's timing
 methods, so that two checkouts can be compared in one call on the same
 card(s):
 
     python3 chip_compare.py [--root DIR]
-                            [--four | --gemm | --bidir | --ar | --paged]
+                            [--four | --gemm | --bidir | --ar | --paged |
+                             --sp | --sp4]
                             [--sweep]
 
 ``--root`` is the checkout whose ``triton_dist_tpu_torch`` is timed
@@ -55,7 +57,18 @@ harvest's device time by kernel name under torch.profiler (the mean of 3
 harvests), B2's share of it, and the harvest's wall and replay ms by
 CUDA events; the static paged Engine's graph-replayed step by kernel
 and its step run eagerly (the host's wall ms a step, four rounds of
-eight steps). ``--sweep`` (a checkout with the plans'
+eight steps). ``--sp``: B21 (pallas_ring_attn_per_device) in the one-card
+world at 8,192 tokens of Qwen3-32B's heads (chip_smoke's b21_ring_attn:
+every case held, the four ranks' calls queued, beside its plain version,
+torch.cat + SDPA and B1's prefill form on the same work), B1's prefill,
+T=1, continuation, fold and varlen forms (chip_smoke's phases), B19, B2's
+cases as ``--paged`` times them, and B20 in the one-card world; the
+ptxas report of flash_prefill and sp_attention (kept beside each
+library, so a cached build reports it too). ``--sp4``: chip_smoke's
+tp4_sp on four cards, one process a card (every SP tier's 32,768-token
+prefill, the decode steps' graph replays, each kernel at the paths'
+shapes against its plain version and NCCL yardsticks), the slowest rank.
+``--sweep`` (a checkout with the plans'
 ``bidir_layout`` / ``a2a_layout``, or with ``--ar`` ``ar_layout`` and
 ``one_shot_plan``) adds each protocol forced at more rows, the sweep
 that sets RS_LL_MAX_SLOT_BYTES and A2A_LL_MAX_SLOT_BYTES (with
@@ -97,6 +110,19 @@ def _import_port(root: str):
     from triton_dist_tpu_torch.kernels import flash_attention as fa
     from triton_dist_tpu_torch.runtime import build, symm
     return arm, fa, build, symm
+
+
+def _ptxas(build, reports, name: str) -> list[str]:
+    """ptxas' report of csrc/<name>.cu, each kernel's entry line, then its
+    register and spill lines: from this run's build, else from the report
+    kept beside the library (csrc/build/<name>-<hash>.ptxas; a checkout
+    whose builder does not keep it gets it kept here)."""
+    kept = build.library_path(name).with_suffix(".ptxas")
+    if name in reports:
+        kept.write_text(reports[name])
+    text = kept.read_text() if kept.exists() else ""
+    return [ln.strip() for ln in text.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
 
 
 def b19_times(torch, fa, g) -> dict:
@@ -148,6 +174,191 @@ def one_card(torch, arm, fa, symm) -> dict:
     return out
 
 
+def gemm(torch, ga, agm) -> dict:
+    """B4 (world 1) and B12 in bf16, ms a call, warm and cold, with
+    torch.mm in the same states."""
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(53)
+    entry = {"b4": ga.gemm_ar, "b12": agm.pallas_matmul}
+    for which, name, k, n in GEMMS:
+        ws = cs.weight_copies(torch, g, k, n, torch.bfloat16)
+        for m in GEMM_ROWS:
+            a = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            fn = entry[which]
+            out[f"{which}_{name}_m{m}"] = {
+                "warm": cs.cold_graph_ms(torch, lambda w: fn(a, w), ws[:1]),
+                "cold": cs.cold_graph_ms(torch, lambda w: fn(a, w), ws),
+                "mm_warm": cs.cold_graph_ms(
+                    torch, lambda w: torch.mm(a, w), ws[:1]),
+                "mm_cold": cs.cold_graph_ms(
+                    torch, lambda w: torch.mm(a, w), ws),
+                "bound": cs.bound_ms(2 * (m * k + k * n + m * n),
+                                     2.0 * m * k * n)[0]}
+        del ws
+        torch.cuda.empty_cache()
+    return out
+
+
+def four_cards(root: str, mode: str = "four") -> dict:
+    import multiprocessing as mp
+    import socket
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=_rank, args=(r, port, root, queue, mode))
+             for r in range(cs.TP)]
+    for p in procs:
+        p.start()
+    per = {}
+    try:
+        while len(per) < cs.TP:
+            rank, res = queue.get(timeout=300)
+            if "error" in res:
+                raise RuntimeError(f"rank {rank}: {res['error']}")
+            per[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return _slowest(per)
+
+
+def _timer(torch, dist):
+    """timed(fn[, ws]): queued ms of fn() (or of fn(w), w rotating over ws)
+    with every rank in step; try_timed: the same, or why a yardstick
+    could not run."""
+    def timed(fn, ws=None):
+        fn() if ws is None else fn(ws[0])
+        torch.cuda.synchronize()
+        dist.barrier()
+        ms = (cs.queued_ms(torch, fn)[0] if ws is None
+              else cs.queued_cold_ms(torch, fn, ws))
+        dist.barrier()
+        return ms
+
+    def try_timed(fn, ws=None):
+        try:
+            return timed(fn, ws)
+        except Exception as exc:     # a yardstick only
+            dist.barrier()
+            return f"{type(exc).__name__}: {str(exc)[:200]}"
+    return timed, try_timed
+
+
+def _bidir_rank(mesh, root, sweep):
+    """--bidir on this rank: {key: {"ms", ... , "ok"}}."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _symmetric_memory as symm_mem
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import low_latency_all_to_all as ll
+    from triton_dist_tpu_torch.kernels import plain
+    if hasattr(symm_mem, "enable_symm_mem_for_group"):
+        symm_mem.enable_symm_mem_for_group(mesh.group.group_name)
+    tp, bf, dev = cs.TP, torch.bfloat16, mesh.device
+    g = torch.Generator(device=dev).manual_seed(60 + mesh.rank)
+    res = {}
+    timed, try_timed = _timer(torch, dist)
+
+    def held(out, ref, tol=1e-2):
+        return cs._held(torch, "", out, ref, tol)["ok"]
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, k in (("o", 2048), ("down", 6400)):
+        for m in (4, 2048):
+            a = torch.randn((tp * m, k), generator=g, device=dev).to(bf)
+            b = (torch.randn((k, 5120), generator=g, device=dev)
+                 * k ** -0.5).to(bf)
+
+            def mm_rs(w, a=a, m=m):
+                part = torch.mm(a, w)
+                y = part.new_empty((m, 5120))
+                dist.reduce_scatter_tensor(y, part, group=mesh.group)
+                return y
+
+            def fused(w, a=a):
+                return symm_mem._fused_matmul_reduce_scatter(
+                    a, w, "sum", scatter_dim=0,
+                    group_name=mesh.group.group_name)
+            rec = {"ok": held(grs.pallas_gemm_rs_bidir(mesh, a, b),
+                              grs.gemm_rs_bidir_ref(mesh, a, b)),
+                   "ms": timed(lambda: grs.pallas_gemm_rs_bidir(mesh, a, b)),
+                   "fused_mm_rs_ms": try_timed(lambda: fused(b)),
+                   "mm_nccl_rs_ms": timed(lambda: mm_rs(b))}
+            if m == 4:
+                ws = cs.weight_copies(torch, g, k, 5120, bf)
+                rec["cold_ms"] = timed(
+                    lambda w: grs.pallas_gemm_rs_bidir(mesh, a, w), ws)
+                rec["fused_mm_rs_cold_ms"] = try_timed(fused, ws)
+                rec["mm_nccl_rs_cold_ms"] = timed(mm_rs, ws)
+                del ws
+            if sweep and m == 4 and name == "o":
+                for mm in (4, 8, 16, 32):
+                    am = torch.randn((tp * mm, k), generator=g,
+                                     device=dev).to(bf)
+                    for proto in (True, False):
+                        plan = grs.bidir_layout(tp, mm, k, 5120, True, sms,
+                                                mesh.ranks_per_device, proto)
+                        run = (lambda am=am, plan=plan:
+                               grs._launch_bidir(mesh, am, b, plan))
+                        res[f"sweep_b13b_o_m{mm}_"
+                            f"{'ll' if proto else 'flags'}"] = {
+                            "ok": held(run(),
+                                       grs.gemm_rs_bidir_ref(mesh, am, b)),
+                            "ms": timed(run),
+                            "slot_bytes": mm * 5120 * 4}
+            res[f"b13b_{name}_m{m}"] = rec
+            del a, b
+            torch.cuda.empty_cache()
+
+    def nccl(x):
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=mesh.group)
+        return y
+    for shp, mm in (("decode_m32", 32), ("chunk_m4096", 4096)):
+        x = torch.randn((tp, mm, 2048), generator=g, device=dev).to(bf)
+        res[f"b17_{shp}"] = {
+            "ok": cs._bitwise(ll.fast_all_to_all_per_device(mesh, x),
+                              plain.all_to_all_slots(mesh, x)),
+            "ms": timed(lambda: ll.fast_all_to_all_per_device(mesh, x)),
+            "nccl_ms": timed(lambda: nccl(x))}
+        q, s = ll.quantize_rows(x, torch.float8_e4m3fn)
+        s = ll.pack_scales(s)
+        rq, rs = ll.fast_all_to_all_q_per_device(mesh, q, s)
+        res[f"b18_{shp}"] = {
+            "ok": cs._bitwise(rq, plain.all_to_all_slots(mesh, q))
+            and cs._bitwise(rs, plain.all_to_all_slots(mesh, s)),
+            "ms": timed(lambda: ll.fast_all_to_all_q_per_device(mesh, q, s)),
+            "nccl_ms": timed(lambda: (nccl(q.view(torch.uint8)), nccl(s)))}
+        del x, q, s, rq, rs
+        torch.cuda.empty_cache()
+    if sweep:
+        for mm in (16, 32, 64, 128, 256):
+            x = torch.randn((tp, mm, 2048), generator=g, device=dev).to(bf)
+            per = sms // mesh.ranks_per_device
+            grids = {True: min(-(-mm * 256 // ll._NT), per),     # a2a_plan
+                     False: min(-(-tp * mm * 4096 // ll._BLOCK_BYTES),
+                                ll._BLOCKS_PER_SM * per)}
+            for proto in (True, False):
+                plan = ll.a2a_layout(tp, mm, 4096, 0, 0, grids[proto], proto)
+                run = (lambda x=x, plan=plan:
+                       ll._launch(mesh, x, None, plan)[0])
+                res[f"sweep_b17_m{mm}_{'ll' if proto else 'flags'}"] = {
+                    "ok": cs._bitwise(run(), plain.all_to_all_slots(mesh, x)),
+                    "ms": timed(run), "slot_bytes": mm * 4096,
+                    "grid": plan.grid}
+    return res
+
+
+# rows of x (B5) and of A (B4's o) in --ar --sweep: 4-64 rows of 5,120
+AR_SWEEP_ROWS = (4, 8, 16, 32, 64)
+
+
 # (case, B, Hq, Hkv, table width, lengths): B2's bf16 shapes on the paths
 PAGED_CASES = (
     ("static_b4_528", 4, 32, 8, 8, [528] * 4),
@@ -158,16 +369,10 @@ PAGED_CASES = (
     ("tp4_sp_paged_one_card", 4, 64, 8, 256, [32768] * 4))
 
 
-def paged(torch, root: str) -> dict:
-    """--paged: B2's bf16 cases (PAGED_CASES), B19 (b19_times) and the
-    ContinuousEngine's harvest by kernel (harvest_by_kernel)."""
-    sys.path.insert(0, os.path.abspath(root))
-    from triton_dist_tpu_torch import models
-    from triton_dist_tpu_torch.kernels import flash_attention as fa
-    pfd = importlib.import_module(
-        "triton_dist_tpu_torch.kernels.paged_flash_decode")
+def b2_times(torch, pfd, g) -> dict:
+    """B2's bf16 cases (PAGED_CASES), each held against its plain version
+    and timed eagerly, in a graph of 20 calls warm and cold."""
     out = {}
-    g = torch.Generator(device="cuda").manual_seed(71)
     ps, d = 128, 128
     for case, b, hq, hkv, npg, lens in PAGED_CASES:
         table = torch.randperm(b * npg, generator=g, device="cuda").reshape(
@@ -202,8 +407,87 @@ def paged(torch, root: str) -> dict:
         out[f"b2_{case}"] = rec
         del copies, acc, racc
         torch.cuda.empty_cache()
+    return out
+
+
+def paged(torch, root: str) -> dict:
+    """--paged: B2's bf16 cases (b2_times), B19 (b19_times) and the
+    ContinuousEngine's harvest by kernel (harvest_by_kernel)."""
+    sys.path.insert(0, os.path.abspath(root))
+    from triton_dist_tpu_torch import models
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    pfd = importlib.import_module(
+        "triton_dist_tpu_torch.kernels.paged_flash_decode")
+    g = torch.Generator(device="cuda").manual_seed(71)
+    out = b2_times(torch, pfd, g)
     out.update(b19_times(torch, fa, g))
     out["harvest"] = harvest_by_kernel(torch, models)
+    return out
+
+
+def _row(row: dict) -> dict:
+    """A chip_smoke kernels-line row's times and verdict."""
+    keys = ("ms", "graph_ms", "cold_ms", "plain_ms", "library_ms",
+            "bound_ms", "max_abs_err")
+    rec = {k: row[k] for k in keys if isinstance(row.get(k), (int, float))}
+    rec["ok"] = True          # the phase exits non-zero on a failed case
+    return rec
+
+
+def sp_one_card(torch, root: str) -> dict:
+    """--sp: B21 in the one-card world at 8,192 tokens (phase
+    b21_ring_attn's timed case, with cat + SDPA and B1's prefill form on
+    the same work), B1's prefill, T=1, continuation, fold and varlen forms
+    (chip_smoke's phases), B19 (b19_times), B2 (b2_times) and B20 in the
+    one-card world, ms a call."""
+    sys.path.insert(0, os.path.abspath(root))
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import plain
+    from triton_dist_tpu_torch.runtime import symm
+    spm = importlib.import_module(
+        "triton_dist_tpu_torch.kernels.sp_ag_attention")
+    fdm = importlib.import_module("triton_dist_tpu_torch.kernels.flash_decode")
+    pfd = importlib.import_module(
+        "triton_dist_tpu_torch.kernels.paged_flash_decode")
+    out = {}
+    b21 = cs.phase_b21(torch, symm, spm, plain)
+    out["b21_t8192_cb4"] = {**_row(b21), **{
+        k: b21["shapes"]["t8192_cb4"][k]
+        for k in ("b1_prefill_same_work_ms",)
+        if k in b21["shapes"]["t8192_cb4"]}}
+    torch.cuda.empty_cache()
+    out["b1_prefill"] = _row(cs.phase_b1(torch, fa))
+    out["b1_decode_t1"] = _row(cs.phase_b1_decode(torch, fa))
+    cont = cs._b1_continuation(torch, fa)
+    out["b1_continuation"] = {**_row(cont), "ok": cont["ok"]}
+    for row in cs.phase_b1_fold(torch, fa):
+        out[f"b1_{row['name']}"] = _row(row)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(71)
+    out.update(b19_times(torch, fa, g))
+    out.update(b2_times(torch, pfd, g))
+    out["b20_one_card"] = _row(cs.phase_b20(torch, symm, fdm))
+    return out
+
+
+def _sp_flat(res: dict) -> dict:
+    """tp4_sp's record of one rank as {key: {field: number or verdict}}:
+    each tier's prefill ms, each decode path's ms a step, each kernel's
+    times and verdict (chip_smoke's _tp4_sp)."""
+    out = {}
+    for tier, r in res["prefill"].items():
+        out[f"prefill_{tier}"] = {"ms": r["ms"], "finite_ok": r["finite"]}
+    for label, r in res["decode"].items():
+        out[f"decode_{label}"] = {
+            "ms_per_step": r["ms_per_step"],
+            "replays_per_step": r["replays_per_step"],
+            "graph_equals_eager_ok": r["graph_equals_eager"],
+            "finite_ok": r["finite"]}
+    for name, r in res["kernels"].items():
+        out[f"kernel_{name}"] = {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "ok")
+            if isinstance(r.get(k), (int, float, bool))}
+    out["peak"] = {"bytes": res["peak_bytes"]}
     return out
 
 
@@ -548,6 +832,13 @@ def _rank(rank, port, root, queue, mode="four"):
             queue.put((rank, res))
             dist.destroy_process_group()
             return
+        if mode == "sp":
+            from triton_dist_tpu_torch import kernels as kern
+            res = _sp_flat(cs._tp4_sp(torch, dist, mesh, kern))
+            dist.barrier()
+            queue.put((rank, res))
+            dist.destroy_process_group()
+            return
         if mode in ("ar", "ar_sweep"):
             res = _ar_rank(mesh, mode == "ar_sweep")
             dist.barrier()
@@ -609,6 +900,8 @@ def main() -> None:
     mode.add_argument("--bidir", action="store_true")
     mode.add_argument("--ar", action="store_true")
     mode.add_argument("--paged", action="store_true")
+    mode.add_argument("--sp", action="store_true")
+    mode.add_argument("--sp4", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--split", action="store_true",
                     help="with --ar: only the stamped split of B5's "
@@ -621,11 +914,14 @@ def main() -> None:
         print("chip_compare: no CUDA device available", file=sys.stderr)
         sys.exit(2)
     arm, fa, build, symm = _import_port(args.root)
-    build.build(build.all_sources())
+    reports = build.build(build.all_sources())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
     rec = {"root": os.path.abspath(args.root), "cards": smi}
+    if args.sp or args.sp4:       # the attention libraries' registers
+        rec["ptxas"] = {name: _ptxas(build, reports, name)
+                        for name in ("flash_prefill", "sp_attention")}
     if args.four:
         rec.update(four_cards(args.root))
     elif args.bidir:
@@ -636,6 +932,10 @@ def main() -> None:
         rec.update(four_cards(args.root, "ar_sweep" if args.sweep else "ar"))
     elif args.paged:
         rec.update(paged(torch, args.root))
+    elif args.sp:
+        rec.update(sp_one_card(torch, args.root))
+    elif args.sp4:
+        rec.update(four_cards(args.root, "sp"))
     elif args.gemm:
         from triton_dist_tpu_torch.kernels import allgather_gemm as agm
         from triton_dist_tpu_torch.kernels import gemm_allreduce as ga

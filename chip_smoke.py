@@ -6227,26 +6227,55 @@ def phase_b20(torch, symm, fd, calls: int = 5):
                                    "NCCL's on four cards: tp4_sp)")
 
 
+# what B21 runs on (csrc/sp_attention.cu)
+B21_INSTRUCTIONS = ("bf16: wgmma m64n128k16 QK^T and m64n64k16 P.V (P in "
+                    "registers) over tiles of 128 GQA-packed rows, 128-key "
+                    "K/V tiles by TMA through 5-D maps of the local shard or "
+                    "a landing slot in a 2-stage mbarrier ring, a persistent "
+                    "grid (ring_plan), setmaxnreg 40 / 232; each shard "
+                    "pushed to every peer in one hop, a flag per (sender, "
+                    "comm block); f32: FMA")
+
+
+def _nan_slots(torch, sp, mesh, b, t_loc, hkv, d, dt, comm_blocks):
+    """Makes B21's workspace of this shape on this rank (it must not exist
+    yet) and fills its K and V landing slots of both parities with NaN
+    (0xFF bytes: NaN in bf16 and f32), as memory no call wrote may hold.
+    The flags stay 0."""
+    nblk = sp.legal_attn_blocks(t_loc, comm_blocks, mesh.world)
+    ws, _, flag_off = sp._ring_workspace(mesh, b, t_loc, hkv, d, dt, nblk)
+    ws.buf.tensor[:flag_off].fill_(255)
+
+
 def phase_b21(torch, symm, sp, plain, calls: int = 2):
     """B21 (pallas_ring_attn_per_device: the fused causal GQA ring
     attention) against its plain version (XLA_BLOCK's fold over every
     rank's shards, sp_ag_attention.ring_attn_shards_ref) in the one-card
     world: 8,192 tokens (2,048 a rank), Qwen3-32B's heads, bf16, B=1, at
-    comm_blocks 1 and 4 (SP_TOL_BF16 x max|ref|); f32 at 256 rows a rank,
-    B=2, comm_blocks 4 (SP_TOL_F32), then `calls` successive f32 calls.
-    Timed at comm_blocks 4: the four ranks' calls together against the
-    plain version and the XLA tier's torch.cat of the shards + SDPA with
-    the causal mask at each rank's offset."""
+    comm_blocks 1 and 4 (SP_TOL_BF16 x max|ref|); bf16 at 600 rows a rank
+    (comm blocks of 150 and 200 rows: no multiple of the 128-key step)
+    and at 300 rows a rank, comm_blocks 4 (blocks of 75 rows, shorter
+    than one key step), at D 128 and then D 64, each shape's landing
+    slots NaN-filled before its first call, then `calls` + 1 successive
+    calls on new draws (the slots' parity alternating); f32 at 256 rows
+    a rank, B=2, comm_blocks 4 (SP_TOL_F32), then `calls` successive f32
+    calls, then f32 at D 64 (each head dim's kernel after the other's in
+    one process). Timed at comm_blocks 4: the four ranks' calls
+    together against the plain version, the XLA tier's torch.cat of the
+    shards + SDPA with the causal mask at each rank's offset, and B1's
+    prefill form on the same work (each rank's queries against the
+    gathered keys at its offset), held against its plain version."""
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
     world = symm.OneCardWorld(TP)
     hq, hkv, d = SP_HEADS
     g = torch.Generator(device=DEV).manual_seed(104)
 
-    def draw(b, t_loc, dt):
-        return ([_sp_rand(torch, g, (b, t_loc, hq, d), dt)
+    def draw(b, t_loc, dt, dd=d):
+        return ([_sp_rand(torch, g, (b, t_loc, hq, dd), dt)
                  for _ in range(TP)],
-                [_sp_rand(torch, g, (b, t_loc, hkv, d), dt)
+                [_sp_rand(torch, g, (b, t_loc, hkv, dd), dt)
                  for _ in range(TP)],
-                [_sp_rand(torch, g, (b, t_loc, hkv, d), dt)
+                [_sp_rand(torch, g, (b, t_loc, hkv, dd), dt)
                  for _ in range(TP)])
 
     def run(qs, ks, vs, cb):
@@ -6268,13 +6297,28 @@ def phase_b21(torch, symm, sp, plain, calls: int = 2):
     rows = []
     for cb in (1, 4):
         rows += check(f"bf16_t8192_cb{cb}", big, cb, SP_TOL_BF16)
+    # ragged comm blocks over NaN-filled slots, then both parities
+    ragged_ok = []
+    for t_loc, cb, dd in ((600, 4, d), (600, 3, d), (300, 4, d),
+                          (300, 4, 64)):
+        for r in range(TP):
+            _nan_slots(torch, sp, world.mesh(r), 1, t_loc, hkv, dd,
+                       torch.bfloat16, cb)
+        for call in range(calls + 1):
+            got = check(f"bf16_d{dd}_t{t_loc * TP}_cb{cb}_call{call}",
+                        draw(1, t_loc, torch.bfloat16, dd), cb, SP_TOL_BF16)
+            rows += got
+            ragged_ok.append(all(x["ok"] for x in got))
     rows += check("f32_t1024_b2_cb4", draw(2, 256, torch.float32), 4,
                   SP_TOL_F32)
     seq_ok = [all(x["ok"] for x in check(
         "seq", draw(2, 256, torch.float32), 4, SP_TOL_F32))
         for _ in range(calls)]
+    rows += check("f32_d64_t1024_b2_cb4", draw(2, 256, torch.float32, 64),
+                  4, SP_TOL_F32)
     emit({"phase": "b21_ring_attn", "world": "one card, 4 logical ranks",
-          "cases": rows, "successive_calls_ok": seq_ok})
+          "cases": rows, "successive_calls_ok": seq_ok,
+          "ragged_nan_slots_parities_ok": ragged_ok})
     if not all(x["ok"] for x in rows) or not all(seq_ok):
         fail(f"B21 disagrees with its plain version: "
              f"{[x['case'] for x in rows if not x['ok']]}; successive "
@@ -6288,21 +6332,36 @@ def phase_b21(torch, symm, sp, plain, calls: int = 2):
     pos = torch.arange(t, device=DEV)
     masks = [pos[None, :] <= (r * t_loc + torch.arange(t_loc, device=DEV))
              [:, None] for r in range(TP)]
+    k_all, v_all = torch.cat(ks, dim=1), torch.cat(vs, dim=1)
     lib_ms, note = _library(torch, lambda: [
         _sdpa(torch, qs[r], torch.cat(ks, dim=1), torch.cat(vs, dim=1),
               masks[r]) for r in range(TP)], iters=3, warmup=1)
     pairs = t * (t + 1) // 2
     nbytes = 2 * (2 * t * hq * d + 2 * t * hkv * d)
     bms, by = bound_ms(nbytes, 4.0 * pairs * hq * d)
+    # B1's prefill form on the same work, beside it
+    b1_rows = [_held(torch, f"b1_prefill_rank{r}", fa.flash_prefill(
+        qs[r], k_all, v_all, r * t_loc), fa.flash_prefill_ref(
+        qs[r], k_all, v_all, r * t_loc), SP_TOL_BF16) for r in range(TP)]
+    b1_ms = time_ms(lambda: [fa.flash_prefill(qs[r], k_all, v_all,
+                                              r * t_loc)
+                             for r in range(TP)], iters=3, warmup=1)
+    emit({"phase": "b21_ring_attn", "b1_prefill_same_work": b1_rows,
+          "b1_ms": b1_ms, "b21_ms": ms})
+    if not all(x["ok"] for x in b1_rows):
+        fail("B1's prefill form disagrees with its plain version on B21's "
+             "work")
     timed = {"t8192_cb4": {"ms": ms, "plain_ms": plain_ms,
                            "library_ms": lib_ms, "library_note": note,
                            "bound_ms": bms, "bound_by": by,
                            "host_enqueue_s": host_s,
                            "queued_ahead": covered,
+                           "b1_prefill_same_work_ms": b1_ms,
                            "shape": [1, t_loc, hq, hkv, d], "dtype": "bf16"}}
     return _sp_row("pallas_ring_attn_per_device", "sp_attention.cu",
                    "triton_dist_tpu/kernels/sp_ag_attention.py:614", rows,
                    timed, "one card, 4 logical ranks",
+                   instructions=B21_INSTRUCTIONS,
                    library_ms_call="torch.cat of the K/V shards + "
                                    "scaled_dot_product_attention with the "
                                    "causal mask at each rank's offset")
@@ -6632,6 +6691,8 @@ def _tp4_sp_kernels(torch, dist, mesh, q, k, v, qd, kc, vc, s_loc, pool_k,
     from triton_dist_tpu_torch.kernels.sp_ag_attention import (
         legal_attn_blocks, pallas_ring_attn_per_device as ring,
     )
+    spm = importlib.import_module(
+        "triton_dist_tpu_torch.kernels.sp_ag_attention")
     n, me = mesh.world, mesh.rank
     b, t_loc, hq, d = q.shape
     hkv = k.shape[2]
@@ -6710,9 +6771,29 @@ def _tp4_sp_kernels(torch, dist, mesh, q, k, v, qd, kc, vc, s_loc, pool_k,
     plain_ms, ref = _sp_time(torch, dist, mesh, lambda: ring_ref(
         mesh, q, k, v, legal_attn_blocks(t_loc, 4, n)), 1)
     row = _held(torch, "b21", got, ref, SP_TOL_BF16)
+    del got, ref
+    # comm blocks of 150 rows (no multiple of the 128-key step) over
+    # landing slots NaN-filled before the first call, three calls on new
+    # draws (the slots' parity alternating)
+    ragged = []
+    _nan_slots(torch, spm, mesh, 1, 600, hkv, d, torch.bfloat16, 4)
+    torch.cuda.synchronize()
+    dist.barrier()         # no peer pushes into a slot before it is filled
+    gr = torch.Generator(device=mesh.device).manual_seed(211)
+    for call in range(3):
+        qr, kr, vr = _sp_shards(torch, mesh, gr, 1, 600 * n, torch.bfloat16,
+                                hq, hkv, d)
+        ragged.append(_held(torch, f"b21_t{600 * n}_cb4_call{call}",
+                            ring(mesh, qr, kr, vr, 4),
+                            ring_ref(mesh, qr, kr, vr,
+                                     legal_attn_blocks(600, 4, n)),
+                            SP_TOL_BF16))
     out["b21"] = {**row, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "library_note": note, "bound_ms": bms, "bound_by": by,
-                  "flops": flops}
+                  "flops": flops, "ragged_nan_slots_parities": ragged,
+                  "ok": row["ok"] and all(x["ok"] for x in ragged),
+                  "max_abs_err": max([row["max_abs_err"]] +
+                                     [x["max_abs_err"] for x in ragged])}
     ms, got = _sp_time(torch, dist, mesh, lambda: fa.flash_prefill(
         q, k_all, v_all, me * t_loc), 2)
     plain_ms, ref = _sp_time(torch, dist, mesh, lambda: fa.flash_prefill_ref(
@@ -6981,6 +7062,8 @@ def _tp4_sp_rows(results, extra):
             "measured_on": "4 cards, SP=4, the slowest rank",
             "shapes": {"tp4_sp": {k_: slow[k_] for k_ in slow
                                   if k_ not in ("case",)}}}
+        if key == "b21":
+            rows[name]["instructions"] = B21_INSTRUCTIONS
     return rows
 
 

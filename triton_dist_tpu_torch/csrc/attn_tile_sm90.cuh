@@ -109,6 +109,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A 5-D tiled box from global into shared memory, completing on `bar`.
+// Elements of the box outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // A 2-D tiled box (c0 the contiguous coordinate) from global into shared
 // memory, completing on `bar`; elements outside the tensor arrive as zeros.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -124,6 +138,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // generic-proxy stores to shared memory made visible to wgmma / TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// global memory written through the generic proxy (this thread's view:
+// data another card or block stored, acquired through its flag) made
+// visible to the async proxy's (TMA's) reads issued after it
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Warp specialization's register split: every thread of the warpgroup
+// lowers (dec) or raises (inc) its register budget to N (a multiple of 8
+// in [24, 256]); an inc waits until a dec freed the registers.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // a barrier of `count` threads (a multiple of 32) under hardware id `id`
@@ -329,6 +362,30 @@ inline bool bshd_map(CUtensorMap* map, const void* base, int b, int s, int h,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of contiguous bf16 rows (slabs, T, H, D) with T cut into nblk
+// blocks of bb rows: dims (d, h, bb, nblk, slabs), its box one 64-wide
+// column slab of `rows` consecutive rows of one block of one (slab, h):
+// box coordinates (d0, h, r0, blk, slab). 128-byte swizzle; rows past the
+// block's bb read as zeros, never the next block's. Returns false if the
+// CUDA driver refuses it.
+inline bool block_rows_map(CUtensorMap* map, const void* base, long slabs,
+                           int nblk, int bb, int h, int d, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = (cuuint64_t)h * d * 2;  // bytes of one t
+  const cuuint64_t dims[5] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)bb,
+                              (cuuint64_t)nblk, (cuuint64_t)slabs};
+  const cuuint64_t strides[4] = {(cuuint64_t)d * 2, row, row * bb,
+                                 row * bb * nblk};
+  const cuuint32_t box[5] = {64, 1, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
             const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

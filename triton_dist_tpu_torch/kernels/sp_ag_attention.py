@@ -20,9 +20,10 @@ rank on its shards, as the port's other mesh-level ops are. The tiers:
     comm_blocks row blocks in ascending order, one online-softmax rescale
     per block);
   * PALLAS: B21, ``pallas_ring_attn_per_device``, the hand-written kernel
-    of ``csrc/sp_attention.cu`` for CUDA tensors and its plain version
-    ``plain.ring_attn_ref`` (the all-gather, then XLA_BLOCK's fold) for
-    CPU tensors.
+    of ``csrc/sp_attention.cu`` for CUDA tensors (bf16: B1's Hopper body
+    over the ring, packed and gridded by ``ring_plan``) and its plain
+    version ``plain.ring_attn_ref`` (the all-gather, then XLA_BLOCK's
+    fold) for CPU tensors.
 
 AUTO resolves to XLA_RING, as the reference's. The zigzag layout (rank r
 holds blocks r and 2n-1-r of size T_loc/2: ``zigzag_shard`` /
@@ -43,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import enum
+import functools
 
 import torch
 import torch.distributed as dist
@@ -64,6 +66,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_BLOCKS = 64         # B21's comm blocks at most (csrc/sp_attention.cu)
 _ALIGN = 256
+RING_ROWS = 128          # B21's bf16 tile: packed rows (two warpgroups)
+RING_KEYS = 128          # keys a step (one TMA tile of K and of V)
+RING_BLOCKS_PER_SM = 1   # its Q tile and K/V ring take 160 KB at D 128
+_MAP_BYTES = 128         # a CUtensorMap
 
 
 class SpAttnMethod(enum.Enum):
@@ -373,19 +379,102 @@ def _ring_attn_block_per_device(mesh, n, comm_blocks, q, k, v):
                            legal_attn_blocks(q.shape[1], comm_blocks, n))
 
 
-def _ring_workspace(mesh, b, t_loc, hkv, d, dtype, nblk):
-    """B21's workspace: K then V landing slots (2, n, B, T_loc, Hkv, D),
-    then flags (n, nblk) u64; nblk push counters in the control block.
-    Returns (ws, land_v, flag_off)."""
-    n = mesh.world
-    nbytes = 2 * n * b * t_loc * hkv * d * torch.empty(
-        (), dtype=dtype).element_size()
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """How B21's bf16 kernel walks one call. A work item is a tile of
+    ``RING_ROWS`` (query, head) rows of ONE kv head and batch row, packed
+    as B1's ``flash_plan`` packs them: row r is query ``q0 + r //
+    h_per_tile`` and group head ``h0 + r % h_per_tile``. Item i is query
+    tile ``q_tiles - 1 - i // (B Hkv h_tiles)`` (the last tiles, whose
+    rows see the most keys, first), within it the head tile fastest, then
+    the kv head, then the batch row. ``grid`` persistent blocks take items
+    i = block, block + grid, ...: at most ``RING_BLOCKS_PER_SM`` x SMs
+    over the ranks sharing the card, so every block of every rank is
+    resident at once (the folds spin on flags other blocks raise). Each
+    item folds its live key steps in ring order: src = (me - s) mod n,
+    comm blocks of ``bb`` rows ascending, ``RING_KEYS``-key steps from a
+    block's first row to its end or the tile's last query."""
+    q_per_tile: int
+    h_per_tile: int
+    h_tiles: int
+    q_tiles: int
+    items: int
+    grid: int
+    nblk: int
+    bb: int
+
+
+def ring_plan(b: int, t_loc: int, hq: int, hkv: int, n: int,
+              comm_blocks: int, sms: int,
+              ranks_per_device: int = 1) -> RingPlan:
+    """B21's bf16 plan for q (b, t_loc, hq, D) against hkv kv heads on a
+    world of n ranks, ``ranks_per_device`` of them on each card of
+    ``sms`` SMs."""
+    if min(b, t_loc, hkv, n, sms, ranks_per_device) <= 0 or hq % hkv:
+        raise ValueError(f"ring_plan: B={b}, T_loc={t_loc}, Hq={hq}, "
+                         f"Hkv={hkv}, n={n}, SMs={sms}, "
+                         f"ranks a card={ranks_per_device}")
+    g = hq // hkv
+    if g <= RING_ROWS:
+        q_per_tile, h_per_tile, h_tiles = RING_ROWS // g, g, 1
+    else:
+        q_per_tile, h_per_tile, h_tiles = 1, RING_ROWS, -(-g // RING_ROWS)
+    q_tiles = -(-t_loc // q_per_tile)
+    items = q_tiles * h_tiles * hkv * b
+    resident = RING_BLOCKS_PER_SM * sms // ranks_per_device
+    if resident < 1:
+        raise ValueError(f"ring_plan: {ranks_per_device} ranks share a card "
+                         f"of {sms} SMs")
+    nblk = legal_attn_blocks(t_loc, comm_blocks, n)
+    return RingPlan(q_per_tile, h_per_tile, h_tiles, q_tiles, items,
+                    min(items, resident), nblk, t_loc // nblk)
+
+
+def ring_layout(n: int, b: int, t_loc: int, hkv: int, d: int,
+                itemsize: int, nblk: int) -> tuple[int, int, int]:
+    """B21's workspace layout in bytes: K landing slots (2, n, B, T_loc,
+    Hkv, D) at 0, V's at land_v, flags (n, nblk) u64 at flag_off.
+    Returns (land_v, flag_off, total)."""
+    nbytes = 2 * n * b * t_loc * hkv * d * itemsize
     land_v = -(-nbytes // _ALIGN) * _ALIGN
     flag_off = 2 * land_v
+    return land_v, flag_off, flag_off + n * nblk * 8
+
+
+def _ring_workspace(mesh, b, t_loc, hkv, d, dtype, nblk):
+    """B21's workspace (``ring_layout``); nblk push counters in the
+    control block. Returns (ws, land_v, flag_off)."""
+    land_v, flag_off, total = ring_layout(
+        mesh.world, b, t_loc, hkv, d,
+        torch.empty((), dtype=dtype).element_size(), nblk)
     ws = op_workspace(mesh, ("sp_ring", b, t_loc, hkv, d, dtype, nblk),
-                      (flag_off + n * nblk * 8,), torch.uint8,
-                      ctl_words=nblk)
+                      (total,), torch.uint8, ctl_words=nblk)
     return ws, land_v, flag_off
+
+
+def _land_maps(mesh, ws, land_v, b, t_loc, hkv, d, nblk) -> int:
+    """The host address of the bf16 kernel's two landing-slot tensor maps
+    (K's, V's) over this rank's workspace, encoded at its first call
+    (outside any capture: the warm-up call before a capture makes the
+    workspace) and cached beside it."""
+    key = ("sp_ring_maps", ws.buf.tensor.data_ptr(), b, t_loc, hkv, d, nblk)
+    maps = mesh.workspaces.get(key)
+    if maps is None:
+        raw = (ctypes.c_uint8 * (2 * _MAP_BYTES + 64))()
+        addr = ctypes.addressof(raw)
+        addr += -addr % 64                 # a CUtensorMap is 64-byte aligned
+        fn = build.function("sp_attention", "td_ring_attn_land_maps", (
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            *(ctypes.c_int,) * 6))
+        build.check(fn(addr, ws.buf.tensor.data_ptr(), land_v, b, t_loc, hkv,
+                       d, nblk, mesh.world), "pallas_ring_attn: landing maps")
+        maps = mesh.workspaces[key] = (raw, addr)
+    return maps[1]
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pallas_ring_attn_per_device(mesh, q: torch.Tensor, k: torch.Tensor,
@@ -413,24 +502,32 @@ def pallas_ring_attn_per_device(mesh, q: torch.Tensor, k: torch.Tensor,
                          f"{list(_DTYPE_CODE)}, head_dim in {_HEAD_DIMS}; "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}, {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    n = mesh.world
-    nblk = legal_attn_blocks(t_loc, comm_blocks, n)
+    n, hkv = mesh.world, k.shape[2]
+    plan = ring_plan(b, t_loc, hq, hkv, n, comm_blocks,
+                     _sms(q.device.index if q.device.index is not None
+                          else torch.cuda.current_device()),
+                     mesh.ranks_per_device)
+    nblk = plan.nblk
     if nblk > _MAX_BLOCKS:
         raise ValueError(f"pallas_ring_attn: {nblk} comm blocks > "
                          f"{_MAX_BLOCKS}")
-    ws, land_v, flag_off = _ring_workspace(mesh, b, t_loc, k.shape[2], d,
-                                           k.dtype, nblk)
+    ws, land_v, flag_off = _ring_workspace(mesh, b, t_loc, hkv, d, k.dtype,
+                                           nblk)
+    maps = (_land_maps(mesh, ws, land_v, b, t_loc, hkv, d, nblk)
+            if q.dtype == torch.bfloat16 else None)
     out = torch.empty_like(q)
     fn = build.function("sp_attention", "td_ring_attn", (
         *(ctypes.c_void_p,) * 4, *(ctypes.c_int,) * 8, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+        ctypes.c_float, *(ctypes.c_int,) * 6, ctypes.c_void_p,
+        ctypes.c_void_p))
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t_loc, hq, k.shape[2], d, nblk, mesh.rank, n,
+                 b, t_loc, hq, hkv, d, nblk, mesh.rank, n,
                  ws.buf.table.data_ptr(), ws.ctl.data_ptr(), land_v,
                  flag_off, d ** -0.5, mesh.ranks_per_device,
-                 _DTYPE_CODE[q.dtype], build.stream_of(q))
+                 _DTYPE_CODE[q.dtype], plan.q_per_tile, plan.h_per_tile,
+                 plan.h_tiles, plan.grid, maps, build.stream_of(q))
     build.check(err, "pallas_ring_attn")
     pallas_ring_attn_per_device.launches += 1
     return out

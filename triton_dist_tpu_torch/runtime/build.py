@@ -69,8 +69,9 @@ def library_path(name: str) -> Path:
 def build(names) -> dict[str, str]:
     """Compile every named source whose library is missing, one nvcc
     process per source, all started together. Returns {name: compiler
-    output} for the sources built now (ptxas' register/smem report);
-    raises with the compiler's output if any build fails."""
+    output} for the sources built now (ptxas' register/smem report, also
+    kept beside each library as ``<name>-<hash>.ptxas``); raises with the
+    compiler's output if any build fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -96,6 +97,7 @@ def build(names) -> dict[str, str]:
             failed.append(f"--- {name} (rc={proc.returncode}) ---\n{text}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".ptxas").write_text(text)
         reports[name] = text
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
