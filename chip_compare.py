@@ -12,7 +12,7 @@ card(s):
 
     python3 chip_compare.py [--root DIR]
                             [--four | --gemm | --bidir | --ar | --paged |
-                             --sp | --sp4]
+                             --sp | --sp4 | --ag]
                             [--sweep]
 
 ``--root`` is the checkout whose ``triton_dist_tpu_torch`` is timed
@@ -68,14 +68,25 @@ library, so a cached build reports it too). ``--sp4``: chip_smoke's
 tp4_sp on four cards, one process a card (every SP tier's 32,768-token
 prefill, the decode steps' graph replays, each kernel at the paths'
 shapes against its plain version and NCCL yardsticks), the slowest rank.
-``--sweep`` (a checkout with the plans'
+``--ag``: B10 (pallas_ag_gemm) and B11 (pallas_ag_gemm_bidir) at
+Qwen3-32B's TP=4 QKV (N 2,560) and gate/up (N 12,800), K 5,120, bf16, at
+4, 32 and 2,048 rows a rank: in the one-card world (the four ranks' calls
+queued, beside torch.cat + torch.mm a rank) and on four cards, one
+process a card (queued calls, at decode also cold, beside NCCL
+all-gather + torch.mm and _fused_all_gather_matmul; the slowest rank),
+each beside its bound; with them B4 and B12 at ``--gemm``'s shapes and
+B13b at ``--bidir``'s shapes, so that a parent and a tree run in turns
+show what moved. ``--sweep`` (a checkout with the plans'
 ``bidir_layout`` / ``a2a_layout``, or with ``--ar`` ``ar_layout`` and
 ``one_shot_plan``) adds each protocol forced at more rows, the sweep
 that sets RS_LL_MAX_SLOT_BYTES and A2A_LL_MAX_SLOT_BYTES (with
 ``--bidir``) or AR_LL_MAX_SLOT_BYTES and ONE_SHOT_LL_MAX_SLOT_BYTES
-(with ``--ar``). Prints one JSON line with the checkout's root and the
-card's name and power limit. Run it on the card: without one it exits
-non-zero.
+(with ``--ar``); with ``--ag``, B10 forced into each bf16 regime at 4 to
+512 rows a rank of QKV and gate/up (AG_SWEEP_M), in the one-card world
+and on four cards (warm and cold), the sweep that sets
+AG_STREAM_MAX_ROWS and AG_STREAM_L2_ROWS. Prints one JSON line with the
+checkout's root and the card's name and power limit. Run it on the
+card: without one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -814,9 +825,246 @@ def _b5_split_rank(mesh, lib_path, m=16, calls=32):
     return rec
 
 
+# --ag: (name, rows a rank, K, N_loc): Qwen3-32B's QKV and gate/up at
+# TP=4, decode (B=16, and B=128: 32 rows a rank) and the static serve's
+# prefill (2,048 rows a rank)
+AG_SHAPES = (("qkv_m4", 4, 5120, 2560), ("gate_up_m4", 4, 5120, 12800),
+             ("qkv_m32", 32, 5120, 2560), ("gate_up_m32", 32, 5120, 12800),
+             ("qkv_m2048", 2048, 5120, 2560),
+             ("gate_up_m2048", 2048, 5120, 12800))
+
+
+# --ag --sweep: rows a rank at which both bf16 regimes of B10 are timed
+# (gathered rows 4x: 16 to 2,048), the sweep that sets ag_plan's cuts
+AG_SWEEP_M = (4, 8, 16, 17, 32, 64, 128, 512)
+
+
+def _forced(agm, regime: str, fn):
+    """fn() with ag_plan's cuts set so that every shape takes `regime`
+    ("stream" or "tile"); the cuts restored after. The error, not a
+    number, where the forced launch fails."""
+    keep = agm.AG_STREAM_MAX_ROWS, agm.AG_STREAM_L2_ROWS
+    agm.AG_STREAM_MAX_ROWS = 1 << 30 if regime == "stream" else 0
+    agm.AG_STREAM_L2_ROWS = 0
+    try:
+        return fn()
+    except Exception as exc:
+        return f"{type(exc).__name__}: {str(exc)[:200]}"
+    finally:
+        agm.AG_STREAM_MAX_ROWS, agm.AG_STREAM_L2_ROWS = keep
+
+
+def ag_sweep_one_card(torch) -> dict:
+    """--ag --sweep on one card: B10 in the one-card world at AG_SWEEP_M
+    rows a rank of QKV and gate/up, in each regime (the four ranks' calls
+    queued, each call held to the plain version), beside torch.cat +
+    torch.mm a rank and the bound."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.runtime import symm
+    world = symm.OneCardWorld(cs.TP)
+    g = torch.Generator(device="cuda").manual_seed(58)
+    out = {}
+    for name, k, n in (("qkv", 5120, 2560), ("gate_up", 5120, 12800)):
+        for m in AG_SWEEP_M:
+            a, b = cs._tp_shards(torch, g, torch.bfloat16, m, k, n)
+            rec = {"rows": cs.TP * m}
+
+            def run(a=a, b=b):
+                return world.run(lambda r: agm.pallas_ag_gemm(
+                    world.mesh(r), a[r], b[r]))
+            for regime in ("stream", "tile"):
+                def held_ms(a=a, b=b, run=run):
+                    outs = run()
+                    torch.cuda.synchronize()
+                    ok = True
+                    for r in range(cs.TP):
+                        ref, ref_ag = agm.ag_gemm_ref_shards(a, b[r])
+                        ok &= cs._held(torch, "", outs[r][0], ref,
+                                       1e-2)["ok"]
+                        ok &= bool(torch.equal(outs[r][1], ref_ag))
+                    return bool(ok), cs.queued_ms(torch, run)[0]
+                got = _forced(agm, regime, held_ms)
+                if isinstance(got, str):
+                    rec[f"{regime}_ms"], rec[f"{regime}_ok"] = got, False
+                else:
+                    rec[f"{regime}_ok"], rec[f"{regime}_ms"] = got
+            rec["cat_mm_ms"] = cs.queued_ms(torch, lambda a=a, b=b: [
+                torch.mm(torch.cat(a), b[r]) for r in range(cs.TP)])[0]
+            rec["bound_ms"], rec["bound_by"] = _ag_bound(m, k, n, cs.TP)
+            out[f"ag_sweep_one_card_{name}_m{m}"] = rec
+            del a, b
+            torch.cuda.empty_cache()
+    return out
+
+
+def _ag_sweep_rank(mesh):
+    """--ag --sweep on this rank of four cards: B10 at AG_SWEEP_M rows a
+    rank of QKV and gate/up in each regime, warm (queued calls on one
+    weight) and cold (rotating over weight copies larger than twice the
+    L2), held to ag_gemm_ref, beside NCCL all-gather + torch.mm in the
+    same two states and the bound."""
+    import torch
+    import torch.distributed as dist
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    tp, bf, dev = cs.TP, torch.bfloat16, mesh.device
+    g = torch.Generator(device=dev).manual_seed(95 + mesh.rank)
+    res = {}
+    timed, _ = _timer(torch, dist)
+    for name, k, n in (("qkv", 5120, 2560), ("gate_up", 5120, 12800)):
+        ws = cs.weight_copies(torch, g, k, n, bf)
+        b = ws[0]
+        for m in AG_SWEEP_M:
+            a = torch.randn((m, k), generator=g, device=dev).to(bf)
+            ref = agm.ag_gemm_ref(mesh, a, b)
+
+            def mm_nccl(w, a=a, m=m):
+                ag = a.new_empty((tp * m, k))
+                dist.all_gather_into_tensor(ag, a, group=mesh.group)
+                return torch.mm(ag, w)
+            rec = {"rows": tp * m}
+            for regime in ("stream", "tile"):
+                def held_ms(a=a, ref=ref):
+                    out = agm.pallas_ag_gemm(mesh, a, b)
+                    ok = (cs._held(torch, "", out[0], ref[0], 1e-2)["ok"]
+                          and bool(torch.equal(out[1], ref[1])))
+                    return (ok, timed(lambda: agm.pallas_ag_gemm(mesh, a, b)),
+                            timed(lambda w: agm.pallas_ag_gemm(mesh, a, w),
+                                  ws))
+                got = _forced(agm, regime, held_ms)
+                if isinstance(got, str):
+                    rec[f"{regime}_ms"], rec[f"{regime}_ok"] = got, False
+                else:
+                    (rec[f"{regime}_ok"], rec[f"{regime}_ms"],
+                     rec[f"{regime}_cold_ms"]) = got
+            rec["mm_nccl_ms"] = timed(lambda: mm_nccl(b))
+            rec["mm_nccl_cold_ms"] = timed(mm_nccl, ws)
+            rec["bound_ms"], rec["bound_by"] = _ag_bound(m, k, n, 1)
+            res[f"ag_sweep_{name}_m{m}"] = rec
+            del a
+        del ws, b
+        torch.cuda.empty_cache()
+    return res
+
+
+def _ag_bound(m, k, n, ranks):
+    """B10's least time at `ranks` ranks a card (4: the one-card world,
+    all four ranks' work on one card; 1: one rank of four cards): HBM
+    bytes (each rank's shard and weight read, its out and gathered A
+    written), NVLink bytes a rank sends, FLOPs."""
+    tp = cs.TP
+    hbm = ranks * (m * k + k * n + tp * m * n + tp * m * k) * 2
+    link = 0 if ranks > 1 else (tp - 1) * m * k * 2
+    return cs.tp_bound_ms(hbm, link, ranks * 2.0 * tp * m * k * n)
+
+
+def ag_one_card(torch) -> dict:
+    """--ag on one card: B10 and B11 in the one-card world at AG_SHAPES
+    (the four ranks' calls queued) beside torch.cat + torch.mm a rank and
+    the bound, each call held to the plain version; then gemm() (B4 at
+    world 1 and B12 at their PR 16 shapes, warm and cold)."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
+    from triton_dist_tpu_torch.runtime import symm
+    world = symm.OneCardWorld(cs.TP)
+    g = torch.Generator(device="cuda").manual_seed(57)
+    out = {}
+    for name, m, k, n in AG_SHAPES:
+        a, b = cs._tp_shards(torch, g, torch.bfloat16, m, k, n)
+        rec = {}
+        for tag, fn in (("b10", agm.pallas_ag_gemm),
+                        ("b11", agm.pallas_ag_gemm_bidir)):
+            outs = world.run(lambda r: fn(world.mesh(r), a[r], b[r]))
+            torch.cuda.synchronize()
+            ok = True
+            for r in range(cs.TP):
+                ref, ref_ag = agm.ag_gemm_ref_shards(a, b[r])
+                ok &= cs._held(torch, "", outs[r][0], ref, 1e-2)["ok"]
+                ok &= bool(torch.equal(outs[r][1], ref_ag))
+            rec[f"{tag}_ok"] = bool(ok)
+            rec[f"{tag}_ms"] = cs.queued_ms(torch, lambda: world.run(
+                lambda r: fn(world.mesh(r), a[r], b[r])))[0]
+        rec["cat_mm_ms"] = cs.queued_ms(torch, lambda: [
+            torch.mm(torch.cat(a), b[r]) for r in range(cs.TP)])[0]
+        rec["bound_ms"], rec["bound_by"] = _ag_bound(m, k, n, cs.TP)
+        out[f"ag_one_card_{name}"] = rec
+        del a, b
+        torch.cuda.empty_cache()
+    out.update(gemm(torch, ga, agm))
+    return out
+
+
+def _ag_rank(mesh):
+    """--ag on this rank of four cards: B10 and B11 at AG_SHAPES (queued
+    calls on one weight; at decode also rotating over weight copies
+    larger than twice the L2) beside NCCL all-gather + torch.mm,
+    _fused_all_gather_matmul and the bound, each held to ag_gemm_ref
+    (1e-2, the gathered A exact); B13b at Qwen3-32B's o (K 2,048) and down
+    (K 6,400) -> N 5,120 at 4 and 2,048 rows a rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _symmetric_memory as symm_mem
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    if hasattr(symm_mem, "enable_symm_mem_for_group"):
+        symm_mem.enable_symm_mem_for_group(mesh.group.group_name)
+    tp, bf, dev = cs.TP, torch.bfloat16, mesh.device
+    g = torch.Generator(device=dev).manual_seed(90 + mesh.rank)
+    res = {}
+    timed, try_timed = _timer(torch, dist)
+
+    def held(out, ref):
+        return (cs._held(torch, "", out[0], ref[0], 1e-2)["ok"]
+                and bool(torch.equal(out[1], ref[1])))
+    for name, m, k, n in AG_SHAPES:
+        a = torch.randn((m, k), generator=g, device=dev).to(bf)
+        b = (torch.randn((k, n), generator=g, device=dev) * k ** -0.5).to(bf)
+
+        def mm_nccl(w, a=a, m=m):
+            ag = a.new_empty((tp * m, k))
+            dist.all_gather_into_tensor(ag, a, group=mesh.group)
+            return torch.mm(ag, w)
+
+        def fused(w, a=a):
+            return symm_mem._fused_all_gather_matmul(
+                a, [w], gather_dim=0, group_name=mesh.group.group_name)
+        ref = agm.ag_gemm_ref(mesh, a, b)
+        rec = {"b10_ok": held(agm.pallas_ag_gemm(mesh, a, b), ref),
+               "b11_ok": held(agm.pallas_ag_gemm_bidir(mesh, a, b), ref),
+               "b10_ms": timed(lambda: agm.pallas_ag_gemm(mesh, a, b)),
+               "b11_ms": timed(lambda: agm.pallas_ag_gemm_bidir(mesh, a, b)),
+               "mm_nccl_ms": timed(lambda: mm_nccl(b)),
+               "fused_ms": try_timed(lambda: fused(b))}
+        rec["bound_ms"], rec["bound_by"] = _ag_bound(m, k, n, 1)
+        if m < 2048:          # decode
+            ws = cs.weight_copies(torch, g, k, n, bf)
+            rec["b10_cold_ms"] = timed(
+                lambda w: agm.pallas_ag_gemm(mesh, a, w), ws)
+            rec["b11_cold_ms"] = timed(
+                lambda w: agm.pallas_ag_gemm_bidir(mesh, a, w), ws)
+            rec["mm_nccl_cold_ms"] = timed(mm_nccl, ws)
+            rec["fused_cold_ms"] = try_timed(fused, ws)
+            del ws
+        res[f"ag_{name}"] = rec
+        del a, b
+        torch.cuda.empty_cache()
+    for name, k in (("o", 2048), ("down", 6400)):
+        for m in (4, 2048):
+            a = torch.randn((tp * m, k), generator=g, device=dev).to(bf)
+            b = (torch.randn((k, 5120), generator=g, device=dev)
+                 * k ** -0.5).to(bf)
+            res[f"b13b_{name}_m{m}"] = {
+                "ok": cs._held(torch, "", grs.pallas_gemm_rs_bidir(mesh, a, b),
+                               grs.gemm_rs_bidir_ref(mesh, a, b),
+                               1e-2)["ok"],
+                "ms": timed(lambda: grs.pallas_gemm_rs_bidir(mesh, a, b))}
+            del a, b
+            torch.cuda.empty_cache()
+    return res
+
+
 def _rank(rank, port, root, queue, mode="four"):
-    """One rank process of --four (B6 at ROWS on cuda:rank), --bidir or
-    --ar."""
+    """One rank process of --four (B6 at ROWS on cuda:rank), --bidir,
+    --ar or --ag."""
     import traceback
     try:
         import torch
@@ -835,6 +1083,13 @@ def _rank(rank, port, root, queue, mode="four"):
         if mode == "sp":
             from triton_dist_tpu_torch import kernels as kern
             res = _sp_flat(cs._tp4_sp(torch, dist, mesh, kern))
+            dist.barrier()
+            queue.put((rank, res))
+            dist.destroy_process_group()
+            return
+        if mode in ("ag", "ag_sweep"):
+            res = _ag_sweep_rank(mesh) if mode == "ag_sweep" else \
+                _ag_rank(mesh)
             dist.barrier()
             queue.put((rank, res))
             dist.destroy_process_group()
@@ -902,6 +1157,7 @@ def main() -> None:
     mode.add_argument("--paged", action="store_true")
     mode.add_argument("--sp", action="store_true")
     mode.add_argument("--sp4", action="store_true")
+    mode.add_argument("--ag", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--split", action="store_true",
                     help="with --ar: only the stamped split of B5's "
@@ -936,6 +1192,16 @@ def main() -> None:
         rec.update(sp_one_card(torch, args.root))
     elif args.sp4:
         rec.update(four_cards(args.root, "sp"))
+    elif args.ag and args.sweep:
+        rec.update(ag_sweep_one_card(torch))
+        if torch.cuda.device_count() >= cs.TP:
+            rec.update(four_cards(args.root, "ag_sweep"))
+        else:
+            rec["ag_sweep_four_cards"] = {"note": "not run: fewer than "
+                                          f"{cs.TP} cards"}
+    elif args.ag:
+        rec.update(ag_one_card(torch))
+        rec.update(four_cards(args.root, "ag"))
     elif args.gemm:
         from triton_dist_tpu_torch.kernels import allgather_gemm as agm
         from triton_dist_tpu_torch.kernels import gemm_allreduce as ga
@@ -944,7 +1210,9 @@ def main() -> None:
         rec.update(one_card(torch, arm, fa, symm))
     print(json.dumps(rec), flush=True)
     if not all(v.get("bitwise", True) and v.get("ok", True)
-               and v.get("b6_one_shot_ok", True)
+               and v.get("b6_one_shot_ok", True) and v.get("b10_ok", True)
+               and v.get("b11_ok", True) and v.get("stream_ok", True)
+               and v.get("tile_ok", True)
                for v in rec.values() if isinstance(v, dict)):
         sys.exit(1)
 

@@ -347,7 +347,7 @@ def _b2_pool_copies(torch, g, hkv, pages, ps, d, live_bytes):
                   for _ in range(2)) for _ in range(count)]
 
 
-def phase_b2(torch, pfd, codec):
+def phase_b2(torch, pfd, codec, models, kern):
     """Kernel vs plain version at B=4, Hq=32, Hkv=8, D=128, page 128, a
     shuffled table with garbage in dead slots, ragged lengths with 0, 1 and
     a page boundary, NaN in four unused pages and in the rows past the
@@ -374,7 +374,9 @@ def phase_b2(torch, pfd, codec):
     -1e30, l = 0, acc = 0 exactly. The bf16 kernel is timed eagerly and in
     graphs of calls, warm (one pool: what fits stays in the L2) and cold
     (the calls rotate over pool copies whose live pages exceed twice the
-    L2, as a model's layers do); each case beside its bound."""
+    L2, as a model's layers do); each case beside its bound. bf16 pools
+    of 24, 48 and 96-key pages (the FMA body's route) as the small pages
+    are, and a ContinuousEngine on 48-key pages (_b2_engine_odd_page)."""
     g = torch.Generator(device=DEV).manual_seed(2)
     b, hq, hkv, d, ps, npg = 4, 32, 8, 128, 128, 8
     spare = 4                                    # unused pages, NaN below
@@ -450,9 +452,12 @@ def phase_b2(torch, pfd, codec):
         timed[mode] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                        "bound_by": by, "bytes": nbytes, "flops": flops}
     del k_nan, v_nan, modes
-    # bf16 page sizes under a tile, and ranks launching at once
+    # bf16 page sizes under a tile, page sizes no TMA box cuts (the FMA
+    # body's route), and ranks launching at once
     for sps, shq, shkv, sd in ((8, 32, 8, 128), (16, 32, 8, 128),
-                               (32, 32, 8, 128), (16, 16, 2, 64)):
+                               (32, 32, 8, 128), (16, 16, 2, 64),
+                               (24, 32, 8, 128), (48, 32, 8, 128),
+                               (96, 32, 8, 128), (48, 16, 2, 64)):
         rows.append(_b2_small_pages(torch, pfd, check, g, sps, shq, shkv,
                                     sd))
     rows.append(_b2_uniform_scores(torch, pfd, g))
@@ -512,6 +517,7 @@ def phase_b2(torch, pfd, codec):
     for mode in timed:
         timed[mode]["max_abs_err"] = max(r["max_abs_err"] for r in rows
                                          if r["mode"] == mode)
+    rows.append(_b2_engine_odd_page(torch, models, kern, check))
     emit({"phase": "b2_paged_flash_decode", "cases": rows, "timed": cases})
     bad = [(r["mode"], r["case"]) for r in rows if not r["ok"]]
     if bad:
@@ -662,10 +668,91 @@ def _b2_uniform_scores(torch, pfd, g):
             "max_abs_err": worst, "tol": 1e-5, "ok": ok}
 
 
+def _b2_engine_odd_page(torch, models, kern, check, ps: int = 48):
+    """A ContinuousEngine on a bf16 pool of ``ps``-key pages (no TMA box
+    cuts them: B2 takes the FMA body, paged_route): Qwen3-8B's widths, 2
+    layers, random bf16 weights (seed 7), max_batch 4, decode_steps 1,
+    four requests of 37-190 prompt tokens and 8 new tokens each, against
+    the same engine at 64-key pages (the Hopper kernel). Held: B2 launched
+    on every decode step (its count zeroed after a warm-up request), every
+    request's 8 tokens in the vocabulary, each request's first token
+    (from the prefill, which reads no page through B2) the same at both
+    page sizes, and B2 on the engine's own cache against the plain
+    version (``check``, 2e-3): layer 0's pools, table and lengths copied
+    once every request decodes, with a random q, run after the counts are
+    read. The later tokens' agreement is recorded (random weights give
+    near-flat logits, where bf16 rounding in two kernels may flip an
+    argmax)."""
+    import dataclasses
+    arch = dataclasses.replace(models.QWEN3_ARCHS["Qwen/Qwen3-8B"],
+                               num_layers=2)
+    params = models.init_random_params(
+        torch.Generator(device=DEV).manual_seed(7), arch, DEV,
+        torch.bfloat16)
+    model = models.Qwen3(arch, max_length=576, dtype=torch.bfloat16,
+                         device=DEV)
+    rng = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, arch.vocab_size, (n,), generator=rng
+                             ).tolist() for n in (37, 96, 150, 190)]
+    outs, launches, snap = {}, {}, None
+    for page in (ps, 64):
+        eng = models.ContinuousEngine(model, params, max_batch=4,
+                                      page_size=page, prefill_chunk=192,
+                                      decode_steps=1)
+        eng.submit([1, 2, 3], max_new_tokens=2)
+        eng.run()
+        eng.finished.clear()
+        replays0 = eng.graph_replays
+        kern.reset_launch_counts()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        for _ in range(8 if page == ps else 0):
+            eng.step()
+            if all(r is not None and not r.prefilling for r in eng.slots):
+                c = eng.cache
+                snap = [c.k_pages[0].clone(), c.v_pages[0].clone(),
+                        c.block_table.clone(), c.lengths.clone()]
+                break
+        done = eng.run()
+        eager = kern.launch_counts()
+        per = eng.graph_launches.get("paged_flash_decode_partial", 0)
+        launches[page] = (eager["paged_flash_decode_partial"]
+                          + (eng.graph_replays - replays0) * per)
+        outs[page] = [r.out for r in sorted(done, key=lambda r: r.uid)]
+        del eng
+        torch.cuda.empty_cache()
+    del params, model
+    torch.cuda.empty_cache()
+    cache_rec = {"ok": False, "max_abs_err": float("nan")}
+    if snap is not None:
+        kp, vp, tab, lens = snap
+        q = torch.randn((tab.shape[0], arch.num_heads, kp.shape[-1]),
+                        generator=torch.Generator(device=DEV).manual_seed(9),
+                        device=DEV).to(torch.bfloat16)
+        cache_rec = check("bf16", f"continuous_engine_page{ps}_cache", q, kp,
+                          vp, tab, lens, {})
+    sane = all(len(o) == 8 and all(0 <= t < arch.vocab_size for t in o)
+               for o in outs[ps])
+    first = [o[0] for o in outs[ps]] == [o[0] for o in outs[64]]
+    agree = sum(a == b for x, y in zip(outs[ps], outs[64])
+                for a, b in zip(x, y)) / max(1, sum(map(len, outs[64])))
+    return {"mode": "bf16", "case": f"continuous_engine_page{ps}",
+            "route": "fma", "launches": launches[ps],
+            "launches_page64": launches[64], "tokens_sane": sane,
+            "first_tokens_equal_page64": first,
+            "token_agreement_page64": agree,
+            "cache_lengths": snap[3].tolist() if snap is not None else None,
+            "max_abs_err": cache_rec["max_abs_err"], "tol": 2e-3,
+            "cache_ok": cache_rec["ok"],
+            "ok": (sane and first and cache_rec["ok"]
+                   and launches[ps] >= 7 * arch.num_layers)}
+
+
 def _b2_small_pages(torch, pfd, check, g, ps, hq, hkv, d):
     """B2's bf16 kernel at a page size under a tile (8, 16 or 32: a tile
     is 64 / ps TMA boxes, a box a page, boxes past the length not
-    issued): six ragged rows (543, 0, 5 ps + 1, ps - 1, ps and 1 keys) over
+    issued), or at one no TMA box cuts (24, 48, 96: the FMA body): six
+    ragged rows (543, 0, 5 ps + 1, ps - 1, ps and 1 keys) over
     a shuffled table with out-of-range values in every dead slot, NaN in
     every page no live slot names and in the rows past each row's length
     of its last live page (K and V); against the plain version."""
@@ -2423,68 +2510,166 @@ def _one_card_kernel_row(torch, world, name, run, plain, nbytes, flops):
             "host_enqueue_s": host_s, "queued_ahead": covered, "case": name}
 
 
-def phase_b10(torch, symm, agm, calls: int = 20):
-    """B10 against its plain version (torch.cat of the ranks' shards, then
-    matmul_ref) in the one-card world: four logical ranks, each its own
-    stream and symmetric buffer, the peer-pointer tables the four-card
-    world uses. Qwen3-32B at TP=4, B=16 decode (m_loc 4): QKV K 5120 ->
-    N_loc 2560 and gate/up -> N_loc 12800, bf16 and f32; the prefill-sized
-    m_loc 512 (QKV, bf16); then `calls` successive calls with fresh inputs,
-    every one checked. The gathered A must equal the concatenated shards
-    exactly; the product within 1e-2 x max|ref| in bf16 (one bf16 rounding
-    of the output, another f32 summation order), 1e-4 in f32. Timed: the
-    four ranks' calls together on the one card (queued_ms), bound by the
-    four ranks' bytes at HBM speed."""
+# what B10 and B11 run on (csrc/ag_gemm.cu)
+AG_INSTRUCTIONS = ("bf16 at one 16-row M group of gathered rows, or up to "
+                   "128 while the card's weights fit its L2 (ag_plan): "
+                   "gemm_stream_sm90.cuh's mma.sync m16n8k16 stream-K GEMM "
+                   "(128 x 128 weight tiles by TMA, 5 stages) over the "
+                   "landed rows, the one-hop push between the first weight "
+                   "loads and the first wait; bf16 above: "
+                   "gemm_tile_sm90.cuh's wgmma m64n256k16 tile GEMM (128 x "
+                   "256 tiles, 4 TMA stages of A and W, setmaxnreg), the "
+                   "push on the producer warpgroup's spare warps; f32: FMA")
+# (name, dtype, m a rank, K, N_loc): Qwen3-32B at TP=4, decode (B=16: 4
+# rows a rank; B=128: 32), 512 rows a rank, the static serve's prefill
+# (2,048 rows a rank), ragged m (3: a decode M group of 12 rows; 130: row
+# tiles across shards; 17 of a small W: five stream M groups across
+# shards)
+AG_CASES = (("qkv_m4", "bf16", 4, 5120, 2560),
+            ("gate_up_m4", "bf16", 4, 5120, 12800),
+            ("qkv_m512", "bf16", 512, 5120, 2560),
+            ("qkv_m2048", "bf16", 2048, 5120, 2560),
+            ("gate_up_m2048", "bf16", 2048, 5120, 12800),
+            ("qkv_m3", "bf16", 3, 5120, 2560),
+            ("qkv_m32", "bf16", 32, 5120, 2560),
+            ("qkv_m130", "bf16", 130, 5120, 2560),
+            ("small_m17", "bf16", 17, 1024, 1024),
+            ("qkv_m4_f32", "f32", 4, 5120, 2560),
+            ("gate_up_m4_f32", "f32", 4, 5120, 12800))
+
+
+def _ag_plan(torch, agm, mesh, m, k, n):
+    """B10 / B11's bf16 plan on this mesh's card."""
+    prop = torch.cuda.get_device_properties(mesh.device)
+    return agm.ag_plan(TP, m, k, n, prop.multi_processor_count,
+                       mesh.ranks_per_device, prop.L2_cache_size)
+
+
+def _ag_nan_slots(torch, agm, world, m, k, n, bidir):
+    """Makes B10's (bidir False) or B11's bf16 workspace of (m, K, N)'s
+    regime on every rank of the one-card world (it must not exist yet) and
+    fills the landing rows of both parities with NaN (0xFF bytes), as
+    memory no call wrote may hold. The flags stay 0. Returns the regime."""
+    for r in range(TP):
+        mesh = world.mesh(r)
+        plan = _ag_plan(torch, agm, mesh, m, k, n)
+        agm.ag_workspace(mesh, plan, bidir).buf.tensor[:plan.flag_off].fill_(
+            255)
+    return plan.regime
+
+
+def _ag_phase(torch, symm, agm, bidir, calls):
+    """B10 (bidir False) or B11 in the one-card world: AG_CASES, each bf16
+    (m, K, regime)'s landing rows NaN-filled before its first call, every
+    call held to ag_gemm_ref_shards (the product within 1e-2 x max|ref| in
+    bf16, 1e-4 in f32; the gathered A exact) and B11's out to B10's bits
+    on the same inputs (small_m17: the stream over five 16-row M groups
+    across ragged shards; qkv_m32: the tile GEMM on one row tile); both
+    parities eagerly and graph-replayed at 4, 17 (small), 130 and 2,048
+    rows a rank (_world_parity_calls); `calls` successive calls
+    at the decode QKV. Timed: the four ranks' calls together (queued_ms)
+    at 4 and 2,048 rows a rank, beside the plain version (and B10 beside
+    B11)."""
     bf, f32 = torch.bfloat16, torch.float32
     world = symm.OneCardWorld(TP)
-    g = torch.Generator(device=DEV).manual_seed(31)
-    cases = [("qkv_m4", bf, 4, 5120, 2560), ("gate_up_m4", bf, 4, 5120, 12800),
-             ("qkv_m512", bf, 512, 5120, 2560),
-             ("qkv_m4_f32", f32, 4, 5120, 2560),
-             ("gate_up_m4_f32", f32, 4, 5120, 12800)]
-    rows, timed = [], {}
+    g = torch.Generator(device=DEV).manual_seed(61 if bidir else 31)
+    fn = agm.pallas_ag_gemm_bidir if bidir else agm.pallas_ag_gemm
+    rows, timed, parity = [], {}, {}
+    filled = set()
 
-    def check(name, a, b, outs, tol):
+    def run(a, b, f=fn):
+        return world.run(lambda r: f(world.mesh(r), a[r], b[r]))
+
+    def check(name, a, b, tol):
+        outs = run(a, b)
+        b10 = run(a, b, agm.pallas_ag_gemm) if bidir else None
+        torch.cuda.synchronize()
         res = []
         for r in range(TP):
             ref, ref_ag = agm.ag_gemm_ref_shards(a, b[r])
             row = _held(torch, f"{name}/rank{r}", outs[r][0], ref, tol)
             row["gathered_exact"] = bool(torch.equal(outs[r][1], ref_ag))
-            row["ok"] = row["ok"] and row["gathered_exact"]
+            ok = row["ok"] and row["gathered_exact"]
+            if bidir:
+                row["b10_bits"] = bool(torch.equal(outs[r][0], b10[r][0]))
+                ok = ok and row["b10_bits"]
+            row["ok"] = ok
             res.append(row)
         return res
 
-    for name, dt, m, k, n in cases:
+    def parity_calls(m, k, n, sets):
+        def draw():
+            a, b = _tp_shards(torch, g, bf, m, k, n)
+            return [(a[r], b[r]) for r in range(TP)]
+
+        def plain(xs):
+            return [agm.ag_gemm_ref_shards([x[0] for x in xs], xs[r][1])
+                    for r in range(TP)]
+
+        def held(o, ref):
+            return (_held(torch, "", o[0], ref[0], 1e-2)["ok"]
+                    and bool(torch.equal(o[1], ref[1])))
+        return _world_parity_calls(torch, world, fn, draw, plain, held,
+                                   calls=sets, replays=2)
+
+    for name, dts, m, k, n in AG_CASES:
+        dt = bf if dts == "bf16" else f32
+        regime = _ag_plan(torch, agm, world.mesh(0), m, k, n).regime
+        if dt == bf and (m, k, regime) not in filled:
+            _ag_nan_slots(torch, agm, world, m, k, n, bidir)
+            if bidir:
+                _ag_nan_slots(torch, agm, world, m, k, n, False)
+            filled.add((m, k, regime))
         a, b = _tp_shards(torch, g, dt, m, k, n)
-        outs = world.run(lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r],
-                                                       b[r]))
-        torch.cuda.synchronize()
-        rows += check(name, a, b, outs, _tp_tol(torch, dt))
-        if name in ("qkv_m4", "gate_up_m4"):
+        rows += check(name, a, b, _tp_tol(torch, dt))
+        if dt == bf and m in (4, 2048):
             es = a[0].element_size()
             nbytes = TP * (m * k + k * n + TP * m * n + TP * m * k) * es
             timed[name] = _one_card_kernel_row(
-                torch, world, name,
-                lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r], b[r]),
+                torch, world, name, lambda r: fn(world.mesh(r), a[r], b[r]),
                 lambda: [agm.ag_gemm_ref_shards(a, b[r]) for r in range(TP)],
                 nbytes, TP * 2.0 * TP * m * k * n)
+            if bidir:
+                timed[name]["b10_ms"] = queued_ms(torch, lambda: run(
+                    a, b, agm.pallas_ag_gemm))[0]
             timed[name]["max_abs_err"] = max(
-                x["max_abs_err"] for x in rows if x["case"].startswith(name))
+                x["max_abs_err"] for x in rows
+                if x["case"].startswith(name + "/"))
+        if name in ("qkv_m4", "small_m17", "qkv_m130", "qkv_m2048"):
+            parity[name] = parity_calls(m, k, n, 4 if m < 2048 else 2)
+        del a, b
+        torch.cuda.empty_cache()
     seq_ok = []
     for _ in range(calls):
         a, b = _tp_shards(torch, g, bf, 4, 5120, 2560)
-        outs = world.run(lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r],
-                                                       b[r]))
-        torch.cuda.synchronize()
-        seq_ok.append(all(x["ok"] for x in check("seq", a, b, outs, 1e-2)))
-    emit({"phase": "b10_ag_gemm", "world": "one card, 4 logical ranks",
-          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
-    if not all(x["ok"] for x in rows) or not all(seq_ok):
-        fail(f"B10 disagrees with its plain version: "
-             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
-    return _tp_kernel_record("pallas_ag_gemm", "ag_gemm.cu",
-                             "triton_dist_tpu/kernels/allgather_gemm.py:293",
-                             timed, "one card, 4 logical ranks")
+        seq_ok.append(all(x["ok"] for x in check("seq", a, b, 1e-2)))
+    phase = "b11_ag_gemm_bidir" if bidir else "b10_ag_gemm"
+    emit({"phase": phase, "world": "one card, 4 logical ranks",
+          "instructions": AG_INSTRUCTIONS, "cases": rows,
+          "successive_calls_ok": seq_ok, "parity": parity, "timed": timed})
+    if not all(x["ok"] for x in rows) or not all(seq_ok) or \
+            not all(_parity_ok(v) for v in parity.values()):
+        fail(f"{'B11' if bidir else 'B10'} disagrees with its plain version"
+             f"{' or B10' if bidir else ''}: "
+             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}; "
+             f"parity {parity}")
+    decode = {k: v for k, v in timed.items() if k.endswith("_m4")}
+    rec = _tp_kernel_record(
+        "pallas_ag_gemm_bidir" if bidir else "pallas_ag_gemm", "ag_gemm.cu",
+        "triton_dist_tpu/kernels/allgather_gemm.py:"
+        + ("498" if bidir else "293"), decode, "one card, 4 logical ranks")
+    rec["instructions"] = AG_INSTRUCTIONS
+    rec["prefill_shape"] = {k: v for k, v in timed.items()
+                            if k.endswith("_m2048")}
+    return rec
+
+
+def phase_b10(torch, symm, agm, calls: int = 20):
+    """B10 against its plain version (torch.cat of the ranks' shards, then
+    matmul_ref) in the one-card world: four logical ranks, each its own
+    stream and symmetric buffer, the peer-pointer tables the four-card
+    world uses (_ag_phase)."""
+    return _ag_phase(torch, symm, agm, False, calls)
 
 
 def phase_b13(torch, symm, grs, calls: int = 20):
@@ -3306,71 +3491,9 @@ def _int_shards(torch, g, dt, m, k, n):
 
 def phase_b11(torch, symm, agm, calls: int = 20):
     """B11 (the bidirectional-ring AllGather + GEMM) in the one-card world
-    at B10's shapes: Qwen3-32B at TP=4, B=16 decode (m_loc 4): QKV K 5120
-    -> N_loc 2560 and gate/up -> N_loc 12800, bf16 and f32; and a
-    prefill-sized m_loc 2048 (QKV, bf16), where the ring has bytes to
-    carry; then `calls` successive calls with fresh inputs. Every call is
-    run by B10 too on the same inputs: B11's out must be B10's bits and
-    its gathered A the concatenated shards exactly (the same K split, the
-    same items); both are held to the plain version (ag_gemm_ref_shards)
-    within 1e-2 x max|ref| in bf16, 1e-4 in f32. Timed: the four ranks'
-    calls together (queued_ms), B10 beside it."""
-    bf, f32 = torch.bfloat16, torch.float32
-    world = symm.OneCardWorld(TP)
-    g = torch.Generator(device=DEV).manual_seed(61)
-    cases = [("qkv_m4", bf, 4, 5120, 2560), ("gate_up_m4", bf, 4, 5120, 12800),
-             ("qkv_m2048", bf, 2048, 5120, 2560),
-             ("qkv_m4_f32", f32, 4, 5120, 2560)]
-    rows, timed = [], {}
-
-    def run_check(name, a, b, tol):
-        outs = world.run(lambda r: agm.pallas_ag_gemm_bidir(
-            world.mesh(r), a[r], b[r]))
-        b10 = world.run(lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r],
-                                                     b[r]))
-        torch.cuda.synchronize()
-        res = []
-        for r in range(TP):
-            ref, ref_ag = agm.ag_gemm_ref_shards(a, b[r])
-            row = _held(torch, f"{name}/rank{r}", outs[r][0], ref, tol)
-            row["b10_bits"] = bool(torch.equal(outs[r][0], b10[r][0]))
-            row["gathered_exact"] = bool(torch.equal(outs[r][1], ref_ag))
-            row["ok"] = row["ok"] and row["b10_bits"] and \
-                row["gathered_exact"]
-            res.append(row)
-        return res
-
-    for name, dt, m, k, n in cases:
-        a, b = _tp_shards(torch, g, dt, m, k, n)
-        rows += run_check(name, a, b, _tp_tol(torch, dt))
-        if dt != bf:
-            continue
-        es = a[0].element_size()
-        nbytes = TP * (m * k + k * n + TP * m * n + TP * m * k) * es
-        timed[name] = _one_card_kernel_row(
-            torch, world, name,
-            lambda r: agm.pallas_ag_gemm_bidir(world.mesh(r), a[r], b[r]),
-            lambda: [agm.ag_gemm_ref_shards(a, b[r]) for r in range(TP)],
-            nbytes, TP * 2.0 * TP * m * k * n)
-        timed[name]["b10_ms"] = queued_ms(torch, lambda: world.run(
-            lambda r: agm.pallas_ag_gemm(world.mesh(r), a[r], b[r])))[0]
-        timed[name]["max_abs_err"] = max(
-            x["max_abs_err"] for x in rows if x["case"].startswith(name))
-    seq_ok = []
-    for _ in range(calls):
-        a, b = _tp_shards(torch, g, bf, 4, 5120, 2560)
-        seq_ok.append(all(x["ok"] for x in run_check("seq", a, b, 1e-2)))
-    emit({"phase": "b11_ag_gemm_bidir", "world": "one card, 4 logical ranks",
-          "cases": rows, "successive_calls_ok": seq_ok, "timed": timed})
-    if not all(x["ok"] for x in rows) or not all(seq_ok):
-        fail(f"B11 disagrees with B10 or its plain version: "
-             f"{[x for x in rows if not x['ok']]}; successive {seq_ok}")
-    decode = {k: v for k, v in timed.items() if k.endswith("_m4")}
-    rec = _tp_kernel_record("pallas_ag_gemm_bidir", "ag_gemm.cu",
-                            "triton_dist_tpu/kernels/allgather_gemm.py:498",
-                            decode, "one card, 4 logical ranks")
-    rec["prefill_shape"] = timed["qkv_m2048"]
-    return rec
+    at B10's cases (_ag_phase): every call run by B10 too on the same
+    inputs, B11's out B10's bits."""
+    return _ag_phase(torch, symm, agm, True, calls)
 
 
 def _same_bits(a, b) -> bool:
@@ -4212,6 +4335,8 @@ _TP_SHAPES = (("qkv_m4", "ag", 4, 5120, 2560),
               ("gate_up_m4_bidir", "ag_bidir", 4, 5120, 12800),
               ("qkv_m2048", "ag", 2048, 5120, 2560),
               ("qkv_m2048_bidir", "ag_bidir", 2048, 5120, 2560),
+              ("gate_up_m2048", "ag", 2048, 5120, 12800),
+              ("gate_up_m2048_bidir", "ag_bidir", 2048, 5120, 12800),
               ("o_m4_bidir", "rs_bidir", 4, 2048, 5120),
               ("down_m4_bidir", "rs_bidir", 4, 6400, 5120),
               ("o_m2048_bidir", "rs_bidir", 2048, 2048, 5120),
@@ -4422,6 +4547,58 @@ def queued_cold_ms(torch, fn, ws) -> float:
     it = iter(range(1 << 30))
     return queued_ms(torch, lambda: fn(ws[next(it) % len(ws)]),
                      iters=max(20, 3 * len(ws)))[0]
+
+
+def _tp4_ag_cases(torch, dist, mesh):
+    """B10 and B11 on one of four cards before any other call of theirs:
+    every bf16 workspace they use here (4, 3, 32, 130 and 2,048 rows a
+    rank of QKV, K 5,120: 32 rows the stream over eight M groups, which
+    only a card that hosts one rank takes) made and its landing rows
+    NaN-filled first; at 3, 32, 130 and 2,048 rows a rank both held to
+    ag_gemm_ref (1e-2 x max|ref|, the gathered A exact) with B11's out
+    B10's bits; both parities eagerly and graph-replayed at 4, 32, 130
+    and 2,048 rows (_rank_parity_calls). Returns {case: True | parity
+    record}."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    bf, dev, k, n = torch.bfloat16, mesh.device, 5120, 2560
+    for bidir in (False, True):
+        for m in (4, 3, 32, 130, 2048):
+            plan = _ag_plan(torch, agm, mesh, m, k, n)
+            agm.ag_workspace(mesh, plan, bidir).buf.tensor[
+                :plan.flag_off].fill_(255)
+    torch.cuda.synchronize()
+    dist.barrier()
+    g = torch.Generator(device=dev).manual_seed(80 + mesh.rank)
+
+    def draw(m):
+        return (torch.randn((m, k), generator=g, device=dev).to(bf),
+                (torch.randn((k, n), generator=g, device=dev)
+                 * k ** -0.5).to(bf))
+
+    def held(o, ref):
+        return (_held(torch, "", o[0], ref[0], 1e-2)["ok"]
+                and bool(torch.equal(o[1], ref[1])))
+    rec = {}
+    for m in (3, 32, 130, 2048):
+        a, b = draw(m)
+        o10 = agm.pallas_ag_gemm(mesh, a, b)
+        o11 = agm.pallas_ag_gemm_bidir(mesh, a, b)
+        ref = agm.ag_gemm_ref(mesh, a, b)
+        torch.cuda.synchronize()
+        rec[f"qkv_m{m}"] = (held(o10, ref) and held(o11, ref)
+                            and bool(torch.equal(o11[0], o10[0])))
+        dist.barrier()
+    for m in (4, 32, 130, 2048):
+        for tag, fn in (("b10", agm.pallas_ag_gemm),
+                        ("b11", agm.pallas_ag_gemm_bidir)):
+            rec[f"parity_{tag}_m{m}"] = _rank_parity_calls(
+                torch, lambda x, w, fn=fn: fn(mesh, x, w),
+                lambda m=m: draw(m),
+                lambda x, w: agm.ag_gemm_ref(mesh, x, w), held,
+                calls=4 if m < 2048 else 2)
+            dist.barrier()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _tp4_bidir_extras(torch, dist, mesh, m, k, n):
@@ -8168,6 +8345,7 @@ def _tp4_rank(rank, port, phases, tmp, queue):
             t0 = now
 
         if "tp4_serve" in phases:
+            res["ag_cases"] = _tp4_ag_cases(torch, dist, mesh)
             res["kernels"] = _tp_ranks_time(torch, dist, mesh)
             res["ag_sweep"] = _tp4_ag_sweep(torch, dist, mesh)
             res["mesh_ops"] = _tp4_mesh_ops(torch, dist, mesh, kern)
@@ -8658,17 +8836,24 @@ def phase_four_cards(torch, models, kern, phases, timeout_s: int = 900):
                 row["graph_ms"] = sum(t["graph_ms"] for t in timed.values()
                                       ) / len(timed)
             rows[name] = row
-        # B11 against B10 at the prefill-sized shape, where the rings have
-        # bytes to carry
-        pre = {}
-        for shp in ("qkv_m2048_bidir", "qkv_m2048"):
-            rws = [k[shp] for k in per_rank]
-            if not all(x["ok"] for x in rws):
-                fail(f"{shp} on four cards disagrees with its plain "
-                     f"version (or B11 with B10): {rws}")
-            pre[shp] = {key: max(x[key] for x in rws) for key in
-                        ("ms", "plain_ms", "bound_ms", "max_abs_err")}
-        rows["pallas_ag_gemm_bidir"]["prefill_shape"] = pre
+        # B10 and B11 at the static serve's prefill (2,048 rows a rank),
+        # where the rings have bytes to carry
+        for name, tag in (("pallas_ag_gemm", ""),
+                          ("pallas_ag_gemm_bidir", "_bidir")):
+            pre = {}
+            for shp in (f"qkv_m2048{tag}", f"gate_up_m2048{tag}"):
+                rws = [k[shp] for k in per_rank]
+                if not all(x["ok"] for x in rws):
+                    fail(f"{shp} on four cards disagrees with its plain "
+                         f"version (or B11 with B10): {rws}")
+                pre[shp] = {key: max(x[key] for x in rws) for key in
+                            ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+            rows[name]["prefill_shape"] = pre
+        agc = [results[r]["ag_cases"] for r in range(TP)]
+        emit({"phase": "tp4_ag_cases", "ranks": agc})
+        if not all(v is True or (isinstance(v, dict) and _parity_ok(v))
+                   for x in agc for v in x.values()):
+            fail(f"B10 / B11 on four cards: {agc}")
         # B13b at the static serve's prefill (2,048 rows a rank)
         pre = {}
         for shp in ("o_m2048_bidir", "down_m2048_bidir"):
@@ -8881,7 +9066,8 @@ def run_earlier(torch, kern, models, mods, shared) -> list:
     the plain versions, the Qwen3-8B and Qwen3-30B-A3B serves, their
     consistency checks; returns their kernels-line rows."""
     agm, agg, fa, fc, ga, mrs, mu, pfd, plain, codec = mods
-    b1, b2 = phase_b1(torch, fa), phase_b2(torch, pfd, codec)
+    b1, b2 = phase_b1(torch, fa), phase_b2(torch, pfd, codec, models,
+                                              kern)
     b1_dec = phase_b1_decode(torch, fa)
     b3, b4 = phase_b3(torch, fc), phase_b4(torch, ga)
     b12 = phase_b12(torch, agm)

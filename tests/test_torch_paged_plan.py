@@ -381,11 +381,12 @@ def test_split_and_merge_with_nan_past_the_length(dtype, plan_name):
 
 
 def test_the_launch_refuses_what_no_route_takes():
-    """bf16 page sizes the TMA boxes cannot cut, and head dims no route
-    takes, raise in the launcher before any CUDA call (meta tensors carry
-    the shapes)."""
+    """bf16 page sizes the TMA boxes cannot cut whose FMA body needs more
+    shared memory than a block has, and head dims no route takes, raise
+    in the launcher before any CUDA call (meta tensors carry the
+    shapes)."""
     q = torch.zeros((2, 4, 128), dtype=torch.bfloat16, device="meta")
-    for ps in (24, 48, 96, 100):
+    for ps in (1000, 1500):
         pool = torch.zeros((2, 8, ps, 128), dtype=torch.bfloat16,
                            device="meta")
         tab = torch.zeros((2, 4), dtype=torch.int32, device="meta")
@@ -398,6 +399,27 @@ def test_the_launch_refuses_what_no_route_takes():
         pfd._launch(torch.zeros((2, 4, 96), dtype=torch.bfloat16,
                                 device="meta"), pool, pool, tab,
                     tab[:, 0].contiguous(), None, None)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 24, 32, 48, 64, 96, 100, 128, 192])
+def test_the_route_by_page_size(ps):
+    """bf16 pools: the Hopper kernel where a TMA box cuts the pages (a
+    multiple of 64 keys, or 8 / 16 / 32), else PR 1's FMA body, whose
+    shared memory fits a block at every g and D the launcher takes (the
+    route csrc/paged_flash_decode.cu takes: box_ok); f32 and int8 pools
+    always the FMA body."""
+    tma = ps % pfd.PAGED_TILE == 0 or ps in pfd.PAGED_SMALL_PAGES
+    assert pfd.paged_route(torch.bfloat16, ps) == ("tma" if tma else "fma")
+    assert pfd.paged_route(torch.float32, ps) == "fma"
+    assert pfd.paged_route(torch.int8, ps) == "fma"
+    if not tma:
+        for g in pfd._GROUPS:
+            for d in pfd._HEAD_DIMS:
+                assert pfd._smem_bytes(g, ps, d) <= SMEM_MAX
+    src = (CSRC / "paged_flash_decode.cu").read_text()
+    assert "ps % hop::KT == 0 || ps == 8 || ps == 16 || ps == 32" in src
+    assert pfd.PAGED_SMALL_PAGES == (8, 16, 32)
+    assert "td::BF16, __nv_bfloat16, td::BF16, __nv_bfloat16, 128" in src
 
 
 def test_the_workspace_is_the_streams():

@@ -395,7 +395,8 @@ cudaError_t launch_bf16(const void* a, const void* w, void* ws, void* out,
   const long long tiles = p.units / p.n_kt;
   p.whole = tiles > p.n_tiles && tiles >= 4LL * grid;
   CUtensorMap map;
-  if (!ts::weight_map(&map, w, k_dim, L.n, dev)) return cudaErrorNotSupported;
+  if (!ts::rows_map(&map, w, k_dim, L.n, ts::BK, dev))
+    return cudaErrorNotSupported;
   const Epi epi{L, static_cast<__nv_bfloat16*>(out), 0, nullptr};
   return ts::launch<MG, Epi>(map, static_cast<const __nv_bfloat16*>(a), epi,
                              static_cast<float*>(ws),

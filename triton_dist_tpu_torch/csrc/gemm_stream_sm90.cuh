@@ -42,6 +42,14 @@
 //    ticket to 0. One launch a call, the same bytes every call, and no
 //    memset between calls (a captured graph replays it as it is).
 //
+//  * A's source is a template parameter (Src): LocalA reads A's rows from
+//    a plain pointer (B4, B12, B13b); ag_gemm.cu's GatherA (B10 and B11 at
+//    decode) from this rank's landing buffer, once its shards landed. A
+//    source with kDefer issues the ring's first STAGES weight tiles before
+//    it stages any A rows: Src::ready runs on the producer warp between
+//    them (the gather's push), Src::rows before each M group's first A
+//    copy (its wait), Src::staged on each consumer warp once a stage
+//    landed (the gathered A's copy out);
 //  * the epilogue is a template parameter (Epi): CastStore casts and
 //    stores each finished tile (B4's world-1 body, B12);
 //    gemm_land_stream.cuh's LandStream (B13b, B4 across ranks) lands each
@@ -241,12 +249,24 @@ struct CastStore {
   __device__ __forceinline__ void end(const Plan&, int, int) {}
 };
 
-template <int MG, typename Epi>
+// A's rows from a plain pointer: nothing to wait for, nothing to copy out.
+struct LocalA {
+  static constexpr bool kDefer = false;
+  const bf16* a;
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void ready(const Plan&, int) {}
+  __device__ __forceinline__ const bf16* rows(const Plan&, int, int, int) {
+    return a;
+  }
+  __device__ __forceinline__ void staged(const Plan&, int, int, int, int,
+                                         const bf16*, int) {}
+};
+
+template <int MG, typename Epi, typename Src = LocalA>
 __global__ void __launch_bounds__(NTH, 1)
-    stream_kernel(const __grid_constant__ CUtensorMap tm_w,
-                  const bf16* __restrict__ a, const Epi epi,
-                  float4* __restrict__ ws, int* __restrict__ tickets,
-                  const Plan p) {
+    stream_kernel(const __grid_constant__ CUtensorMap tm_w, const Src src_in,
+                  const Epi epi, float4* __restrict__ ws,
+                  int* __restrict__ tickets, const Plan p) {
   extern __shared__ uint8_t smem_raw[];
   bf16* const wt = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -256,6 +276,8 @@ __global__ void __launch_bounds__(NTH, 1)
   uint64_t* const empty = full + STAGES;
   Epi ep = epi;
   ep.begin(empty + STAGES);
+  Src src = src_in;
+  src.begin();
 
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -274,8 +296,20 @@ __global__ void __launch_bounds__(NTH, 1)
   __syncthreads();
 
   if (warp == NCW) {
-    // producer: each unit's W tile by TMA, then A's rows beside it
+    // producer: each unit's W tile by TMA, then A's rows beside it (with
+    // Src::kDefer, the first STAGES units' A rows after Src::ready)
+    const auto stage = [&](int it, int mg, int kt) {
+      const int st = it % STAGES;
+      const int r0 = mg * MG;
+      stage_a<MG>(src.rows(p, r0, min(p.m, r0 + MG), lane), p,
+                  at + st * MG * A_LD, r0, kt * BK, lane);
+      if (p.a_vec)
+        cp_async_arrive(full + st);
+      else
+        s9::mbar_arrive(full + st);
+    };
     int it = 0;
+    int held_mg[STAGES], held_kt[STAGES];
     for_items(p, b, [&](long long t, int kt0, int kt1) {
       const int mg = static_cast<int>(t / p.n_tiles);
       const int ct = static_cast<int>(t % p.n_tiles);
@@ -289,13 +323,22 @@ __global__ void __launch_bounds__(NTH, 1)
             s9::tma_load_2d(wt + (st * NBX + x) * BK * BOX, &tm_w, full + st,
                             ct * BN + x * BOX, kt * BK);
         }
-        stage_a<MG>(a, p, at + st * MG * A_LD, mg * MG, kt * BK, lane);
-        if (p.a_vec)
-          cp_async_arrive(full + st);
-        else
-          s9::mbar_arrive(full + st);
+        if (Src::kDefer && it < STAGES) {
+          held_mg[it] = mg;
+          held_kt[it] = kt;
+          if (it == STAGES - 1) {
+            src.ready(p, lane);
+            for (int i = 0; i < STAGES; ++i) stage(i, held_mg[i], held_kt[i]);
+          }
+          continue;
+        }
+        stage(it, mg, kt);
       }
     });
+    if (Src::kDefer && it < STAGES) {
+      src.ready(p, lane);
+      for (int i = 0; i < it; ++i) stage(i, held_mg[i], held_kt[i]);
+    }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
@@ -315,6 +358,11 @@ __global__ void __launch_bounds__(NTH, 1)
     for (int kt = kt0; kt < kt1; ++kt, ++it) {
       const int st = it % STAGES;
       s9::mbar_wait(full + st, (it / STAGES) & 1);
+      {
+        const int r0 = static_cast<int>(t / p.n_tiles) * MG;
+        src.staged(p, r0, min(p.m, r0 + MG), static_cast<int>(t % p.n_tiles),
+                   kt, at + st * MG * A_LD, warp * 32 + lane);
+      }
       const uint32_t wb = wt_base + st * W_BYTES;
       const uint32_t ab = at_base + st * MG * A_LD * sizeof(bf16);
 #pragma unroll
@@ -405,29 +453,33 @@ __global__ void __launch_bounds__(NTH, 1)
   ep.end(p, warp, lane);
 }
 
-// The map of W (K, N) bf16, row-major: boxes of BN columns x BK rows in
-// the 128-byte swizzle, made once per (W, K, N, device) and cached (a
-// weight keeps its address; the map holds only address, shape and
-// layout). False if the CUDA driver refuses it.
-inline bool weight_map(CUtensorMap* map, const void* w, int k, int n,
-                       int dev) {
+// A 2-D map of a bf16 row-major (rows, cols) array: boxes of 64 columns
+// (one 128-byte row) x box_rows rows in the 128-byte swizzle, made once
+// per (base, rows, cols, box, device) and cached (weights and landing
+// buffers keep their addresses; the map holds only address, shape and
+// layout). W's map here: box_rows BK. False if the CUDA driver refuses it.
+inline bool rows_map(CUtensorMap* map, const void* base, long long rows,
+                     long long cols, int box_rows, int dev) {
   struct Key {
-    const void* w;
-    int k, n, dev;
+    const void* base;
+    long long rows, cols;
+    int box, dev;
     bool operator==(const Key& o) const {
-      return w == o.w && k == o.k && n == o.n && dev == o.dev;
+      return base == o.base && rows == o.rows && cols == o.cols &&
+             box == o.box && dev == o.dev;
     }
   };
   struct Hash {
     size_t operator()(const Key& x) const {
-      return std::hash<const void*>()(x.w) ^
-             (static_cast<size_t>(x.k) * 0x9E3779B97F4A7C15ull) ^
-             (static_cast<size_t>(x.n) << 20) ^ static_cast<size_t>(x.dev);
+      return std::hash<const void*>()(x.base) ^
+             (static_cast<size_t>(x.rows) * 0x9E3779B97F4A7C15ull) ^
+             (static_cast<size_t>(x.cols) << 20) ^
+             (static_cast<size_t>(x.box) << 8) ^ static_cast<size_t>(x.dev);
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{w, k, n, dev};
+  const Key key{base, rows, cols, box_rows, dev};
   std::lock_guard<std::mutex> lock(mu);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
@@ -436,11 +488,11 @@ inline bool weight_map(CUtensorMap* map, const void* w, int k, int n,
   }
   const s9::EncodeTiledFn fn = s9::encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)k};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(bf16)};
-  const cuuint32_t box[2] = {BOX, BK};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {BOX, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -452,27 +504,35 @@ inline bool weight_map(CUtensorMap* map, const void* w, int k, int n,
 
 // Sets the kernel's shared-memory attribute, once per device (a bit per
 // device); before its first launch and before an occupancy query.
-template <int MG, typename Epi>
+template <int MG, typename Epi, typename Src = LocalA>
 cudaError_t set_smem(int dev) {
   static std::atomic<uint64_t> smem_set{0};
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (smem_set.load(std::memory_order_acquire) & bit) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      stream_kernel<MG, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stream_kernel<MG, Epi, Src>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<MG, Epi>()));
   if (err == cudaSuccess) smem_set.fetch_or(bit, std::memory_order_release);
   return err;
+}
+
+template <int MG, typename Epi, typename Src>
+cudaError_t launch_src(const CUtensorMap& map, const Src& src, const Epi& epi,
+                       float* ws, int* tickets, const Plan& p, int dev,
+                       cudaStream_t st) {
+  const cudaError_t err = set_smem<MG, Epi, Src>(dev);
+  if (err != cudaSuccess) return err;
+  stream_kernel<MG, Epi, Src><<<p.grid, NTH, smem_bytes<MG, Epi>(), st>>>(
+      map, src, epi, reinterpret_cast<float4*>(ws), tickets, p);
+  return cudaGetLastError();
 }
 
 template <int MG, typename Epi>
 cudaError_t launch(const CUtensorMap& map, const bf16* a, const Epi& epi,
                    float* ws, int* tickets, const Plan& p, int dev,
                    cudaStream_t st) {
-  const cudaError_t err = set_smem<MG, Epi>(dev);
-  if (err != cudaSuccess) return err;
-  stream_kernel<MG, Epi><<<p.grid, NTH, smem_bytes<MG, Epi>(), st>>>(
-      map, a, epi, reinterpret_cast<float4*>(ws), tickets, p);
-  return cudaGetLastError();
+  return launch_src<MG, Epi>(map, LocalA{a}, epi, ws, tickets, p, dev, st);
 }
 
 // The plan of M x K x N on `grid` blocks: rows an M group (8 up to M = 8,
@@ -516,7 +576,7 @@ int td_gemm_stream(const void* a, const void* w, void* ws, int* tickets,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
-  if (!weight_map(&map, w, k_dim, n_cols, dev))
+  if (!rows_map(&map, w, k_dim, n_cols, BK, dev))
     return static_cast<int>(cudaErrorNotSupported);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* ap = static_cast<const bf16*>(a);

@@ -43,8 +43,11 @@
 //    an empty row (len 0) returns m = NEG_INF, l = 0, acc = 0 from split
 //    0. One launch a call and no memset between graph replays.
 //
-// f32 and int8 (the f32 gates; the int8-resident mode): the FMA body below
-// on a (B, Hkv) grid, each block walking its row's pages in order:
+// f32 and int8 (the f32 gates; the int8-resident mode), and bf16 pools
+// whose page size a TMA box does not cut (neither a multiple of 64 nor 8,
+// 16 or 32: 24, 48, 96, ...; paged_flash_decode.py's paged_route): the FMA
+// body below on a (B, Hkv) grid, each block walking its row's pages in
+// order:
 //  * the TPU's scalar-prefetched block table and its kv_index clamp become a
 //    block that reads its own table row: it loops over the ceil(len/ps) live
 //    pages only and keeps the value clamp clip(tab, 0, P-1), so a stale or
@@ -493,14 +496,14 @@ cudaError_t launch(const PagedSrc& s, const void* kpool, const void* vpool,
 // (B,) i32 keys attended per row; acc: (B, Hq, D) f32; m, l: (B, Hq) f32.
 // All contiguous. q_dtype: td::F32 | td::BF16; kv_dtype: td::F32 | td::BF16
 // (equal to q_dtype) | td::I8. D in {64, 128}, Hq/Hkv in {1, 2, 4, 8}.
-// bf16 pools (the Hopper kernel): ps a multiple of 64 or one of 8, 16, 32;
+// bf16 pools of ps a multiple of 64 or one of 8, 16, 32 (the Hopper kernel):
 // the plan's `pages` a split (1 .. MAX_SPLIT_PAGES) and `splits` covering
 // the table's NP pages, none empty; tickets (B, Hkv) i32, zero before the
 // first call and left zero; part (B, Hkv, splits, g, D + 2) f32 scratch
 // (may be null when splits is 1); no launch that may run at the same time
 // uses the same tickets or part; pools 16-byte aligned, Hkv * P * ps < 2^31.
-// f32 and int8 pools (the FMA body): part, tickets, pages and splits are
-// not read. Returns a cudaError_t.
+// f32 and int8 pools and bf16 pools of other page sizes (the FMA body):
+// part, tickets, pages and splits are not read. Returns a cudaError_t.
 extern "C" int td_paged_decode(const void* q, const void* kpool,
                                const void* vpool, const void* kscale,
                                const void* vscale, const void* table,
@@ -516,10 +519,10 @@ extern "C" int td_paged_decode(const void* q, const void* kpool,
   if (kv_dtype == td::I8 && (kscale == nullptr || vscale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == td::BF16 && kv_dtype == td::BF16) {
+  const bool box_ok = ps % hop::KT == 0 || ps == 8 || ps == 16 || ps == 32;
+  if (q_dtype == td::BF16 && kv_dtype == td::BF16 && box_ok) {
     const int g = hq / hkv;
-    const bool box_ok = ps % hop::KT == 0 || ps == 8 || ps == 16 || ps == 32;
-    if (!box_ok || (g != 1 && g != 2 && g != 4 && g != 8) ||
+    if ((g != 1 && g != 2 && g != 4 && g != 8) ||
         (d != 64 && d != 128) || pages <= 0 ||
         pages > hop::MAX_SPLIT_PAGES || splits <= 0 ||
         static_cast<long>(pages) * splits < np_table ||
@@ -550,6 +553,8 @@ extern "C" int td_paged_decode(const void* q, const void* kpool,
   TD_CASE(td::F32, float, td::I8, int8_t, 128)
   TD_CASE(td::BF16, __nv_bfloat16, td::I8, int8_t, 64)
   TD_CASE(td::BF16, __nv_bfloat16, td::I8, int8_t, 128)
+  TD_CASE(td::BF16, __nv_bfloat16, td::BF16, __nv_bfloat16, 64)
+  TD_CASE(td::BF16, __nv_bfloat16, td::BF16, __nv_bfloat16, 128)
 #undef TD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,10 +11,12 @@ rank-major. Methods at world n > 1 (``mesh`` is the ranks' Mesh):
     steps of ``dist.batch_isend_irecv``, step s multiplying the shard of
     rank (me - s) mod n while it travels on to the right;
   * PALLAS — B10, ``pallas_ag_gemm``: the hand-written CUDA kernel
-    ``csrc/ag_gemm.cu`` for CUDA tensors (full-mesh push of the own shard
-    into every rank's symmetric buffer, the split-K GEMM consuming each
-    shard as its flag rises), ``ag_gemm_ref`` for CPU tensors. No
-    fallback: a CUDA call the kernel does not take raises;
+    ``csrc/ag_gemm.cu`` for CUDA tensors (one-hop push of the own shard
+    into every rank's symmetric buffer beside the GEMM, which reads each
+    row block as its flag rises; in bf16 two regimes by ``ag_plan``: the
+    TMA weight stream at a few gathered rows, the wgmma tile GEMM above),
+    ``ag_gemm_ref`` for CPU tensors. No fallback: a CUDA call the kernel
+    does not take raises;
   * XLA_BIDIR — the reference's bidirectional collective matmul: the
     shard travels both ring directions at once (``dist.batch_isend_irecv``
     to both neighbours), kr = n // 2 rounds to the right and kl =
@@ -37,8 +39,12 @@ out = cast(a @ b), returning (out, a): XLA, XLA_RING and XLA_BIDIR the
 plain product, PALLAS and PALLAS_BIDIR B12 (``pallas_matmul``, the
 reference's ``_pallas_matmul``, its n == 1 path; ``csrc/matmul.cu``).
 
-The TPU tile sizes (bm, bn, bk) have nothing to choose on the card: the K
-split is sized to fill it (``gemm_allreduce.split_plan``).
+The TPU tile sizes (bm, bn, bk) have nothing to choose on the card: in
+bf16 ``ag_plan`` cuts the launch (the weight stream's units,
+``stream_plan``, at one 16-row M group of gathered rows, or up to
+AG_STREAM_L2_ROWS while the card's weights fit its L2; else 128 x 256
+tiles in ``ag_row_order``'s order), in f32 the K split fills the card
+(``gemm_allreduce.split_plan``).
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import torch
 import torch.distributed as dist
 
 from triton_dist_tpu_torch.kernels.gemm_allreduce import (
-    _DTYPE_CODE, split_plan, splitk_launch,
+    _DTYPE_CODE, StreamPlan, split_plan, splitk_launch, stream_plan,
 )
 from triton_dist_tpu_torch.kernels.plain import dot_f32
 from triton_dist_tpu_torch.runtime import build
@@ -237,12 +243,194 @@ def _bidir_ring_ag_gemm(mesh, a: torch.Tensor, b: torch.Tensor):
     return out, ag
 
 
+# csrc/ag_gemm.cu, bf16: the regime is the plan's. The weight stream
+# (gemm_stream_sm90.cuh) reads W once a 16-row M group of the gathered
+# rows; the wgmma tile GEMM (gemm_tile_sm90.cuh) reads it once, but a
+# wave of its 128 x 256 tiles runs on as few as 10 clusters. Timed on
+# H100s at 16-2,048 gathered rows (chip_compare.py --ag --sweep): the
+# stream wins at one M group whatever W, and further groups re-read W
+# from L2 cheaply only while the weights the card streams (W times the
+# ranks it hosts) fit there (QKV of Qwen3-32B at TP=4 on four cards, up
+# to 128 rows); else the tile GEMM wins from the second group.
+AG_STREAM_MAX_ROWS = 16       # one M group: the stream whatever W
+AG_STREAM_L2_ROWS = 128       # while the card's weights fit its L2
+# csrc/gemm_tile_sm90.cuh
+TILE_BM = 128         # rows a tile; also the prefill's row block (flags)
+TILE_BN = 256         # columns a tile
+TILE_BK = 64          # K a stage
+TILE_STAGES = 4
+TILE_GM = 16          # row tiles a group of the order
+TILE_GN = 4           # column tiles a column group
+TILE_CLUSTER = 2      # blocks a cluster, W multicast to both
+TILE_SMEM_BYTES = (1024 + TILE_STAGES * (TILE_BM + TILE_BN) * TILE_BK * 2
+                   + 2 * TILE_STAGES * 8)
+_CARD: dict = {}          # device -> (its SM count, its L2 bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class AgPlan:
+    """The bf16 launch of B10 / B11 (csrc/ag_gemm.cu checks it and takes
+    its regime): the same on every rank of a world and for both kernels,
+    so B11 computes B10's bits. regime "stream" (gemm_stream_sm90.cuh's
+    stream-K units over the landed rows, ``stream`` its cut) or "tile"
+    (gemm_tile_sm90.cuh's 128 x 256 tiles, taken in pairs by clusters of
+    TILE_CLUSTER blocks); grid: blocks, at most the SMs a rank gets (whole
+    clusters for tiles); rb: rows a row block, the granule of the push
+    and its flags (the shard for the stream, TILE_BM for tiles). The
+    symmetric buffer: the landing rows (2, world * m, K) bf16 from byte 0
+    (halves by parity), the flags u64 (2, world, mb) at flag_off. The
+    control block after its header: a counter per (chunk, row block),
+    then the stream kernel's tickets (4 int32 a block, for the most
+    blocks a rank gets: one workspace serves every N of one regime at one
+    (m, K))."""
+    world: int
+    m: int
+    k: int
+    n: int
+    regime: str
+    grid: int
+    rb: int
+    max_grid: int
+    stream: StreamPlan | None = None
+
+    @property
+    def rows(self) -> int:
+        return self.world * self.m
+
+    @property
+    def mb(self) -> int:
+        return -(-self.m // self.rb)
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.rows // TILE_BM)
+
+    @property
+    def col_tiles(self) -> int:
+        return -(-self.n // TILE_BN)
+
+    @property
+    def row_pairs(self) -> int:
+        return -(-self.row_tiles // TILE_CLUSTER)
+
+    @property
+    def tiles(self) -> int:
+        """The tile kernel's work items: pair tiles (a row pair, one
+        column tile), one a cluster at a time."""
+        return self.row_pairs * self.col_tiles
+
+    @property
+    def half_bytes(self) -> int:
+        return self.rows * self.k * 2
+
+    @property
+    def flag_off(self) -> int:
+        return -(-2 * self.half_bytes // _ALIGN) * _ALIGN
+
+    @property
+    def nbytes(self) -> int:
+        return self.flag_off + 2 * self.world * self.mb * 8
+
+    @property
+    def ticket_word(self) -> int:
+        """The tickets' first control-block word (after the header)."""
+        return self.world * self.mb
+
+    @property
+    def ctl_words(self) -> int:
+        return self.ticket_word + 2 * self.max_grid
+
+
+def ag_plan(world: int, m: int, k: int, n: int, sm_count: int,
+            ranks_per_device: int, l2_bytes: int) -> AgPlan:
+    """B10 / B11's bf16 plan for a rank's (m, K) shard against W (K, N)
+    on a card of `sm_count` SMs and `l2_bytes` of L2 that hosts
+    `ranks_per_device` ranks."""
+    rows = world * m
+    per = max(1, sm_count // ranks_per_device)
+    if rows <= AG_STREAM_MAX_ROWS or (
+            rows <= AG_STREAM_L2_ROWS
+            and k * n * 2 * ranks_per_device <= l2_bytes):
+        sp = stream_plan(rows, k, n, per)
+        return AgPlan(world, m, k, n, "stream", sp.grid, m, per, sp)
+    pairs = -(-(-(-rows // TILE_BM)) // TILE_CLUSTER) * -(-n // TILE_BN)
+    grid = TILE_CLUSTER * min(per // TILE_CLUSTER, pairs)
+    return AgPlan(world, m, k, n, "tile", grid, TILE_BM, per)
+
+
+def chunk_key(world: int, rank: int, c: int, bidir: bool) -> tuple:
+    """When chunk c lands on `rank`, as an order key: B10 (one hop from
+    every rank) by rank distance, the next rank first; B11 by the ring
+    round it arrives in (me - s from the left at round s <= n // 2, me + s
+    from the right at s <= (n - 1) // 2), the left first on a tie."""
+    if not bidir:
+        return ((c - rank) % world,)
+    d_left = (rank - c) % world
+    if d_left == 0:
+        return (0, 0)
+    if d_left <= world // 2:
+        return (d_left, 0)
+    return ((c - rank) % world, 1)
+
+
+def tile_chunks(rows: int, m: int, r0: int, r1: int) -> range:
+    """The chunks (ranks' shards) that gathered rows [r0, r1) come from."""
+    return range(r0 // m, (min(r1, rows) - 1) // m + 1)
+
+
+def ag_row_order(world: int, rank: int, m: int, bidir: bool) -> list[int]:
+    """The prefill's row tiles in the order they run on `rank`: each tile
+    keyed by the latest-landing chunk it reads (chunk_key), ties by
+    index; so the own shard's tiles first, then the others as they land."""
+    rows = world * m
+    keys = []
+    for t in range(-(-rows // TILE_BM)):
+        cs = tile_chunks(rows, m, t * TILE_BM, (t + 1) * TILE_BM)
+        keys.append((max(chunk_key(world, rank, c, bidir) for c in cs), t))
+    return [t for _, t in sorted(keys)]
+
+
+def _card(dev) -> tuple[int, int]:
+    card = _CARD.get(dev)
+    if card is None:
+        prop = torch.cuda.get_device_properties(dev)
+        card = _CARD[dev] = (prop.multi_processor_count, prop.L2_cache_size)
+    return card
+
+
+def _row_order(mesh, m: int, bidir: bool, dev) -> torch.Tensor:
+    """This rank's row order on the card (int32), made on first use and
+    kept with the mesh's workspaces; never under CUDA-graph capture."""
+    key = ("ag_gemm_order", bidir, m)
+    t = mesh.workspaces.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{key}: first call under CUDA-graph "
+                               "capture; warm up before capturing")
+        t = mesh.workspaces[key] = torch.tensor(
+            ag_row_order(mesh.world, mesh.rank, m, bidir), dtype=torch.int32,
+            device=dev)
+    return t
+
+
+def ag_workspace(mesh, plan: AgPlan, bidir: bool):
+    """The bf16 workspace of B10 (bidir False) or B11 at the plan's
+    regime and (m, K): every N of that regime at that (m, K) shares it
+    (the QKV and gate/up products of a layer, when both take one regime).
+    Made on first use (a collective allocation; never under capture)."""
+    return op_workspace(mesh, ("ag_gemm_bf16", bidir, plan.regime, plan.m,
+                               plan.k),
+                        (plan.nbytes,), torch.uint8,
+                        ctl_words=plan.ctl_words)
+
+
 def _ag_launch(mesh, a: torch.Tensor, b: torch.Tensor, bidir: bool,
                what: str):
     """Launch B10 (td_ag_gemm) or B11 (td_ag_gemm_bidir) of
-    ``csrc/ag_gemm.cu`` on this rank's shard: checks, the K split (the
-    same for both, so B11 computes B10's bits), this op's symmetric
-    buffer, the outputs and the f32 K-slice workspace."""
+    ``csrc/ag_gemm.cu`` on this rank's shard: checks, this op's symmetric
+    buffer, the outputs; bf16 under ``ag_plan`` (the same for both, so
+    B11 computes B10's bits), f32 under the K split with its f32 K-slice
+    workspace."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"{what}: a {tuple(a.shape)} @ b "
                          f"{tuple(b.shape)}")
@@ -258,38 +446,52 @@ def _ag_launch(mesh, a: torch.Tensor, b: torch.Tensor, bidir: bool,
     if n_cols % vec or k % vec:
         raise ValueError(f"{what}: K={k} and N={n_cols} must be "
                          f"multiples of {vec}")
-    rows = world * m
-    if bidir:
-        # the gathered rows (2 parities) then one flag per (chunk, row
-        # block); m flags per chunk cover any row block
-        data = 2 * rows * k * a.element_size()
-        flag_off = -(-data // _ALIGN) * _ALIGN
-        ws = op_workspace(mesh, ("ag_gemm_bidir", m, k, a.dtype),
-                          (flag_off + rows * 8,), torch.uint8)
+    rows, dev = world * m, a.device
+    out = torch.empty((rows, n_cols), dtype=a.dtype, device=dev)
+    ag = torch.empty((rows, k), dtype=a.dtype, device=dev)
+    part = order = land = None
+    sig_off = flag_off = k_chunk = splits = grid = rb = 0
+    if a.dtype == torch.bfloat16:
+        sms, l2 = _card(dev)
+        plan = ag_plan(world, m, k, n_cols, sms, mesh.ranks_per_device, l2)
+        ws = ag_workspace(mesh, plan, bidir)
+        flag_off, grid, rb = plan.flag_off, plan.grid, plan.rb
+        if plan.regime == "stream":
+            part = torch.empty((plan.stream.ws_floats,), dtype=torch.float32,
+                               device=dev)
+        else:
+            order = _row_order(mesh, m, bidir, dev)
+            land = ws.buf.tensor
     else:
-        flag_off = 0
-        ws = op_workspace(mesh, ("ag_gemm", m, k, a.dtype), (rows, k),
-                          a.dtype)
-    k_chunk, splits = split_plan(
-        rows, k, n_cols, vec,
-        torch.cuda.get_device_properties(a.device).multi_processor_count)
-    out = torch.empty((rows, n_cols), dtype=a.dtype, device=a.device)
-    ag = torch.empty((rows, k), dtype=a.dtype, device=a.device)
-    part = (torch.empty((splits, rows, n_cols), dtype=torch.float32,
-                        device=a.device) if splits > 1 else None)
+        if bidir:
+            # the gathered rows (2 parities) then one flag per (chunk, row
+            # block); m flags per chunk cover any row block
+            data = 2 * rows * k * a.element_size()
+            flag_off = -(-data // _ALIGN) * _ALIGN
+            ws = op_workspace(mesh, ("ag_gemm_bidir", m, k, a.dtype),
+                              (flag_off + rows * 8,), torch.uint8)
+        else:
+            ws = op_workspace(mesh, ("ag_gemm", m, k, a.dtype), (rows, k),
+                              a.dtype)
+            sig_off = ws.buf.sig_off
+        k_chunk, splits = split_plan(rows, k, n_cols, vec, _card(dev)[0])
+        part = (torch.empty((splits, rows, n_cols), dtype=torch.float32,
+                            device=dev) if splits > 1 else None)
     fn = build.function("ag_gemm", "td_ag_gemm_bidir" if bidir
                         else "td_ag_gemm", (
-        *(ctypes.c_void_p,) * 5, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        *(ctypes.c_int,) * 7, ctypes.c_void_p))
-    with torch.cuda.device(a.device):
+        *(ctypes.c_void_p,) * 7, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, *(ctypes.c_int,) * 9, ctypes.c_void_p))
+    with torch.cuda.device(dev):
         err = fn(a.data_ptr(), b.data_ptr(),
                  part.data_ptr() if part is not None else None,
-                 out.data_ptr(), ag.data_ptr(), mesh.rank, world,
-                 ws.buf.table.data_ptr(),
-                 flag_off if bidir else ws.buf.sig_off, ws.ctl.data_ptr(),
-                 m, k, n_cols, k_chunk, splits, mesh.ranks_per_device,
-                 _DTYPE_CODE[a.dtype], build.stream_of(a))
+                 out.data_ptr(), ag.data_ptr(),
+                 order.data_ptr() if order is not None else None,
+                 land.data_ptr() if land is not None else None,
+                 mesh.rank, world, ws.buf.table.data_ptr(), sig_off,
+                 flag_off, ws.ctl.data_ptr(), m, k, n_cols, k_chunk, splits,
+                 grid, rb, mesh.ranks_per_device, _DTYPE_CODE[a.dtype],
+                 build.stream_of(a))
     build.check(err, what)
     return out, ag
 

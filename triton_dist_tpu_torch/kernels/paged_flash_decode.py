@@ -17,10 +17,12 @@ anything else raises):
     grid fixed by B, Hkv, the table's width, the page size and the SM
     count (never by ``lengths``, which the kernel reads on the device),
     the live splits merged by exact LSE in ascending order inside the
-    launch. Other bf16 page sizes raise;
-  * f32 q and pools (the f32 gates), and f32 or bf16 q over int8 pools
-    with f32 row scales (the int8-resident mode): the FMA body, a block
-    a (row, kv head) walking its pages in order.
+    launch;
+  * f32 q and pools (the f32 gates), f32 or bf16 q over int8 pools with
+    f32 row scales (the int8-resident mode), and bf16 pools of other page
+    sizes (24, 48, 96, ...): the FMA body, a block a (row, kv head)
+    walking its pages in order (``paged_route`` picks; a page size whose
+    FMA body needs more shared memory than a block has raises).
 
 Pool layout (head-major): (Hkv, P, page_size, D); int8-resident pools add
 (Hkv, P, page_size) f32 row-scale slabs. The plain version repeats the
@@ -69,6 +71,18 @@ class PagedPlan:
     splits: int
     box: int
     tile: int
+
+
+def paged_route(kv_dtype, page_size: int) -> str:
+    """The body that decodes a pool (csrc/paged_flash_decode.cu takes the
+    same choice): "tma", the Hopper kernel, for bf16 pools whose pages a
+    TMA box cuts (a multiple of PAGED_TILE keys, or one of
+    PAGED_SMALL_PAGES); "fma", PR 1's FMA body, for f32 and int8 pools and
+    bf16 pools of any other page size (24, 48, 96, ...)."""
+    if kv_dtype == torch.bfloat16 and (page_size % PAGED_TILE == 0
+                                       or page_size in PAGED_SMALL_PAGES):
+        return "tma"
+    return "fma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,7 +198,7 @@ def paged_flash_decode(q, k_pages, v_pages, block_table, lengths, *,
 
 
 def _smem_bytes(g: int, ps: int, d: int) -> int:
-    """Shared memory of the FMA body (f32 and int8 pools)."""
+    """Shared memory of the FMA body."""
     return 4 * (g * d + ps * (d + 1) + ps * d + g * ps + 2 * ps + 3 * g)
 
 
@@ -267,11 +281,7 @@ def _launch(q, k_pages, v_pages, block_table, lengths, k_scales, v_scales):
     l = torch.empty((b, hq), dtype=torch.float32, device=dev)
     part = tickets = None
     pages = splits = 0
-    if k_pages.dtype == torch.bfloat16:
-        if ps % PAGED_TILE and ps not in PAGED_SMALL_PAGES:
-            raise ValueError(f"paged_flash_decode_partial: bf16 page_size "
-                             f"{ps}: need a multiple of {PAGED_TILE} or one "
-                             f"of {PAGED_SMALL_PAGES}")
+    if paged_route(k_pages.dtype, ps) == "tma":
         if hkv * num_pages * ps >= 2 ** 31 or np_table * ps >= 2 ** 31:
             raise ValueError(f"paged_flash_decode_partial: pool of "
                              f"{hkv * num_pages * ps} rows, {np_table} pages "
